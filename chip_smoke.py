@@ -8,17 +8,24 @@ Phases, one line each; any failure raises and the script exits non-zero:
 1. device: the card's name and its power limit (``nvidia-smi``);
 2. build: compile the CUDA kernels under ``src/repro_torch/kernels/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card at the
-   main path's shapes (K = 1,000,000 and a ragged 1,000,003, k = 1000), with
-   its time, the plain version's, a library call's where one exists, and its
-   least possible time on this card;
+   main path's shapes (K = 1,000,000 and a ragged 1,000,003, k = 1000; 3, 15
+   and 63 bisection caps), with its time, the plain version's, a library
+   call's where one exists, and its least possible time on this card;
 4. main path: ``RoundProgram.from_config`` at K = 1e6, k = 1000, T = 50,
-   ``allocator="bisect"``, fused, on the card: sync (lean and full), async
-   with S = 2 under deadline and late-credit feedback, the sorted allocator,
-   and the staged replay of packed 1-bit and 2-bit rows; each path runs with
-   the launch counts set to 0 just before it and read just after;
+   ``allocator="bisect"``, on the card, dense and on a one-rank NCCL mesh
+   (``make_host_mesh(1)``, ``block=4``: the K-sharded round with the
+   ``bisect_block_sums`` kernel), fused and staged: sync (lean and full),
+   async with S = 2 under deadline and late-credit feedback, the sorted
+   allocator, a mesh ``block=1`` run, and the staged replay of packed 1-bit
+   and 2-bit rows; each path runs with the launch counts set to 0 just before
+   it and read just after;
 5. checks: cohorts of k distinct clients every round, counts, allocation
-   bounds, re-centred finite weights, fused == staged cohorts, launch counts;
-6. times: rounds/s and client decisions/s of each run.
+   bounds, re-centred finite weights, fused == staged cohorts, the mesh's
+   ``block=1`` run == the dense run bit for bit, ``block=4`` allocations
+   within ``BLOCK_P_RTOL`` of ``block=1``, launch counts;
+6. profile: a dense and two mesh (``block=4`` and ``block=1``) fused rounds
+   under ``torch.profiler``, with the host time of the mesh's collectives;
+7. times: rounds/s and client decisions/s of each run.
 
 Ends with a JSON line of per-kernel numbers and, last, ``{"ok": true,
 "device": ...}``.  Without CUDA it exits non-zero before printing a result.
@@ -35,11 +42,17 @@ K_MAIN, K_RAGGED, k_MAIN, T_MAIN, T_SHORT = 1_000_000, 1_000_003, 1000, 50, 10
 # Every kernel must equal its plain version exactly (both round each float32
 # operation once, in the same order; the kernels are built with --fmad=false).
 FLOAT_TOL = 0.0
+# bisect_block_sums adds each tile's float32 terms in another order than
+# torch.sum (a tree per CTA against torch's own): a few units in the last place
+BISECT_RTOL = {"float32": 1e-6, "float64": 1e-12}
+BLOCK_P_RTOL = 1e-5  # p after 12 dyadic blocks vs 48 halvings: roundoff in the grid points
 LOGW_TOL = 1e-5  # fused vs staged log-weights after T rounds (expected equal)
 PSUM_RTOL = 1e-3  # sum of 1e6 float32 probabilities against k
 # data-sheet rates (NVIDIA): HBM bytes/s and float32 (non-tensor) flop/s
 CARDS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12), ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12))
 TIMED_CALLS = 20
+# fused runs with no staged partner: every other "-fused" run must have one
+UNPAIRED_FUSED_RUNS = ("mesh-block1-sync-full-fused",)
 
 
 def log(phase, **kw):
@@ -55,6 +68,7 @@ def card_rates(name):
 
 def main():
     import torch
+    import torch.distributed as dist
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs only on a CUDA device",
@@ -62,9 +76,10 @@ def main():
         return 2
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
     from repro_torch import kernels as kn
-    from repro_torch.engine.sharded import masked_prob_alloc_scalars
+    from repro_torch.engine.sharded import masked_prob_alloc, masked_prob_alloc_scalars
     from repro_torch.kernels import ref
     from repro_torch.kernels._build import build, load_library
+    from repro_torch.launch import make_host_mesh
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -230,6 +245,42 @@ def main():
                                    max_abs_err=err, ms=graph_ms(lambda: fn(packed, K)),
                                    plain_ms=events_ms(lambda: rfn(packed, K)), bound_ms=b[0], bound_by=b[1],
                                    library_ms=None)
+        # bisection block sums: 3, 15 and 63 caps drawn inside [0, max w]
+        for n_caps, dtype in ((3, torch.float32), (15, torch.float32), (63, torch.float32), (15, torch.float64)):
+            if dtype == torch.float64 and K != K_MAIN:
+                continue
+            wd = w.to(dtype)
+            caps = t(np.sort(rng.uniform(0.0, float(w.max()), n_caps))).to(dtype)
+            got, want = kn.bisect_block_sums(wd, caps), ref.bisect_block_sums_ref(wd, caps)
+            rtol = BISECT_RTOL[str(dtype).split(".")[1]]
+            rel = float(((got - want).abs() / want.abs()).max())
+            err = float((got - want).abs().max())
+            if got.dtype != dtype or got.shape != want.shape or not rel <= rtol:
+                raise AssertionError(f"bisect_block_sums K={K} caps={n_caps} {dtype}: max relative error {rel} > {rtol}")
+            log("kernel-check", kernel="bisect_block_sums", K=K, n_caps=n_caps, dtype=str(dtype), max_abs_err=err,
+                max_rel_err=rel, rtol=rtol)
+            if K == K_MAIN and n_caps == 15 and dtype == torch.float32:
+                b = bound(nbytes(w, caps, got), 2 * K * n_caps)
+                rows["bisect_block_sums"] = dict(
+                    route="cuda", source="src/repro_torch/kernels/csrc/bisect_block_sums.cu",
+                    replaces="src/repro/kernels/bisect_tiles.py:85", max_abs_err=err,
+                    ms=graph_ms(lambda: kn.bisect_block_sums(w, caps)),
+                    plain_ms=events_ms(lambda: ref.bisect_block_sums_ref(w, caps)),
+                    bound_ms=b[0], bound_by=b[1],
+                    # two PyTorch calls and a (K, n_caps) temporary: no single call computes it
+                    library_ms=graph_ms(lambda: torch.minimum(w[:, None], caps).sum(0)))
+    # the block allocator where the cap binds (heavy-tailed weights, k = K/10):
+    # 12 dyadic blocks through the kernel against 48 plain halvings
+    wh = t(rng.gamma(0.3, 1.0, K_MAIN).astype(np.float32))
+    kh = K_MAIN // 10
+    sig = torch.tensor(0.25 * kh / K_MAIN, dtype=torch.float32, device=dev)
+    (p1, c1), (p4, c4) = (masked_prob_alloc(wh, kh, sig, block=b) for b in (1, 4))
+    rel = float(((p4 - p1).abs() / p1).max())
+    if not (bool(c1.any()) and torch.equal(c1, c4) and rel <= BLOCK_P_RTOL):
+        raise AssertionError(f"block=4 allocation vs block=1: max relative p difference {rel}, "
+                             f"capped {int(c1.sum())} vs {int(c4.sum())}")
+    log("alloc-check", K=K_MAIN, k=kh, capped=int(c1.sum()), block4_vs_block1_p_max_rel=rel, rtol=BLOCK_P_RTOL)
+    del wh, p1, c1, p4, c4
     for kname, r in rows.items():
         log("kernel-time", kernel=kname, ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
             library_ms=None if r["library_ms"] is None else f"{r['library_ms']:.4f}",
@@ -237,9 +288,17 @@ def main():
     del w, g, p, mask, capped, logw, loss, obs_of
     torch.cuda.empty_cache()
 
-    runs, launched = main_path(dev, K_MAIN, k_MAIN, T_MAIN, T_SHORT, rng)
-    check_runs(runs)
-    profile_round(dev, K_MAIN, k_MAIN)
+    # a one-rank NCCL group: the mesh's collectives run on the card, no network
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1)
+        runs, launched = main_path(dev, K_MAIN, k_MAIN, T_MAIN, T_SHORT, rng, mesh)
+        check_runs(runs)
+        profile_round(dev, K_MAIN, k_MAIN, label="dense")
+        profile_round(dev, K_MAIN, k_MAIN, label="mesh-block4", mesh=mesh, block=4)
+        profile_round(dev, K_MAIN, k_MAIN, label="mesh-block1", mesh=mesh, block=1)
+    finally:
+        dist.destroy_process_group()
 
     # -- 6. times ---------------------------------------------------------------
     for label, (_, secs, T, cfg) in runs.items():
@@ -258,12 +317,12 @@ def main():
     return 0
 
 
-def main_path(dev, K, k, T, T_short, rng):
-    """Phase 4: drive the port's entry points at (K, k, T) on ``dev``; each
-    run starts with the launch counts at 0 and must end with exactly the
-    launches its path makes (none on the CPU, where every wrapper takes its
-    plain version).  Returns the runs and the first launch count of each
-    wrapper."""
+def main_path(dev, K, k, T, T_short, rng, mesh):
+    """Phase 4: drive the port's entry points at (K, k, T) on ``dev``, dense
+    and on the one-rank ``mesh``; each run starts with the launch counts at 0
+    and must end with exactly the launches its path makes (none on the CPU,
+    where every wrapper takes its plain version).  Returns the runs and the
+    first launch count of each wrapper."""
     import dataclasses
 
     import torch
@@ -271,6 +330,7 @@ def main_path(dev, K, k, T, T_short, rng):
     from repro_torch import kernels as kn
     from repro_torch.configs import FLConfig
     from repro_torch.engine import RoundProgram
+    from repro_torch.engine.sharded import N_ITERS
 
     on_card = dev.type == "cuda"
 
@@ -291,6 +351,7 @@ def main_path(dev, K, k, T, T_short, rng):
     def drive(label, cfg, *, fused, outputs="full", T=T, expect, **opts):
         xs = opts.pop("xs", None)
         pm = RoundProgram.from_config(cfg, fused=fused, device=dev, **opts)
+        xs = None if xs is None else pm.local_rows(xs)
         run, s0 = pm.build_runner(outputs=outputs, scan_length=T)
         run(s0, 7, xs)  # warm-up: allocator pools, library handles
         sync()
@@ -329,6 +390,22 @@ def main_path(dev, K, k, T, T_short, rng):
     drive("packed_lags-fused", fl_async, fused=True, T=T_short, override="packed_lags", xs=t(packed_lags),
           expect={"round_select.from_w": T_short, "round_tail": T_short})
 
+    # the K-sharded round on the one-rank mesh: 12 block sums a round at block=4
+    n_block = -(-N_ITERS // 4)
+    m4 = dict(mesh=mesh, block=4)
+    mesh_fused = fused_sync | {"bisect_block_sums": n_block * T}
+    mesh_staged = {"bisect_block_sums": n_block * T}
+    drive("mesh-sync-full-fused", fl, fused=True, expect=mesh_fused, **m4)
+    drive("mesh-sync-lean-fused", fl, fused=True, outputs="lean", expect=mesh_fused, **m4)
+    drive("mesh-sync-full-staged", fl, fused=False, expect=mesh_staged, **m4)
+    drive("mesh-sync-lean-staged", fl, fused=False, outputs="lean", expect=mesh_staged, **m4)
+    for fb in ("deadline", "late_credit"):
+        drive(f"mesh-async-S2-{fb}-fused", fl_async, fused=True, feedback=fb, expect=mesh_fused, **m4)
+        drive(f"mesh-async-S2-{fb}-staged", fl_async, fused=False, feedback=fb, expect=mesh_staged, **m4)
+    drive("mesh-block1-sync-full-fused", fl, fused=True, mesh=mesh, block=1, expect=fused_sync)
+    drive("mesh-packed-staged", fl, fused=False, T=T_short, override="packed", xs=t(packed_bits),
+          expect={"unpack_bits": T_short, "bisect_block_sums": n_block * T_short}, **m4)
+
     return runs, launched
 
 
@@ -353,9 +430,11 @@ def check_runs(runs):
         logw = state.e3cs.logw
         if not (torch.isfinite(logw).all() and float(logw.max()) == 0.0):
             raise AssertionError(f"{label}: logw not finite or not re-centred to max 0")
-    for a, b in (("sync-full-fused", "sync-full-staged"), ("async-S2-deadline-fused", "async-S2-deadline-staged"),
-                 ("async-S2-late_credit-fused", "async-S2-late_credit-staged"), ("sort-fused", "sort-staged"),
-                 ("packed-fused", "packed-staged"), ("packed_lags-fused", "packed_lags-staged")):
+    fused_runs = [a for a in runs if a.endswith("-fused") and "lean" not in a and a not in UNPAIRED_FUSED_RUNS]
+    for a in fused_runs:
+        b = a.replace("-fused", "-staged")
+        if b not in runs:
+            raise AssertionError(f"{a} has no staged run {b} to compare its cohorts with")
         oa, ob = runs[a][0], runs[b][0]
         if not torch.equal(oa[1], ob[1]):
             raise AssertionError(f"{a} and {b} selected different cohorts")
@@ -363,24 +442,44 @@ def check_runs(runs):
         if not d <= LOGW_TOL:
             raise AssertionError(f"{a} vs {b}: max |logw difference| {d} > {LOGW_TOL}")
         log("check", fused=a, staged=b, cohorts="identical", logw_max_abs_diff=d)
-    lean_state = runs["sync-lean-fused"][0][0]
-    if not torch.equal(lean_state.e3cs.logw, runs["sync-full-fused"][0][0].e3cs.logw):
-        raise AssertionError("lean and full outputs of the same seed ran different rounds")
+    for lean in (label for label in runs if "lean" in label):
+        full = runs[lean.replace("lean", "full")][0][0]
+        if not torch.equal(runs[lean][0][0].e3cs.logw, full.e3cs.logw):
+            raise AssertionError(f"{lean}: lean and full outputs of the same seed ran different rounds")
+    # a one-rank mesh with block=1 is the dense round, bit for bit
+    dense, mesh1 = runs["sync-full-fused"][0], runs["mesh-block1-sync-full-fused"][0]
+    for name, a, b in (("cohorts", dense[1], mesh1[1]), ("x", dense[2], mesh1[2]), ("p", dense[3], mesh1[3]),
+                       ("logw", dense[0].e3cs.logw, mesh1[0].e3cs.logw)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"mesh block=1 differs from the dense run in {name}")
+    log("check", mesh_block1="bit-identical to sync-full-fused (cohorts, x, p, logw)")
+    # block=4 against block=1: p of every round up to the first differing cohort
+    b4 = runs["mesh-sync-full-fused"][0]
+    differ = (b4[1] != mesh1[1]).any(dim=1).nonzero()
+    n_same = int(differ[0]) if len(differ) else b4[1].shape[0]
+    last = min(n_same + 1, b4[1].shape[0])
+    rel = float(((b4[3][:last] - mesh1[3][:last]).abs() / mesh1[3][:last]).max())
+    if not rel <= BLOCK_P_RTOL:
+        raise AssertionError(f"block=4 p differs from block=1 by {rel} relative > {BLOCK_P_RTOL}")
+    log("check", block4_vs_block1_p_max_rel=rel, rtol=BLOCK_P_RTOL, identical_cohort_rounds=n_same,
+        rounds=b4[1].shape[0])
     log("check", result="all main-path checks passed")
 
 
-def profile_round(dev, K, k, rounds=5):
-    """Where a fused sync round's time goes: ``torch.profiler`` over a few
-    rounds after a warm-up: device time by kernel, host time and device span
-    by round stage, and the device's busy share of the window's wall time
-    (profiler overhead included in the wall time)."""
+def profile_round(dev, K, k, rounds=5, label="dense", **opts):
+    """Where a fused sync round's time goes (``opts``: the mesh and block):
+    ``torch.profiler`` over a few rounds after a warm-up: device time by
+    kernel, host time and device span by round stage, and the device's busy
+    share of the window's wall time (profiler overhead included in the wall
+    time)."""
     import torch
 
     from repro_torch.configs import FLConfig
     from repro_torch.engine import RoundProgram
 
     fl = FLConfig(K=K, k=k, rounds=T_MAIN, scheme="e3cs", quota_frac=0.5, allocator="bisect")
-    run, s0 = RoundProgram.from_config(fl, fused=True, device=dev).build_runner(outputs="lean", scan_length=rounds)
+    pm = RoundProgram.from_config(fl, fused=True, device=dev, **opts)
+    run, s0 = pm.build_runner(outputs="lean", scan_length=rounds)
     run(s0, 1)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -394,7 +493,7 @@ def profile_round(dev, K, k, rounds=5):
     # GPU spans of the stage annotations, which cover gaps and other events
     dev_events = [e for e in prof.events() if e.device_type == cuda]
     busy_us = sum(e.time_range.elapsed_us() for e in dev_events if not e.name.startswith("round."))
-    log("profile", rounds=rounds, wall_ms=f"{wall_us / 1e3:.3f}", device_busy_ms=f"{busy_us / 1e3:.3f}",
+    log("profile", program=label, rounds=rounds, wall_ms=f"{wall_us / 1e3:.3f}", device_busy_ms=f"{busy_us / 1e3:.3f}",
         device_idle_share=f"{1 - busy_us / wall_us:.4f}")
     by_name = {}
     for e in dev_events:
@@ -402,7 +501,7 @@ def profile_round(dev, K, k, rounds=5):
             calls, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (calls + 1, us + e.time_range.elapsed_us())
     for kname, (calls, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
-        log("profile-kernel", name=repr(kname[:90]), calls=calls, device_ms=f"{us / 1e3:.4f}")
+        log("profile-kernel", program=label, name=repr(kname[:90]), calls=calls, device_ms=f"{us / 1e3:.4f}")
     spans = {}
     for e in prof.events():
         if e.name.startswith("round."):
@@ -410,7 +509,18 @@ def profile_round(dev, K, k, rounds=5):
             spans.setdefault(e.name, {}).setdefault(side, 0.0)
             spans[e.name][side] += e.time_range.elapsed_us() / 1e3
     for stage_name, v in spans.items():
-        log("profile-stage", stage=stage_name, **{key: f"{ms:.3f}" for key, ms in v.items()})
+        log("profile-stage", program=label, stage=stage_name, **{key: f"{ms:.3f}" for key, ms in v.items()})
+    # host time of the collectives, by event name (an op and the events it
+    # opens are listed apart, so the names' times nest, and do not add up)
+    comms = {}
+    for e in prof.events():
+        low = e.name.lower()
+        if e.device_type != cuda and any(s in low for s in ("allreduce", "all_reduce", "allgather", "all_gather")):
+            calls, us = comms.get(e.name, (0, 0.0))
+            comms[e.name] = (calls + 1, us + e.time_range.elapsed_us())
+    for cname, (calls, us) in sorted(comms.items(), key=lambda kv: -kv[1][1]):
+        log("profile-comms", program=label, name=repr(cname[:90]), calls=calls, host_ms=f"{us / 1e3:.4f}",
+            host_us_per_call=f"{us / calls:.2f}")
 
 
 if __name__ == "__main__":

@@ -50,9 +50,16 @@ def e3cs_probs(state: E3CSState, k: int, sigma: torch.Tensor):
     return prob_alloc(w, k, sigma)
 
 
-def e3cs_update(state: E3CSState, p, capped, sel_mask, x, k: int, sigma, eta: float, K=None, active=None) -> E3CSState:
+def e3cs_update(
+    state: E3CSState, p, capped, sel_mask, x, k: int, sigma, eta: float, K=None, mesh=None, active=None
+) -> E3CSState:
     """Exponential-weight update, Eqs. (16)-(17): clamped importance-weighted
-    step, capped (and inactive) arms frozen, then re-centred to max 0."""
+    step, capped (and inactive) arms frozen, then re-centred to max 0.
+
+    On one shard of a K-sharded population ``K`` is the global population,
+    ``mesh`` (a ``repro_torch.launch.mesh.HostMesh``, where the JAX package
+    names an ``axis_name``) takes the re-centring max over the shards, and
+    ``active`` marks the shard's padding, which stays frozen at 0."""
     Kt = p.shape[0] if K is None else K
     xhat = sel_mask * x / torch.clamp(p, min=1e-12)  # Eq. (16)
     residual = residual_mass(k, Kt, sigma)
@@ -64,6 +71,8 @@ def e3cs_update(state: E3CSState, p, capped, sel_mask, x, k: int, sigma, eta: fl
         m = torch.max(logw)
     else:
         m = torch.max(torch.where(active > 0, logw, torch.full_like(logw, float("-inf"))))
+    if mesh is not None:
+        m = mesh.pmax(m)
     logw = logw - m
     if active is not None:
         logw = logw * active

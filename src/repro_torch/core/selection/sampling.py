@@ -10,7 +10,15 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["perturbed_scores", "top_k", "plackett_luce_sample", "selection_mask", "gumbel_row"]
+__all__ = [
+    "perturbed_scores",
+    "top_k",
+    "plackett_luce_sample",
+    "local_topk_candidates",
+    "merge_topk_candidates",
+    "selection_mask",
+    "gumbel_row",
+]
 
 _EPS = 1e-20
 
@@ -39,6 +47,28 @@ def plackett_luce_sample(g: torch.Tensor, p: torch.Tensor, k: int) -> torch.Tens
     """Gumbel top-k == multinomial sampling without replacement; ``(k,)``
     int32 indices of the selected clients."""
     return top_k(perturbed_scores(g, p), k)[1]
+
+
+def local_topk_candidates(scores: torch.Tensor, k: int, offset: int):
+    """One shard's top-k candidates ``(values, global int32 indices)`` for a
+    distributed top-k: the local ``top_k`` plus the shard's global offset."""
+    v, i = top_k(scores, k)
+    return v, i + int(offset)
+
+
+def merge_topk_candidates(vals: torch.Tensor, idx: torch.Tensor, k: int) -> torch.Tensor:
+    """The exact global top-k indices from the D shards' candidates, flattened
+    in shard order, each shard's list sorted as ``top_k`` emits it.
+
+    Containment: a member of the global top-k has fewer than k scores above
+    it anywhere, so fewer than k in its own shard, and is among that shard's
+    candidates; one ``top_k`` over the ``D*k`` candidates finds it.  Ties
+    resolve to the lowest index, as a dense ``top_k`` does: shards cover
+    contiguous index ranges in order, and each list emits equal values in
+    index order.
+    """
+    _, pos = top_k(vals.reshape(-1), k)
+    return idx.reshape(-1)[pos.long()].to(torch.int32)
 
 
 def selection_mask(idx: torch.Tensor, K: int) -> torch.Tensor:

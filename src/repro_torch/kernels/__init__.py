@@ -1,9 +1,11 @@
 """The port's kernels: CUDA C++ for sm_90a under ``csrc/``, their wrappers,
 and the plain PyTorch versions the wrappers take for CPU tensors."""
+from .bisect_tiles import bisect_block_sums
 from .round_fused import fused_alloc_select, fused_perturb_select, fused_round_tail
 from .unpack_bits import unpack_bits, unpack_crumbs
 
 __all__ = [
+    "bisect_block_sums",
     "fused_alloc_select",
     "fused_perturb_select",
     "fused_round_tail",
@@ -21,6 +23,7 @@ WRAPPERS = {
     "round_tail": fused_round_tail,
     "unpack_bits": unpack_bits,
     "unpack_crumbs": unpack_crumbs,
+    "bisect_block_sums": bisect_block_sums,
 }
 
 

@@ -26,9 +26,25 @@ __all__ = [
     "fused_perturb_select_ref",
     "round_tail_ref",
     "ring_pop_push",
+    "bisect_block_sums_ref",
 ]
 
 LAG_DEAD_CODE = 3  # 2-bit crumb sentinel of a client that never completes
+
+
+def bisect_block_sums_ref(w: torch.Tensor, caps: torch.Tensor, tile: int = 8192) -> torch.Tensor:
+    """``(n_caps,)`` capped sums ``s_b = sum_j min(w_j, caps_b)`` in ``w``'s
+    dtype, summed per ``tile``-client tile and then across tiles, as
+    ``repro.kernels.bisect_tiles.bisect_block_sums_ref`` sums them.  Padding
+    entries of ``w`` are 0 and ``caps >= 0``, so padding adds nothing."""
+    n = w.shape[0]
+    tile = min(tile, max(n, 1))
+    pad = (-n) % tile
+    if pad:
+        w = torch.cat([w, w.new_zeros(pad)])
+    caps = caps.to(w.dtype)
+    per_tile = torch.minimum(w.reshape(-1, tile)[:, None, :], caps[None, :, None]).sum(dim=2)
+    return per_tile.sum(dim=0)
 
 
 def unpack_bits_ref(packed: torch.Tensor, K: int) -> torch.Tensor:

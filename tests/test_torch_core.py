@@ -76,8 +76,16 @@ def test_masked_prob_alloc_matches_jax(K, k, frac, spread, with_active):
 
 
 def test_block_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="B5"):
-        masked_prob_alloc(_t(_weights(64, 0, 1.0)), 8, _t(np.float32(0.05)), block=4)
+    """Block mode was the unported part of the allocator; it is ported now
+    (``test_torch_sharded.py`` holds it against JAX): it matches JAX's block
+    mode on a small population, and a block below 1 raises."""
+    w, sigma = _weights(64, 0, 1.0), np.float32(0.05)
+    jp, jc = jmasked_prob_alloc(jnp.asarray(w), 8, jnp.float32(sigma), block=4)
+    p, c = masked_prob_alloc(_t(w), 8, _t(sigma), block=4)
+    np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
+    np.testing.assert_allclose(p.numpy(), np.asarray(jp), rtol=RTOL, atol=ATOL)
+    with pytest.raises(ValueError, match="block"):
+        masked_prob_alloc(_t(w), 8, _t(sigma), block=0)
 
 
 @pytest.mark.parametrize("with_active", [False, True], ids=["dense", "active"])

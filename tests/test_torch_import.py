@@ -19,6 +19,7 @@ from repro_torch.convert import state_from_jax
 from repro_torch.core.volatility import make_volatility, paper_success_rates
 from repro_torch.engine import RoundProgram
 from repro_torch.kernels import fused_round_tail, unpack_bits
+from repro_torch.launch import HostMesh, make_host_mesh
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -26,7 +27,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chi
 
 def test_import_leaves_jax_unloaded():
     code = (
-        "import sys, repro_torch, repro_torch.engine, repro_torch.kernels, repro_torch.convert, repro_torch.fl; "
+        "import sys, repro_torch, repro_torch.engine, repro_torch.kernels, repro_torch.convert, repro_torch.fl, "
+        "repro_torch.launch.mesh, repro_torch.kernels.bisect_tiles, repro_torch.engine.sharded; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'repro' "
         "or m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)"
     )
@@ -76,6 +78,8 @@ def test_entry_points_raise_without_cuda(no_cuda):
         RoundProgram(fl=fl, vol=vol, rho=rho)
     with pytest.raises(RuntimeError, match="CUDA"):
         state_from_jax({})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_host_mesh(1)
 
 
 def test_entry_points_run_on_cpu_when_asked(no_cuda):
@@ -86,6 +90,14 @@ def test_entry_points_run_on_cpu_when_asked(no_cuda):
     run, state0 = RoundProgram.from_config(fl, device="cpu").build_runner(outputs="lean")
     state, successes, sigmas = run(state0, 0)
     assert successes.shape == (4,) and int(state.t) == 4
+
+
+def test_mesh_program_takes_the_mesh_device(no_cuda):
+    fl, vol, rho = _program_args()
+    mesh = HostMesh(size=1, rank=0, device=torch.device("cpu"))
+    assert RoundProgram(fl=fl, vol=vol, rho=rho, mesh=mesh).device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RoundProgram(fl=fl, vol=vol, rho=rho, mesh=mesh, device="cuda")
 
 
 def test_wrappers_refuse_a_device_with_no_kernel():
@@ -100,8 +112,9 @@ def test_wrappers_refuse_a_device_with_no_kernel():
 def test_unported_paths_raise_with_their_roadmap_item(what):
     fl, vol, rho = _program_args()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "mesh":
-            RoundProgram.from_config(fl, mesh=object(), device="cpu")
+        if what == "mesh":  # the mesh is ported; its taps are not
+            mesh = HostMesh(size=1, rank=0, device=torch.device("cpu"))
+            RoundProgram.from_config(fl, mesh=mesh, device="cpu").build_runner(taps=True)
         elif what == "taps":
             RoundProgram.from_config(fl, device="cpu").build_runner(taps=True)
         elif what == "scheme":

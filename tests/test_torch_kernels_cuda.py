@@ -1,8 +1,9 @@
 """Each CUDA kernel against its plain PyTorch version on the card, at ragged
 K and at the main path's K = 1,000,003 and k up to 2048, on inputs made with
-numpy from a seed.  The kernels repeat their plain versions' float32
+numpy from a seed.  The round kernels repeat their plain versions' float32
 operations in the same order (built with ``--fmad=false``), so every product
-must be equal exactly.
+must be equal exactly.  ``bisect_block_sums`` adds a tile's terms in another
+order than ``torch.sum``: ``BISECT_RTOL``.
 
 This file imports no JAX, so it runs where the card is:
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py``.
@@ -14,7 +15,19 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import fused_alloc_select, fused_perturb_select, fused_round_tail, ref, unpack_bits, unpack_crumbs
+from repro_torch.kernels import (
+    bisect_block_sums,
+    fused_alloc_select,
+    fused_perturb_select,
+    fused_round_tail,
+    ref,
+    unpack_bits,
+    unpack_crumbs,
+)
+
+# float32 sums of up to 8192 terms per tile, then of the tiles, in another
+# order than torch.sum takes them: a few units in the last place
+BISECT_RTOL = {torch.float32: 1e-6, torch.float64: 1e-12}
 
 
 @pytest.fixture
@@ -37,6 +50,16 @@ def select_inputs(n, k, with_active=False, seed=5):
     if active is not None:
         w = w * active
     return w, g, active, np.float32(0.3 * k / n)
+
+
+def bisect_inputs(n, n_caps, dtype=np.float32, seed=3):
+    """Non-negative weights with a zero every 7th client (padding adds
+    nothing) and sorted caps drawn inside ``[0, max w]``."""
+    rng = np.random.default_rng(seed + n)
+    w = rng.gamma(1.0, 1.0, n)
+    w[::7] = 0.0
+    caps = np.sort(rng.uniform(0.0, max(float(w.max()), 1e-3), n_caps))
+    return w.astype(dtype), caps.astype(dtype)
 
 
 def tail_inputs(n, kind="bits", S=2, with_active=False, late_fb=False, seed=9):
@@ -112,3 +135,27 @@ def test_round_tail_kernel_matches_plain(cuda, kind, S, late_fb, with_active, K)
     assert set(got) == set(want)
     for key in want:
         torch.testing.assert_close(got[key], want[key], rtol=0, atol=0, msg=f"tail product {key!r}")
+
+
+@pytest.mark.parametrize("n_caps", [1, 3, 15, 31, 63])
+@pytest.mark.parametrize("tile", [512, 8192])
+@pytest.mark.parametrize("K", [1, 100, 8193, 1_000_003])
+def test_bisect_block_sums_kernel_matches_plain(cuda, K, tile, n_caps):
+    w, caps = (_t(a, cuda) for a in bisect_inputs(K, n_caps))
+    before = bisect_block_sums.launches
+    got = bisect_block_sums(w, caps, tile=tile)
+    assert bisect_block_sums.launches == before + 1
+    torch.testing.assert_close(got, ref.bisect_block_sums_ref(w, caps, tile=tile), rtol=BISECT_RTOL[w.dtype], atol=0)
+
+
+@pytest.mark.parametrize("K", [100, 1_000_003])
+def test_bisect_block_sums_kernel_float64_and_unaligned(cuda, K):
+    w, caps = (_t(a, cuda) for a in bisect_inputs(K + 1, 15, dtype=np.float64))
+    torch.testing.assert_close(bisect_block_sums(w, caps), ref.bisect_block_sums_ref(w, caps),
+                               rtol=BISECT_RTOL[torch.float64], atol=0)
+    w32, c32 = w.float(), caps.float()
+    view = w32[1:]  # 4 bytes past a 16-byte boundary: the kernel's element-wise path
+    torch.testing.assert_close(bisect_block_sums(view, c32), ref.bisect_block_sums_ref(view, c32),
+                               rtol=BISECT_RTOL[torch.float32], atol=0)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        bisect_block_sums(w.half(), caps.half())
