@@ -9,8 +9,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
 2. build: compile the CUDA kernels under ``src/repro_torch/kernels/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card at the
    main path's shapes (K = 1,000,000 and a ragged 1,000,003, k = 1000; 3, 15
-   and 63 bisection caps), with its time, the plain version's, a library
-   call's where one exists, and its least possible time on this card;
+   and 63 bisection caps; the top-k and update kernels at every tile they
+   are built for), with its time, the plain version's, a library call's
+   where one exists, and its least possible time on this card;
 4. main path: ``RoundProgram.from_config`` at K = 1e6, k = 1000, T = 50,
    ``allocator="bisect"``, on the card, dense and on a one-rank NCCL mesh
    (``make_host_mesh(1)``, ``block=4``: the K-sharded round with the
@@ -25,11 +26,19 @@ Phases, one line each; any failure raises and the script exits non-zero:
    within ``BLOCK_P_RTOL`` of ``block=1``, launch counts;
 6. profile: a dense and two mesh (``block=4`` and ``block=1``) fused rounds
    under ``torch.profiler``, with the host time of the mesh's collectives;
-7. times: rounds/s and client decisions/s of each run.
+7. ops: the kernel layer's public ops, the path of the top-k and update
+   kernels: ``autotune`` sweeps all four kernel families at K = 1e4, 1e5
+   and 1e6 into a fresh cache under ``chiprun_out/autotune/``, then
+   ``gumbel_topk_sample``, ``fused_gumbel_topk_sample`` and
+   ``e3cs_update_tiled`` run at K = 1e6, k = 1000 with ``tile=None``,
+   resolved through that cache; launch counts set to 0 before the phase and
+   checked exactly after it, outputs against the plain versions;
+8. times: rounds/s and client decisions/s of each run.
 
 Ends with a JSON line of per-kernel numbers and, last, ``{"ok": true,
 "device": ...}``.  Without CUDA it exits non-zero before printing a result.
 """
+import itertools
 import json
 import os
 import subprocess
@@ -46,6 +55,14 @@ FLOAT_TOL = 0.0
 # torch.sum (a tree per CTA against torch's own): a few units in the last place
 BISECT_RTOL = {"float32": 1e-6, "float64": 1e-12}
 BLOCK_P_RTOL = 1e-5  # p after 12 dyadic blocks vs 48 halvings: roundoff in the grid points
+# ops.e3cs_update_tiled against the core e3cs_update: a step of at most 1
+# rounded in another order (scale * xhat against residual * eta * xhat / K),
+# added to |logw| < 16 and re-centred: a few float32 ulps at 16 (9.5e-7 each)
+UPDATE_ATOL = 4e-6
+AUTOTUNE_K, AUTOTUNE_ITERS, AUTOTUNE_WARMUP = (10_000, 100_000, 1_000_000), 5, 1
+# the wrapper each autotune family's sweep launches
+AUTOTUNE_WRAPPER = {"gumbel_topk": "gumbel_topk", "e3cs_tiles": "e3cs_update", "bisect_tiles": "bisect_block_sums",
+                    "round_fused": "round_select.from_w"}
 LOGW_TOL = 1e-5  # fused vs staged log-weights after T rounds (expected equal)
 PSUM_RTOL = 1e-3  # sum of 1e6 float32 probabilities against k
 # data-sheet rates (NVIDIA): HBM bytes/s and float32 (non-tensor) flop/s
@@ -79,6 +96,8 @@ def main():
     from repro_torch.engine.sharded import masked_prob_alloc, masked_prob_alloc_scalars
     from repro_torch.kernels import ref
     from repro_torch.kernels._build import build, load_library
+    from repro_torch.kernels.autotune import CANDIDATES
+    from repro_torch.kernels.gumbel_topk import TOPK_TILES
     from repro_torch.launch import make_host_mesh
 
     dev = torch.device("cuda")
@@ -269,6 +288,77 @@ def main():
                     bound_ms=b[0], bound_by=b[1],
                     # two PyTorch calls and a (K, n_caps) temporary: no single call computes it
                     library_ms=graph_ms(lambda: torch.minimum(w[:, None], caps).sum(0)))
+        # top-k of given scores (B6), the fused Gumbel top-k (B7) and the tiled
+        # E3CS update (B8) at every tile they are built for; a tenth of p is 0
+        pt = rng.gamma(1.0, 1.0, K).astype(np.float32)
+        pt[rng.random(K) < 0.1] = 0.0
+        pt = t(pt / pt.sum() * k)
+        ut = t(rng.random(K).astype(np.float32))
+        scores = torch.log(torch.clamp(pt, min=1e-20)) + g
+        upd = [t(rng.normal(0, 1, K).astype(np.float32)), torch.clamp(pt, 1e-3, 1.0), (pt > 0.005).float(),
+               t((rng.random(K) < 0.6).astype(np.float32)), t((rng.random(K) < 0.05).astype(np.float32))]
+        scale = torch.tensor((k - K * 0.3 * k / K) * 0.5 / K, dtype=torch.float32, device=dev)
+        topk_ms, upd_ms, upd_cold_ms = {}, {}, {}
+        # four copies of the update's inputs, 96 MB in all: rotating over them,
+        # each call finds its inputs evicted from the 50 MB L2 (a round's
+        # update reads rows that other passes touched since)
+        upd_copies = [[r.clone() for r in upd] for _ in range(4)] if K == K_MAIN else None
+        for tile in TOPK_TILES:
+            err6 = max_err(dict(zip(("vals", "idx"), kn.gumbel_topk_kernel_call(scores, k, tile=tile))),
+                           dict(zip(("vals", "idx"), ref.gumbel_topk_kernel_ref(scores, k))))
+            err7 = max_err(dict(zip(("vals", "idx"), kn.fused_gumbel_topk_kernel_call(pt, ut, k, tile=tile))),
+                           dict(zip(("vals", "idx"), ref.fused_gumbel_topk_kernel_ref(pt, ut, k))))
+            log("kernel-check", kernel="gumbel_topk+fused_gumbel_topk", K=K, k=k, tile=tile, max_abs_err=err6,
+                fused_max_abs_err=err7)
+            if K == K_MAIN:
+                topk_ms[tile] = (graph_ms(lambda: kn.gumbel_topk_kernel_call(scores, k, tile=tile)),
+                                 graph_ms(lambda: kn.fused_gumbel_topk_kernel_call(pt, ut, k, tile=tile)))
+        for tile in CANDIDATES["e3cs_tiles"]["tile"]:
+            got = kn.e3cs_update_kernel_call(*upd, scale, tile=tile)
+            want = ref.e3cs_update_kernel_ref(*upd, scale, tile=tile)
+            err8 = max_err(dict(zip(("new", "tmax"), got)), dict(zip(("new", "tmax"), want)))
+            if got[1].shape != (-(-K // tile),):
+                raise AssertionError(f"e3cs_update tile={tile}: tmax shape {tuple(got[1].shape)}")
+            log("kernel-check", kernel="e3cs_update", K=K, tile=tile, max_abs_err=err8)
+            if K == K_MAIN:
+                upd_ms[tile] = graph_ms(lambda: kn.e3cs_update_kernel_call(*upd, scale, tile=tile))
+                turn = itertools.cycle(upd_copies)
+                upd_cold_ms[tile] = graph_ms(lambda: kn.e3cs_update_kernel_call(*next(turn), scale, tile=tile))
+        if K == K_MAIN:
+            for tile, (ms6, ms7) in topk_ms.items():
+                log("kernel-tile-time", kernel="gumbel_topk", tile=tile, ms=f"{ms6:.4f}", card=repr(smi))
+                log("kernel-tile-time", kernel="fused_gumbel_topk", tile=tile, ms=f"{ms7:.4f}", card=repr(smi))
+            for tile, ms8 in upd_ms.items():
+                log("kernel-tile-time", kernel="e3cs_update", tile=tile, ms=f"{ms8:.4f}",
+                    l2_cold_ms=f"{upd_cold_ms[tile]:.4f}", card=repr(smi))
+            tile_ms = {"gumbel_topk": {tl: v[0] for tl, v in topk_ms.items()},
+                       "fused_gumbel_topk": {tl: v[1] for tl, v in topk_ms.items()}, "e3cs_update": upd_ms}
+            vals6, idx6 = ref.gumbel_topk_kernel_ref(scores, k)
+            b6 = bound(nbytes(scores, vals6, idx6), K)
+            rows["gumbel_topk"] = dict(
+                route="cuda", source="src/repro_torch/kernels/csrc/gumbel_topk.cu",
+                replaces="src/repro/kernels/gumbel_topk.py:89", max_abs_err=err6, ms=topk_ms[8192][0],
+                plain_ms=events_ms(lambda: ref.gumbel_topk_kernel_ref(scores, k)),
+                bound_ms=b6[0], bound_by=b6[1], library_ms=graph_ms(lambda: torch.topk(scores, k)))
+            # no one PyTorch call perturbs and selects: torch.topk of the
+            # perturbed scores, made beforehand, is a lower figure (logged)
+            pert = ref.fused_gumbel_scores(pt, ut)
+            log("kernel-library-lower", kernel="fused_gumbel_topk", call="torch.topk(perturbed scores, k)",
+                ms=f"{graph_ms(lambda: torch.topk(pert, k)):.4f}", card=repr(smi))
+            b7 = bound(nbytes(pt, ut, vals6, idx6), 10 * K)
+            rows["fused_gumbel_topk"] = dict(
+                route="cuda", source="src/repro_torch/kernels/csrc/gumbel_topk.cu",
+                replaces="src/repro/kernels/e3cs_tiles.py:72", max_abs_err=err7, ms=topk_ms[8192][1],
+                plain_ms=events_ms(lambda: ref.fused_gumbel_topk_kernel_ref(pt, ut, k)),
+                bound_ms=b7[0], bound_by=b7[1], library_ms=None)
+            new8, tmax8 = ref.e3cs_update_kernel_ref(*upd, scale, tile=8192)
+            b8 = bound(nbytes(*upd, scale, new8, tmax8), 7 * K)
+            rows["e3cs_update"] = dict(
+                route="cuda", source="src/repro_torch/kernels/csrc/e3cs_update.cu",
+                replaces="src/repro/kernels/e3cs_tiles.py:139", max_abs_err=err8, ms=upd_ms[8192],
+                plain_ms=events_ms(lambda: ref.e3cs_update_kernel_ref(*upd, scale, tile=8192)),
+                bound_ms=b8[0], bound_by=b8[1], library_ms=None)
+            del pert, new8, tmax8, upd_copies
     # the block allocator where the cap binds (heavy-tailed weights, k = K/10):
     # 12 dyadic blocks through the kernel against 48 plain halvings
     wh = t(rng.gamma(0.3, 1.0, K_MAIN).astype(np.float32))
@@ -285,7 +375,7 @@ def main():
         log("kernel-time", kernel=kname, ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
             library_ms=None if r["library_ms"] is None else f"{r['library_ms']:.4f}",
             bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"])
-    del w, g, p, mask, capped, logw, loss, obs_of
+    del w, g, p, mask, capped, logw, loss, obs_of, pt, ut, scores, upd
     torch.cuda.empty_cache()
 
     # a one-rank NCCL group: the mesh's collectives run on the card, no network
@@ -300,7 +390,18 @@ def main():
     finally:
         dist.destroy_process_group()
 
-    # -- 6. times ---------------------------------------------------------------
+    # -- 7. the ops and the autotuner (this slice's path) -------------------------
+    ops_counts, ops_tiles = ops_path(dev, K_MAIN, k_MAIN)
+    for n, c in ops_counts.items():
+        if c:
+            launched.setdefault(n, c)
+    # the ops' kernels are reported at the tile the ops resolved through the cache
+    for kname, tname in (("gumbel_topk", "gumbel_topk"), ("fused_gumbel_topk", "gumbel_topk"),
+                         ("e3cs_update", "e3cs_tiles")):
+        rows[kname]["ms"] = tile_ms[kname][ops_tiles[tname]]
+        log("kernel-time", kernel=kname, tile=ops_tiles[tname], ms=f"{rows[kname]['ms']:.4f}", card=repr(smi))
+
+    # -- 8. times ---------------------------------------------------------------
     for label, (_, secs, T, cfg) in runs.items():
         log("time", run=label, rounds_per_s=f"{T / secs:.3f}", client_decisions_per_s=f"{T * cfg.K / secs:.6g}",
             card=repr(smi))
@@ -407,6 +508,90 @@ def main_path(dev, K, k, T, T_short, rng, mesh):
           expect={"unpack_bits": T_short, "bisect_block_sums": n_block * T_short}, **m4)
 
     return runs, launched
+
+
+def ops_path(dev, K, k, K_list=AUTOTUNE_K):
+    """Phase 7: the kernel layer's public ops with their autotuner, on
+    ``dev``.  The sweep over ``K_list`` writes a fresh cache under
+    ``chiprun_out/autotune/`` (git-ignored; the JAX package's cache is never
+    touched), the ops resolve ``tile=None`` through it.  Launch counts start
+    at 0 and must end at exactly the sweep's timed calls plus one launch per
+    op (none on the CPU, where every wrapper takes its plain version).
+    Returns the counts and the tiles the ops resolved."""
+    import torch
+
+    from repro_torch import kernels as kn
+    from repro_torch.core.selection import E3CSState, e3cs_update
+    from repro_torch.core.selection.e3cs import divide, residual_mass
+    from repro_torch.core.selection.sampling import gumbel_row, selection_mask, uniform_row
+    from repro_torch.kernels import autotune, ops, ref
+    from repro_torch.obs.paths import autotune_path
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    os.environ["REPRO_AUTOTUNE_DIR"] = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out",
+                                                    "autotune")
+    path = autotune_path(autotune.CACHE_NAME)
+    if os.path.exists(path):
+        os.remove(path)
+    kn.reset_launch_counts()
+    autotune.reset_cold()
+    t0 = time.perf_counter()
+    res = autotune.autotune(K_list=K_list, path=path, iters=AUTOTUNE_ITERS, warmup=AUTOTUNE_WARMUP, device=dev)
+    sync()
+    sweep_s = time.perf_counter() - t0
+    want = {n: 0 for n in kn.launch_counts()}
+    for key, table in res["tables"].items():
+        timed = sum(1 for v in table.values() if not isinstance(v, str))
+        want[AUTOTUNE_WRAPPER[key.split("|")[0]]] += timed * (AUTOTUNE_ITERS + AUTOTUNE_WARMUP)
+        log("autotune", key=key, best=json.dumps(res["cache"][key]),
+            us_per_call=json.dumps({c: v if isinstance(v, str) else round(v, 3) for c, v in table.items()}))
+    log("autotune", seconds=f"{sweep_s:.2f}", cache=os.path.relpath(path),
+        device=repr(torch.cuda.get_device_name(dev) if on_card else "cpu"))
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    p = -torch.log(torch.rand(K, generator=gen, device=dev))  # Exp(1) weights
+    p = torch.clamp(p / p.sum() * k, 1e-3, 1.0)
+    g, u = gumbel_row(gen, K, dev), uniform_row(gen, K, dev)
+    logw = torch.randn(K, generator=gen, device=dev)
+    sigma = torch.tensor(0.3 * k / K, dtype=torch.float32, device=dev)
+    x = (torch.rand(K, generator=gen, device=dev) < 0.6).float()
+    capped = p >= 1.0 - 1e-6
+    frozen = capped.float()
+    eta = 0.5
+    scale = divide(residual_mass(k, K, sigma) * eta, K)
+    tiles = {name: autotune.best_config(name, K, backend=dev.type)["tile"] for name in ("gumbel_topk", "e3cs_tiles")}
+    idx_g = ops.gumbel_topk_sample(g, p, k)
+    idx_f = ops.fused_gumbel_topk_sample(u, p, k)
+    mask = selection_mask(idx_g, K)
+    new = ops.e3cs_update_tiled(logw, p, mask, x, frozen, scale)
+    sync()
+    counts = kn.launch_counts()
+    for n in ("gumbel_topk", "fused_gumbel_topk", "e3cs_update"):
+        want[n] += 1
+    if not on_card:
+        want = {n: 0 for n in want}
+    if counts != want:
+        raise AssertionError(f"ops phase: launches {counts}, expected {want}")
+    if autotune.cold_keys():
+        raise AssertionError(f"ops phase: tile=None missed the fresh cache: {autotune.cold_keys()}")
+    scores = torch.log(torch.clamp(p, min=1e-20)) + g
+    for name, idx, want_idx in (("gumbel_topk_sample", idx_g, ref.gumbel_topk_ref(scores, k)),
+                                ("fused_gumbel_topk_sample", idx_f, ref.fused_gumbel_topk_kernel_ref(p, u, k)[1])):
+        if not torch.equal(idx, want_idx):
+            raise AssertionError(f"{name} differs from its plain version")
+        if idx.unique().numel() != k or int(idx.min()) < 0 or int(idx.max()) >= K:
+            raise AssertionError(f"{name}: not k distinct clients in range")
+    if not torch.equal(new, ref.e3cs_update_tiled_ref(logw, p, mask, x, frozen, scale)):
+        raise AssertionError("e3cs_update_tiled differs from its plain version")
+    core = e3cs_update(E3CSState(logw=logw, t=torch.zeros((), dtype=torch.int32, device=dev)), p, capped, mask, x,
+                       k, sigma, eta)
+    d = float((new - core.logw).abs().max())
+    if not (bool(torch.isfinite(new).all()) and float(new.max()) == 0.0 and d <= UPDATE_ATOL):
+        raise AssertionError(f"e3cs_update_tiled: not finite, not re-centred, or {d} > {UPDATE_ATOL} from e3cs_update")
+    log("ops", K=K, k=k, tiles=json.dumps(tiles), cohorts="equal to the plain versions",
+        update_vs_core_max_abs_diff=d, atol=UPDATE_ATOL, launches=json.dumps({n: c for n, c in counts.items() if c}))
+    return counts, tiles
 
 
 def check_runs(runs):

@@ -9,6 +9,7 @@ from .sampling import (
     plackett_luce_sample,
     selection_mask,
     top_k,
+    uniform_row,
 )
 
 __all__ = [
@@ -25,4 +26,5 @@ __all__ = [
     "plackett_luce_sample",
     "selection_mask",
     "top_k",
+    "uniform_row",
 ]

@@ -18,6 +18,7 @@ __all__ = [
     "merge_topk_candidates",
     "selection_mask",
     "gumbel_row",
+    "uniform_row",
 ]
 
 _EPS = 1e-20
@@ -29,6 +30,12 @@ def gumbel_row(generator: torch.Generator, K: int, device) -> torch.Tensor:
     u = torch.rand(K, generator=generator, device=device, dtype=torch.float32)
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
+
+
+def uniform_row(generator: torch.Generator, K: int, device) -> torch.Tensor:
+    """One ``(K,)`` float32 Uniform[0, 1) row: the noise the fused Gumbel
+    top-k perturbs in registers."""
+    return torch.rand(K, generator=generator, device=device, dtype=torch.float32)
 
 
 def perturbed_scores(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,32 @@
 """The port's kernels: CUDA C++ for sm_90a under ``csrc/``, their wrappers,
-and the plain PyTorch versions the wrappers take for CPU tensors."""
+the plain PyTorch versions the wrappers take for CPU tensors, and the public
+ops with their tile autotuner.
+
+Routing is by the tensor's device (``_build.route``): a wrapper launches its
+kernel for a CUDA tensor, or raises, and takes its plain version only for a
+CPU tensor.  The JAX package's ``kernels/dispatch.py`` (``REPRO_INTERPRET``,
+which can send a call to the reference) has no counterpart here: no
+variable sends a CUDA tensor away from its kernel.
+"""
+from . import autotune, ops, ref
 from .bisect_tiles import bisect_block_sums
+from .e3cs_tiles import e3cs_update_kernel_call, fused_gumbel_topk_kernel_call
+from .gumbel_topk import gumbel_topk_kernel_call
+from .ops import e3cs_update_tiled, fused_gumbel_topk_sample, gumbel_topk_sample
 from .round_fused import fused_alloc_select, fused_perturb_select, fused_round_tail
 from .unpack_bits import unpack_bits, unpack_crumbs
 
 __all__ = [
+    "autotune",
+    "ops",
+    "ref",
     "bisect_block_sums",
+    "e3cs_update_kernel_call",
+    "fused_gumbel_topk_kernel_call",
+    "gumbel_topk_kernel_call",
+    "e3cs_update_tiled",
+    "fused_gumbel_topk_sample",
+    "gumbel_topk_sample",
     "fused_alloc_select",
     "fused_perturb_select",
     "fused_round_tail",
@@ -24,6 +45,9 @@ WRAPPERS = {
     "unpack_bits": unpack_bits,
     "unpack_crumbs": unpack_crumbs,
     "bisect_block_sums": bisect_block_sums,
+    "gumbel_topk": gumbel_topk_kernel_call,
+    "fused_gumbel_topk": fused_gumbel_topk_kernel_call,
+    "e3cs_update": e3cs_update_kernel_call,
 }
 
 

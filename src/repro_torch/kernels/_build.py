@@ -19,7 +19,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["build", "load_library", "launch", "ptr", "check", "route"]
+__all__ = ["build", "load_library", "launch", "ptr", "check", "route", "UnsupportedLaunch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -40,7 +40,16 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _I64, _P,
     ],
     "repro_bisect_block_sums": [_P, _P, _P, _P, _I64, _I64, _I, _I, _I, _P],
+    "repro_gumbel_topk": [_P, _I64, _I, _P, _P, _I, _I, _P, _P, _P],
+    "repro_fused_gumbel_topk": [_P, _P, _I64, _I, _P, _P, _I, _I, _P, _P, _P],
+    "repro_e3cs_update": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P],
 }
+
+
+class UnsupportedLaunch(ValueError):
+    """A launch parameter (a tile, a ``(tile, k)`` pair) that the kernel was
+    not built for.  Raised before anything is launched; the autotuner skips
+    such candidates and records them as skipped."""
 
 
 def _nvcc() -> str:

@@ -1,22 +1,28 @@
 // Exact block top-k on Hopper: the device pieces shared by every selection
-// kernel (round_select.cu now; the gumbel_topk and fused_gumbel_topk kernels
-// of src/repro/kernels/{gumbel_topk,e3cs_tiles}.py when they are ported).
+// kernel (round_select.cu, and gumbel_topk.cu's top-k of given scores and
+// fused Gumbel top-k).
 //
 // Order: value descending, then index ascending -- the order lax.top_k
 // returns.  A (value, index) pair is packed into one uint64 key whose
 // unsigned order is exactly that order, so a sort needs one compare.
 //
-// Scheme: a CTA loads a chunk of kChunk keys into shared memory, bitonic-sorts
+// Scheme: a CTA loads a chunk of Chunk keys into shared memory, bitonic-sorts
 // it descending and keeps the first KP (KP = next power of two >= k).  Chunks
 // of sorted candidate lists are then merged and cut again until one list is
 // left.  Lists are written in alternating order (even: descending, odd:
 // ascending), so a cut's bitonic sort starts at sequences of 2*KP and skips
 // the log2(KP) levels that sorted each list, and a cut over fewer keys than
-// kChunk sorts only the next power of two that holds them.  Exact by containment: a member of the global top-k has fewer than k
+// Chunk sorts only the next power of two that holds them.  Exact by containment: a member of the global top-k has fewer than k
 // keys above it anywhere, so it survives every cut (the argument of
 // src/repro/core/selection/sampling.py merge_topk_candidates).  Every key is
 // distinct (the index is in it), so the result does not depend on the sort's
 // stability or on the order in which CTAs run.
+//
+// Chunk is a template parameter: the select kernel uses kChunk = 8192; the
+// top-k kernels of gumbel_topk.cu take 2048, 4096, 8192 or 16384 (the launch
+// tile), up to 128 KB of the 227 KB of shared memory a CTA may have.  A chunk
+// must hold at least two lists (2 * KP <= Chunk), so each cut divides the
+// number of lists by Chunk / KP >= 2.
 #pragma once
 
 #include <cstdint>
@@ -24,9 +30,9 @@
 
 namespace repro_topk {
 
-constexpr int kChunk = 8192;     // keys per CTA: 64 KB of dynamic shared memory
+constexpr int kChunk = 8192;     // keys per CTA of the select kernel: 64 KB of dynamic shared memory
 constexpr int kThreads = 1024;   // threads per CTA
-constexpr int kMaxKP = 2048;     // largest list kept per chunk (k <= 2048): each cut divides by >= 4
+constexpr int kMaxKP = 2048;     // largest list kept per chunk (k <= 2048)
 constexpr uint64_t kPadKey = 0;  // below every real key (see make_key)
 
 // Monotone float -> uint32 map, then the index complemented in the low word so
@@ -87,18 +93,19 @@ static __device__ __forceinline__ void emit_topk(const uint64_t* s, bool final_c
     }
 }
 
-// One cut over sorted candidate lists: CTA b merges keys [b*kChunk,
-// (b+1)*kChunk) of cand_in (n_in keys in all, a multiple of KP, padded with
+// One cut over sorted candidate lists: CTA b merges keys [b*Chunk,
+// (b+1)*Chunk) of cand_in (n_in keys in all, a multiple of KP, padded with
 // kPadKey to a power of two) and emits its top KP.
 // static: each source that includes this header gets its own copy
+template <int Chunk>
 static __global__ void __launch_bounds__(kThreads) merge_cut_kernel(const uint64_t* __restrict__ cand_in, int64_t n_in,
                                                              uint64_t* __restrict__ cand_out, int KP, int k,
                                                              float* __restrict__ vals, int32_t* __restrict__ idx,
                                                              int final_cut) {
     extern __shared__ uint64_t s[];
-    const int64_t base = static_cast<int64_t>(blockIdx.x) * kChunk;
+    const int64_t base = static_cast<int64_t>(blockIdx.x) * Chunk;
     int n = 2 * KP;
-    while (n < kChunk && n < n_in - base) n <<= 1;
+    while (n < Chunk && n < n_in - base) n <<= 1;
     for (int j = threadIdx.x; j < n; j += blockDim.x) {
         const int64_t i = base + j;
         s[j] = i < n_in ? cand_in[i] : kPadKey;
@@ -108,19 +115,21 @@ static __global__ void __launch_bounds__(kThreads) merge_cut_kernel(const uint64
 }
 
 // Cut the n_lists sorted lists in cand_a down to one, ping-ponging with
-// cand_b; the last cut writes (vals, idx).  Returns the first launch error.
+// cand_b; the last cut writes (vals, idx).  Needs 2 * KP <= Chunk.  Returns
+// the first launch error.
+template <int Chunk>
 inline cudaError_t merge_cuts(uint64_t* cand_a, uint64_t* cand_b, int64_t n_lists, int KP, int k, float* vals,
                               int32_t* idx, cudaStream_t stream) {
-    const size_t smem = sizeof(uint64_t) * kChunk;
-    cudaError_t err = cudaFuncSetAttribute(merge_cut_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const size_t smem = sizeof(uint64_t) * Chunk;
+    cudaError_t err = cudaFuncSetAttribute(merge_cut_kernel<Chunk>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    const int64_t per_cta = kChunk / KP;
+    const int64_t per_cta = Chunk / KP;
     uint64_t* in = cand_a;
     uint64_t* out = cand_b;
     while (n_lists > 1) {
         const int64_t n_groups = (n_lists + per_cta - 1) / per_cta;
-        merge_cut_kernel<<<static_cast<unsigned>(n_groups), kThreads, smem, stream>>>(
+        merge_cut_kernel<Chunk><<<static_cast<unsigned>(n_groups), kThreads, smem, stream>>>(
             in, n_lists * KP, out, KP, k, vals, idx, n_groups == 1 ? 1 : 0);
         err = cudaGetLastError();
         if (err != cudaSuccess) return err;

@@ -97,7 +97,7 @@ cudaError_t launch_select(const float* w, const float* g, const float* active, c
         w, g, active, scal, K, p_out, capped_out, cand_a, KP, k, vals, idx, n_chunks == 1 ? 1 : 0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    return merge_cuts(cand_a, cand_b, n_chunks, KP, k, vals, idx, stream);
+    return merge_cuts<kChunk>(cand_a, cand_b, n_chunks, KP, k, vals, idx, stream);
 }
 
 }  // namespace

@@ -4,8 +4,9 @@ Each repeats its kernel's arithmetic with the staged engine's operations in
 the staged engine's order (``repro.kernels.ref`` and
 ``repro.kernels.unpack_bits``), so the fused round on the CPU equals the
 staged round, and ``chip_smoke.py`` holds each CUDA kernel against its plain
-version on the card.  A wrapper in ``unpack_bits.py`` / ``round_fused.py``
-takes these only for tensors that lie on the CPU.
+version on the card.  A wrapper in ``unpack_bits.py`` / ``round_fused.py`` /
+``bisect_tiles.py`` / ``gumbel_topk.py`` / ``e3cs_tiles.py`` takes these only
+for tensors that lie on the CPU.
 """
 from __future__ import annotations
 
@@ -27,9 +28,76 @@ __all__ = [
     "round_tail_ref",
     "ring_pop_push",
     "bisect_block_sums_ref",
+    "gumbel_topk_ref",
+    "gumbel_topk_kernel_ref",
+    "fused_gumbel_scores",
+    "fused_gumbel_topk_kernel_ref",
+    "e3cs_update_kernel_ref",
+    "e3cs_update_tiled_ref",
+    "scalar_f32",
 ]
 
 LAG_DEAD_CODE = 3  # 2-bit crumb sentinel of a client that never completes
+_EPS = 1e-20
+
+
+def scalar_f32(v, device) -> torch.Tensor:
+    """``v`` as a float32 0-d tensor on ``device``, rounded once.  A plain
+    version divides and multiplies by such a tensor, never by a Python
+    number (on CUDA PyTorch divides by a Python number as a multiply by its
+    reciprocal)."""
+    if torch.is_tensor(v):
+        return v.to(device=device, dtype=torch.float32).reshape(())
+    return torch.full((), float(v), dtype=torch.float32, device=device)
+
+
+def gumbel_topk_ref(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Top-k indices of perturbed scores, int32, in ``lax.top_k`` order."""
+    return top_k(scores, k)[1]
+
+
+def gumbel_topk_kernel_ref(scores: torch.Tensor, k: int):
+    """The top-k kernel's products: ``(vals, idx)`` of ``scores`` in
+    ``lax.top_k`` order (value descending, ties by index ascending)."""
+    return top_k(scores, k)
+
+
+def fused_gumbel_scores(p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """``log(max(p, 1e-20)) + Gumbel(u)`` with ``Gumbel(u) =
+    -log(-log(clip(u, 1e-20, 1 - 1e-7)))``, ``-inf`` where ``p <= 0``."""
+    g = -torch.log(-torch.log(torch.clamp(u, _EPS, 1.0 - 1e-7)))
+    s = torch.log(torch.clamp(p, min=_EPS)) + g
+    return torch.where(p > 0, s, torch.full_like(s, float("-inf")))
+
+
+def fused_gumbel_topk_kernel_ref(p: torch.Tensor, u: torch.Tensor, k: int):
+    """The fused kernel's products: ``(vals, idx)``, the top k of
+    ``fused_gumbel_scores(p, u)``.  With fewer than k positive ``p`` the tail
+    is ``-inf`` at the lowest indices with ``p <= 0``."""
+    return top_k(fused_gumbel_scores(p, u), k)
+
+
+def _e3cs_new(logw, p, sel_mask, x, frozen, scale):
+    xhat = sel_mask * x / torch.clamp(p, min=1e-12)  # Eq. (16)
+    step = torch.clamp(scalar_f32(scale, logw.device) * xhat, max=1.0)  # Eq. (17) exponent, proof clamp
+    return logw + torch.where(frozen > 0, torch.zeros_like(step), step)
+
+
+def e3cs_update_kernel_ref(logw, p, sel_mask, x, frozen, scale, tile: int = 8192):
+    """The update kernel's products: ``(new_logw, tmax)``, ``tmax`` the max
+    of ``new_logw`` over each tile of ``min(tile, max(K, 8))`` clients
+    (``ceil(K / tile)`` entries, as the Pallas call's grid)."""
+    new = _e3cs_new(logw, p, sel_mask, x, frozen, scale)
+    K = new.shape[0]
+    tile = min(tile, max(K, 8))
+    pad = new.new_full(((-K) % tile,), float("-inf"))
+    return new, torch.cat([new, pad]).reshape(-1, tile).amax(dim=1)
+
+
+def e3cs_update_tiled_ref(logw, p, sel_mask, x, frozen, scale):
+    """The tiled update and its re-centring: ``new - max(new)``."""
+    new = _e3cs_new(logw, p, sel_mask, x, frozen, scale)
+    return new - torch.max(new)
 
 
 def bisect_block_sums_ref(w: torch.Tensor, caps: torch.Tensor, tile: int = 8192) -> torch.Tensor:

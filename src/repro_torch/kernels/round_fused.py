@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from ._build import check, launch, ptr, route
-from .ref import fused_alloc_select_ref, fused_perturb_select_ref, round_tail_ref
+from .ref import fused_alloc_select_ref, fused_perturb_select_ref, round_tail_ref, scalar_f32
 
 __all__ = ["fused_alloc_select", "fused_perturb_select", "fused_round_tail", "MAX_K", "MAX_S"]
 
@@ -32,10 +32,6 @@ MAX_S = 4  # deepest staleness ring the tail kernel takes (kMaxS)
 _TAIL_THREADS = 256
 _KINDS = {"x": 0, "lag": 1, "bits": 2, "crumbs": 3}
 _f32 = torch.float32
-
-
-def _scalar(v, dev) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=_f32, device=dev).reshape(())
 
 
 def _select(w, g, k: int, active, scal):
@@ -70,7 +66,7 @@ def fused_alloc_select(w, g, k: int, *, sigma, scalars: Tuple, active: Optional[
     if not route(w):
         return fused_alloc_select_ref(w, g, k, sigma=sigma, scalars=scalars, active=active)
     residual, cap, denom, use_cap = scalars
-    scal = torch.stack([_scalar(v, w.device) for v in (sigma, residual, cap, denom, use_cap)])
+    scal = torch.stack([scalar_f32(v, w.device) for v in (sigma, residual, cap, denom, use_cap)])
     out = _select(w, g, k, active, scal)
     fused_alloc_select.launches += 1
     return out
@@ -135,7 +131,7 @@ def fused_round_tail(
     launch(
         "repro_round_tail", dev, ptr(obs), _KINDS[kind], ptr(mask), ptr(p), ptr(capped), ptr(logw),
         ptr(loss_cache), ptr(active), ptr(credit if S > 0 else None), ptr(fb if late_fb else None),
-        ptr(_scalar(residual, dev)), float(eta), float(K_glob), *d, S, int(late_fb),
+        ptr(scalar_f32(residual, dev)), float(eta), float(K_glob), *d, S, int(late_fb),
         ptr(x_out), ptr(lag_out), ptr(logw_out), ptr(loss_out), ptr(arriving), ptr(arr_fb), ptr(block_max), K,
     )
     fused_round_tail.launches += 1

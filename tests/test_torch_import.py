@@ -28,7 +28,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chi
 def test_import_leaves_jax_unloaded():
     code = (
         "import sys, repro_torch, repro_torch.engine, repro_torch.kernels, repro_torch.convert, repro_torch.fl, "
-        "repro_torch.launch.mesh, repro_torch.kernels.bisect_tiles, repro_torch.engine.sharded; "
+        "repro_torch.launch.mesh, repro_torch.kernels.bisect_tiles, repro_torch.engine.sharded, "
+        "repro_torch.kernels.ops, repro_torch.kernels.autotune, repro_torch.obs.paths; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'repro' "
         "or m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)"
     )

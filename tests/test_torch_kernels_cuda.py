@@ -1,9 +1,10 @@
 """Each CUDA kernel against its plain PyTorch version on the card, at ragged
 K and at the main path's K = 1,000,003 and k up to 2048, on inputs made with
-numpy from a seed.  The round kernels repeat their plain versions' float32
-operations in the same order (built with ``--fmad=false``), so every product
-must be equal exactly.  ``bisect_block_sums`` adds a tile's terms in another
-order than ``torch.sum``: ``BISECT_RTOL``.
+numpy from a seed.  The round kernels, the top-k kernels and the update
+kernel repeat their plain versions' float32 operations in the same order
+(built with ``--fmad=false``, ``logf`` as ``torch.log`` calls it), so every
+product must be equal exactly.  ``bisect_block_sums`` adds a tile's terms in
+another order than ``torch.sum``: ``BISECT_RTOL``.
 
 This file imports no JAX, so it runs where the card is:
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py``.
@@ -17,13 +18,19 @@ import torch
 
 from repro_torch.kernels import (
     bisect_block_sums,
+    e3cs_update_kernel_call,
     fused_alloc_select,
+    fused_gumbel_topk_kernel_call,
     fused_perturb_select,
     fused_round_tail,
+    gumbel_topk_kernel_call,
+    ops,
     ref,
     unpack_bits,
     unpack_crumbs,
 )
+from repro_torch.kernels._build import UnsupportedLaunch
+from repro_torch.kernels.gumbel_topk import TOPK_TILES, topk_launch
 
 # float32 sums of up to 8192 terms per tile, then of the tiles, in another
 # order than torch.sum takes them: a few units in the last place
@@ -86,6 +93,33 @@ def tail_inputs(n, kind="bits", S=2, with_active=False, late_fb=False, seed=9):
     kw = dict(kind=kind, residual=np.float32(16.0 - n * 0.02), eta=0.5, K_glob=n,
               decay=tuple(0.5 ** (s + 1) for s in range(S)))
     return (obs, mask, p, capped, logw, loss, credit, fb), active, kw
+
+
+def topk_inputs(n, k, seed=11, zero_frac=0.1):
+    """Allocation-like ``p`` (about ``zero_frac`` of it 0, so the fused
+    kernel masks them), its uniform row ``u`` and the scores ``log p + g``
+    of a Gumbel row."""
+    rng = np.random.default_rng(seed)
+    p = rng.gamma(1.0, 1.0, n).astype(np.float32)
+    p = (p / p.sum() * k).astype(np.float32)
+    p[rng.random(n) < zero_frac] = 0.0
+    u = rng.random(n).astype(np.float32)
+    g = rng.gumbel(size=n).astype(np.float32)
+    scores = (np.log(np.maximum(p, np.float32(1e-20))) + g).astype(np.float32)
+    return p, u, scores
+
+
+def update_inputs(n, k, seed=13):
+    """``(logw, p, sel_mask, x, frozen)`` of one E3CS update and its float32
+    ``scale = (k - K sigma) * eta / K``."""
+    rng = np.random.default_rng(seed)
+    logw = rng.normal(0, 1, n).astype(np.float32)
+    p = np.clip(rng.gamma(1.0, 1.0, n) / n * k, 1e-3, 1.0).astype(np.float32)
+    mask = (rng.random(n) < min(1.0, k / n)).astype(np.float32)
+    x = (rng.random(n) < 0.6).astype(np.float32)
+    frozen = (rng.random(n) < 0.05).astype(np.float32)
+    sigma = 0.3 * k / n
+    return (logw, p, mask, x, frozen), np.float32((k - n * sigma) * 0.5 / n)
 
 
 TAIL_CASES = [(kind, 0, False) for kind in ("bits", "x")] + [
@@ -159,3 +193,61 @@ def test_bisect_block_sums_kernel_float64_and_unaligned(cuda, K):
                                rtol=BISECT_RTOL[torch.float32], atol=0)
     with pytest.raises(TypeError, match="float32 or float64"):
         bisect_block_sums(w.half(), caps.half())
+
+
+TOPK_CASES = [(7, 3), (100, 20), (8193, 1000), (1_000_003, 1000)]
+
+
+@pytest.mark.parametrize("tile", TOPK_TILES)
+@pytest.mark.parametrize("K,k", TOPK_CASES, ids=[f"K{K}-k{k}" for K, k in TOPK_CASES])
+def test_topk_kernels_match_plain(cuda, K, k, tile):
+    p, u, scores = (_t(a, cuda) for a in topk_inputs(K, k, seed=K))
+    try:
+        topk_launch(tile, k)
+    except UnsupportedLaunch:
+        with pytest.raises(UnsupportedLaunch):
+            gumbel_topk_kernel_call(scores, k, tile=tile)
+        return
+    before = (gumbel_topk_kernel_call.launches, fused_gumbel_topk_kernel_call.launches)
+    for name, a, b in zip(("vals", "idx"), gumbel_topk_kernel_call(scores, k, tile=tile),
+                          ref.gumbel_topk_kernel_ref(scores, k)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=f"gumbel_topk {name}")
+    for name, a, b in zip(("vals", "idx"), fused_gumbel_topk_kernel_call(p, u, k, tile=tile),
+                          ref.fused_gumbel_topk_kernel_ref(p, u, k)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=f"fused_gumbel_topk {name}")
+    assert (gumbel_topk_kernel_call.launches, fused_gumbel_topk_kernel_call.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_fused_topk_kernel_with_fewer_than_k_positive(cuda):
+    """Fewer than k clients with p > 0: the tail is -inf at the lowest
+    indices with p <= 0, as the plain version's top-k order gives."""
+    K, k = 10_000, 100
+    p, u, _ = topk_inputs(K, k, seed=3, zero_frac=0.0)
+    p[np.random.default_rng(4).permutation(K)[40:]] = 0.0
+    pt, ut = _t(p, cuda), _t(u, cuda)
+    vals, idx = fused_gumbel_topk_kernel_call(pt, ut, k, tile=4096)
+    want_v, want_i = ref.fused_gumbel_topk_kernel_ref(pt, ut, k)
+    torch.testing.assert_close(vals, want_v, rtol=0, atol=0)
+    torch.testing.assert_close(idx, want_i, rtol=0, atol=0)
+    assert bool(torch.isinf(vals[40:]).all())
+    assert idx[40:].tolist() == np.flatnonzero(p <= 0)[:60].tolist()
+
+
+@pytest.mark.parametrize("tile", [48, 1024, 8192, 32768])
+@pytest.mark.parametrize("K,k", [(7, 3), (100, 20), (5000, 100), (1_000_003, 1000)])
+def test_e3cs_update_kernel_matches_plain(cuda, K, k, tile):
+    rows, scale = update_inputs(K, k, seed=K)
+    rows = [_t(a, cuda) for a in rows]
+    sc = _t(scale, cuda)
+    before = e3cs_update_kernel_call.launches
+    new, tmax = e3cs_update_kernel_call(*rows, sc, tile=tile)
+    assert e3cs_update_kernel_call.launches == before + 1
+    want_new, want_tmax = ref.e3cs_update_kernel_ref(*rows, sc, tile=tile)
+    assert tmax.shape == (-(-K // min(tile, max(K, 8))),)
+    torch.testing.assert_close(new, want_new, rtol=0, atol=0)
+    torch.testing.assert_close(tmax, want_tmax, rtol=0, atol=0)
+    # a boolean frozen mask and a Python scale give the same update
+    new_b, _ = e3cs_update_kernel_call(*rows[:4], rows[4] > 0, float(scale), tile=tile)
+    torch.testing.assert_close(new_b, want_new, rtol=0, atol=0)
+    torch.testing.assert_close(ops.e3cs_update_tiled(*rows, sc, tile=tile),
+                               ref.e3cs_update_tiled_ref(*rows, sc), rtol=0, atol=0)
