@@ -10,8 +10,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
 3. kernels: each kernel against its plain PyTorch version on the card at the
    main path's shapes (K = 1,000,000 and a ragged 1,000,003, k = 1000; 3, 15
    and 63 bisection caps; the top-k and update kernels at every tile they
-   are built for), with its time, the plain version's, a library call's
-   where one exists, and its least possible time on this card;
+   are swept at), with its time, the plain version's, a library call's
+   where one exists, and its least possible time on this card; then the
+   three top-k kernels bit for bit on ``ENGINE_CASES``, the inputs that reach
+   every path of their radix select, and one call of each broken down into
+   its stream operations (``[kernel-launches]``);
 4. main path: ``RoundProgram.from_config`` at K = 1e6, k = 1000, T = 50,
    ``allocator="bisect"``, on the card, dense and on a one-rank NCCL mesh
    (``make_host_mesh(1)``, ``block=4``: the K-sharded round with the
@@ -68,6 +71,13 @@ PSUM_RTOL = 1e-3  # sum of 1e6 float32 probabilities against k
 # data-sheet rates (NVIDIA): HBM bytes/s and float32 (non-tensor) flop/s
 CARDS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12), ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12))
 TIMED_CALLS = 20
+# inputs that reach every path of the radix select (all scores equal: the
+# digits reach the index word; fewer than k positive: the -inf fill; one
+# binade: the chosen bin overflows the candidate buffer), k = 1, k = 2048 and
+# K = k, at K = 1e6 and 1,000,003
+ENGINE_CASES = [(case, K, k) for K in (K_MAIN, K_RAGGED)
+                for case, k in (("equal", k_MAIN), ("few_positive", k_MAIN), ("binade", k_MAIN), ("gumbel", 1),
+                                ("gumbel", 2048))] + [("gumbel", 2048, 2048), ("equal", 2048, 2048)]
 # fused runs with no staged partner: every other "-fused" run must have one
 UNPAIRED_FUSED_RUNS = ("mesh-block1-sync-full-fused",)
 
@@ -147,6 +157,27 @@ def main():
             times.append(a.elapsed_time(b) / reps)
         return float(np.median(times))
 
+    def launch_breakdown(kname, fn):
+        """One call's stream operations in order, each with its device
+        time: the call captured in a CUDA graph, one replay under
+        ``torch.profiler``."""
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        ops = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        span = (ops[-1].time_range.end - ops[0].time_range.start) / 1e3 if ops else 0.0
+        log("kernel-launches", kernel=kname, ops=len(ops), span_ms=f"{span:.4f}", card=repr(smi),
+            us=",".join(f"{e.name.split('(')[0].split('<')[0].split('::')[-1][:20]}:{e.time_range.elapsed_us():.1f}"
+                        for e in ops))
+
     def max_err(got, want):
         """Integer and boolean products must be equal; floats within FLOAT_TOL."""
         err = 0.0
@@ -158,7 +189,9 @@ def main():
                 if not torch.equal(a, b):
                     raise AssertionError(f"{key}: kernel and plain version differ")
                 continue
-            e = float((a - b).abs().max()) if a.numel() else 0.0
+            # equal values (infinities too) agree; the rest differ by |a - b|
+            differ = a != b
+            e = float((a - b)[differ].abs().max()) if bool(differ.any()) else 0.0
             if not (e <= FLOAT_TOL):
                 raise AssertionError(f"{key}: max |kernel - plain| = {e} > {FLOAT_TOL}")
             err = max(err, e)
@@ -199,6 +232,8 @@ def main():
                 ms_w = graph_ms(lambda: kn.fused_alloc_select(w, g, k, sigma=sigma, scalars=scalars))
                 ms_p = graph_ms(lambda: kn.fused_perturb_select(p_main, g, k))
                 lib = graph_ms(lambda: torch.topk(scores, k))
+                launch_breakdown("round_select.from_w", lambda: kn.fused_alloc_select(w, g, k, sigma=sigma,
+                                                                                      scalars=scalars))
                 b_w = bound(nbytes(w, g) + 20 + nbytes(want["p"], want["capped"], want["vals"], want["idx"]), 12 * K)
                 b_p = bound(nbytes(p_main, g) + nbytes(want["vals"], want["idx"]), 3 * K)
                 rows["round_select.from_w"] = dict(
@@ -343,6 +378,9 @@ def main():
             # no one PyTorch call perturbs and selects: torch.topk of the
             # perturbed scores, made beforehand, is a lower figure (logged)
             pert = ref.fused_gumbel_scores(pt, ut)
+            for tile in TOPK_TILES:
+                launch_breakdown(f"gumbel_topk@{tile}", lambda: kn.gumbel_topk_kernel_call(scores, k, tile=tile))
+            launch_breakdown("fused_gumbel_topk@4096", lambda: kn.fused_gumbel_topk_kernel_call(pt, ut, k, tile=4096))
             log("kernel-library-lower", kernel="fused_gumbel_topk", call="torch.topk(perturbed scores, k)",
                 ms=f"{graph_ms(lambda: torch.topk(pert, k)):.4f}", card=repr(smi))
             b7 = bound(nbytes(pt, ut, vals6, idx6), 10 * K)
@@ -359,6 +397,27 @@ def main():
                 plain_ms=events_ms(lambda: ref.e3cs_update_kernel_ref(*upd, scale, tile=8192)),
                 bound_ms=b8[0], bound_by=b8[1], library_ms=None)
             del pert, new8, tmax8, upd_copies
+    # the radix select on inputs that reach every path of its engine, bit for
+    # bit: B3 from_w and from_p with and without active, B6 and B7 at every tile
+    for case, K, k in ENGINE_CASES:
+        for with_active in (False, True):
+            args = engine_select_inputs(case, K, k, with_active, rng, dev)
+            got = dict(zip(("p", "capped", "vals", "idx"), kn.fused_alloc_select(*args[:3], **args[3])))
+            want = dict(zip(("p", "capped", "vals", "idx"), ref.fused_alloc_select_ref(*args[:3], **args[3])))
+            err_w = max_err(got, want)
+            act = args[3]["active"]
+            err_p = max_err(dict(zip(("vals", "idx"), kn.fused_perturb_select(want["p"], args[1], k, active=act))),
+                            dict(zip(("vals", "idx"), ref.fused_perturb_select_ref(want["p"], args[1], k, active=act))))
+            log("engine-check", kernel="round_select", case=case, K=K, k=k, active=with_active, from_w_err=err_w,
+                from_p_err=err_p)
+        pe, ue, se = engine_topk_inputs(case, K, k, rng, dev)
+        for tile in TOPK_TILES:
+            err6 = max_err(dict(zip(("vals", "idx"), kn.gumbel_topk_kernel_call(se, k, tile=tile))),
+                           dict(zip(("vals", "idx"), ref.gumbel_topk_kernel_ref(se, k))))
+            err7 = max_err(dict(zip(("vals", "idx"), kn.fused_gumbel_topk_kernel_call(pe, ue, k, tile=tile))),
+                           dict(zip(("vals", "idx"), ref.fused_gumbel_topk_kernel_ref(pe, ue, k))))
+            log("engine-check", kernel="gumbel_topk+fused_gumbel_topk", case=case, K=K, k=k, tile=tile,
+                max_abs_err=err6, fused_max_abs_err=err7)
     # the block allocator where the cap binds (heavy-tailed weights, k = K/10):
     # 12 dyadic blocks through the kernel against 48 plain halvings
     wh = t(rng.gamma(0.3, 1.0, K_MAIN).astype(np.float32))
@@ -416,6 +475,55 @@ def main():
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def engine_select_inputs(case, K, k, with_active, rng, dev):
+    """``(w, g, k, kwargs)`` of a from_w select on one of ``ENGINE_CASES``:
+    Gumbel-perturbed gamma weights, all scores equal, fewer than k active
+    (the -inf fill), or p = 1 and g in one binade [1, 2)."""
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+
+    w = rng.gamma(1.0, 1.0, K)
+    g = rng.gumbel(size=K)
+    active = (rng.random(K) < 0.9).astype(np.float32) if with_active else None
+    if case == "few_positive":
+        active = np.zeros(K, np.float32) if with_active else None
+        if with_active:
+            active[rng.permutation(K)[: k // 2]] = 1.0
+    if case in ("equal", "binade"):
+        w = np.ones(K)
+        g = np.zeros(K) if case == "equal" else rng.uniform(1.0, 2.0, K)
+    if active is not None:
+        w = w * active
+    sigma = 0.3 * k / K
+    # binade: residual 2 over denominator 1 clips p to 1, so the scores are g
+    residual, cap, denom = (2.0, 1.0, 1.0) if case == "binade" else (k - K * sigma, np.quantile(w, 0.999), w.sum())
+    scalars = tuple(torch.tensor(v, dtype=torch.float32, device=dev) for v in (residual, cap, denom))
+    scalars += (torch.tensor(True, device=dev),)
+    return t(w), t(g), k, dict(sigma=torch.tensor(sigma, dtype=torch.float32, device=dev), scalars=scalars,
+                               active=None if active is None else t(active))
+
+
+def engine_topk_inputs(case, K, k, rng, dev):
+    """``(p, u, scores)`` of the top-k kernels on one of ``ENGINE_CASES``."""
+    import torch
+
+    p = rng.gamma(1.0, 1.0, K)
+    p = p / p.sum() * k
+    u = rng.random(K)
+    scores = np.log(p) + rng.gumbel(size=K)
+    if case == "equal":
+        p, u, scores = np.full(K, 0.3), np.full(K, 0.4), np.full(K, 0.5)
+    elif case == "few_positive":
+        keep = np.zeros(K, bool)
+        keep[rng.permutation(K)[: k // 2]] = True
+        p, scores = np.where(keep, p, 0.0), np.where(keep, scores, -np.inf)
+    elif case == "binade":  # log p + Gumbel(u) and the scores in [1, 2)
+        p, u, scores = np.full(K, np.exp(1.5)), rng.uniform(0.2, 0.54, K), rng.uniform(1.0, 2.0, K)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev) for a in (p, u, scores))
 
 
 def main_path(dev, K, k, T, T_short, rng, mesh):

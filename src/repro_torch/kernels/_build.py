@@ -34,14 +34,14 @@ _P, _I64, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "repro_unpack_bits": [_P, _P, _I64, _P],
     "repro_unpack_crumbs": [_P, _P, _I64, _P],
-    "repro_round_select": [_P, _P, _P, _P, _I64, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+    "repro_round_select": [_P, _P, _P, _P, _I64, _I, _P, _P, _I, _I, _I, _I, _I64, _P, _P, _P, _P],
     "repro_round_tail": [
         _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _I, _I,
         _P, _P, _P, _P, _P, _P, _P, _I64, _P,
     ],
     "repro_bisect_block_sums": [_P, _P, _P, _P, _I64, _I64, _I, _I, _I, _P],
-    "repro_gumbel_topk": [_P, _I64, _I, _P, _P, _I, _I, _P, _P, _P],
-    "repro_fused_gumbel_topk": [_P, _P, _I64, _I, _P, _P, _I, _I, _P, _P, _P],
+    "repro_gumbel_topk": [_P, _I64, _I, _I, _I, _I, _I, _I64, _P, _P, _P, _P],
+    "repro_fused_gumbel_topk": [_P, _P, _I64, _I, _I, _I, _I, _I, _I64, _P, _P, _P, _P],
     "repro_e3cs_update": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P],
 }
 

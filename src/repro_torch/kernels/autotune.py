@@ -28,20 +28,19 @@ candidate order is fixed and ties break toward the earlier candidate.
 Candidates differ from the JAX package's where the port's kernels take
 other launch parameters:
 
-* ``gumbel_topk``: ``tile`` is the first-pass chunk of the top-k kernels
-  (keys one CTA sorts in shared memory), 2048 to 16384; the JAX grid's 32768
-  would need 256 KB of shared memory, above the 227 KB a CTA may have on
-  the H100.  A tile must hold two candidate lists of ``k``: a pair the
-  kernel cannot take raises ``UnsupportedLaunch``, and the sweep records
-  that candidate as skipped.
+* ``gumbel_topk``: ``tile`` is the keys a CTA of the top-k kernels' radix
+  select takes per step of its row walks, 2048 to 16384.  A pair the
+  kernel cannot take (``k`` above ``MAX_K``) raises ``UnsupportedLaunch``,
+  and the sweep records that candidate as skipped.
 * ``e3cs_tiles``: ``tile`` is the clients per CTA of the update kernel, as
   the JAX grid block (``tmax`` has the same shape).
 * ``bisect_tiles``: as JAX (clients per CTA of the first pass; caps).
-* ``round_fused``: only 8192, the select kernel's fixed chunk
-  (``csrc/round_select.cu``); its wrapper takes no tile.
+* ``round_fused``: only 4096, the select kernel's fixed step
+  (``csrc/round_select.cu`` kSelectTile); its wrapper takes no tile.
 
-The timer is the port's own ``time_fn``: CUDA events around blocking calls
-on the card, ``perf_counter`` on the CPU.
+The timer is the port's own ``time_fn``: on the card the device time of the
+candidate's calls captured in one CUDA graph, so a pick follows device time
+and not the host's dispatch; ``perf_counter`` on the CPU.
 """
 from __future__ import annotations
 
@@ -67,10 +66,10 @@ __all__ = [
 CACHE_NAME = "torch_autotune"
 
 DEFAULTS: Dict[str, Dict[str, int]] = {
-    "gumbel_topk": {"tile": 8192},
+    "gumbel_topk": {"tile": 4096},  # the fastest B6 and B7 tile on the H100 (PERF.md, PR 14)
     "e3cs_tiles": {"tile": 8192},
     "bisect_tiles": {"tile": 8192, "block": 4},
-    "round_fused": {"tile": 8192},
+    "round_fused": {"tile": 4096},
 }
 
 # Candidate grids.  "tile" is the launch tile of each kernel (see the module
@@ -80,7 +79,7 @@ CANDIDATES: Dict[str, Dict[str, List[int]]] = {
     "gumbel_topk": {"tile": [2048, 4096, 8192, 16384]},
     "e3cs_tiles": {"tile": [2048, 4096, 8192, 16384, 32768]},
     "bisect_tiles": {"tile": [2048, 4096, 8192, 16384, 32768], "block": [2, 4, 6]},
-    "round_fused": {"tile": [8192]},
+    "round_fused": {"tile": [4096]},
 }
 
 _cache_memo: Tuple[Optional[str], Optional[float], Optional[dict]] = (None, None, None)
@@ -171,10 +170,11 @@ def reset_cold() -> None:
 # ---------------------------------------------------------------------------
 
 
-def time_fn(fn, *, iters: int = 3, warmup: int = 1, blocking: bool = True, device=None) -> float:
-    """Microseconds per call of ``fn()``.  On a CUDA device: CUDA events
-    around ``iters`` calls, each followed by a synchronise when
-    ``blocking``; on the CPU: ``perf_counter``."""
+def time_fn(fn, *, iters: int = 3, warmup: int = 1, device=None) -> float:
+    """Microseconds per call of ``fn()``.  On a CUDA device: ``iters`` calls
+    captured in one CUDA graph, replayed once untimed, then timed by CUDA
+    events around one replay: device time, no host dispatch; ``fn`` must
+    not synchronise.  On the CPU: ``perf_counter`` around ``iters`` calls."""
     dev = resolve_device(device)
     for _ in range(warmup):
         fn()
@@ -183,14 +183,16 @@ def time_fn(fn, *, iters: int = 3, warmup: int = 1, blocking: bool = True, devic
         for _ in range(iters):
             fn()
         return (time.perf_counter() - t0) / max(iters, 1) * 1e6
-    torch.cuda.synchronize(dev)
     with torch.cuda.device(dev):
+        torch.cuda.synchronize(dev)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            for _ in range(iters):
+                fn()
+        graph.replay()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(iters):
-            fn()
-            if blocking:
-                torch.cuda.synchronize(dev)
+        graph.replay()
         b.record()
         b.synchronize()
     return a.elapsed_time(b) / max(iters, 1) * 1e3
@@ -254,7 +256,7 @@ def _bench_builder(kernel: str, K: int, seed: int = 0, device=None):
 
         def build(cfg):
             if cfg["tile"] not in CANDIDATES["round_fused"]["tile"]:
-                raise UnsupportedLaunch(f"the select kernel's chunk is fixed at 8192, got tile={cfg['tile']}")
+                raise UnsupportedLaunch(f"the select kernel's step is fixed at 4096, got tile={cfg['tile']}")
             return lambda: fused_alloc_select(w, g, kk, sigma=sigma, scalars=scalars)
         return build
     raise ValueError(f"unknown kernel {kernel!r}")
@@ -288,8 +290,8 @@ def sweep(
     tests; the default is ``time_fn`` on ``device``."""
     dev = resolve_device(device)
     if timer is None:
-        def timer(fn, iters, warmup, blocking):
-            return time_fn(fn, iters=iters, warmup=warmup, blocking=blocking, device=dev)
+        def timer(fn, iters, warmup, blocking):  # the injectable timer's signature; the graph never blocks
+            return time_fn(fn, iters=iters, warmup=warmup, device=dev)
     build = _bench_builder(kernel, K, seed=seed, device=dev)
     table: Dict[str, Any] = {}
     best_cfg: Optional[Dict[str, int]] = None

@@ -11,22 +11,22 @@
 //     where p <= 0, then the top k of s.  The scores never reach HBM.
 // Both return (vals, idx) in lax.top_k order (value descending, index
 // ascending).  The Pallas kernels keep a running top-k across a sequential
-// grid by extracting the tile max k times per tile; here the first pass
-// builds the keys, bitonic-sorts a chunk of them per CTA in shared memory and
-// keeps the top KP, and log-depth cuts of the candidate lists
-// (block_topk.cuh) leave the final k.  The chunk (2048, 4096, 8192 or 16384
-// keys) is the launch tile the autotuner sweeps; the result does not depend
-// on it.
+// grid by extracting the tile max k times per tile; here both run the radix
+// select of radix_topk.cuh, whose passes build each key from the row where
+// they read it (the fused kernel perturbs it again in registers) and
+// otherwise read the candidate buffer.  tile, the keys a CTA takes per step
+// of the row walks (2048 to 16384, the launch tile the autotuner sweeps),
+// sets the grid; the result does not depend on it.
 //
 // Bound on the H100: bytes.  The top-k of scores reads 4 MB at K = 1e6 and
 // writes 8 KB, about 1.2 us at 3.35 TB/s; the fused kernel reads p and u, 8
-// MB, about 2.4 us.  The first pass's shared-memory sort dominates, as in
-// round_select.cu: the design is not at its byte bound (see PERF.md).
+// MB, about 2.4 us.  The select makes about one compare a key in a fixed 9
+// launches, each a few microseconds of latency at this size (see PERF.md).
 //
-// Fewer than k positive p: the masked positions score -inf, which is still a
-// key above every padding key, so the result is filled with -inf at the
-// lowest such indices, as the plain version's lax.top_k order gives (the
-// Pallas kernel fills with -1e30 and index 0).
+// Fewer than k positive p: the masked positions score -inf, an ordinary key,
+// so the result is filled with -inf at the lowest such indices, as the plain
+// version's lax.top_k order gives (the Pallas kernel fills with -1e30 and
+// index 0).
 //
 // logf, never __logf, and no --use_fast_math: the perturbation rounds as the
 // plain PyTorch version's torch.log does on the card.
@@ -34,7 +34,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#include "block_topk.cuh"
+#include "radix_topk.cuh"
 
 namespace {
 
@@ -45,81 +45,66 @@ using namespace repro_topk;
 constexpr float kUMin = static_cast<float>(1e-20);
 constexpr float kUMax = static_cast<float>(1.0 - 1e-7);
 
-template <int Chunk, bool FUSED>
-__global__ void __launch_bounds__(kThreads) topk_chunk_kernel(
-    const float* __restrict__ a, const float* __restrict__ u, int64_t K, uint64_t* __restrict__ cand_out, int KP,
-    int k, float* __restrict__ vals, int32_t* __restrict__ idx, int final_cut) {
-    extern __shared__ uint64_t s[];
-    const int64_t base = static_cast<int64_t>(blockIdx.x) * Chunk;
-    for (int j = threadIdx.x; j < Chunk; j += blockDim.x) {
-        const int64_t i = base + j;
-        uint64_t key = kPadKey;
-        if (i < K) {
-            float score;
-            if (FUSED) {
-                const float p = a[i];
-                const float g = -logf(-logf(fminf(fmaxf(u[i], kUMin), kUMax)));
-                score = p > 0.f ? logf(fmaxf(p, 1e-20f)) + g : -CUDART_INF_F;
-            } else {
-                score = a[i];
-            }
-            key = make_key(score, static_cast<uint32_t>(i));
-        }
-        s[j] = key;
-    }
-    block_sort_desc(s, Chunk, 2);
-    emit_topk(s, final_cut != 0, KP, k, cand_out, vals, idx);
-}
+// given scores
+struct ScoresSrc {
+    const float* a;
 
-template <int Chunk, bool FUSED>
-cudaError_t launch_topk(const float* a, const float* u, int64_t K, uint64_t* cand_a, uint64_t* cand_b, int KP, int k,
-                        float* vals, int32_t* idx, cudaStream_t stream) {
-    const size_t smem = sizeof(uint64_t) * Chunk;
-    cudaError_t err = cudaFuncSetAttribute(topk_chunk_kernel<Chunk, FUSED>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    const int64_t n_chunks = (K + Chunk - 1) / Chunk;
-    topk_chunk_kernel<Chunk, FUSED><<<static_cast<unsigned>(n_chunks), kThreads, smem, stream>>>(
-        a, u, K, cand_a, KP, k, vals, idx, n_chunks == 1 ? 1 : 0);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    return merge_cuts<Chunk>(cand_a, cand_b, n_chunks, KP, k, vals, idx, stream);
-}
+    __device__ void load() {}
+    __device__ __forceinline__ float score(int64_t i, bool) const { return a[i]; }
+    __device__ __forceinline__ void score4(int64_t i, float s[4], bool) const {
+        const float4 v = *reinterpret_cast<const float4*>(a + i);
+        s[0] = v.x;
+        s[1] = v.y;
+        s[2] = v.z;
+        s[3] = v.w;
+    }
+};
 
-template <bool FUSED>
-int dispatch(const void* a, const void* u, int64_t K, int chunk, void* cand_a, void* cand_b, int KP, int k,
-             void* vals, void* idx, void* stream) {
-    if (KP < k || KP > kMaxKP || (KP & (KP - 1)) != 0 || 2 * KP > chunk || k < 1 || K < k || K > 0x7fffffff) {
-        return static_cast<int>(cudaErrorInvalidValue);
+// log p perturbed by Gumbel(u), -inf where p <= 0
+struct FusedSrc {
+    const float* p;
+    const float* u;
+
+    static __device__ __forceinline__ float perturb(float pi, float ui) {
+        const float g = -logf(-logf(fminf(fmaxf(ui, kUMin), kUMax)));
+        return pi > 0.f ? logf(fmaxf(pi, 1e-20f)) + g : -CUDART_INF_F;
     }
-    const auto* a_ = static_cast<const float*>(a);
-    const auto* u_ = static_cast<const float*>(u);
-    auto* ca = static_cast<uint64_t*>(cand_a);
-    auto* cb = static_cast<uint64_t*>(cand_b);
-    auto* v_ = static_cast<float*>(vals);
-    auto* i_ = static_cast<int32_t*>(idx);
-    auto st = static_cast<cudaStream_t>(stream);
-    cudaError_t err;
-    switch (chunk) {
-        case 2048: err = launch_topk<2048, FUSED>(a_, u_, K, ca, cb, KP, k, v_, i_, st); break;
-        case 4096: err = launch_topk<4096, FUSED>(a_, u_, K, ca, cb, KP, k, v_, i_, st); break;
-        case 8192: err = launch_topk<8192, FUSED>(a_, u_, K, ca, cb, KP, k, v_, i_, st); break;
-        case 16384: err = launch_topk<16384, FUSED>(a_, u_, K, ca, cb, KP, k, v_, i_, st); break;
-        default: err = cudaErrorInvalidValue;
+    __device__ void load() {}
+    __device__ __forceinline__ float score(int64_t i, bool) const { return perturb(p[i], u[i]); }
+    __device__ __forceinline__ void score4(int64_t i, float s[4], bool) const {
+        const float4 p4 = *reinterpret_cast<const float4*>(p + i);
+        const float4 u4 = *reinterpret_cast<const float4*>(u + i);
+        s[0] = perturb(p4.x, u4.x);
+        s[1] = perturb(p4.y, u4.y);
+        s[2] = perturb(p4.z, u4.z);
+        s[3] = perturb(p4.w, u4.w);
     }
-    return static_cast<int>(err);
+};
+
+bool aligned(const void* a) { return reinterpret_cast<uintptr_t>(a) % 16 == 0; }
+
+template <class Src>
+int run(const Src& src, bool vec, int64_t K, int tile, int k, int digit_bits, int n_bins, int n_passes, int64_t cap,
+        void* scratch, void* vals, void* idx, void* stream) {
+    if (!launch_ok(K, k, tile, digit_bits, n_bins, n_passes, cap)) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(radix_topk(src, K, k, tile, vec, static_cast<uint64_t*>(scratch), cap,
+                                       static_cast<float*>(vals), static_cast<int32_t*>(idx),
+                                       static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
 
-// Scratch: cand_a holds ceil(K/chunk)*KP keys, cand_b
-// ceil(ceil(K/chunk)/(chunk/KP))*KP.
-extern "C" int repro_gumbel_topk(const void* scores, int64_t K, int chunk, void* cand_a, void* cand_b, int KP, int k,
-                                 void* vals, void* idx, void* stream) {
-    return dispatch<false>(scores, nullptr, K, chunk, cand_a, cand_b, KP, k, vals, idx, stream);
+// Scratch: kHeaderWords + k + 2 * cap uint64 words (radix_topk.cuh).
+extern "C" int repro_gumbel_topk(const void* scores, int64_t K, int tile, int k, int digit_bits, int n_bins,
+                                 int n_passes, int64_t cap, void* scratch, void* vals, void* idx, void* stream) {
+    const ScoresSrc src{static_cast<const float*>(scores)};
+    return run(src, aligned(scores), K, tile, k, digit_bits, n_bins, n_passes, cap, scratch, vals, idx, stream);
 }
 
-extern "C" int repro_fused_gumbel_topk(const void* p, const void* u, int64_t K, int chunk, void* cand_a, void* cand_b,
-                                       int KP, int k, void* vals, void* idx, void* stream) {
-    return dispatch<true>(p, u, K, chunk, cand_a, cand_b, KP, k, vals, idx, stream);
+extern "C" int repro_fused_gumbel_topk(const void* p, const void* u, int64_t K, int tile, int k, int digit_bits,
+                                       int n_bins, int n_passes, int64_t cap, void* scratch, void* vals, void* idx,
+                                       void* stream) {
+    const FusedSrc src{static_cast<const float*>(p), static_cast<const float*>(u)};
+    return run(src, aligned(p) && aligned(u), K, tile, k, digit_bits, n_bins, n_passes, cap, scratch, vals, idx,
+               stream);
 }

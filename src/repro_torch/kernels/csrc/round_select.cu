@@ -14,12 +14,13 @@
 // 13 MB at K = 1e6, about 3.9 us at 3.35 TB/s.  The TPU kernel keeps a
 // running top-k across a sequential grid by extracting the tile max k times
 // per tile (about k*K = 1e9 compare-and-select steps per round at k = 1000),
-// which has no parallel counterpart worth porting.  Here the first pass
-// computes the prelude and, in the same CTA, bitonic-sorts its 8192 keys in
-// shared memory and keeps the top KP; log-depth merges of the candidate
-// lists (block_topk.cuh) leave the final k.  The first pass's sort (91
-// barrier-separated stages over 64 KB of shared memory per CTA) dominates; the
-// design is not yet at its byte bound (see PERF.md).
+// which has no parallel counterpart worth porting.  Here the select is the
+// radix select of radix_topk.cuh: its pass 0 computes this prelude, writes p
+// and capped and counts the first digit of every key in the same walk; the
+// later passes recompute the score from the row where they read it (the
+// prelude is deterministic) and otherwise read the candidate buffer: about
+// one compare a key in a fixed 9 launches, each a few microseconds of latency
+// at this size (see PERF.md).
 //
 // The scalars (sigma, residual, cap, denom, use_cap) are read from a device
 // buffer, so the caller never waits on the host for them.  Compiled with
@@ -29,7 +30,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#include "block_topk.cuh"
+#include "radix_topk.cuh"
 
 namespace {
 
@@ -38,87 +39,101 @@ using namespace repro_topk;
 // 1 - 1e-6 rounded once, as the plain version's comparison with the Python
 // float rounds it.
 constexpr float kCapThresh = static_cast<float>(1.0 - 1e-6);
+// keys a CTA takes per step of the row walks
+constexpr int kSelectTile = 4096;
 
 template <bool FROM_W>
-__global__ void __launch_bounds__(kThreads) select_chunk_kernel(
-    const float* __restrict__ w, const float* __restrict__ g, const float* __restrict__ active,
-    const float* __restrict__ scal, int64_t K, float* __restrict__ p_out, uint8_t* __restrict__ capped_out,
-    uint64_t* __restrict__ cand_out, int KP, int k, float* __restrict__ vals, int32_t* __restrict__ idx,
-    int final_cut) {
-    extern __shared__ uint64_t s[];
-    float sigma = 0.f, residual = 0.f, cap = 0.f, denom = 1.f;
-    bool use_cap = false;
-    if (FROM_W) {
-        sigma = scal[0];
-        residual = scal[1];
-        cap = scal[2];
-        denom = scal[3];
-        use_cap = scal[4] > 0.f;
-    }
-    const int64_t base = static_cast<int64_t>(blockIdx.x) * kChunk;
-    for (int j = threadIdx.x; j < kChunk; j += blockDim.x) {
-        const int64_t i = base + j;
-        uint64_t key = kPadKey;
-        if (i < K) {
-            const bool act = active == nullptr || active[i] > 0.f;
-            float p;
-            if (FROM_W) {
-                const float p_raw = sigma + residual * fminf(w[i], cap) / denom;
-                bool cp = (p_raw >= kCapThresh) && use_cap;
-                p = fminf(fmaxf(p_raw, sigma), 1.f);
-                if (active != nullptr) {
-                    p = p * active[i];
-                    cp = cp && act;
-                }
-                p_out[i] = p;
-                capped_out[i] = cp ? 1 : 0;
-            } else {
-                p = w[i];
-            }
-            const float score = act ? logf(fmaxf(p, 1e-20f)) + g[i] : -CUDART_INF_F;
-            key = make_key(score, static_cast<uint32_t>(i));
+struct SelectSrc {
+    const float* w;  // from_p: p
+    const float* g;
+    const float* active;
+    const float* scal;
+    float* p_out;
+    uint8_t* capped_out;
+    float sigma, residual, cap, denom;
+    bool use_cap;
+
+    __device__ void load() {
+        if (FROM_W) {
+            sigma = scal[0];
+            residual = scal[1];
+            cap = scal[2];
+            denom = scal[3];
+            use_cap = scal[4] > 0.f;
         }
-        s[j] = key;
     }
-    block_sort_desc(s, kChunk, 2);
-    emit_topk(s, final_cut != 0, KP, k, cand_out, vals, idx);
-}
 
-template <bool FROM_W>
-cudaError_t launch_select(const float* w, const float* g, const float* active, const float* scal, int64_t K,
-                          float* p_out, uint8_t* capped_out, uint64_t* cand_a, uint64_t* cand_b, int KP, int k,
-                          float* vals, int32_t* idx, cudaStream_t stream) {
-    const size_t smem = sizeof(uint64_t) * kChunk;
-    cudaError_t err = cudaFuncSetAttribute(select_chunk_kernel<FROM_W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    const int64_t n_chunks = (K + kChunk - 1) / kChunk;
-    select_chunk_kernel<FROM_W><<<static_cast<unsigned>(n_chunks), kThreads, smem, stream>>>(
-        w, g, active, scal, K, p_out, capped_out, cand_a, KP, k, vals, idx, n_chunks == 1 ? 1 : 0);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    return merge_cuts<kChunk>(cand_a, cand_b, n_chunks, KP, k, vals, idx, stream);
-}
+    // the score of one client, with its p and capped
+    __device__ __forceinline__ float eval(float wi, float gi, float ai, float& p, bool& cp) const {
+        const bool act = active == nullptr || ai > 0.f;
+        cp = false;
+        if (FROM_W) {
+            const float p_raw = sigma + residual * fminf(wi, cap) / denom;
+            cp = (p_raw >= kCapThresh) && use_cap;
+            p = fminf(fmaxf(p_raw, sigma), 1.f);
+            if (active != nullptr) {
+                p = p * ai;
+                cp = cp && act;
+            }
+        } else {
+            p = wi;
+        }
+        return act ? logf(fmaxf(p, 1e-20f)) + gi : -CUDART_INF_F;
+    }
+
+    __device__ __forceinline__ float score(int64_t i, bool store) const {
+        float p;
+        bool cp;
+        const float s = eval(w[i], g[i], active != nullptr ? active[i] : 1.f, p, cp);
+        if (FROM_W && store) {
+            p_out[i] = p;
+            capped_out[i] = cp ? 1 : 0;
+        }
+        return s;
+    }
+
+    __device__ __forceinline__ void score4(int64_t i, float s[4], bool store) const {
+        const float4 w4 = *reinterpret_cast<const float4*>(w + i);
+        const float4 g4 = *reinterpret_cast<const float4*>(g + i);
+        const float4 a4 = active != nullptr ? *reinterpret_cast<const float4*>(active + i) : make_float4(1.f, 1.f, 1.f, 1.f);
+        float p[4];
+        bool cp[4];
+        s[0] = eval(w4.x, g4.x, a4.x, p[0], cp[0]);
+        s[1] = eval(w4.y, g4.y, a4.y, p[1], cp[1]);
+        s[2] = eval(w4.z, g4.z, a4.z, p[2], cp[2]);
+        s[3] = eval(w4.w, g4.w, a4.w, p[3], cp[3]);
+        if (FROM_W && store) {
+            *reinterpret_cast<float4*>(p_out + i) = make_float4(p[0], p[1], p[2], p[3]);
+            *reinterpret_cast<uchar4*>(capped_out + i) = make_uchar4(cp[0], cp[1], cp[2], cp[3]);
+        }
+    }
+};
+
+bool aligned(const void* a, unsigned n) { return reinterpret_cast<uintptr_t>(a) % n == 0; }
 
 }  // namespace
 
-// Scratch: cand_a holds ceil(K/8192)*KP keys, cand_b ceil(ceil(K/8192)/(8192/KP))*KP.
+// Scratch: kHeaderWords + k + 2 * cap uint64 words (radix_topk.cuh).
 extern "C" int repro_round_select(const void* w, const void* g, const void* active, const void* scal, int64_t K,
-                                  int from_w, void* p_out, void* capped_out, void* cand_a, void* cand_b, int KP,
-                                  int k, void* vals, void* idx, void* stream) {
-    if (KP < k || KP > repro_topk::kMaxKP || (KP & (KP - 1)) != 0 || k < 1 || K < k) return static_cast<int>(cudaErrorInvalidValue);
-    const auto* w_ = static_cast<const float*>(w);
-    const auto* g_ = static_cast<const float*>(g);
-    const auto* a_ = static_cast<const float*>(active);
-    const auto* s_ = static_cast<const float*>(scal);
-    auto* ca = static_cast<uint64_t*>(cand_a);
-    auto* cb = static_cast<uint64_t*>(cand_b);
+                                  int from_w, void* p_out, void* capped_out, int k, int digit_bits, int n_bins,
+                                  int n_passes, int64_t cap, void* scratch, void* vals, void* idx, void* stream) {
+    if (!launch_ok(K, k, kSelectTile, digit_bits, n_bins, n_passes, cap)) return static_cast<int>(cudaErrorInvalidValue);
+    const bool vec = aligned(w, 16) && aligned(g, 16) && aligned(active, 16) &&
+                     (!from_w || (aligned(p_out, 16) && aligned(capped_out, 4)));
+    auto* sc = static_cast<uint64_t*>(scratch);
     auto* v_ = static_cast<float*>(vals);
     auto* i_ = static_cast<int32_t*>(idx);
     auto st = static_cast<cudaStream_t>(stream);
-    cudaError_t err = from_w
-        ? launch_select<true>(w_, g_, a_, s_, K, static_cast<float*>(p_out), static_cast<uint8_t*>(capped_out), ca, cb,
-                              KP, k, v_, i_, st)
-        : launch_select<false>(w_, g_, a_, s_, K, nullptr, nullptr, ca, cb, KP, k, v_, i_, st);
+    cudaError_t err;
+    if (from_w) {
+        SelectSrc<true> src{static_cast<const float*>(w), static_cast<const float*>(g),
+                            static_cast<const float*>(active), static_cast<const float*>(scal),
+                            static_cast<float*>(p_out), static_cast<uint8_t*>(capped_out)};
+        err = radix_topk(src, K, k, kSelectTile, vec, sc, cap, v_, i_, st);
+    } else {
+        SelectSrc<false> src{static_cast<const float*>(w), static_cast<const float*>(g),
+                             static_cast<const float*>(active), nullptr, nullptr, nullptr};
+        err = radix_topk(src, K, k, kSelectTile, vec, sc, cap, v_, i_, st);
+    }
     return static_cast<int>(err);
 }

@@ -4,7 +4,7 @@
   allocation ``p`` from the four scalars of
   ``engine.sharded.masked_prob_alloc_scalars`` (or takes ``p`` as given),
   adds the Gumbel row and returns the exact top-k in ``lax.top_k`` order
-  (``csrc/round_select.cu``).
+  (``csrc/round_select.cu``, on the radix select of ``gumbel_topk.py``).
 * **tail** (``fused_round_tail``) decodes the outcome row, applies Eq.
   16/17's clamped step, refreshes the loss cache and pops/shifts/pushes the
   credit and feedback rings (``csrc/round_tail.cu``).  The global
@@ -22,12 +22,11 @@ from typing import Optional, Tuple
 import torch
 
 from ._build import check, launch, ptr, route
+from .gumbel_topk import MAX_K, radix_scratch
 from .ref import fused_alloc_select_ref, fused_perturb_select_ref, round_tail_ref, scalar_f32
 
 __all__ = ["fused_alloc_select", "fused_perturb_select", "fused_round_tail", "MAX_K", "MAX_S"]
 
-_CHUNK = 8192  # keys per CTA of the select kernel (block_topk.cuh kChunk)
-MAX_K = 2048  # largest k the select kernel takes (kMaxKP)
 MAX_S = 4  # deepest staleness ring the tail kernel takes (kMaxS)
 _TAIL_THREADS = 256
 _KINDS = {"x": 0, "lag": 1, "bits": 2, "crumbs": 3}
@@ -43,10 +42,7 @@ def _select(w, g, k: int, active, scal):
         raise ValueError(f"the select kernel indexes clients with 32 bits; K={K} is too large")
     for name, t in (("w", w), ("g", g)) + ((("active", active),) if active is not None else ()):
         check(t, name, _f32, (K,), dev)
-    KP = 1 << (k - 1).bit_length()
-    n_chunks = -(-K // _CHUNK)
-    cand_a = torch.empty(n_chunks * KP, dtype=torch.int64, device=dev)
-    cand_b = torch.empty(-(-n_chunks // (_CHUNK // KP)) * KP, dtype=torch.int64, device=dev)
+    scratch, engine = radix_scratch(K, k, dev)
     vals = torch.empty(k, dtype=_f32, device=dev)
     idx = torch.empty(k, dtype=torch.int32, device=dev)
     from_w = scal is not None
@@ -54,7 +50,7 @@ def _select(w, g, k: int, active, scal):
     capped = torch.empty(K, dtype=torch.bool, device=dev) if from_w else None
     launch(
         "repro_round_select", dev, ptr(w), ptr(g), ptr(active), ptr(scal), K, int(from_w),
-        ptr(p), ptr(capped), ptr(cand_a), ptr(cand_b), KP, k, ptr(vals), ptr(idx),
+        ptr(p), ptr(capped), k, *engine, ptr(vals), ptr(idx),
     )
     return p, capped, vals, idx
 

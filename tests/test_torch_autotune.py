@@ -111,15 +111,15 @@ def test_sweep_tie_breaks_to_earlier_candidate():
 def test_sweep_records_unsupported_candidates_as_skipped():
     """A candidate the kernel cannot take is not timed and never wins; the
     table says it was skipped.  round_fused's select kernel has a fixed
-    chunk: any other tile is refused by the builder."""
+    step: any other tile is refused by the builder."""
     def timer(fn, iters, warmup, blocking):
         timer.calls += 1
         return 5.0
 
     timer.calls = 0
-    best, table = autotune.sweep("round_fused", 4096, candidates={"tile": [2048, 8192]}, timer=timer, device="cpu")
-    assert best == {"tile": 8192} and timer.calls == 1
-    assert table['{"tile": 2048}'].startswith("skipped:") and table['{"tile": 8192}'] == 5.0
+    best, table = autotune.sweep("round_fused", 4096, candidates={"tile": [2048, 4096]}, timer=timer, device="cpu")
+    assert best == {"tile": 4096} and timer.calls == 1
+    assert table['{"tile": 2048}'].startswith("skipped:") and table['{"tile": 4096}'] == 5.0
     with pytest.raises(UnsupportedLaunch, match="no candidate"):
         autotune.sweep("round_fused", 4096, candidates={"tile": [2048]}, timer=timer, device="cpu")
 

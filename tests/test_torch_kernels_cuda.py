@@ -29,8 +29,7 @@ from repro_torch.kernels import (
     unpack_bits,
     unpack_crumbs,
 )
-from repro_torch.kernels._build import UnsupportedLaunch
-from repro_torch.kernels.gumbel_topk import TOPK_TILES, topk_launch
+from repro_torch.kernels.gumbel_topk import TOPK_TILES
 
 # float32 sums of up to 8192 terms per tile, then of the tiles, in another
 # order than torch.sum takes them: a few units in the last place
@@ -109,6 +108,52 @@ def topk_inputs(n, k, seed=11, zero_frac=0.1):
     return p, u, scores
 
 
+# inputs that reach every path of the radix select: all scores equal (the
+# digits reach the index word), fewer than k positive p (the -inf fill),
+# one binade (the chosen bin overflows the candidate buffer), k = 1,
+# k = 2048, K = k, and the ragged K = 1,000,003
+ENGINE_CASES = [("equal", 1_000_003, 1000), ("few_positive", 1_000_003, 1000), ("binade", 1_000_003, 1000),
+                ("gumbel", 1_000_003, 1), ("gumbel", 1_000_003, 2048), ("gumbel", 2048, 2048), ("equal", 2048, 2048)]
+ENGINE_IDS = [f"{c}-K{K}-k{k}" for c, K, k in ENGINE_CASES]
+
+
+def engine_select_inputs(case, n, k, with_active=False, seed=5):
+    """``select_inputs`` and the scalars ``(residual, cap, denom)``, shaped
+    into one of ``ENGINE_CASES``."""
+    rng = np.random.default_rng(seed)
+    w, g, active, sigma = select_inputs(n, k, with_active=with_active, seed=seed)
+    ones = np.ones(n, np.float32) if active is None else active
+    if case == "few_positive":
+        ones = np.zeros(n, np.float32)
+        ones[rng.permutation(n)[: k // 2]] = 1.0
+        active = ones if active is not None else None
+        w = w * ones
+    if case in ("equal", "binade"):
+        w = ones.copy()
+        g = np.zeros(n, np.float32) if case == "equal" else rng.uniform(1.0, 2.0, n).astype(np.float32)
+    if case == "binade":  # p = 1 everywhere: the scores are g, in [1, 2)
+        return w, g, active, sigma, (np.float32(2.0), np.float32(1.0), np.float32(1.0))
+    return w, g, active, sigma, (k - n * sigma, np.quantile(w, 0.999), w.sum())
+
+
+def engine_topk_inputs(case, n, k, seed=11):
+    """``topk_inputs`` shaped into one of ``ENGINE_CASES``."""
+    rng = np.random.default_rng(seed)
+    p, u, scores = topk_inputs(n, k, seed=seed)
+    if case == "equal":
+        p, u, scores = (np.full(n, v, np.float32) for v in (0.3, 0.4, 0.5))
+    elif case == "few_positive":
+        keep = np.zeros(n, bool)
+        keep[rng.permutation(n)[: k // 2]] = True
+        p = np.where(keep, p + np.float32(0.01), np.float32(0.0)).astype(np.float32)
+        scores = np.where(keep, scores, np.float32(-np.inf)).astype(np.float32)
+    elif case == "binade":  # log p + Gumbel(u) and the scores in [1, 2)
+        p = np.full(n, np.exp(1.5), np.float32)
+        u = rng.uniform(0.2, 0.54, n).astype(np.float32)
+        scores = rng.uniform(1.0, 2.0, n).astype(np.float32)
+    return p, u, scores
+
+
 def update_inputs(n, k, seed=13):
     """``(logw, p, sel_mask, x, frozen)`` of one E3CS update and its float32
     ``scale = (k - K sigma) * eta / K``."""
@@ -137,12 +182,8 @@ def test_unpack_kernels_match_plain(cuda, K):
     torch.testing.assert_close(unpack_crumbs(crumbs, K), ref.unpack_crumbs_ref(crumbs, K), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("K,k", [(130, 16), (8192, 1000), (8193, 2048), (1_000_003, 1000)])
-@pytest.mark.parametrize("with_active", [False, True], ids=["dense", "active"])
-def test_select_kernel_matches_plain(cuda, K, k, with_active):
-    w, g, active, sigma = select_inputs(K, k, with_active=with_active, seed=K)
-    # any scalars do: the kernel and its plain version take the same ones
-    residual, cap, denom = k - K * sigma, np.quantile(w, 0.999), w.sum()
+def check_select(cuda, w, g, active, sigma, residual, cap, denom, k):
+    """from_w and from_p select against their plain versions, bit for bit."""
     scalars = tuple(_t(np.float32(v), cuda) for v in (residual, cap, denom)) + (_t(np.bool_(True), cuda),)
     sig, act, wt, gt = _t(sigma, cuda), None if active is None else _t(active, cuda), _t(w, cuda), _t(g, cuda)
     got = fused_alloc_select(wt, gt, k, sigma=sig, scalars=scalars, active=act)
@@ -153,6 +194,21 @@ def test_select_kernel_matches_plain(cuda, K, k, with_active):
     want_p = ref.fused_perturb_select_ref(want[0], gt, k, active=act)
     for name, a, b in zip(("vals", "idx"), got_p, want_p):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.parametrize("K,k", [(130, 16), (8192, 1000), (8193, 2048), (1_000_003, 1000)])
+@pytest.mark.parametrize("with_active", [False, True], ids=["dense", "active"])
+def test_select_kernel_matches_plain(cuda, K, k, with_active):
+    w, g, active, sigma = select_inputs(K, k, with_active=with_active, seed=K)
+    # any scalars do: the kernel and its plain version take the same ones
+    check_select(cuda, w, g, active, sigma, k - K * sigma, np.quantile(w, 0.999), w.sum(), k)
+
+
+@pytest.mark.parametrize("case,K,k", ENGINE_CASES, ids=ENGINE_IDS)
+@pytest.mark.parametrize("with_active", [False, True], ids=["dense", "active"])
+def test_select_kernel_exact_on_every_engine_path(cuda, case, K, k, with_active):
+    w, g, active, sigma, (residual, cap, denom) = engine_select_inputs(case, K, k, with_active=with_active, seed=K)
+    check_select(cuda, w, g, active, sigma, residual, cap, denom, k)
 
 
 @pytest.mark.parametrize("K", [130, 1_000_003])
@@ -198,16 +254,9 @@ def test_bisect_block_sums_kernel_float64_and_unaligned(cuda, K):
 TOPK_CASES = [(7, 3), (100, 20), (8193, 1000), (1_000_003, 1000)]
 
 
-@pytest.mark.parametrize("tile", TOPK_TILES)
-@pytest.mark.parametrize("K,k", TOPK_CASES, ids=[f"K{K}-k{k}" for K, k in TOPK_CASES])
-def test_topk_kernels_match_plain(cuda, K, k, tile):
-    p, u, scores = (_t(a, cuda) for a in topk_inputs(K, k, seed=K))
-    try:
-        topk_launch(tile, k)
-    except UnsupportedLaunch:
-        with pytest.raises(UnsupportedLaunch):
-            gumbel_topk_kernel_call(scores, k, tile=tile)
-        return
+def check_topk(p, u, scores, k, tile):
+    """Both top-k kernels against their plain versions, bit for bit, one
+    launch each."""
     before = (gumbel_topk_kernel_call.launches, fused_gumbel_topk_kernel_call.launches)
     for name, a, b in zip(("vals", "idx"), gumbel_topk_kernel_call(scores, k, tile=tile),
                           ref.gumbel_topk_kernel_ref(scores, k)):
@@ -216,6 +265,18 @@ def test_topk_kernels_match_plain(cuda, K, k, tile):
                           ref.fused_gumbel_topk_kernel_ref(p, u, k)):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=f"fused_gumbel_topk {name}")
     assert (gumbel_topk_kernel_call.launches, fused_gumbel_topk_kernel_call.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("tile", TOPK_TILES)
+@pytest.mark.parametrize("K,k", TOPK_CASES, ids=[f"K{K}-k{k}" for K, k in TOPK_CASES])
+def test_topk_kernels_match_plain(cuda, K, k, tile):
+    check_topk(*(_t(a, cuda) for a in topk_inputs(K, k, seed=K)), k, tile)
+
+
+@pytest.mark.parametrize("tile", TOPK_TILES)
+@pytest.mark.parametrize("case,K,k", ENGINE_CASES, ids=ENGINE_IDS)
+def test_topk_kernels_exact_on_every_engine_path(cuda, case, K, k, tile):
+    check_topk(*(_t(a, cuda) for a in engine_topk_inputs(case, K, k, seed=K)), k, tile)
 
 
 def test_fused_topk_kernel_with_fewer_than_k_positive(cuda):

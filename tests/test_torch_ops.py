@@ -243,7 +243,7 @@ def as_if_cuda(monkeypatch):
         monkeypatch.setattr(mod, "route", lambda t: True)
 
 
-@pytest.mark.parametrize("tile,k", [(48, 20), (32768, 100), (2048, 1025), (4096, 2049), (16384, 4000)])
+@pytest.mark.parametrize("tile,k", [(48, 20), (32768, 100), (8192, 2049), (4096, 2049), (16384, 4000)])
 def test_unsupported_topk_launch_raises_on_cuda_route(as_if_cuda, tile, k):
     z = torch.empty(50_000, device="meta")
     with pytest.raises(UnsupportedLaunch):
@@ -256,9 +256,9 @@ def test_unsupported_topk_launch_raises_on_cuda_route(as_if_cuda, tile, k):
 
 
 def test_supported_topk_pairs():
-    assert gumbel_topk_mod.topk_launch(2048, 1000) == 1024
-    assert gumbel_topk_mod.topk_launch(16384, 2048) == 2048
-    assert gumbel_topk_mod.topk_launch(4096, 1) == 1
+    # the radix select takes any k <= MAX_K at every tile: no tile must hold two lists of k
+    for tile, k in ((2048, 1000), (16384, 2048), (4096, 1), (2048, 1025), (2048, 2048)):
+        assert gumbel_topk_mod.topk_launch(tile, k) is None
     # the same pairs take the plain version on the CPU, for any tile
     s = torch.arange(10, dtype=torch.float32)
     assert gumbel_topk_kernel_call(s, 3, tile=48)[1].tolist() == [9, 8, 7]
