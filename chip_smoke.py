@@ -9,12 +9,14 @@ Phases, one line each; any failure raises and the script exits non-zero:
 2. build: compile the CUDA kernels under ``src/repro_torch/kernels/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card at the
    main path's shapes (K = 1,000,000 and a ragged 1,000,003, k = 1000; 3, 15
-   and 63 bisection caps; the top-k and update kernels at every tile they
-   are swept at), with its time, the plain version's, a library call's
-   where one exists, and its least possible time on this card; then the
-   three top-k kernels bit for bit on ``ENGINE_CASES``, the inputs that reach
-   every path of their radix select, and one call of each broken down into
-   its stream operations (``[kernel-launches]``);
+   and 63 bisection caps in float32 and float64; the top-k and update kernels
+   at every tile they are swept at), with its time, the plain version's, a
+   library call's where one exists, and its least possible time on this
+   card (the block sums at each cap count); then the three top-k kernels bit
+   for bit on ``ENGINE_CASES``, the inputs that reach every path of their
+   radix select; one call of the select, the top-k and the block sums broken
+   down into its stream operations (``[kernel-launches]``); and the block
+   sums bit for bit across eager calls and a graph replay;
 4. main path: ``RoundProgram.from_config`` at K = 1e6, k = 1000, T = 50,
    ``allocator="bisect"``, on the card, dense and on a one-rank NCCL mesh
    (``make_host_mesh(1)``, ``block=4``: the K-sharded round with the
@@ -197,9 +199,23 @@ def main():
             err = max(err, e)
         return err
 
-    def bound(nbytes, nops):
-        t_bytes, t_ops = nbytes / bw * 1e3, nops / flops * 1e3
+    def bound(nbytes, nops, rate=flops):
+        t_bytes, t_ops = nbytes / bw * 1e3, nops / rate * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    def check_deterministic(kname, fn):
+        """Two eager calls and a CUDA-graph replay of one call must give the
+        same bits."""
+        a, b = fn(), fn()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            c = fn()
+        c.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not (torch.equal(a, b) and torch.equal(a, c)):
+            raise AssertionError(f"{kname}: eager calls and a graph replay differ")
+        log("kernel-determinism", kernel=kname, eager_eager_graph="bit-identical")
 
     rng = np.random.default_rng(0)
     rows = {}
@@ -300,9 +316,7 @@ def main():
                                    plain_ms=events_ms(lambda: rfn(packed, K)), bound_ms=b[0], bound_by=b[1],
                                    library_ms=None)
         # bisection block sums: 3, 15 and 63 caps drawn inside [0, max w]
-        for n_caps, dtype in ((3, torch.float32), (15, torch.float32), (63, torch.float32), (15, torch.float64)):
-            if dtype == torch.float64 and K != K_MAIN:
-                continue
+        for n_caps, dtype in itertools.product((3, 15, 63), (torch.float32, torch.float64)):
             wd = w.to(dtype)
             caps = t(np.sort(rng.uniform(0.0, float(w.max()), n_caps))).to(dtype)
             got, want = kn.bisect_block_sums(wd, caps), ref.bisect_block_sums_ref(wd, caps)
@@ -313,16 +327,26 @@ def main():
                 raise AssertionError(f"bisect_block_sums K={K} caps={n_caps} {dtype}: max relative error {rel} > {rtol}")
             log("kernel-check", kernel="bisect_block_sums", K=K, n_caps=n_caps, dtype=str(dtype), max_abs_err=err,
                 max_rel_err=rel, rtol=rtol)
-            if K == K_MAIN and n_caps == 15 and dtype == torch.float32:
-                b = bound(nbytes(w, caps, got), 2 * K * n_caps)
-                rows["bisect_block_sums"] = dict(
-                    route="cuda", source="src/repro_torch/kernels/csrc/bisect_block_sums.cu",
-                    replaces="src/repro/kernels/bisect_tiles.py:85", max_abs_err=err,
-                    ms=graph_ms(lambda: kn.bisect_block_sums(w, caps)),
-                    plain_ms=events_ms(lambda: ref.bisect_block_sums_ref(w, caps)),
-                    bound_ms=b[0], bound_by=b[1],
-                    # two PyTorch calls and a (K, n_caps) temporary: no single call computes it
-                    library_ms=graph_ms(lambda: torch.minimum(w[:, None], caps).sum(0)))
+            if K != K_MAIN or dtype != torch.float32:
+                continue
+            # bound: the bytes, or one FMNMX and one FADD per (client, cap) at
+            # the issue rate (neither is an FMA: half the FMA flop rate)
+            b = bound(nbytes(w, caps, got), 2 * K * n_caps, rate=flops / 2)
+            ms = graph_ms(lambda: kn.bisect_block_sums(w, caps))
+            log("kernel-caps-time", kernel="bisect_block_sums", K=K, n_caps=n_caps, ms=f"{ms:.4f}",
+                bound_ms=f"{b[0]:.4f}", bound_by=b[1], card=repr(smi))
+            if n_caps != 15:
+                continue
+            # one launch a call, and the same bits eager and replayed
+            launch_breakdown("bisect_block_sums", lambda: kn.bisect_block_sums(w, caps))
+            check_deterministic("bisect_block_sums", lambda: kn.bisect_block_sums(w, caps))
+            rows["bisect_block_sums"] = dict(
+                route="cuda", source="src/repro_torch/kernels/csrc/bisect_block_sums.cu",
+                replaces="src/repro/kernels/bisect_tiles.py:85", max_abs_err=err, ms=ms,
+                plain_ms=events_ms(lambda: ref.bisect_block_sums_ref(w, caps)),
+                bound_ms=b[0], bound_by=b[1],
+                # two PyTorch calls and a (K, n_caps) temporary: no single call computes it
+                library_ms=graph_ms(lambda: torch.minimum(w[:, None], caps).sum(0)))
         # top-k of given scores (B6), the fused Gumbel top-k (B7) and the tiled
         # E3CS update (B8) at every tile they are built for; a tenth of p is 0
         pt = rng.gamma(1.0, 1.0, K).astype(np.float32)

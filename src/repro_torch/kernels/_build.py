@@ -39,7 +39,7 @@ _SIGNATURES = {
         _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _I, _I,
         _P, _P, _P, _P, _P, _P, _P, _I64, _P,
     ],
-    "repro_bisect_block_sums": [_P, _P, _P, _P, _I64, _I64, _I, _I, _I, _P],
+    "repro_bisect_block_sums": [_P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _P],
     "repro_gumbel_topk": [_P, _I64, _I, _I, _I, _I, _I, _I64, _P, _P, _P, _P],
     "repro_fused_gumbel_topk": [_P, _P, _I64, _I, _I, _I, _I, _I, _I64, _P, _P, _P, _P],
     "repro_e3cs_update": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P],

@@ -8,8 +8,12 @@ binary-searches the sums, so 48 sweeps of the weights become ``ceil(48/b)``.
 min(w_j, caps_b)`` in ``w``'s dtype (float32 or float64).  Padding entries of
 ``w`` must be 0 and ``caps >= 0``.
 
-On a CUDA tensor it launches ``csrc/bisect_block_sums.cu``; on a CPU tensor
-it takes its plain version ``ref.bisect_block_sums_ref``.
+On a CUDA tensor it launches ``csrc/bisect_block_sums.cu``, one kernel a
+call: the last CTA to finish sums the tiles' partials, found by a ticket in a
+slot of the library's static ticket array that each (device, stream) is given
+once and keeps.  Calls that may run at the same time must come from different
+streams.  On a CPU tensor it takes its plain version
+``ref.bisect_block_sums_ref``.
 """
 from __future__ import annotations
 
@@ -21,12 +25,26 @@ from .ref import bisect_block_sums_ref
 __all__ = ["bisect_block_sums", "MAX_CAPS"]
 
 MAX_CAPS = 63  # the most caps the kernel keeps in registers (block <= 6)
+TICKET_SLOTS = 1024  # the kernel's ticket array: streams a device can launch it on
 _DTYPES = (torch.float32, torch.float64)
+_slots: dict[tuple[int, int], int] = {}  # (device index, stream handle) -> ticket slot
+
+
+def _ticket_slot(dev: torch.device) -> int:
+    """The ticket slot of ``dev``'s current stream, given at its first call."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if key not in _slots:
+        n = sum(1 for d, _ in _slots if d == dev.index)
+        if n == TICKET_SLOTS:
+            raise RuntimeError(f"bisect_block_sums: more than {TICKET_SLOTS} streams on {dev}")
+        _slots[key] = n
+    return _slots[key]
 
 
 def bisect_block_sums(w: torch.Tensor, caps: torch.Tensor, tile: int = 8192) -> torch.Tensor:
     """``(n_caps,)`` capped sums ``s_b = sum_j min(w_j, caps_b)``, summed per
-    ``tile``-client tile and then across tiles."""
+    ``tile``-client tile and then across tiles in tile order: the same bits
+    from call to call."""
     if not route(w):
         return bisect_block_sums_ref(w, caps, tile=tile)
     if w.dtype not in _DTYPES:
@@ -40,11 +58,11 @@ def bisect_block_sums(w: torch.Tensor, caps: torch.Tensor, tile: int = 8192) -> 
     check(w, "w", w.dtype, (K,), dev)
     check(caps, "caps", w.dtype, (n_caps,), dev)
     tile = min(tile, max(K, 1))
-    partial = torch.empty(-(-K // tile) * n_caps, dtype=w.dtype, device=dev)
+    partial = torch.empty(max(-(-K // tile), 1) * n_caps, dtype=w.dtype, device=dev)
     out = torch.empty(n_caps, dtype=w.dtype, device=dev)
     vec = int(w.data_ptr() % 16 == 0 and tile * w.element_size() % 16 == 0)
     launch("repro_bisect_block_sums", dev, ptr(w), ptr(caps), ptr(partial), ptr(out), K, tile, n_caps,
-           int(w.dtype == torch.float64), vec)
+           int(w.dtype == torch.float64), vec, _ticket_slot(dev))
     bisect_block_sums.launches += 1
     return out
 

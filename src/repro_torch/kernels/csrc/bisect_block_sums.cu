@@ -4,24 +4,45 @@
 // Replaces the TPU kernel src/repro/kernels/bisect_tiles.py
 // bisect_block_sums_kernel_call (_kernel, line 59).  That kernel carries one
 // output block across a sequential grid; here CTAs run in no order, so the
-// reduction is two passes with no float atomics and a fixed order (the result
-// is the same run to run):
-//   1. one CTA per tile of `tile` clients (123 CTAs at K = 1e6, tile 8192):
-//      each thread reads its share of the tile once, with 16-byte loads, and
-//      keeps one accumulator per cap in registers; a warp-shuffle tree, then
-//      the warps in order, give the tile's (n_caps,) partial sums;
-//   2. one CTA per cap sums the (n_tiles, n_caps) partials across tiles: a
-//      strided per-thread sum, then the same shuffle tree.
+// reduction across tiles ends in the last CTA to finish, in a fixed order and
+// with no float atomics: the result is the same bit for bit run to run, eager
+// or replayed from a CUDA graph.  One launch a call:
+//   1. one 256-thread CTA per tile of `tile` clients (123 CTAs at K = 1e6,
+//      tile 8192): each thread reads its share of the tile with 16-byte loads,
+//      the loop unrolled 8 times (all eight of its loads at tile 8192); one
+//      accumulator per cap in registers, one min and one add per (client,
+//      cap); a warp-shuffle tree, then the warps in order, give the tile's
+//      (n_caps,) partial sums, stored cap-major;
+//   2. thread 0 takes a ticket with one acquire-release integer atomic after a
+//      barrier; the CTA that draws the last ticket sums the (n_caps, n_tiles)
+//      partials in tile order (a warp a cap: each lane a strided run of tiles,
+//      coalesced, then the shuffle tree), writes out, and resets the ticket.
+// The tickets are a static device array, so nothing is allocated or zeroed on
+// the stream: a call is one stream operation, also in a CUDA graph.  The
+// wrapper gives each (device, stream) its own slot; calls that may run at the
+// same time must come from different streams.
 // The caps stay on the device (the caller derives them from its bracket on
 // the device): the kernel reads them by pointer.  float and double are both
 // instantiated; double accumulates in double, as the JAX package's float64
 // reference does.  The accumulators are a template array of 1, 3, 7, 15, 31
-// or 63 (2^b - 1 caps for a block of b halvings); caps past n_caps are 0 and
-// add min(w, 0) = 0 for the non-negative weights.
+// or 63 (2^b - 1 caps for a block of b halvings); 256 threads hold 63 without
+// spilling (float), and 512 were slower at 15 (scripts/bisect_block_sums_variants.cu).
+// Caps past n_caps are 0 and add min(w, 0) = 0 for the non-negative weights.
 //
-// Bound on the H100: bytes.  At K = 1e6 and 15 caps (block = 4) it reads
-// 4.0 MB of weights, about 1.2 us at 3.35 TB/s; the 2 * 15 * 1e6 min and add
-// operations take about 0.45 us at 67 TFLOP/s.
+// Bound on the H100, the larger of:
+//   bytes: 4 bytes a client read once (4.0 MB at K = 1e6), about 1.2 us at
+//     3.35 TB/s;
+//   instruction issue: one FMNMX and one FADD per (client, cap), neither an
+//     FMA, at most 128 lanes a clock on each of 132 SMs (half the 67 TFLOP/s
+//     FMA rate): 2 * K * n_caps / 33.5e12 s, about 0.9 us at 15 caps and
+//     3.8 us at 63, where issue and not bytes bounds it.
+// At 3 and 15 caps the call is latency: the launch, the walk, the ticket and
+// the last CTA's sum, one after the other.  The one launch saves a second
+// launch, but inside a CUDA graph the card overlaps a second launch with the
+// first kernel's end, while the ticket's atomic round trip and the last CTA's
+// reads of the partials overlap nothing; so the ticket costs about as much
+// as the launch it replaces (PERF.md, section 6).  The acquire-release atomic
+// takes the place of a __threadfence per writer, which was slower.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -30,6 +51,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCaps = 63;
+constexpr int kTicketSlots = 1024;  // streams a device can run the kernel on
+__device__ unsigned int g_tickets[kTicketSlots];
 
 template <typename T>
 struct Vec16;
@@ -50,10 +73,13 @@ struct Vec16<double> {
     static constexpr int n = 2;
 };
 
+__device__ __forceinline__ float cap_min(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double cap_min(double a, double b) { return fmin(a, b); }
+
 template <typename T, int NC>
 __device__ __forceinline__ void add_capped(T (&acc)[NC], const T* caps, T v) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[c] += caps[c] < v ? caps[c] : v;
+    for (int c = 0; c < NC; ++c) acc[c] += cap_min(caps[c], v);
 }
 
 template <typename T>
@@ -64,11 +90,13 @@ __device__ __forceinline__ T warp_sum(T v) {
 }
 
 template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads) tile_sums_kernel(
+__global__ void __launch_bounds__(kThreads) block_sums_kernel(
     const T* __restrict__ w, const T* __restrict__ caps, int n_caps, int64_t K, int64_t tile, int vec,
-    T* __restrict__ partial) {
+    T* __restrict__ partial, T* __restrict__ out, int slot) {
+    static_assert(NC <= kThreads, "one writer thread a cap");
     __shared__ T s_caps[NC];
     __shared__ T s_warp[kWarps][NC];
+    __shared__ bool s_last;
     for (int c = threadIdx.x; c < NC; c += kThreads) s_caps[c] = c < n_caps ? caps[c] : T(0);
     __syncthreads();
 
@@ -78,95 +106,121 @@ __global__ void __launch_bounds__(kThreads) tile_sums_kernel(
     const int64_t lo = static_cast<int64_t>(blockIdx.x) * tile;
     const int64_t hi = lo + tile < K ? lo + tile : K;
     int64_t rest = lo;
-    if (vec) {
+    if (vec && hi > lo) {
         using V = typename Vec16<T>::type;
         constexpr int VN = Vec16<T>::n;
         const int64_t nv = (hi - lo) / VN;
         const V* wv = reinterpret_cast<const V*>(w + lo);
-#pragma unroll 4
+        // unrolled 8 times: a thread's eight 16-byte loads (its whole share of
+        // an 8192-float tile) in one block that the compiler schedules with
+        // the arithmetic; the eight written out ahead of it were slower
+#pragma unroll 8
         for (int64_t j = threadIdx.x; j < nv; j += kThreads) {
             T e[VN];
-            Vec16<T>::each(wv[j], e);
+            Vec16<T>::each(__ldg(wv + j), e);
 #pragma unroll
             for (int q = 0; q < VN; ++q) add_capped(acc, s_caps, e[q]);
         }
         rest = lo + nv * VN;
     }
-    for (int64_t i = rest + threadIdx.x; i < hi; i += kThreads) add_capped(acc, s_caps, w[i]);
+#pragma unroll 4
+    for (int64_t i = rest + threadIdx.x; i < hi; i += kThreads) add_capped(acc, s_caps, __ldg(w + i));
 
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-        const T v = warp_sum(acc[c]);
-        if (lane == 0) s_warp[warp][c] = v;
+        const T s = warp_sum(acc[c]);
+        if (lane == 0) s_warp[warp][c] = s;
     }
     __syncthreads();
-    for (int c = threadIdx.x; c < n_caps; c += kThreads) {
-        T s = s_warp[0][c];
+    // the tile's partial, cap-major: partial[c * n_tiles + tile]
+    const int64_t n_tiles = gridDim.x;
+    if (threadIdx.x < n_caps) {
+        T s = s_warp[0][threadIdx.x];
 #pragma unroll
-        for (int j = 1; j < kWarps; ++j) s += s_warp[j][c];
-        partial[static_cast<int64_t>(blockIdx.x) * n_caps + c] = s;
+        for (int j = 1; j < kWarps; ++j) s += s_warp[j][threadIdx.x];
+        partial[threadIdx.x * n_tiles + blockIdx.x] = s;
     }
-}
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) cross_tile_kernel(
-    const T* __restrict__ partial, int64_t n_tiles, int n_caps, T* __restrict__ out) {
-    __shared__ T s_warp[kWarps];
-    const int c = blockIdx.x;
-    T v = T(0);
-    for (int64_t t = threadIdx.x; t < n_tiles; t += kThreads) v += partial[t * n_caps + c];
-    v = warp_sum(v);
-    if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = v;
+    // the ticket: an acquire-release atomic after the barrier publishes the
+    // CTA's partial (the barrier orders the writers' stores before it) and,
+    // in the last CTA, makes every other CTA's partial visible
     __syncthreads();
     if (threadIdx.x == 0) {
-        T s = s_warp[0];
-#pragma unroll
-        for (int j = 1; j < kWarps; ++j) s += s_warp[j];
-        out[c] = s;
+        unsigned int ticket;
+        asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;" : "=r"(ticket) : "l"(g_tickets + slot) : "memory");
+        s_last = ticket == gridDim.x - 1;
     }
+    __syncthreads();
+    if (!s_last) return;
+    // the last CTA sums the partials across tiles in tile order: warp w takes
+    // caps w, w + kWarps, ..., each lane the tiles lane, lane + 32, ... of a
+    // cap's row (coalesced), then the shuffle tree.  Steps of 4 tiles a lane,
+    // the same count in every lane (no remainder loop): a step's
+    // 4 * kCapsPerWarp loads are in flight together.
+    constexpr int kCapsPerWarp = (NC + kWarps - 1) / kWarps;
+    T s[kCapsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kCapsPerWarp; ++i) s[i] = T(0);
+    for (int64_t t0 = lane; t0 < n_tiles; t0 += 4 * 32) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+            const int64_t t = t0 + 32 * u;
+#pragma unroll
+            for (int i = 0; i < kCapsPerWarp; ++i) {
+                const int c = warp + i * kWarps;
+                if (c < n_caps && t < n_tiles) s[i] += __ldcg(partial + c * n_tiles + t);
+            }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < kCapsPerWarp; ++i) {
+        const T total = warp_sum(s[i]);
+        const int c = warp + i * kWarps;
+        if (lane == 0 && c < n_caps) out[c] = total;
+    }
+    if (threadIdx.x == 0) g_tickets[slot] = 0;
 }
 
 template <typename T, int NC>
-void launch_tiles(const T* w, const T* caps, int n_caps, int64_t K, int64_t tile, int vec, T* partial,
-                  int64_t n_tiles, cudaStream_t stream) {
-    tile_sums_kernel<T, NC><<<static_cast<unsigned>(n_tiles), kThreads, 0, stream>>>(w, caps, n_caps, K, tile, vec,
-                                                                                      partial);
+void launch_nc(const T* w, const T* caps, int n_caps, int64_t K, int64_t tile, int vec, T* partial, T* out,
+               unsigned n_ctas, int slot, cudaStream_t stream) {
+    block_sums_kernel<T, NC><<<n_ctas, kThreads, 0, stream>>>(w, caps, n_caps, K, tile, vec, partial, out, slot);
 }
 
 template <typename T>
 int launch(const void* w_, const void* caps_, void* partial_, void* out_, int64_t K, int64_t tile, int n_caps,
-           int vec, cudaStream_t stream) {
+           int vec, int slot, cudaStream_t stream) {
     const T* w = static_cast<const T*>(w_);
     const T* caps = static_cast<const T*>(caps_);
     T* partial = static_cast<T*>(partial_);
-    const int64_t n_tiles = (K + tile - 1) / tile;
-    if (n_tiles > 0) {
-        if (n_caps <= 1) launch_tiles<T, 1>(w, caps, n_caps, K, tile, vec, partial, n_tiles, stream);
-        else if (n_caps <= 3) launch_tiles<T, 3>(w, caps, n_caps, K, tile, vec, partial, n_tiles, stream);
-        else if (n_caps <= 7) launch_tiles<T, 7>(w, caps, n_caps, K, tile, vec, partial, n_tiles, stream);
-        else if (n_caps <= 15) launch_tiles<T, 15>(w, caps, n_caps, K, tile, vec, partial, n_tiles, stream);
-        else if (n_caps <= 31) launch_tiles<T, 31>(w, caps, n_caps, K, tile, vec, partial, n_tiles, stream);
-        else launch_tiles<T, kMaxCaps>(w, caps, n_caps, K, tile, vec, partial, n_tiles, stream);
-        const cudaError_t err = cudaGetLastError();
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    cross_tile_kernel<T><<<static_cast<unsigned>(n_caps), kThreads, 0, stream>>>(partial, n_tiles, n_caps,
-                                                                                  static_cast<T*>(out_));
+    T* out = static_cast<T*>(out_);
+    // K = 0 still takes one CTA: its empty tile sums to 0 and it writes out
+    const int64_t n_tiles = K > 0 ? (K + tile - 1) / tile : 1;
+    const unsigned n = static_cast<unsigned>(n_tiles);
+    if (n_caps <= 1) launch_nc<T, 1>(w, caps, n_caps, K, tile, vec, partial, out, n, slot, stream);
+    else if (n_caps <= 3) launch_nc<T, 3>(w, caps, n_caps, K, tile, vec, partial, out, n, slot, stream);
+    else if (n_caps <= 7) launch_nc<T, 7>(w, caps, n_caps, K, tile, vec, partial, out, n, slot, stream);
+    else if (n_caps <= 15) launch_nc<T, 15>(w, caps, n_caps, K, tile, vec, partial, out, n, slot, stream);
+    else if (n_caps <= 31) launch_nc<T, 31>(w, caps, n_caps, K, tile, vec, partial, out, n, slot, stream);
+    else launch_nc<T, kMaxCaps>(w, caps, n_caps, K, tile, vec, partial, out, n, slot, stream);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // w: (K,) non-negative weights, zero padding allowed; caps: (n_caps,) >= 0 of
-// the same type; partial: ceil(K / tile) * n_caps scratch; out: (n_caps,).
-// vec = 1 promises that w and every tile start are 16-byte aligned.
+// the same type; partial: max(ceil(K / tile), 1) * n_caps scratch; out:
+// (n_caps,).  vec = 1 promises that w and every tile start are 16-byte
+// aligned.  slot: this stream's ticket, 0 <= slot < 1024; no two launches
+// that may run at the same time share one.
 extern "C" int repro_bisect_block_sums(const void* w, const void* caps, void* partial, void* out, int64_t K,
-                                       int64_t tile, int n_caps, int is_double, int vec, void* stream) {
-    if (n_caps < 1 || n_caps > kMaxCaps || tile < 1 || K < 0 || (K + tile - 1) / tile > 0x7fffffff) {
+                                       int64_t tile, int n_caps, int is_double, int vec, int slot, void* stream) {
+    if (n_caps < 1 || n_caps > kMaxCaps || tile < 1 || K < 0 || (K + tile - 1) / tile > 0x7fffffff ||
+        slot < 0 || slot >= kTicketSlots) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return is_double ? launch<double>(w, caps, partial, out, K, tile, n_caps, vec, s)
-                     : launch<float>(w, caps, partial, out, K, tile, n_caps, vec, s);
+    return is_double ? launch<double>(w, caps, partial, out, K, tile, n_caps, vec, slot, s)
+                     : launch<float>(w, caps, partial, out, K, tile, n_caps, vec, slot, s);
 }

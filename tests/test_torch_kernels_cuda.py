@@ -64,7 +64,7 @@ def bisect_inputs(n, n_caps, dtype=np.float32, seed=3):
     rng = np.random.default_rng(seed + n)
     w = rng.gamma(1.0, 1.0, n)
     w[::7] = 0.0
-    caps = np.sort(rng.uniform(0.0, max(float(w.max()), 1e-3), n_caps))
+    caps = np.sort(rng.uniform(0.0, max(float(w.max(initial=0.0)), 1e-3), n_caps))
     return w.astype(dtype), caps.astype(dtype)
 
 
@@ -249,6 +249,50 @@ def test_bisect_block_sums_kernel_float64_and_unaligned(cuda, K):
                                rtol=BISECT_RTOL[torch.float32], atol=0)
     with pytest.raises(TypeError, match="float32 or float64"):
         bisect_block_sums(w.half(), caps.half())
+
+
+def test_bisect_block_sums_kernel_ticket_resets_over_1000_calls(cuda):
+    """One launch a call, its last CTA found by a ticket that it resets: 1000
+    calls in a row, alternating a 123-CTA grid of 15 caps with a 2-CTA grid
+    of 63, each equal bit for bit to the first call of its shape."""
+    shapes = [tuple(_t(a, cuda) for a in bisect_inputs(K, n_caps)) for K, n_caps in ((1_000_000, 15), (8193, 63))]
+    before = bisect_block_sums.launches
+    outs = [bisect_block_sums(*shapes[i % 2]) for i in range(1000)]
+    assert bisect_block_sums.launches == before + 1000
+    for i, got in enumerate(outs):
+        torch.testing.assert_close(got, outs[i % 2], rtol=0, atol=0, msg=f"call {i}")
+    for (w, caps), got in zip(shapes, outs[:2]):
+        torch.testing.assert_close(got, ref.bisect_block_sums_ref(w, caps), rtol=BISECT_RTOL[w.dtype], atol=0)
+
+
+def test_bisect_block_sums_kernel_graph_replay_bit_identical(cuda):
+    """20 calls captured in one CUDA graph, replayed 3 times: every output
+    equals the eager call bit for bit."""
+    w, caps = (_t(a, cuda) for a in bisect_inputs(1_000_000, 15))
+    want = bisect_block_sums(w, caps)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [bisect_block_sums(w, caps) for _ in range(20)]
+    for replay in range(3):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for i, got in enumerate(outs):
+            torch.testing.assert_close(got, want, rtol=0, atol=0, msg=f"replay {replay}, call {i}")
+
+
+@pytest.mark.parametrize("n_caps", [1, 15, 63])
+@pytest.mark.parametrize("K", [0, 5000])
+def test_bisect_block_sums_kernel_single_cta(cuda, K, n_caps):
+    """K below the tile: a grid of one CTA, which is also the last (K = 0
+    too: its empty tile sums to 0)."""
+    w, caps = (_t(a, cuda) for a in bisect_inputs(K, n_caps))
+    got = bisect_block_sums(w, caps, tile=8192)
+    torch.testing.assert_close(got, ref.bisect_block_sums_ref(w, caps, tile=8192), rtol=BISECT_RTOL[w.dtype], atol=0)
+    if K == 0:
+        assert not bool(got.any())
 
 
 TOPK_CASES = [(7, 3), (100, 20), (8193, 1000), (1_000_003, 1000)]
