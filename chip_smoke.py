@@ -45,6 +45,7 @@ Ends with a JSON line of per-kernel numbers and, last, ``{"ok": true,
 """
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -329,12 +330,17 @@ def main():
                 max_rel_err=rel, rtol=rtol)
             if K != K_MAIN or dtype != torch.float32:
                 continue
-            # bound: the bytes, or one FMNMX and one FADD per (client, cap) at
-            # the issue rate (neither is an FMA: half the FMA flop rate)
-            b = bound(nbytes(w, caps, got), 2 * K * n_caps, rate=flops / 2)
+            # bound: the bytes, or the instructions the function needs at the
+            # issue rate (min and add are not FMAs: half the FMA flop rate).
+            # With sorted caps, s_b = sum_{w < c_b} w + c_b * #{w >= c_b}: a
+            # binary search of the caps and two adds a client.  The per-cap
+            # algorithm's own floor (one FMNMX and one FADD per client and
+            # cap) is logged beside it, not taken as the function's.
+            b = bound(nbytes(w, caps, got), K * (math.ceil(math.log2(n_caps + 1)) + 2), rate=flops / 2)
             ms = graph_ms(lambda: kn.bisect_block_sums(w, caps))
             log("kernel-caps-time", kernel="bisect_block_sums", K=K, n_caps=n_caps, ms=f"{ms:.4f}",
-                bound_ms=f"{b[0]:.4f}", bound_by=b[1], card=repr(smi))
+                bound_ms=f"{b[0]:.4f}", bound_by=b[1], per_cap_issue_floor_ms=f"{2 * K * n_caps / flops * 2e3:.4f}",
+                card=repr(smi))
             if n_caps != 15:
                 continue
             # one launch a call, and the same bits eager and replayed

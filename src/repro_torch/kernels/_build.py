@@ -40,6 +40,8 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _I64, _P,
     ],
     "repro_bisect_block_sums": [_P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _P],
+    "repro_bisect_ticket_slots": [],
+    "repro_stream_capture_id": [_P, _P],
     "repro_gumbel_topk": [_P, _I64, _I, _I, _I, _I, _I, _I64, _P, _P, _P, _P],
     "repro_fused_gumbel_topk": [_P, _P, _I64, _I, _I, _I, _I, _I, _I64, _P, _P, _P, _P],
     "repro_e3cs_update": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P],
@@ -124,13 +126,15 @@ def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Call one C entry on ``device``'s current stream, without
-    synchronising, and raise on a CUDA error (a refused launch never runs,
-    and a later synchronise would not say so)."""
+def launch(name: str, device: torch.device, *args, stream: int | None = None) -> None:
+    """Call one C entry on ``stream`` (a handle; ``device``'s current stream
+    by default), without synchronising, and raise on a CUDA error (a refused
+    launch never runs, and a later synchronise would not say so)."""
     lib = load_library()
+    if stream is None:
+        stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        err = getattr(lib, name)(*args, torch.cuda.current_stream(device).cuda_stream)
+        err = getattr(lib, name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
 

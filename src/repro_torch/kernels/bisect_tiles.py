@@ -10,35 +10,49 @@ min(w_j, caps_b)`` in ``w``'s dtype (float32 or float64).  Padding entries of
 
 On a CUDA tensor it launches ``csrc/bisect_block_sums.cu``, one kernel a
 call: the last CTA to finish sums the tiles' partials, found by a ticket in a
-slot of the library's static ticket array that each (device, stream) is given
-once and keeps.  Calls that may run at the same time must come from different
-streams.  On a CPU tensor it takes its plain version
-``ref.bisect_block_sums_ref``.
+slot of the library's static ticket array.  Eager calls on one (device,
+stream) share a slot; each CUDA-graph capture takes a slot of its own for
+each stream it captures on, so that graphs replayed at the same time, or a
+graph and eager calls, never share one.  Eager calls that may run at the same
+time must come from different streams.  On a CPU tensor it takes its plain
+version ``ref.bisect_block_sums_ref``.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from ._build import check, launch, ptr, route
+from ._build import check, launch, load_library, ptr, route
 from .ref import bisect_block_sums_ref
 
 __all__ = ["bisect_block_sums", "MAX_CAPS"]
 
 MAX_CAPS = 63  # the most caps the kernel keeps in registers (block <= 6)
-TICKET_SLOTS = 1024  # the kernel's ticket array: streams a device can launch it on
 _DTYPES = (torch.float32, torch.float64)
-_slots: dict[tuple[int, int], int] = {}  # (device index, stream handle) -> ticket slot
+# (device index, stream handle, capture id or None) -> ticket slot, given at
+# the key's first launch and kept
+_slots: dict[tuple[int, int, int | None], int] = {}
+_n_slots: dict[int, int] = {}  # device index -> slots given
 
 
-def _ticket_slot(dev: torch.device) -> int:
-    """The ticket slot of ``dev``'s current stream, given at its first call."""
-    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    if key not in _slots:
-        n = sum(1 for d, _ in _slots if d == dev.index)
-        if n == TICKET_SLOTS:
-            raise RuntimeError(f"bisect_block_sums: more than {TICKET_SLOTS} streams on {dev}")
-        _slots[key] = n
-    return _slots[key]
+def _ticket_slot(dev: torch.device, stream: int) -> int:
+    """The ticket slot of a launch on ``stream``: one for the stream's eager
+    calls, and one for each graph capture in progress on it."""
+    lib = load_library()
+    state = (ctypes.c_ulonglong * 2)()
+    err = lib.repro_stream_capture_id(stream, state)
+    if err != 0:
+        raise RuntimeError(f"bisect_block_sums: CUDA error {err} querying the stream's capture")
+    key = (dev.index, stream, state[1] if state[0] else None)
+    slot = _slots.get(key)
+    if slot is None:
+        slot = _n_slots.get(dev.index, 0)
+        if slot == lib.repro_bisect_ticket_slots():
+            raise RuntimeError(f"bisect_block_sums: all {slot} ticket slots of {dev} are taken "
+                               "(one per stream and one per graph capture)")
+        _slots[key], _n_slots[dev.index] = slot, slot + 1
+    return slot
 
 
 def bisect_block_sums(w: torch.Tensor, caps: torch.Tensor, tile: int = 8192) -> torch.Tensor:
@@ -61,8 +75,9 @@ def bisect_block_sums(w: torch.Tensor, caps: torch.Tensor, tile: int = 8192) -> 
     partial = torch.empty(max(-(-K // tile), 1) * n_caps, dtype=w.dtype, device=dev)
     out = torch.empty(n_caps, dtype=w.dtype, device=dev)
     vec = int(w.data_ptr() % 16 == 0 and tile * w.element_size() % 16 == 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     launch("repro_bisect_block_sums", dev, ptr(w), ptr(caps), ptr(partial), ptr(out), K, tile, n_caps,
-           int(w.dtype == torch.float64), vec, _ticket_slot(dev))
+           int(w.dtype == torch.float64), vec, _ticket_slot(dev, stream), stream=stream)
     bisect_block_sums.launches += 1
     return out
 

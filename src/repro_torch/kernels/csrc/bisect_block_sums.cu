@@ -11,38 +11,46 @@
 //      tile 8192): each thread reads its share of the tile with 16-byte loads,
 //      the loop unrolled 8 times (all eight of its loads at tile 8192); one
 //      accumulator per cap in registers, one min and one add per (client,
-//      cap); a warp-shuffle tree, then the warps in order, give the tile's
-//      (n_caps,) partial sums, stored cap-major;
-//   2. thread 0 takes a ticket with one acquire-release integer atomic after a
-//      barrier; the CTA that draws the last ticket sums the (n_caps, n_tiles)
-//      partials in tile order (a warp a cap: each lane a strided run of tiles,
-//      coalesced, then the shuffle tree), writes out, and resets the ticket.
+//      cap); a warp folds its lanes' accumulators (at each of the five steps a
+//      lane keeps half its values and trades the other half with its partner:
+//      NP - 1 shuffles for NP accumulators, not 5 * NP), then the warps in
+//      order give the tile's (n_caps,) partial sums, stored cap-major;
+//   2. thread 0 takes a ticket after a barrier with one acquire-release
+//      integer atomic that wraps to 0 on the last ticket (atom.inc); the CTA
+//      that draws it sums the (n_caps, n_tiles) partials in tile order (a warp
+//      a cap: each lane a strided run of tiles, coalesced, then the shuffle
+//      tree) and writes out.
 // The tickets are a static device array, so nothing is allocated or zeroed on
 // the stream: a call is one stream operation, also in a CUDA graph.  The
-// wrapper gives each (device, stream) its own slot; calls that may run at the
-// same time must come from different streams.
+// wrapper gives each (device, stream) a slot for its eager calls and each
+// graph capture a slot of its own (repro_stream_capture_id); calls that may
+// run at the same time never share one.
 // The caps stay on the device (the caller derives them from its bracket on
 // the device): the kernel reads them by pointer.  float and double are both
 // instantiated; double accumulates in double, as the JAX package's float64
 // reference does.  The accumulators are a template array of 1, 3, 7, 15, 31
 // or 63 (2^b - 1 caps for a block of b halvings); 256 threads hold 63 without
-// spilling (float), and 512 were slower at 15 (scripts/bisect_block_sums_variants.cu).
+// spilling (float), and 512 were slower at 15 (PERF.md, section 6).
 // Caps past n_caps are 0 and add min(w, 0) = 0 for the non-negative weights.
 //
 // Bound on the H100, the larger of:
 //   bytes: 4 bytes a client read once (4.0 MB at K = 1e6), about 1.2 us at
 //     3.35 TB/s;
-//   instruction issue: one FMNMX and one FADD per (client, cap), neither an
-//     FMA, at most 128 lanes a clock on each of 132 SMs (half the 67 TFLOP/s
-//     FMA rate): 2 * K * n_caps / 33.5e12 s, about 0.9 us at 15 caps and
-//     3.8 us at 63, where issue and not bytes bounds it.
+//   operations the function needs: with the caps sorted (the caller's are
+//     evenly spaced), s_b = sum_{w < c_b} w + c_b * #{w >= c_b}, so a client
+//     costs a binary search of the caps and two adds, K * (ceil(log2(n_caps +
+//     1)) + 2) instructions at 33.5e12 a second (128 lanes a clock on each of
+//     132 SMs): 0.24 us at 63 caps, so the bytes bound it at every cap count.
+// This per-cap algorithm issues more: one FMNMX and one FADD per (client,
+// cap), 2 * K * n_caps instructions, an issue floor of its own of about 0.9 us
+// at 15 caps and 3.8 us at 63.
 // At 3 and 15 caps the call is latency: the launch, the walk, the ticket and
 // the last CTA's sum, one after the other.  The one launch saves a second
 // launch, but inside a CUDA graph the card overlaps a second launch with the
 // first kernel's end, while the ticket's atomic round trip and the last CTA's
-// reads of the partials overlap nothing; so the ticket costs about as much
-// as the launch it replaces (PERF.md, section 6).  The acquire-release atomic
-// takes the place of a __threadfence per writer, which was slower.
+// reads of the partials overlap nothing (PERF.md, section 6).  The
+// acquire-release atomic takes the place of a __threadfence per writer, which
+// was slower.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -51,7 +59,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCaps = 63;
-constexpr int kTicketSlots = 1024;  // streams a device can run the kernel on
+constexpr int kTicketSlots = 65536;  // eager streams and graph captures of a device
 __device__ unsigned int g_tickets[kTicketSlots];
 
 template <typename T>
@@ -87,6 +95,52 @@ __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
     return v;
+}
+
+// One step of a warp's fold at lane offset OFF, N values a lane: the lane
+// keeps the upper half of its values if its OFF bit is set, else the lower,
+// and adds its partner's copy of the half it keeps.  After the steps that
+// halve N down to 1, plain butterfly steps add the rest of the warp.
+template <int N, int OFF, typename T, int NP>
+__device__ __forceinline__ void fold_step(T (&v)[NP], int lane) {
+    if constexpr (OFF > 0) {
+        if constexpr (N > 1) {
+            constexpr int H = N / 2;
+            const bool upper = (lane & OFF) != 0;
+#pragma unroll
+            for (int j = 0; j < H; ++j) {
+                const T send = upper ? v[j] : v[j + H];
+                const T keep = upper ? v[j + H] : v[j];
+                v[j] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+            }
+            fold_step<H, OFF / 2>(v, lane);
+        } else {
+            v[0] += __shfl_xor_sync(0xffffffffu, v[0], OFF);
+            fold_step<1, OFF / 2>(v, lane);
+        }
+    }
+}
+
+__host__ __device__ constexpr int log2_of(int n) { return n <= 1 ? 0 : 1 + log2_of(n / 2); }
+
+// The warp's sums of NC accumulators (NC + 1 a power of two, at most 64) into
+// s_row[c]: folded in runs of at most 32, after which lane l holds the sum of
+// accumulator l >> (5 - log2(run)) of its run.
+template <typename T, int NC>
+__device__ __forceinline__ void warp_sums_to(const T (&acc)[NC], T* s_row, int lane) {
+    constexpr int NP = NC + 1;
+    static_assert((NP & (NP - 1)) == 0 && NP <= 64, "2^b - 1 caps, b <= 6");
+    constexpr int RUN = NP < 32 ? NP : 32;
+    constexpr int SHIFT = 5 - log2_of(RUN);
+#pragma unroll
+    for (int r = 0; r < NP; r += RUN) {
+        T v[RUN];
+#pragma unroll
+        for (int j = 0; j < RUN; ++j) v[j] = r + j < NC ? acc[r + j] : T(0);
+        fold_step<RUN, 16>(v, lane);
+        const int c = r + (lane >> SHIFT);
+        if ((lane & ((1 << SHIFT) - 1)) == 0 && c < NC) s_row[c] = v[0];
+    }
 }
 
 template <typename T, int NC>
@@ -127,11 +181,7 @@ __global__ void __launch_bounds__(kThreads) block_sums_kernel(
     for (int64_t i = rest + threadIdx.x; i < hi; i += kThreads) add_capped(acc, s_caps, __ldg(w + i));
 
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-        const T s = warp_sum(acc[c]);
-        if (lane == 0) s_warp[warp][c] = s;
-    }
+    warp_sums_to(acc, s_warp[warp], lane);
     __syncthreads();
     // the tile's partial, cap-major: partial[c * n_tiles + tile]
     const int64_t n_tiles = gridDim.x;
@@ -144,11 +194,14 @@ __global__ void __launch_bounds__(kThreads) block_sums_kernel(
 
     // the ticket: an acquire-release atomic after the barrier publishes the
     // CTA's partial (the barrier orders the writers' stores before it) and,
-    // in the last CTA, makes every other CTA's partial visible
+    // in the last CTA, makes every other CTA's partial visible.  atom.inc
+    // stores old >= gridDim.x - 1 ? 0 : old + 1, so the last ticket leaves 0
+    // for the next call with no store of its own
     __syncthreads();
     if (threadIdx.x == 0) {
         unsigned int ticket;
-        asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;" : "=r"(ticket) : "l"(g_tickets + slot) : "memory");
+        asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;"
+                     : "=r"(ticket) : "l"(g_tickets + slot), "r"(gridDim.x - 1) : "memory");
         s_last = ticket == gridDim.x - 1;
     }
     __syncthreads();
@@ -179,7 +232,6 @@ __global__ void __launch_bounds__(kThreads) block_sums_kernel(
         const int c = warp + i * kWarps;
         if (lane == 0 && c < n_caps) out[c] = total;
     }
-    if (threadIdx.x == 0) g_tickets[slot] = 0;
 }
 
 template <typename T, int NC>
@@ -212,8 +264,8 @@ int launch(const void* w_, const void* caps_, void* partial_, void* out_, int64_
 // w: (K,) non-negative weights, zero padding allowed; caps: (n_caps,) >= 0 of
 // the same type; partial: max(ceil(K / tile), 1) * n_caps scratch; out:
 // (n_caps,).  vec = 1 promises that w and every tile start are 16-byte
-// aligned.  slot: this stream's ticket, 0 <= slot < 1024; no two launches
-// that may run at the same time share one.
+// aligned.  slot: the launch's ticket, 0 <= slot < repro_bisect_ticket_slots();
+// no two launches that may run at the same time share one.
 extern "C" int repro_bisect_block_sums(const void* w, const void* caps, void* partial, void* out, int64_t K,
                                        int64_t tile, int n_caps, int is_double, int vec, int slot, void* stream) {
     if (n_caps < 1 || n_caps > kMaxCaps || tile < 1 || K < 0 || (K + tile - 1) / tile > 0x7fffffff ||
@@ -223,4 +275,19 @@ extern "C" int repro_bisect_block_sums(const void* w, const void* caps, void* pa
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return is_double ? launch<double>(w, caps, partial, out, K, tile, n_caps, vec, slot, s)
                      : launch<float>(w, caps, partial, out, K, tile, n_caps, vec, slot, s);
+}
+
+// The number of ticket slots a device has.
+extern "C" int repro_bisect_ticket_slots() { return kTicketSlots; }
+
+// out[0] = 1 and out[1] = the capture's id while `stream` is capturing a CUDA
+// graph, else out[0] = 0: the wrapper keys a captured launch's ticket slot by
+// its capture.
+extern "C" int repro_stream_capture_id(void* stream, unsigned long long* out) {
+    cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+    unsigned long long id = 0;
+    const cudaError_t err = cudaStreamGetCaptureInfo(static_cast<cudaStream_t>(stream), &status, &id);
+    out[0] = status == cudaStreamCaptureStatusActive ? 1 : 0;
+    out[1] = id;
+    return static_cast<int>(err);
 }

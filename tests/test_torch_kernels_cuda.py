@@ -283,6 +283,46 @@ def test_bisect_block_sums_kernel_graph_replay_bit_identical(cuda):
             torch.testing.assert_close(got, want, rtol=0, atol=0, msg=f"replay {replay}, call {i}")
 
 
+def test_bisect_block_sums_kernel_graphs_take_their_own_ticket_slots(cuda):
+    """Each graph capture takes a ticket slot of its own, apart from the
+    capture stream's eager slot: two graphs captured on the same stream,
+    replayed at the same time on two streams 50 times, each give the eager
+    call's bits every time."""
+    from repro_torch.kernels import bisect_tiles
+
+    w, caps = (_t(a, cuda) for a in bisect_inputs(1_000_000, 15))
+    want = bisect_block_sums(w, caps)
+    capture = torch.cuda.Stream()
+    with torch.cuda.stream(capture):
+        bisect_block_sums(w, caps)
+    torch.cuda.synchronize()
+    eager = bisect_tiles._slots[(w.device.index, capture.cuda_stream, None)]
+    graphs, outs, slots = [], [], []
+    for _ in range(2):
+        before = dict(bisect_tiles._slots)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=capture):
+            outs.append([bisect_block_sums(w, caps) for _ in range(4)])
+        new = {key: s for key, s in bisect_tiles._slots.items() if key not in before}
+        assert len(new) == 1 and next(iter(new))[:2] == (w.device.index, capture.cuda_stream)
+        graphs.append(graph)
+        slots.append(next(iter(new.values())))
+    assert len({eager, *slots}) == 3
+    streams = [torch.cuda.Stream() for _ in graphs]
+    for replay in range(50):
+        for o in outs:
+            for x in o:
+                x.zero_()
+        torch.cuda.synchronize()
+        for graph, stream in zip(graphs, streams):
+            with torch.cuda.stream(stream):
+                graph.replay()
+        torch.cuda.synchronize()
+        for o in outs:
+            for got in o:
+                torch.testing.assert_close(got, want, rtol=0, atol=0, msg=f"replay {replay}")
+
+
 @pytest.mark.parametrize("n_caps", [1, 15, 63])
 @pytest.mark.parametrize("K", [0, 5000])
 def test_bisect_block_sums_kernel_single_cta(cuda, K, n_caps):
