@@ -8,9 +8,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
 1. device: the card's name and its power limit (``nvidia-smi``);
 2. build: compile the CUDA kernels under ``src/repro_torch/kernels/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card at the
-   main path's shapes (K = 1,000,000 and a ragged 1,000,003, k = 1000; 3, 15
-   and 63 bisection caps in float32 and float64; the top-k and update kernels
-   at every tile they are swept at), with its time, the plain version's, a
+   main path's shapes (K = 1,000,000 and a ragged 1,000,003, k = 1000; the
+   replay decode on a row of its own and on row 1 of a two-row trace, 8
+   bytes past a 16-byte boundary for the bits; 3, 15 and 63 bisection caps
+   in float32 and float64; the top-k and update kernels at every tile they
+   are swept at), with its time, the plain version's, a
    library call's where one exists, and its least possible time on this
    card (the block sums at each cap count); then the three top-k kernels bit
    for bit on ``ENGINE_CASES``, the inputs that reach every path of their
@@ -307,15 +309,22 @@ def main():
             ("unpack_crumbs", 4, kn.unpack_crumbs, ref.unpack_crumbs_ref, "src/repro/kernels/unpack_bits.py:117"),
         ):
             packed = obs_of["bits" if per == 8 else "crumbs"]
-            err = max_err({"out": fn(packed, K)}, {"out": rfn(packed, K)})
-            log("kernel-check", kernel=kname, K=K, max_abs_err=err)
+            # row 1 of a (2, B) trace, as the staged replay hands rows over:
+            # byte offset B, 8 past a 16-byte boundary for the bits at K = 1e6
+            odd = torch.stack([packed.roll(1), packed])[1]
+            err = max(max_err({"out": fn(row, K)}, {"out": rfn(row, K)}) for row in (packed, odd))
+            log("kernel-check", kernel=kname, K=K, rows="aligned,odd", odd_row_offset16=odd.data_ptr() % 16,
+                max_abs_err=err)
             if K == K_MAIN:
                 out = fn(packed, K)
                 b = bound(nbytes(packed, out), 2 * K)
+                ms = graph_ms(lambda: fn(packed, K))
+                log("kernel-row-time", kernel=kname, K=K, aligned_ms=f"{ms:.4f}",
+                    odd_row_ms=f"{graph_ms(lambda: fn(odd, K)):.4f}", odd_row_offset16=odd.data_ptr() % 16,
+                    bound_ms=f"{b[0]:.4f}", card=repr(smi))
                 rows[kname] = dict(route="cuda", source="src/repro_torch/kernels/csrc/unpack_bits.cu", replaces=line,
-                                   max_abs_err=err, ms=graph_ms(lambda: fn(packed, K)),
-                                   plain_ms=events_ms(lambda: rfn(packed, K)), bound_ms=b[0], bound_by=b[1],
-                                   library_ms=None)
+                                   max_abs_err=err, ms=ms, plain_ms=events_ms(lambda: rfn(packed, K)), bound_ms=b[0],
+                                   bound_by=b[1], library_ms=None)
         # bisection block sums: 3, 15 and 63 caps drawn inside [0, max w]
         for n_caps, dtype in itertools.product((3, 15, 63), (torch.float32, torch.float64)):
             wd = w.to(dtype)

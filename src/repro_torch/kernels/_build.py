@@ -41,7 +41,7 @@ _SIGNATURES = {
     ],
     "repro_bisect_block_sums": [_P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I, _P],
     "repro_bisect_ticket_slots": [],
-    "repro_stream_capture_id": [_P, _P],
+    "repro_bisect_ticket_slot": [_P, _P],
     "repro_gumbel_topk": [_P, _I64, _I, _I, _I, _I, _I, _I64, _P, _P, _P, _P],
     "repro_fused_gumbel_topk": [_P, _P, _I64, _I, _I, _I, _I, _I, _I64, _P, _P, _P, _P],
     "repro_e3cs_update": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P],

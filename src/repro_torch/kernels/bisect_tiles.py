@@ -11,11 +11,16 @@ min(w_j, caps_b)`` in ``w``'s dtype (float32 or float64).  Padding entries of
 On a CUDA tensor it launches ``csrc/bisect_block_sums.cu``, one kernel a
 call: the last CTA to finish sums the tiles' partials, found by a ticket in a
 slot of the library's static ticket array.  Eager calls on one (device,
-stream) share a slot; each CUDA-graph capture takes a slot of its own for
-each stream it captures on, so that graphs replayed at the same time, or a
-graph and eager calls, never share one.  Eager calls that may run at the same
-time must come from different streams.  On a CPU tensor it takes its plain
-version ``ref.bisect_block_sums_ref``.
+stream) share a slot; each CUDA-graph capture takes a slot of its own, so
+that graphs replayed at the same time, or a graph and eager calls, never
+share one.  Eager calls that may run at the same time must come from
+different streams.  The library keeps the slots: a capture's slot is held by
+its graph and given back once the graph and its executable graphs are
+destroyed, so a device has ``repro_bisect_ticket_slots()`` (65536) slots for
+its streams and its live graphs, and any number of captures in turn.  On a
+CPU tensor it takes its plain version ``ref.bisect_block_sums_ref``.
+``tile=None`` looks the tile up in the autotune cache (``bisect_tiles``), as
+the JAX package's ``bisect_block_sums`` does.
 """
 from __future__ import annotations
 
@@ -24,41 +29,36 @@ import ctypes
 import torch
 
 from ._build import check, launch, load_library, ptr, route
+from .autotune import best_config
 from .ref import bisect_block_sums_ref
 
 __all__ = ["bisect_block_sums", "MAX_CAPS"]
 
 MAX_CAPS = 63  # the most caps the kernel keeps in registers (block <= 6)
 _DTYPES = (torch.float32, torch.float64)
-# (device index, stream handle, capture id or None) -> ticket slot, given at
-# the key's first launch and kept
-_slots: dict[tuple[int, int, int | None], int] = {}
-_n_slots: dict[int, int] = {}  # device index -> slots given
 
 
 def _ticket_slot(dev: torch.device, stream: int) -> int:
-    """The ticket slot of a launch on ``stream``: one for the stream's eager
-    calls, and one for each graph capture in progress on it."""
+    """The ticket slot of a launch on ``stream``: the stream's eager slot, or
+    the slot of the graph capture in progress on it."""
     lib = load_library()
-    state = (ctypes.c_ulonglong * 2)()
-    err = lib.repro_stream_capture_id(stream, state)
+    slot = ctypes.c_int()
+    with torch.cuda.device(dev):
+        err = lib.repro_bisect_ticket_slot(stream, ctypes.byref(slot))
+    if err == -1:
+        raise RuntimeError(f"bisect_block_sums: all {lib.repro_bisect_ticket_slots()} ticket slots of {dev} are "
+                           "taken (one per stream and one per live graph capture)")
     if err != 0:
-        raise RuntimeError(f"bisect_block_sums: CUDA error {err} querying the stream's capture")
-    key = (dev.index, stream, state[1] if state[0] else None)
-    slot = _slots.get(key)
-    if slot is None:
-        slot = _n_slots.get(dev.index, 0)
-        if slot == lib.repro_bisect_ticket_slots():
-            raise RuntimeError(f"bisect_block_sums: all {slot} ticket slots of {dev} are taken "
-                               "(one per stream and one per graph capture)")
-        _slots[key], _n_slots[dev.index] = slot, slot + 1
-    return slot
+        raise RuntimeError(f"bisect_block_sums: CUDA error {err} taking a ticket slot")
+    return slot.value
 
 
-def bisect_block_sums(w: torch.Tensor, caps: torch.Tensor, tile: int = 8192) -> torch.Tensor:
+def bisect_block_sums(w: torch.Tensor, caps: torch.Tensor, tile: int | None = None) -> torch.Tensor:
     """``(n_caps,)`` capped sums ``s_b = sum_j min(w_j, caps_b)``, summed per
     ``tile``-client tile and then across tiles in tile order: the same bits
-    from call to call."""
+    from call to call.  ``tile=None``: the autotune cache's tile for ``K``."""
+    if tile is None:
+        tile = int(best_config("bisect_tiles", w.shape[0], backend=w.device.type)["tile"])
     if not route(w):
         return bisect_block_sums_ref(w, caps, tile=tile)
     if w.dtype not in _DTYPES:

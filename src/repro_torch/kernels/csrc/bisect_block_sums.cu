@@ -21,10 +21,12 @@
 //      a cap: each lane a strided run of tiles, coalesced, then the shuffle
 //      tree) and writes out.
 // The tickets are a static device array, so nothing is allocated or zeroed on
-// the stream: a call is one stream operation, also in a CUDA graph.  The
-// wrapper gives each (device, stream) a slot for its eager calls and each
-// graph capture a slot of its own (repro_stream_capture_id); calls that may
-// run at the same time never share one.
+// the stream: a call is one stream operation, also in a CUDA graph.  Each
+// (device, stream) has a slot for its eager calls and each graph capture a
+// slot of its own (repro_bisect_ticket_slot), so calls that may run at the
+// same time never share one.  A capture's slot is held by its graph (a CUDA
+// user object) and given back when the graph and every executable graph made
+// from it are destroyed and their launches done: its ticket is 0 again.
 // The caps stay on the device (the caller derives them from its bracket on
 // the device): the kernel reads them by pointer.  float and double are both
 // instantiated; double accumulates in double, as the JAX package's float64
@@ -52,6 +54,11 @@
 // acquire-release atomic takes the place of a __threadfence per writer, which
 // was slower.
 #include <cstdint>
+#include <memory>
+#include <mutex>
+#include <unordered_map>
+#include <vector>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -59,7 +66,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCaps = 63;
-constexpr int kTicketSlots = 65536;  // eager streams and graph captures of a device
+constexpr int kTicketSlots = 65536;  // eager streams and live graph captures of a device
 __device__ unsigned int g_tickets[kTicketSlots];
 
 template <typename T>
@@ -280,14 +287,107 @@ extern "C" int repro_bisect_block_sums(const void* w, const void* caps, void* pa
 // The number of ticket slots a device has.
 extern "C" int repro_bisect_ticket_slots() { return kTicketSlots; }
 
-// out[0] = 1 and out[1] = the capture's id while `stream` is capturing a CUDA
-// graph, else out[0] = 0: the wrapper keys a captured launch's ticket slot by
-// its capture.
-extern "C" int repro_stream_capture_id(void* stream, unsigned long long* out) {
+namespace {
+
+// The ticket slots of one device: slots never given are next .. kTicketSlots-1,
+// slots given back wait in `free`.
+struct SlotTable {
+    int next = 0;
+    std::vector<int> free;
+    std::unordered_map<uintptr_t, int> eager;                // stream -> slot, kept
+    std::unordered_map<unsigned long long, int> captures;  // capture id -> slot, while its graph lives
+};
+struct Slots {
+    std::mutex mu;
+    std::unordered_map<int, SlotTable> tables;  // device -> its slots
+};
+// never destroyed: CUDA may call give_back while the process exits
+Slots& slots() {
+    static Slots* s = new Slots;
+    return *s;
+}
+
+struct CaptureSlot {
+    int device;
+    unsigned long long capture;
+};
+
+int take_slot(SlotTable& t) {
+    if (!t.free.empty()) {
+        const int slot = t.free.back();
+        t.free.pop_back();
+        return slot;
+    }
+    return t.next < kTicketSlots ? t.next++ : -1;
+}
+
+// The destructor of a capture's user object: CUDA calls it on a thread of its
+// own once the graph and its executable graphs are gone and their launches
+// done, so every ticket of the slot has wrapped to 0.
+void CUDART_CB give_back(void* p) {
+    std::unique_ptr<CaptureSlot> c(static_cast<CaptureSlot*>(p));
+    std::lock_guard<std::mutex> lock(slots().mu);
+    SlotTable& t = slots().tables[c->device];
+    const auto it = t.captures.find(c->capture);
+    if (it == t.captures.end()) return;
+    t.free.push_back(it->second);
+    t.captures.erase(it);
+}
+
+}  // namespace
+
+// *slot = the ticket slot of a launch on `stream` on the current device: the
+// stream's eager slot, or the slot of the graph capture in progress on it.  A
+// capture's first call makes a user object that the capture's graph holds,
+// whose destructor gives the slot back.  Returns a CUDA error, or -1 when all
+// kTicketSlots slots of the device are taken.
+extern "C" int repro_bisect_ticket_slot(void* stream, int* slot) {
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return static_cast<int>(err);
     cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
     unsigned long long id = 0;
-    const cudaError_t err = cudaStreamGetCaptureInfo(static_cast<cudaStream_t>(stream), &status, &id);
-    out[0] = status == cudaStreamCaptureStatusActive ? 1 : 0;
-    out[1] = id;
-    return static_cast<int>(err);
+    cudaGraph_t graph = nullptr;
+    err = cudaStreamGetCaptureInfo(static_cast<cudaStream_t>(stream), &status, &id, &graph);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const bool capturing = status == cudaStreamCaptureStatusActive;
+    {
+        std::lock_guard<std::mutex> lock(slots().mu);
+        SlotTable& t = slots().tables[device];
+        if (!capturing) {
+            const auto key = reinterpret_cast<uintptr_t>(stream);
+            const auto it = t.eager.find(key);
+            if (it != t.eager.end()) {
+                *slot = it->second;
+                return 0;
+            }
+            const int s = take_slot(t);
+            if (s < 0) return -1;
+            *slot = t.eager[key] = s;
+            return 0;
+        }
+        const auto it = t.captures.find(id);
+        if (it != t.captures.end()) {
+            *slot = it->second;
+            return 0;
+        }
+        const int s = take_slot(t);
+        if (s < 0) return -1;
+        *slot = t.captures[id] = s;
+    }
+    // outside the lock: a failed retain releases the object, whose destructor
+    // takes the lock to give the slot back
+    cudaUserObject_t object;
+    auto* owner = new CaptureSlot{device, id};
+    err = cudaUserObjectCreate(&object, owner, give_back, 1, cudaUserObjectNoDestructorSync);
+    if (err != cudaSuccess) {
+        give_back(owner);
+        return static_cast<int>(err);
+    }
+    err = cudaGraphRetainUserObject(graph, object, 1, cudaGraphUserObjectMove);
+    if (err != cudaSuccess) {
+        cudaUserObjectRelease(object, 1);
+        return static_cast<int>(err);
+    }
+    return 0;
 }

@@ -66,3 +66,29 @@ def test_wrapper_takes_the_plain_version_for_cpu_tensors():
 def test_wrapper_refuses_a_device_with_no_kernel():
     with pytest.raises(RuntimeError, match="meta"):
         bisect_block_sums(torch.zeros(8, device="meta"), torch.zeros(3, device="meta"))
+
+
+@pytest.mark.parametrize("K", [100, 20000])
+def test_wrapper_resolves_tile_none_through_the_autotune_cache(K, monkeypatch, tmp_path):
+    """``bisect_block_sums(w, caps)`` with no tile: the port and the JAX
+    package each look it up in their autotune cache, here an empty one, so
+    both take the default tile 8192.  On weights and caps that are multiples
+    of 1/8 below 16, every partial sum is exact in float32, whatever the order
+    of the additions: the port equals JAX's ``bisect_block_sums`` bit for bit.
+    On gamma weights it equals its plain version at tile 8192 bit for bit."""
+    from repro.kernels.autotune import best_config as jbest_config
+    from repro.kernels.bisect_tiles import bisect_block_sums as jbisect_block_sums
+    from repro_torch.kernels.autotune import best_config
+
+    monkeypatch.setenv("REPRO_AUTOTUNE_DIR", str(tmp_path))
+    assert best_config("bisect_tiles", K, backend="cpu")["tile"] == jbest_config("bisect_tiles", K)["tile"] == 8192
+    rng = np.random.default_rng(K)
+    w = (rng.integers(0, 128, K) / 8).astype(np.float32)
+    caps = np.sort(rng.integers(0, 128, 15) / 8).astype(np.float32)
+    want = np.asarray(jbisect_block_sums(jnp.asarray(w), jnp.asarray(caps)))
+    got = bisect_block_sums(torch.from_numpy(w), torch.from_numpy(caps))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    w, caps = (torch.from_numpy(a) for a in bisect_inputs(K, 15))
+    torch.testing.assert_close(bisect_block_sums(w, caps), ref.bisect_block_sums_ref(w, caps, tile=8192),
+                               rtol=0, atol=0)

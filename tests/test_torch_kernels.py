@@ -19,7 +19,7 @@ import pytest
 from repro.engine.sharded import masked_prob_alloc_scalars as jmasked_prob_alloc_scalars
 from repro.kernels.round_fused import fused_select_kernel_call, round_tail_kernel_call
 from repro.kernels.unpack_bits import unpack_bits_kernel_call, unpack_crumbs_kernel_call
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, unpack_bits, unpack_crumbs
 from test_torch_kernels_cuda import TAIL_CASES, TAIL_IDS, _t, select_inputs, tail_inputs
 
 RAGGED_K, TILE, KK = 130, 64, 16
@@ -43,6 +43,24 @@ def test_unpack_crumbs_ref_matches_pallas(K):
     packed = np.random.default_rng(K).integers(0, 256, (K + 3) // 4, dtype=np.uint8)
     want = unpack_crumbs_kernel_call(jnp.asarray(packed), K, tile_b=16, interpret=True)
     np.testing.assert_array_equal(ref.unpack_crumbs_ref(_t(packed), K).numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("kind", ["bits", "crumbs"])
+@pytest.mark.parametrize("row", [1, 3, 5, 7, 9, 11, 13, 15])
+def test_unpack_wrappers_on_trace_rows_match_pallas(row, kind):
+    """Row views of a ``(16, B)`` trace with B = 17 bytes, as the staged
+    replay hands them to the wrappers: row t starts at byte offset 17 t, odd
+    for odd t (t mod 16 bytes past a 16-byte boundary).  Each view through
+    the port's wrapper equals the Pallas kernel on that row."""
+    per = 8 if kind == "bits" else 4
+    K = 17 * per - 3  # a ragged last byte
+    trace = np.random.default_rng(row).integers(0, 256, (16, 17), dtype=np.uint8)
+    view = _t(trace)[row]
+    assert view.storage_offset() == 17 * row
+    port, pallas = ((unpack_bits, unpack_bits_kernel_call) if kind == "bits"
+                    else (unpack_crumbs, unpack_crumbs_kernel_call))
+    want = pallas(jnp.asarray(trace[row]), K, tile_b=16, interpret=True)
+    np.testing.assert_array_equal(port(view, K).numpy(), np.asarray(want))
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,9 @@ Without a card every test skips.  ``test_torch_kernels.py`` holds the same
 plain versions against the JAX package's Pallas kernels, from the helpers
 below.
 """
+import functools
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -173,13 +176,49 @@ TAIL_CASES = [(kind, 0, False) for kind in ("bits", "x")] + [
 TAIL_IDS = [f"{c[0]}-S{c[1]}{'-fb' if c[2] else ''}" for c in TAIL_CASES]
 
 
-@pytest.mark.parametrize("K", [1, 7, 8, 4099, 1_000_003])
-def test_unpack_kernels_match_plain(cuda, K):
-    rng = np.random.default_rng(K)
-    bits = _t(rng.integers(0, 256, (K + 7) // 8, dtype=np.uint8), cuda)
-    crumbs = _t(rng.integers(0, 256, (K + 3) // 4, dtype=np.uint8), cuda)
-    torch.testing.assert_close(unpack_bits(bits, K), ref.unpack_bits_ref(bits, K), rtol=0, atol=0)
-    torch.testing.assert_close(unpack_crumbs(crumbs, K), ref.unpack_crumbs_ref(crumbs, K), rtol=0, atol=0)
+@pytest.mark.parametrize("offset", range(16))
+@pytest.mark.parametrize("K", [1, 3, 4, 7, 8, 9, 4099, 1_000_003])
+def test_unpack_kernels_match_plain(cuda, K, offset):
+    """Each decode on a row that starts ``offset`` bytes past a 16-byte
+    boundary (a view, as a trace's rows and a mesh rank's column slab are)
+    equals its plain version bit for bit, eager and replayed from a CUDA
+    graph; launched into a view of a larger buffer, it writes nothing outside
+    ``out[:K]``.  The kernel is a programmatic dependent launch, so the
+    kernel just before the call writes the row the call reads, and reads
+    memory that the call's output then takes: both in stream order."""
+    from repro_torch.kernels._build import launch
+
+    rng = np.random.default_rng(K + offset)
+    for per, fn, rfn, entry in ((8, unpack_bits, ref.unpack_bits_ref, "repro_unpack_bits"),
+                                (4, unpack_crumbs, ref.unpack_crumbs_ref, "repro_unpack_crumbs")):
+        n_bytes = -(-K // per)
+        base = _t(rng.integers(0, 256, n_bytes + 32, dtype=np.uint8), cuda)
+        row = base[offset:offset + n_bytes]
+        assert row.data_ptr() % 16 == offset
+        want = rfn(row, K)
+        held = torch.full((4 * K,), 0x5A, dtype=torch.uint8, device=cuda)  # the size of the output
+        written = torch.bitwise_xor(row, held[:n_bytes])
+        del held
+        before = fn.launches
+        got = fn(written, K)
+        assert fn.launches == before + 1
+        torch.testing.assert_close(written, torch.bitwise_xor(row, 0x5A), rtol=0, atol=0)
+        torch.testing.assert_close(got, rfn(torch.bitwise_xor(row, 0x5A), K), rtol=0, atol=0)
+        got = fn(row, K)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = fn(row, K)
+        replayed.fill_(7)
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(replayed, got, rtol=0, atol=0)
+        # 16-byte aligned out inside guard words, as the C entry requires
+        guard = torch.full((K + 8,), -5, dtype=want.dtype, device=cuda)
+        launch(entry, cuda, row.data_ptr(), guard[4:].data_ptr(), K)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(guard[4:4 + K], want, rtol=0, atol=0)
+        assert bool((guard[:4] == -5).all()) and bool((guard[4 + K:] == -5).all()), "wrote outside out[:K]"
 
 
 def check_select(cuda, w, g, active, sigma, residual, cap, denom, k):
@@ -288,7 +327,7 @@ def test_bisect_block_sums_kernel_graphs_take_their_own_ticket_slots(cuda):
     capture stream's eager slot: two graphs captured on the same stream,
     replayed at the same time on two streams 50 times, each give the eager
     call's bits every time."""
-    from repro_torch.kernels import bisect_tiles
+    from repro_torch.kernels.bisect_tiles import _ticket_slot
 
     w, caps = (_t(a, cuda) for a in bisect_inputs(1_000_000, 15))
     want = bisect_block_sums(w, caps)
@@ -296,17 +335,15 @@ def test_bisect_block_sums_kernel_graphs_take_their_own_ticket_slots(cuda):
     with torch.cuda.stream(capture):
         bisect_block_sums(w, caps)
     torch.cuda.synchronize()
-    eager = bisect_tiles._slots[(w.device.index, capture.cuda_stream, None)]
+    eager = _ticket_slot(w.device, capture.cuda_stream)
+    assert _ticket_slot(w.device, capture.cuda_stream) == eager
     graphs, outs, slots = [], [], []
     for _ in range(2):
-        before = dict(bisect_tiles._slots)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=capture):
             outs.append([bisect_block_sums(w, caps) for _ in range(4)])
-        new = {key: s for key, s in bisect_tiles._slots.items() if key not in before}
-        assert len(new) == 1 and next(iter(new))[:2] == (w.device.index, capture.cuda_stream)
+            slots.append(_ticket_slot(w.device, capture.cuda_stream))
         graphs.append(graph)
-        slots.append(next(iter(new.values())))
     assert len({eager, *slots}) == 3
     streams = [torch.cuda.Stream() for _ in graphs]
     for replay in range(50):
@@ -321,6 +358,57 @@ def test_bisect_block_sums_kernel_graphs_take_their_own_ticket_slots(cuda):
         for o in outs:
             for got in o:
                 torch.testing.assert_close(got, want, rtol=0, atol=0, msg=f"replay {replay}")
+
+
+def test_bisect_block_sums_kernel_gives_back_a_graphs_ticket_slot(cuda):
+    """A capture's ticket slot is given back when its graph is destroyed: a
+    later capture takes it again, and more captures than the device has
+    slots, each destroyed in turn, never run out.  The last graph replays to
+    the eager call's bits."""
+    from repro_torch.kernels._build import load_library
+    from repro_torch.kernels.bisect_tiles import _ticket_slot
+
+    w, caps = (_t(a, cuda) for a in bisect_inputs(100, 3))
+    want = bisect_block_sums(w, caps)
+    stream = torch.cuda.Stream()
+
+    def capture(pool=None):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool)
+            try:
+                out = bisect_block_sums(w, caps)
+                slot = _ticket_slot(w.device, stream.cuda_stream)
+            finally:
+                graph.capture_end()
+        return graph, out, slot
+
+    # every later graph shares this one's memory pool, which it keeps alive
+    keeper, _, kept = capture()
+    capture = functools.partial(capture, pool=keeper.pool())
+    graph, _, first = capture()
+    assert first != kept
+    del graph
+    torch.cuda.synchronize()
+    alive, deadline = [], time.monotonic() + 10.0
+    while True:  # the slot comes back on CUDA's own thread, soon after
+        graph, _, slot = capture()
+        if slot == first:
+            break
+        alive.append(graph)
+        assert time.monotonic() < deadline, f"slot {first} not given back"
+        time.sleep(0.01)
+    del graph, alive
+    n_slots = load_library().repro_bisect_ticket_slots()
+    for i in range(n_slots + 100):
+        graph, out, _ = capture()
+        if i % 1000 == 999:
+            torch.cuda.synchronize()
+        if i < n_slots + 99:
+            del graph, out
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("n_caps", [1, 15, 63])
