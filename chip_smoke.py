@@ -26,21 +26,40 @@ Phases, one line each; any failure raises and the script exits non-zero:
    async with S = 2 under deadline and late-credit feedback, the sorted
    allocator, a mesh ``block=1`` run, and the staged replay of packed 1-bit
    and 2-bit rows; each path runs with the launch counts set to 0 just before
-   it and read just after;
-5. checks: cohorts of k distinct clients every round, counts, allocation
+   it and read just after.  Every runner captures its round step as a CUDA
+   graph at its first call (``[graph-capture]``: the warm-up's and the
+   capture's host ms, the kernel launches one replay makes) and replays it
+   each round of the timed run, whose launch counts are counted over the
+   replays;
+5. graph check (``[graph-check]``): for six runs at K = 1e6 (fused sync,
+   fused async late-credit, the staged packed 1-bit and 2-bit replays, the
+   fused mesh ``block=4`` sync run and the staged mesh async deadline run)
+   a captured ``carry_key`` runner, at its first call and again, equals a
+   hand loop of ``build_step`` + ``draw_noise`` bit for bit: every output,
+   the state, the rings and the generator state;
+6. checks: cohorts of k distinct clients every round, counts, allocation
    bounds, re-centred finite weights, fused == staged cohorts, the mesh's
    ``block=1`` run == the dense run bit for bit, ``block=4`` allocations
    within ``BLOCK_P_RTOL`` of ``block=1``, launch counts;
-6. profile: a dense and two mesh (``block=4`` and ``block=1``) fused rounds
-   under ``torch.profiler``, with the host time of the mesh's collectives;
-7. ops: the kernel layer's public ops, the path of the top-k and update
+7. profile: a dense and three mesh (``block=4``, ``block=1``, and
+   ``block=4`` with taps and sketches as the fleet job runs them) fused
+   horizons of replayed rounds under ``torch.profiler``: the device's idle
+   share and its operations a round, then the same horizon's wall time
+   without the profiler, beside the card's name and power limit;
+8. fleet job: ``run_service_sharded(K=1e6, rounds=50, D=1, block=4,
+   fused=True)`` at staleness 0 and 2 on the one-rank NCCL mesh, taps and
+   sketches in the captured step, a ``Reporter`` writing under
+   ``chiprun_out/results/``: counters, the ``selected`` series, the sketch
+   stream, the fairness series, the alerts (no cohort-size alert) and the
+   run log (``validate_records``); ``[fleet-job]`` logs its rates;
+9. ops: the kernel layer's public ops, the path of the top-k and update
    kernels: ``autotune`` sweeps all four kernel families at K = 1e4, 1e5
    and 1e6 into a fresh cache under ``chiprun_out/autotune/``, then
    ``gumbel_topk_sample``, ``fused_gumbel_topk_sample`` and
    ``e3cs_update_tiled`` run at K = 1e6, k = 1000 with ``tile=None``,
    resolved through that cache; launch counts set to 0 before the phase and
    checked exactly after it, outputs against the plain versions;
-8. times: rounds/s and client decisions/s of each run.
+10. times: rounds/s and client decisions/s of each run.
 
 Ends with a JSON line of per-kernel numbers and, last, ``{"ok": true,
 "device": ...}``.  Without CUDA it exits non-zero before printing a result.
@@ -85,6 +104,7 @@ ENGINE_CASES = [(case, K, k) for K in (K_MAIN, K_RAGGED)
                                 ("gumbel", 2048))] + [("gumbel", 2048, 2048), ("equal", 2048, 2048)]
 # fused runs with no staged partner: every other "-fused" run must have one
 UNPAIRED_FUSED_RUNS = ("mesh-block1-sync-full-fused",)
+CHIPRUN_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
 def log(phase, **kw):
@@ -114,6 +134,7 @@ def main():
     from repro_torch.kernels.autotune import CANDIDATES
     from repro_torch.kernels.gumbel_topk import TOPK_TILES
     from repro_torch.launch import make_host_mesh
+    from repro_torch.obs import SketchSpec
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -481,14 +502,18 @@ def main():
     try:
         mesh = make_host_mesh(1)
         runs, launched = main_path(dev, K_MAIN, k_MAIN, T_MAIN, T_SHORT, rng, mesh)
+        graph_check(dev, K_MAIN, k_MAIN, T_SHORT, rng, mesh)
         check_runs(runs)
-        profile_round(dev, K_MAIN, k_MAIN, label="dense")
-        profile_round(dev, K_MAIN, k_MAIN, label="mesh-block4", mesh=mesh, block=4)
-        profile_round(dev, K_MAIN, k_MAIN, label="mesh-block1", mesh=mesh, block=1)
+        profile_round(dev, K_MAIN, k_MAIN, label="dense", card=smi)
+        profile_round(dev, K_MAIN, k_MAIN, label="mesh-block4", card=smi, mesh=mesh, block=4)
+        profile_round(dev, K_MAIN, k_MAIN, label="mesh-block1", card=smi, mesh=mesh, block=1)
+        profile_round(dev, K_MAIN, k_MAIN, label="mesh-block4-taps-sketch", card=smi, mesh=mesh, block=4,
+                      runner=dict(taps=True, sketch=SketchSpec(window=5, n_regions=4)))
+        fleet_job(dev, K_MAIN, T_MAIN, card=smi)
     finally:
         dist.destroy_process_group()
 
-    # -- 7. the ops and the autotuner (this slice's path) -------------------------
+    # -- 9. the ops and the autotuner ----------------------------------------------
     ops_counts, ops_tiles = ops_path(dev, K_MAIN, k_MAIN)
     for n, c in ops_counts.items():
         if c:
@@ -499,7 +524,7 @@ def main():
         rows[kname]["ms"] = tile_ms[kname][ops_tiles[tname]]
         log("kernel-time", kernel=kname, tile=ops_tiles[tname], ms=f"{rows[kname]['ms']:.4f}", card=repr(smi))
 
-    # -- 8. times ---------------------------------------------------------------
+    # -- 10. times --------------------------------------------------------------
     for label, (_, secs, T, cfg) in runs.items():
         log("time", run=label, rounds_per_s=f"{T / secs:.3f}", client_decisions_per_s=f"{T * cfg.K / secs:.6g}",
             card=repr(smi))
@@ -589,9 +614,7 @@ def main_path(dev, K, k, T, T_short, rng, mesh):
                   volatility="bernoulli")
     fl_async = dataclasses.replace(fl, staleness_rounds=2)
     fl_sort = dataclasses.replace(fl, allocator="sort")
-    packed_bits = np.packbits(rng.random((T_short, K)) < 0.6, axis=1, bitorder="little")
-    codes = rng.choice(np.arange(4, dtype=np.uint8), (T_short, K), p=[0.5, 0.15, 0.1, 0.25])
-    packed_lags = np.bitwise_or.reduce(codes.reshape(T_short, -1, 4) << np.array([0, 2, 4, 6], np.uint8), axis=2)
+    packed_bits, packed_lags = packed_rows(rng, T_short, K)
     runs = {}
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     launched = {}
@@ -601,8 +624,12 @@ def main_path(dev, K, k, T, T_short, rng, mesh):
         pm = RoundProgram.from_config(cfg, fused=fused, device=dev, **opts)
         xs = None if xs is None else pm.local_rows(xs)
         run, s0 = pm.build_runner(outputs=outputs, scan_length=T)
-        run(s0, 7, xs)  # warm-up: allocator pools, library handles
+        run(s0, 7, xs)  # the first call: on the card, the warm-up and the capture
         sync()
+        if on_card:
+            hz = run.horizon
+            log("graph-capture", run=label, warmup_ms=f"{hz.warmup_s * 1e3:.1f}",
+                capture_ms=f"{hz.capture_s * 1e3:.1f}", launches_per_replay=json.dumps(hz.per_replay))
         kn.reset_launch_counts()
         t0 = time.perf_counter()
         out = run(s0, 7, xs)
@@ -655,6 +682,128 @@ def main_path(dev, K, k, T, T_short, rng, mesh):
           expect={"unpack_bits": T_short, "bisect_block_sums": n_block * T_short}, **m4)
 
     return runs, launched
+
+
+def packed_rows(rng, T, K):
+    """``(T, ceil(K/8))`` 1-bit success rows and ``(T, ceil(K/4))`` 2-bit lag
+    rows (codes 0, 1, 2 and the dead code 3), little-endian."""
+    packed_bits = np.packbits(rng.random((T, K)) < 0.6, axis=1, bitorder="little")
+    codes = rng.choice(np.arange(4, dtype=np.uint8), (T, K), p=[0.5, 0.15, 0.1, 0.25])
+    packed_lags = np.bitwise_or.reduce(codes.reshape(T, -1, 4) << np.array([0, 2, 4, 6], np.uint8), axis=2)
+    return packed_bits, packed_lags
+
+
+def graph_check(dev, K, k, T, rng, mesh, seed=5):
+    """Phase 5: each of six runs as a ``carry_key`` runner, called
+    twice (the first call captures on the card), against a hand loop of
+    ``build_step`` + ``draw_noise`` from the same seed: every output, the
+    state, the rings and the generator state, bit for bit."""
+    import dataclasses
+
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import FLConfig
+    from repro_torch.engine import RoundProgram
+
+    fl = FLConfig(K=K, k=k, rounds=T_MAIN, scheme="e3cs", quota_frac=0.5, allocator="bisect",
+                  volatility="bernoulli")
+    fl_async = dataclasses.replace(fl, staleness_rounds=2)
+    bits, lags = (torch.from_numpy(a).to(dev) for a in packed_rows(rng, T, K))
+    m4 = dict(mesh=mesh, block=4)
+    cases = {
+        "sync-full-fused": (fl, dict(fused=True), None),
+        "async-S2-late_credit-fused": (fl_async, dict(fused=True, feedback="late_credit"), None),
+        "packed-staged": (fl, dict(fused=False, override="packed"), bits),
+        "packed_lags-staged": (fl_async, dict(fused=False, override="packed_lags"), lags),
+        "mesh-sync-full-fused": (fl, dict(fused=True, **m4), None),
+        "mesh-async-S2-deadline-staged": (fl_async, dict(fused=False, **m4), None),
+    }
+    for label, (cfg, opts, xs) in cases.items():
+        pm = RoundProgram.from_config(cfg, device=dev, **opts)
+        xs = None if xs is None else pm.local_rows(xs)
+        run, s0 = pm.build_runner(outputs="full", carry_key=True, scan_length=T)
+        rings0 = () if pm.staleness is None else (pm.init_rings(),)
+        got = [run(s0, seed, *rings0, xs) for _ in range(2)]
+        step, _ = pm.build_step()
+        gen = pm.generator(seed)
+        carry = (s0,) + tuple(tuple(r.clone() for r in rings) for rings in rings0)
+        outs = []
+        for t in range(T):
+            carry, out = step(carry, None if xs is None else xs[t], pm.draw_noise(gen))
+            outs.append(out)
+        want = pytree.tree_leaves((carry[0], gen.get_state(), *carry[1:], *(torch.stack(c) for c in zip(*outs))))
+        for call, result in enumerate(got):
+            leaves = pytree.tree_leaves(result)
+            same = len(leaves) == len(want) and all(
+                torch.equal(a, b) if torch.is_tensor(a) else a == b for a, b in zip(leaves, want))
+            if not same:
+                raise AssertionError(f"graph check {label}: call {call + 1} of the runner differs from the eager "
+                                     "step loop")
+        hz = run.horizon
+        log("graph-check", run=label, K=K, rounds=T, calls=2, result="bit-identical",
+            compared="outputs,state,rings,generator_state", captured=hz.graph is not None,
+            launches_per_replay=json.dumps(hz.per_replay))
+
+
+def fleet_job(dev, K, rounds, card):
+    """Phase 8: the selection service's fleet job on the one-rank mesh, with its
+    ``Reporter`` under ``chiprun_out/results/``, at staleness 0 and 2."""
+    from repro_torch import kernels as kn
+    from repro_torch.launch.select_serve import run_service_sharded
+    from repro_torch.obs import Reporter, read_runlog, validate_records
+
+    os.environ["REPRO_RESULTS"] = os.path.join(CHIPRUN_OUT, "results")
+
+    class Recorder(Reporter):
+        """A ``Reporter`` that keeps the raw series and sketch stream handed to it."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.raw, self.sketches = {}, None
+
+        def metrics_stream(self, stream, series, window, better=None):
+            self.raw[stream] = series
+            return super().metrics_stream(stream, series, window, better)
+
+        def fairness_stream(self, stream, sketches):
+            self.sketches = sketches
+            return super().fairness_stream(stream, sketches)
+
+    for S in (0, 2):
+        rep = Recorder(f"fleet_job_S{S}", config=dict(K=K, rounds=rounds, D=1, block=4, fused=True, staleness=S))
+        kn.reset_launch_counts()
+        report = run_service_sharded(K=K, rounds=rounds, D=1, block=4, fused=True, staleness=S, reporter=rep,
+                                     device=dev)
+        launches = {n: c for n, c in kn.launch_counts().items() if c}
+        rep.save(report)
+        k, counters = report["k"], report["tap_counters"]
+        if counters["rounds"] != rounds or counters["cum_selected"] != rounds * k:
+            raise AssertionError(f"fleet job S={S}: counters {counters}, want {rounds} rounds of {k}")
+        selected = rep.raw["serve_sharded"]["selected"]
+        if selected.shape != (rounds,) or not (selected == k).all():
+            raise AssertionError(f"fleet job S={S}: the selected series is not k = {k} every round")
+        W = max(1, rounds // 5)
+        count_hist = rep.sketches["count_hist"]
+        if count_hist.shape[0] != rounds // W or not (count_hist.sum(axis=1) == K).all():
+            raise AssertionError(f"fleet job S={S}: sketch stream of {count_hist.shape[0]} rows with count_hist "
+                                 f"sums {count_hist.sum(axis=1)}, want {rounds // W} rows of {K}")
+        fair = rep.raw["fairness"]
+        if not all(np.isfinite(v).all() for v in fair.values()):
+            raise AssertionError(f"fleet job S={S}: fairness series not finite")
+        for a in rep.data["alerts"]:
+            log("fleet-alert", staleness=S, **{key: json.dumps(v) if isinstance(v, (dict, list, str)) else v
+                                               for key, v in a.items()})
+            if a["rule"] == "drift" and a.get("metric") == "selected":
+                raise AssertionError(f"fleet job S={S}: a cohort-size alert fired: {a['message']}")
+        records = read_runlog(rep.log.path)
+        validate_records(records)
+        log("fleet-job", staleness=S, K=K, k=k, rounds=rounds, mesh_devices=report["mesh_devices"],
+            block=report["bisect_block"], rounds_per_s=report["rounds_per_s"],
+            client_decisions_per_s=report["client_decisions_per_s"], round_us=report["round_us"],
+            counters=json.dumps(counters), sketch_rows=count_hist.shape[0],
+            jain_last=f"{fair['jain'][-1]:.6f}", alerts=len(rep.data["alerts"]), runlog_records=len(records),
+            runlog=os.path.relpath(rep.log.path), launches=json.dumps(launches), card=repr(card))
 
 
 def ops_path(dev, K, k, K_list=AUTOTUNE_K):
@@ -798,12 +947,16 @@ def check_runs(runs):
     log("check", result="all main-path checks passed")
 
 
-def profile_round(dev, K, k, rounds=5, label="dense", **opts):
-    """Where a fused sync round's time goes (``opts``: the mesh and block):
-    ``torch.profiler`` over a few rounds after a warm-up: device time by
-    kernel, host time and device span by round stage, and the device's busy
+def profile_round(dev, K, k, rounds=5, label="dense", card="", runner=None, **opts):
+    """Where a fused sync round's time goes (``opts``: the mesh and block;
+    ``runner``: ``build_runner``'s taps and sketch): ``torch.profiler`` over
+    a horizon of a few replayed rounds after the runner's first call (which
+    captures the step): device time by kernel, the device's operations a
+    round, the span from its first operation to its last, and its busy
     share of the window's wall time (profiler overhead included in the wall
-    time)."""
+    time); then the median wall time of five horizons without the profiler,
+    and the idle share that the same busy time leaves of it.  The stage
+    annotations fire at the capture only, so the window shows none."""
     import torch
 
     from repro_torch.configs import FLConfig
@@ -811,7 +964,7 @@ def profile_round(dev, K, k, rounds=5, label="dense", **opts):
 
     fl = FLConfig(K=K, k=k, rounds=T_MAIN, scheme="e3cs", quota_frac=0.5, allocator="bisect")
     pm = RoundProgram.from_config(fl, fused=True, device=dev, **opts)
-    run, s0 = pm.build_runner(outputs="lean", scan_length=rounds)
+    run, s0 = pm.build_runner(outputs="lean", scan_length=rounds, **(runner or {}))
     run(s0, 1)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -820,13 +973,28 @@ def profile_round(dev, K, k, rounds=5, label="dense", **opts):
         run(s0, 1)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    plain_us = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run(s0, 1)
+        torch.cuda.synchronize()
+        plain_us.append((time.perf_counter() - t0) * 1e6)
+    plain = float(np.median(plain_us))
     cuda = torch.autograd.DeviceType.CUDA
     # device-side events: kernels and memory ops; the "round.*" ones are the
     # GPU spans of the stage annotations, which cover gaps and other events
     dev_events = [e for e in prof.events() if e.device_type == cuda]
-    busy_us = sum(e.time_range.elapsed_us() for e in dev_events if not e.name.startswith("round."))
+    ops = [e for e in dev_events if not e.name.startswith("round.")]
+    busy_us = sum(e.time_range.elapsed_us() for e in ops)
+    # first operation's start to last one's end: the idle time inside it is
+    # the gaps between the graphs' nodes, the rest of the wall time the host's
+    span_us = (max(e.time_range.end for e in ops) - min(e.time_range.start for e in ops)) if ops else 0.0
     log("profile", program=label, rounds=rounds, wall_ms=f"{wall_us / 1e3:.3f}", device_busy_ms=f"{busy_us / 1e3:.3f}",
-        device_idle_share=f"{1 - busy_us / wall_us:.4f}")
+        device_span_ms=f"{span_us / 1e3:.3f}", device_idle_share=f"{1 - busy_us / wall_us:.4f}",
+        rounds_per_s=f"{rounds / wall_us * 1e6:.3f}",
+        device_ops_per_round=f"{len(ops) / rounds:.1f}", unprofiled_wall_ms=f"{plain / 1e3:.3f}",
+        unprofiled_idle_share=f"{1 - busy_us / plain:.4f}", unprofiled_rounds_per_s=f"{rounds / plain * 1e6:.3f}",
+        card=repr(card))
     by_name = {}
     for e in dev_events:
         if not e.name.startswith("round."):

@@ -2,6 +2,7 @@ from .e3cs import E3CSState, e3cs_init, e3cs_probs, e3cs_update
 from .prob_alloc import prob_alloc
 from .quota import make_quota_schedule
 from .sampling import (
+    gumbel_from_uniform,
     gumbel_row,
     local_topk_candidates,
     merge_topk_candidates,
@@ -19,6 +20,7 @@ __all__ = [
     "e3cs_update",
     "prob_alloc",
     "make_quota_schedule",
+    "gumbel_from_uniform",
     "gumbel_row",
     "local_topk_candidates",
     "merge_topk_candidates",

@@ -18,6 +18,7 @@ __all__ = [
     "merge_topk_candidates",
     "selection_mask",
     "gumbel_row",
+    "gumbel_from_uniform",
     "uniform_row",
 ]
 
@@ -27,7 +28,12 @@ _EPS = 1e-20
 def gumbel_row(generator: torch.Generator, K: int, device) -> torch.Tensor:
     """One ``(K,)`` float32 Gumbel(0, 1) row, ``-log(-log(u))`` with ``u``
     uniform in ``[tiny, 1)``."""
-    u = torch.rand(K, generator=generator, device=device, dtype=torch.float32)
+    return gumbel_from_uniform(torch.rand(K, generator=generator, device=device, dtype=torch.float32))
+
+
+def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """The Gumbel transform of ``gumbel_row`` applied to a uniform row drawn
+    beforehand (the captured round step draws its rows outside the graph)."""
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
 

@@ -6,7 +6,10 @@ A model draws nothing itself.  ``draw(generator)`` returns the tuple of
 turns those rows into outcomes.  The split lets a test feed the JAX
 package's own uniforms into ``sample`` and compare outcomes exactly, while
 the engine draws the rows from one explicit ``torch.Generator`` on the
-device.
+device.  ``draw_bounds()`` gives each row's lower end ``lo``: ``draw`` is
+``uniform_rows`` of one ``torch.rand`` row each, so a runner that draws the
+raw rows itself (into the buffers of a captured round step) scales them
+with the same operations.
 
 Lag protocol (async rounds): ``sample`` returns an int32 ``(K,)`` lag row,
 ``0`` = on time, ``l >= 1`` = ``l`` rounds late, ``DEAD_LAG`` = never.
@@ -26,6 +29,7 @@ __all__ = [
     "make_volatility",
     "BernoulliVolatility",
     "CompletionLag",
+    "uniform_rows",
 ]
 
 DEAD_LAG = -1  # lag value of a client that never completes
@@ -60,14 +64,24 @@ def make_volatility(name: str, rho, *, device=None):
     raise ValueError(f"unknown volatility model {name!r} (want bernoulli | markov | deadline)")
 
 
-def _uniform_row(generator: torch.Generator, K: int, device, lo: float = 0.0) -> torch.Tensor:
-    """One ``(K,)`` float32 uniform row in ``[lo, 1)``, scaled as
-    ``jax.random.uniform(minval=lo, maxval=1)`` scales its ``[0, 1)`` draw."""
-    u = torch.rand(K, generator=generator, device=device, dtype=torch.float32)
+def _scale_row(u: torch.Tensor, lo: float) -> torch.Tensor:
+    """A ``[0, 1)`` row moved to ``[lo, 1)``, as ``jax.random.uniform(
+    minval=lo, maxval=1)`` scales its ``[0, 1)`` draw."""
     if lo:
-        lo_t = torch.full((), lo, dtype=torch.float32, device=device)
+        lo_t = torch.full((), lo, dtype=torch.float32, device=u.device)
         u = torch.maximum(u * (1.0 - lo_t) + lo_t, lo_t)
     return u
+
+
+def uniform_rows(raw, bounds) -> Tuple[torch.Tensor, ...]:
+    """A model's rows from raw ``[0, 1)`` rows and its ``draw_bounds()``."""
+    return tuple(_scale_row(u, lo) for u, lo in zip(raw, bounds))
+
+
+def _draw(model, generator: torch.Generator) -> Tuple[torch.Tensor, ...]:
+    K, dev = model.rho.shape[0], model.rho.device
+    raw = [torch.rand(K, generator=generator, device=dev, dtype=torch.float32) for _ in model.draw_bounds()]
+    return uniform_rows(raw, model.draw_bounds())
 
 
 @dataclass(frozen=True)
@@ -80,8 +94,11 @@ class BernoulliVolatility:
     def init_state(self):
         return torch.zeros_like(self.rho)
 
+    def draw_bounds(self) -> Tuple[float, ...]:
+        return (0.0,)
+
     def draw(self, generator: torch.Generator) -> Tuple[torch.Tensor, ...]:
-        return (_uniform_row(generator, self.rho.shape[0], self.rho.device),)
+        return _draw(self, generator)
 
     def sample(self, us, state):
         return (us[0] < self.rho).to(torch.float32), state
@@ -113,12 +130,11 @@ class CompletionLag:
     def init_state(self):
         return self.base.init_state()
 
+    def draw_bounds(self) -> Tuple[float, ...]:
+        return self.base.draw_bounds() + (0.0, 1e-7)
+
     def draw(self, generator: torch.Generator) -> Tuple[torch.Tensor, ...]:
-        K, dev = self.rho.shape[0], self.rho.device
-        return self.base.draw(generator) + (
-            _uniform_row(generator, K, dev),
-            _uniform_row(generator, K, dev, lo=1e-7),
-        )
+        return _draw(self, generator)
 
     def sample(self, us, state):
         *u_base, u_late, u_lag = us

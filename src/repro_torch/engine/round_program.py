@@ -43,35 +43,66 @@ its generator is seeded as the dense runner's, so a one-rank mesh with
 ``block=1`` equals the dense ``allocator="bisect"`` runner bit for bit (JAX
 skips ``fold_in`` at D = 1 for the same reason); at D > 1 rank ``d`` seeds
 from ``numpy.random.SeedSequence([seed, d])``.  As in JAX, ``block`` acts
-only under a mesh.  Taps and sketches are not ported yet.
+only under a mesh.
+
+Taps and sketches.  ``build_step(taps=True)`` and ``build_runner(taps=True,
+sketch=SketchSpec(...))`` add the ``ROUND_TAPS`` gauge row, its counters and
+the client-axis sketch stream (``repro_torch.obs``) to the round, with the
+JAX package's contracts.  They observe values the round computes and never
+touch its math or its noise.  Under a mesh the gauges are summed over the
+ranks inside the step (one ``all_reduce`` of the stacked gauges a round) and
+the sketch stream once after the horizon, so every rank holds the same
+stream, and a one-rank mesh emits the dense runner's.
+
+The captured horizon.  ``build_runner``'s ``run`` owns static buffers: the
+carry (state, rings and, with taps, counters and sketch accumulators), the
+round's raw uniform rows, its trace row and the step's outputs.  Each round
+draws its uniform rows from the generator into their buffers (the only
+``torch.rand`` calls; the Gumbel and scaling transforms run in the step),
+copies its trace row in, runs the step, and copies the outputs into the
+``(T, ...)`` results.  On a CUDA device "runs the step" is the replay of a
+CUDA graph of the step, captured at the runner's first call after an eager
+warm-up on the static buffers (which draws from a generator of its own),
+the counterpart of JAX's ``jit`` over ``lax.scan``; on a CPU tensor it is a
+call of the same step on the same buffers.  A capture failure raises: a
+CUDA runner never loops the step eagerly.  The replayed horizon equals the
+eager loop of ``build_step`` + ``draw_noise`` bit for bit, generator state
+included.  The kernel wrappers count their launches when the step is
+captured; the runner takes the capture's counts back and adds them on every
+replay, so ``kernels.launch_counts()`` counts launches that ran.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.selection import (
     E3CSState,
     e3cs_probs,
     e3cs_update,
-    gumbel_row,
+    gumbel_from_uniform,
     make_quota_schedule,
     merge_topk_candidates,
     perturbed_scores,
     selection_mask,
 )
 from repro_torch.core.selection.e3cs import divide, residual_mass
-from repro_torch.core.volatility import DEAD_LAG
+from repro_torch.core.volatility import DEAD_LAG, uniform_rows
 from repro_torch.device import resolve_device
 from repro_torch.engine.sharded import N_ITERS, TILE, _shard_topk_merge, masked_prob_alloc, masked_prob_alloc_scalars
 from repro_torch.fl.round import init_server_state, make_select_fn
+from repro_torch.kernels import add_launch_counts, launch_counts
 from repro_torch.kernels.ref import LAG_DEAD_CODE, ring_pop_push
 from repro_torch.kernels.round_fused import MAX_S, fused_alloc_select, fused_perturb_select, fused_round_tail
 from repro_torch.kernels.unpack_bits import unpack_bits, unpack_crumbs
+from repro_torch.obs.sketches import SKETCH_FIELDS, SketchSpec, lag_bins, region_ids, sketch_carry0, sketch_step
+from repro_torch.obs.taps import ROUND_TAPS
 from repro_torch.obs.trace import stage
 
 __all__ = [
@@ -232,9 +263,10 @@ def _make_observe(program: "RoundProgram", K: int):
     return observe
 
 
-def _make_step(program: "RoundProgram", ctx, lean: bool):
+def _make_step(program: "RoundProgram", ctx, lean: bool, taps: bool = False, sketch: Optional[SketchSpec] = None,
+               region=None):
     """The round body ``step(carry, x_over, noise) -> (carry, out)``: the
-    single copy of the round pipeline that ``build_runner`` loops.
+    single copy of the round pipeline that ``build_runner`` runs.
 
     Sync carry is ``(state,)``, async ``(state, rings)`` with ``rings`` the
     ``(credit,)`` or ``(credit, feedback)`` tuple of ``init_rings``.  Outputs
@@ -242,6 +274,14 @@ def _make_step(program: "RoundProgram", ctx, lean: bool):
     sigma)``, async full ``(mask, lag, p, sigma, arriving)``, async lean
     ``(on_time, stale, sigma)``.  Under a mesh the per-client arrays are the
     rank's slab, and the lean scalars are summed over the ranks.
+
+    With ``taps=True`` the carry gains a trailing ``ROUND_TAPS`` counter
+    dict and the outputs a trailing gauge row (a dict of 0-d tensors, summed
+    over the ranks under a mesh).  With ``sketch`` (requires taps) the carry
+    further gains the rank's sketch accumulators and the outputs a trailing
+    sketch row of the rank's partial sums, zeros except on every
+    ``sketch.window``-th round (``repro_torch.obs.sketches``); ``region`` is
+    the rank's ``(K_loc,)`` region ids.
     """
     fl = program.fl
     k, eta, K = fl.k, fl.eta, fl.K
@@ -253,8 +293,32 @@ def _make_step(program: "RoundProgram", ctx, lean: bool):
     if fused:
         decay = tuple(alpha ** (s + 1) for s in range(S))
         kind = {"packed": "bits", "packed_lags": "crumbs"}.get(program.override, "x" if sync else "lag")
+    if sketch is not None:
+        L = lag_bins(program.staleness)
 
     active = ctx.active
+
+    def tap_row(mask, x, sigma, capped, arriving=None):
+        """The gauge row: the slab's sums stacked, one collective a round."""
+        stale = torch.zeros((), dtype=_f32, device=mask.device) if arriving is None else torch.sum(arriving)
+        sums = ctx.psum(torch.stack([torch.sum(mask), torch.dot(mask, x), stale, torch.sum(capped.to(_f32))]))
+        return {
+            "selected": sums[0],
+            "on_time": sums[1],
+            "stale": sums[2],
+            "sigma": sigma.to(_f32),
+            "capped_frac": divide(sums[3], K),
+        }
+
+    def with_taps(carry, out, tapc, skc, mask, x, lag, p, sigma, capped, state, arriving=None):
+        if not taps:
+            return carry, out
+        row = tap_row(mask, x, sigma, capped, arriving)
+        carry, out = carry + (ROUND_TAPS.accumulate(tapc, row),), out + (row,)
+        if sketch is None:
+            return carry, out
+        skc, sk_row = sketch_step(sketch, skc, mask, x, lag, p, state.sel_counts, state.t, region, active, L)
+        return carry + (skc,), out + (sk_row,)
 
     def recentre(logw):
         """Shift to a (masked, global) max of 0; padding stays pinned at 0."""
@@ -266,6 +330,9 @@ def _make_step(program: "RoundProgram", ctx, lean: bool):
     def step(carry, x_over, noise: RoundNoise):
         state = carry[0]
         rings = None if sync else carry[1]
+        n_core = 1 if sync else 2
+        tapc = carry[n_core] if taps else None
+        skc = carry[n_core + 1] if sketch is not None else None
         with stage("round.select"):
             idx, p, capped, sigma, mask = ctx.select(state, noise.g)
         if fused:
@@ -328,7 +395,7 @@ def _make_step(program: "RoundProgram", ctx, lean: bool):
                 e3cs=e3cs, vol_state=vs, t=state.t + 1, sel_counts=state.sel_counts + mask, loss_cache=loss_cache,
             )
             out = (ctx.psum(torch.dot(mask, x)), sigma) if lean else (mask, x, p, sigma)
-            return (state,), out
+            return with_taps((state,), out, tapc, skc, mask, x, None, p, sigma, capped, state)
         on_time = ctx.psum(torch.dot(mask, x))
         stale = ctx.psum(torch.sum(arriving))
         state = state._replace(
@@ -336,7 +403,7 @@ def _make_step(program: "RoundProgram", ctx, lean: bool):
             cep=state.cep + on_time + stale, succ_hist=state.succ_hist + on_time,
         )
         out = (on_time, stale, sigma) if lean else (mask, lag, p, sigma, arriving)
-        return (state, new_rings), out
+        return with_taps((state, new_rings), out, tapc, skc, mask, x, lag, p, sigma, capped, state, arriving)
 
     return step
 
@@ -547,11 +614,31 @@ class RoundProgram:
             gen.manual_seed(int(np.random.SeedSequence([int(key), self.mesh.rank]).generate_state(1, np.uint64)[0]))
         return gen
 
+    def _draw_bounds(self) -> tuple:
+        """The volatility model's row bounds (none when outcomes come from a
+        trace)."""
+        return self.local_vol.draw_bounds() if self.override == "none" else ()
+
+    def draw_uniforms(self, gen: torch.Generator, out=None) -> tuple:
+        """One round's raw ``(K_loc,)`` uniform rows in the fixed order: the
+        Gumbel row's, then the volatility model's (only when outcomes come
+        from the model).  With ``out`` they are drawn into those buffers."""
+        n = 1 + len(self._draw_bounds())
+        if out is None:
+            return tuple(torch.rand(self.K_loc, generator=gen, device=self.device, dtype=_f32) for _ in range(n))
+        for buf in out:
+            torch.rand(self.K_loc, generator=gen, out=buf)
+        return tuple(out)
+
+    def noise_from_uniforms(self, raw) -> RoundNoise:
+        """The round's noise from its raw rows: the Gumbel transform of the
+        first, the model's scaling of the rest."""
+        return RoundNoise(g=gumbel_from_uniform(raw[0]), u=uniform_rows(raw[1:], self._draw_bounds()))
+
     def draw_noise(self, gen: torch.Generator) -> RoundNoise:
         """One round's noise in the fixed order: the Gumbel row, then the
         volatility model's rows (only when outcomes come from the model)."""
-        g = gumbel_row(gen, self.K_loc, self.device)
-        return RoundNoise(g=g, u=self.local_vol.draw(gen) if self.override == "none" else ())
+        return self.noise_from_uniforms(self.draw_uniforms(gen))
 
     def _state0(self):
         if self.mesh is None:
@@ -562,17 +649,26 @@ class RoundProgram:
             vs = _slab(vs, K_pad, self.mesh.rank, Ks, dim=0)
         return init_server_state({}, Ks, vs, self.device)
 
+    def _step(self, lean: bool, taps: bool, sketch: Optional[SketchSpec] = None):
+        ctx = _LocalCtx(self) if self.mesh is None else _ShardCtx(self, self.K_loc)
+        region = None
+        if sketch is not None:
+            region = torch.as_tensor(region_ids(sketch, self.fl.K), device=self.device)
+            if self.mesh is not None:
+                K_pad, Ks, _, _ = self._sharded_geometry()
+                region = _slab(region, K_pad, self.mesh.rank, Ks)
+        return _make_step(self, ctx, lean, taps, sketch, region)
+
     def build_step(self, lean: bool = False, taps: bool = False):
         """The round body ``step(carry, x_over, noise)`` plus its initial
         state (see ``_make_step`` for the carry and outputs); under a mesh,
-        this rank's step and slab."""
-        if taps:
-            raise NotImplementedError("round taps are not ported yet (ROADMAP.md A7)")
-        ctx = _LocalCtx(self) if self.mesh is None else _ShardCtx(self, self.K_loc)
-        return _make_step(self, ctx, lean), self._state0()
+        this rank's step and slab.  With ``taps=True`` the carry gains a
+        trailing counter dict (seed it with ``ROUND_TAPS.init_counters(
+        device)``) and the outputs a trailing gauge row."""
+        return self._step(lean, taps), self._state0()
 
     def build_runner(self, outputs: str = "full", carry_key: bool = False, scan_length: Optional[int] = None,
-                     taps: bool = False, sketch=None):
+                     taps: bool = False, sketch: Optional[SketchSpec] = None):
         """The program over a whole horizon; returns ``(run, state0)``.
 
         * sync  full: ``run(state, key, xs_in=None) -> (state, masks, xs, ps, sigmas)``
@@ -588,47 +684,219 @@ class RoundProgram:
         ``xs_in`` holds the ``(T, ...)`` trace rows of the override modes.
         ``scan_length`` runs that many rounds instead of ``fl.rounds``.
 
+        ``taps=True`` appends one payload to every contract above,
+        ``{"series": {gauge: (T,)}, "counters": {counter: 0-d}}``, the
+        ``ROUND_TAPS`` schema.  With ``carry_key=True`` the counters thread
+        through instead (seed them with ``ROUND_TAPS.init_counters(device)``):
+        sync ``run(state, key, tapc, xs_in) -> (state, key, tapc, *outs,
+        series)``, async ``run(state, key, rings, tapc, xs_in) -> (state,
+        key, rings, tapc, *outs, series)``; chunks concatenated equal one
+        shot.  ``sketch=<SketchSpec>`` (requires ``taps``, one-shot only)
+        adds ``"sketches"``: ``SKETCH_FIELDS`` to ``(T // window, ...)``
+        streams, summed over the ranks under a mesh.
+
         Under a mesh every per-client array in and out (state, rings, trace
         rows, full outputs) is this rank's slab: ``local_rows`` cuts trace
         rows, ``repro_torch.convert`` shards and gathers states.
+
+        The returned ``run`` keeps its static buffers and, on CUDA, the graph
+        it captures at its first call (``run.horizon``: ``warmup_s``,
+        ``capture_s``, ``per_replay`` launches); nothing ``run`` returns
+        aliases them.
         """
         if outputs not in ("full", "lean"):
             raise ValueError(f"unknown outputs mode {outputs!r} (want 'full' or 'lean')")
-        if taps or sketch is not None:
-            raise NotImplementedError("round taps and sketches are not ported yet (ROADMAP.md A7)")
+        if sketch is not None and not taps:
+            raise ValueError("sketch streams ride the taps stage; pass taps=True")
+        if sketch is not None and carry_key:
+            raise ValueError(
+                "sketch streams are one-shot (the windowed emission is sliced after the horizon); "
+                "chunked carry_key horizons stream taps counters instead"
+            )
         T = self.fl.rounds if scan_length is None else int(scan_length)
-        step, state0 = self.build_step(lean=outputs == "lean")
+        if T < 1:
+            raise ValueError(f"a horizon runs at least one round, got {T}")
+        step = self._step(outputs == "lean", taps, sketch)
         sync = self.staleness is None
         replay = self.override != "none"
+        horizon = _Horizon(self, step, T, n_sketch=len(SKETCH_FIELDS) if sketch is not None else 0)
 
-        def horizon(carry, gen, xs_in):
+        def run_horizon(carry, key, xs_in):
             if replay and (xs_in is None or len(xs_in) < T):
                 raise ValueError(f"override={self.override!r} needs {T} trace rows in xs_in")
-            outs = []
-            for t in range(T):
-                carry, out = step(carry, xs_in[t] if replay else None, self.draw_noise(gen))
-                outs.append(out)
-            return carry, tuple(torch.stack(col) for col in zip(*outs))
+            gen = self.generator(key)
+            carry, outs = horizon(carry, gen, xs_in if replay else None)
+            return carry, gen, outs
 
-        if sync:
+        if carry_key:
+            n_carry = int(not sync) + int(taps)  # rings and counters the caller threads
 
-            def run(state, key, xs_in=None):
-                gen = self.generator(key)
-                (state,), outs = horizon((state,), gen, xs_in)
-                return (state, gen.get_state(), *outs) if carry_key else (state, *outs)
-
-        elif carry_key:
-
-            def run(state, key, rings, xs_in=None):
-                gen = self.generator(key)
-                (state, rings), outs = horizon((state, tuple(r.clone() for r in rings)), gen, xs_in)
-                return (state, gen.get_state(), rings, *outs)
+            def run(state, key, *args, xs_in=None):
+                if len(args) == n_carry + 1 and xs_in is None:
+                    *args, xs_in = args
+                if len(args) != n_carry:
+                    raise TypeError(f"run takes state, key, {n_carry} carried value(s) and xs_in; got {len(args)}")
+                carry, gen, outs = run_horizon((state, *args), key, xs_in)
+                return (carry[0], gen.get_state(), *carry[1:], *outs)
 
         else:
+            n_core = 1 if sync else 2
 
             def run(state, key, xs_in=None):
-                gen = self.generator(key)
-                (state, _), outs = horizon((state, self.init_rings()), gen, xs_in)
-                return (state, *outs)
+                tail = (ROUND_TAPS.init_counters(self.device),) if taps else ()
+                if sketch is not None:
+                    tail += (sketch_carry0(self.K_loc, lag_bins(self.staleness), self.device),)
+                rings = () if sync else (self.init_rings(),)
+                carry, _, outs = run_horizon((state, *rings, *tail), key, xs_in)
+                if not taps:
+                    return (carry[0], *outs)
+                payload = {"counters": carry[n_core]}
+                if sketch is not None:
+                    *outs, series, sk = outs
+                    payload["sketches"] = self._merge_stream(sk, sketch.window)
+                else:
+                    *outs, series = outs
+                return (carry[0], *outs, {"series": series, **payload})
 
-        return run, state0
+        run.horizon = horizon
+        return run, self._state0()
+
+    def _merge_stream(self, sk: dict, W: int) -> dict:
+        """The emission rows of a sketch stream (every ``W``-th round), summed
+        over the ranks under a mesh: one collective for all fields."""
+        sk = {n: v[W - 1 :: W] for n, v in sk.items()}
+        if self.mesh is None:
+            return {n: v.contiguous() for n, v in sk.items()}
+        n = next(iter(sk.values())).shape[0]
+        flat = self.mesh.psum(torch.cat([v.reshape(n, -1) for v in sk.values()], dim=1))
+        out, col = {}, 0
+        for name, v in sk.items():
+            w = int(np.prod(v.shape[1:]))
+            out[name] = flat[:, col : col + w].reshape(v.shape).contiguous()
+            col += w
+        return out
+
+
+class _Horizon:
+    """The rounds of one runner over static buffers (see the module
+    docstring): ``horizon(carry, gen, xs_in) -> (carry, outs)`` runs ``T``
+    rounds of ``step`` from ``carry``, with noise from ``gen`` and trace rows
+    from ``xs_in`` (None without a trace), and returns the new carry and the
+    ``(T, ...)`` outputs in the step's structure.  The carry it is given is
+    copied in and never written.
+
+    The step's 0-d float32 outputs and its last ``n_sketch`` outputs (the
+    sketch row) are packed into one vector a round, so a round takes its
+    outputs out in one copy per per-client output and one for the rest.
+    """
+
+    def __init__(self, program: "RoundProgram", step, T: int, n_sketch: int = 0):
+        self.program, self.step, self.T, self.n_sketch = program, step, T, n_sketch
+        self.graph = None
+        self.warmup_s = self.capture_s = None
+        self.per_replay = {}  # kernel launches by wrapper that one replay runs
+        self._spec = None
+
+    def _setup(self, leaves, spec, xs_in):
+        pm = self.program
+        self._spec = spec
+        self._carry = [v.detach().clone() if torch.is_tensor(v) else v for v in leaves]
+        self._x = None if xs_in is None else torch.as_tensor(xs_in[0], device=pm.device).clone()
+        self._raw = [torch.empty(pm.K_loc, dtype=_f32, device=pm.device) for _ in range(1 + len(pm._draw_bounds()))]
+
+    def _body(self):
+        """One step on the static buffers: the new carry is written back into
+        them, and the outputs are returned as ``(per-client list, packed)``."""
+        noise = self.program.noise_from_uniforms(self._raw)
+        carry, out = self.step(pytree.tree_unflatten(self._carry, self._spec), self._x, noise)
+        leaves, self._out_spec = pytree.tree_flatten(out)
+        held = {b.untyped_storage().data_ptr() for b in self._carry if torch.is_tensor(b)}
+        # an output that is a view of a carry buffer (the staged ring's
+        # arriving row) is copied before the buffers are written
+        leaves = [v.clone() if v.untyped_storage().data_ptr() in held else v for v in leaves]
+        for buf, v in zip(self._carry, pytree.tree_leaves(carry)):
+            if torch.is_tensor(buf) and v is not buf:
+                buf.copy_(v)
+        n = len(leaves)
+        self._small = [i for i, v in enumerate(leaves) if v.dtype == _f32 and (v.dim() == 0 or i >= n - self.n_sketch)]
+        self._shapes = [tuple(v.shape) for v in leaves]
+        big = [v for i, v in enumerate(leaves) if i not in self._small]
+        packed = torch.cat([leaves[i].reshape(-1) for i in self._small]) if self._small else None
+        return big, packed
+
+    def _capture(self):
+        """Warm up eagerly on a side stream, then capture one step."""
+        pm = self.program
+        dev = pm.device
+        with torch.cuda.device(dev):
+            main = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(main)
+            t0 = time.perf_counter()
+            with torch.cuda.stream(side):
+                # allocator pools, library handles and the NCCL communicator come
+                # to exist here; the noise comes from a generator of the warm-up's
+                # own, so the run's generator is untouched
+                pm.draw_uniforms(torch.Generator(device=dev).manual_seed(0), self._raw)
+                self._body()
+            main.wait_stream(side)
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            before = launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                outs = self._body()
+            torch.cuda.synchronize(dev)
+            after = launch_counts()
+        self.per_replay = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+        add_launch_counts({n: -c for n, c in self.per_replay.items()})
+        self.graph, self._outs = graph, outs
+        self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
+
+    def _stack(self, big, packed):
+        """The ``(T, ...)`` outputs in the step's structure."""
+        T, out, bi, col = self.T, [], 0, 0
+        for i, shape in enumerate(self._shapes):
+            if i in self._small:
+                n = int(np.prod(shape))
+                out.append(packed[:, col : col + n].reshape(T, *shape).contiguous())
+                col += n
+            else:
+                out.append(big[bi])
+                bi += 1
+        return pytree.tree_unflatten(out, self._out_spec)
+
+    def __call__(self, carry, gen: torch.Generator, xs_in):
+        leaves, spec = pytree.tree_flatten(carry)
+        if self._spec is None:
+            self._setup(leaves, spec, xs_in)
+        elif spec != self._spec or any(
+            torch.is_tensor(b) and (b.shape != v.shape or b.dtype != v.dtype) for b, v in zip(self._carry, leaves)
+        ):
+            raise ValueError("a runner's carry keeps the structure, shapes and dtypes of its first call")
+        if self.program.device.type == "cuda" and self.graph is None:
+            self._capture()
+        for buf, v in zip(self._carry, leaves):
+            if torch.is_tensor(buf):
+                buf.copy_(v)
+        res = packed_res = None
+        for t in range(self.T):
+            if self._x is not None:
+                self._x.copy_(xs_in[t])
+            self.program.draw_uniforms(gen, self._raw)
+            if self.graph is not None:
+                self.graph.replay()
+                add_launch_counts(self.per_replay)
+                big, packed = self._outs
+            else:
+                big, packed = self._body()
+            if res is None:
+                res = [torch.empty((self.T, *v.shape), dtype=v.dtype, device=v.device) for v in big]
+                if packed is not None:
+                    packed_res = torch.empty((self.T, packed.numel()), dtype=_f32, device=packed.device)
+            for r, v in zip(res, big):
+                r[t].copy_(v)
+            if packed is not None:
+                packed_res[t].copy_(packed)
+        new = [b.clone() if torch.is_tensor(b) else b for b in self._carry]
+        return pytree.tree_unflatten(new, self._spec), self._stack(res, packed_res)

@@ -64,11 +64,20 @@ def _reduce_sum(x_padded: torch.Tensor, tile: int, mesh) -> torch.Tensor:
     return mesh.psum(s) if mesh is not None else s
 
 
+def _scalar(v, dt, device) -> torch.Tensor:
+    """``v`` as a 0-d tensor of ``dt`` on ``device``: a tensor is cast on the
+    device, a Python number is filled in by a kernel (no copy from host
+    memory, which a CUDA graph cannot capture)."""
+    if torch.is_tensor(v):
+        return v.to(dtype=dt, device=device)
+    return torch.full((), v, dtype=dt, device=device)
+
+
 def _alloc_prelude(w, k, sigma, active):
     """Cast to the weight dtype and fold the activity mask into the weights."""
     dt, dev = w.dtype, w.device
     active = torch.ones_like(w) if active is None else active.to(dt)
-    return w * active, active, torch.as_tensor(k, dtype=dt, device=dev), torch.as_tensor(sigma, dtype=dt, device=dev)
+    return w * active, active, _scalar(k, dt, dev), _scalar(sigma, dt, dev)
 
 
 def _alloc_scalars(w, k, sigma, active, *, n_iters: int, tile: int, mesh, block: int):

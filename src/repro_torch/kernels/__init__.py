@@ -35,6 +35,7 @@ __all__ = [
     "WRAPPERS",
     "launch_counts",
     "reset_launch_counts",
+    "add_launch_counts",
 ]
 
 # every wrapper that launches a kernel, by the name its count is reported under
@@ -59,3 +60,11 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add ``{wrapper name: n}`` to the counts (negative ``n`` takes launches
+    back): a captured round step's launches run at each replay, not at the
+    capture."""
+    for name, n in counts.items():
+        WRAPPERS[name].launches += n

@@ -109,16 +109,11 @@ def test_wrappers_refuse_a_device_with_no_kernel():
         fused_round_tail(z, z, z, z.bool(), z, z, kind="x", residual=1.0, eta=0.5, K_glob=8)
 
 
-@pytest.mark.parametrize("what", ["mesh", "taps", "scheme", "sampler", "scenario"])
+@pytest.mark.parametrize("what", ["scheme", "sampler", "scenario"])
 def test_unported_paths_raise_with_their_roadmap_item(what):
     fl, vol, rho = _program_args()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "mesh":  # the mesh is ported; its taps are not
-            mesh = HostMesh(size=1, rank=0, device=torch.device("cpu"))
-            RoundProgram.from_config(fl, mesh=mesh, device="cpu").build_runner(taps=True)
-        elif what == "taps":
-            RoundProgram.from_config(fl, device="cpu").build_runner(taps=True)
-        elif what == "scheme":
+        if what == "scheme":
             RoundProgram(fl=dataclasses.replace(fl, scheme="random"), vol=vol, rho=rho, device="cpu")
         elif what == "sampler":
             RoundProgram(fl=dataclasses.replace(fl, sampler="systematic"), vol=vol, rho=rho, device="cpu")

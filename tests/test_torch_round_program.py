@@ -229,3 +229,51 @@ def test_fused_and_staged_runners_select_identically():
     np.testing.assert_array_equal(outs[0][1].numpy(), outs[1][1].numpy())
     np.testing.assert_array_equal(outs[0][2].numpy(), outs[1][2].numpy())
     torch.testing.assert_close(outs[0][0].e3cs.logw, outs[1][0].e3cs.logw, rtol=RTOL, atol=ATOL)
+
+
+RUNNER_CASES = [(None, "deadline", "none"), (None, "deadline", "dense"), (2, "deadline", "none"),
+                (2, "late_credit", "none"), (2, "late_credit", "packed_lags")]
+
+
+@pytest.mark.parametrize("carry_key", [False, True], ids=["one_shot", "carry_key"])
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "staged"])
+@pytest.mark.parametrize("staleness,feedback,override", RUNNER_CASES)
+def test_runner_equals_the_eager_step_loop(staleness, feedback, override, fused, carry_key):
+    """The runner's static buffers (carry, uniform rows, trace row, packed
+    outputs) change nothing: its horizon equals a hand loop of ``build_step``
+    + ``draw_noise`` from the same generator bit for bit, the generator's
+    state included, at its first call and again."""
+    _, pm = _programs(staleness=staleness, allocator="bisect", feedback=feedback, override=override, fused=fused)
+    dense, packed = _trace("dense_async" if staleness else "dense")
+    xs = None if override == "none" else torch.from_numpy(dense if override == "dense" else packed)
+    run, s0 = pm.build_runner(outputs="full", carry_key=carry_key)
+    rings = () if staleness is None or not carry_key else (pm.init_rings(),)
+    got = [run(s0, SEED, *rings, xs) for _ in range(2)]
+    step, _ = pm.build_step()
+    gen = pm.generator(SEED)
+    carry = (s0,) if staleness is None else (s0, pm.init_rings())
+    outs = []
+    for t in range(T):
+        carry, out = step(carry, None if xs is None else xs[t], pm.draw_noise(gen))
+        outs.append(out)
+    stacked = [torch.stack(c) for c in zip(*outs)]
+    want = (carry[0], gen.get_state(), *carry[1:], *stacked) if carry_key else (carry[0], *stacked)
+    for result in got:
+        leaves, ref = torch.utils._pytree.tree_leaves(result), torch.utils._pytree.tree_leaves(want)
+        assert len(leaves) == len(ref)
+        for a, b in zip(leaves, ref):
+            assert (a is None and b is None) or (a.dtype == b.dtype and torch.equal(a, b))
+
+
+def test_draw_noise_is_the_raw_rows_transformed():
+    """``draw_noise`` = ``noise_from_uniforms`` of ``draw_uniforms``, and the
+    rows drawn into buffers are the rows ``torch.rand`` returns."""
+    _, pm = _programs(staleness=2, allocator="bisect", feedback="deadline", override="none", fused=True)
+    a, b = pm.generator(1), pm.generator(1)
+    bufs = [torch.empty(K) for _ in range(4)]
+    raw = pm.draw_uniforms(a, bufs)
+    fresh = pm.draw_uniforms(b)
+    assert len(raw) == 4 and all(torch.equal(x, y) for x, y in zip(raw, fresh))
+    n1, n2 = pm.noise_from_uniforms(raw), pm.draw_noise(pm.generator(1))
+    assert torch.equal(n1.g, n2.g) and all(torch.equal(x, y) for x, y in zip(n1.u, n2.u))
+    assert torch.equal(a.get_state(), b.get_state())
