@@ -31,12 +31,15 @@ Phases, one line each; any failure raises and the script exits non-zero:
    capture's host ms, the kernel launches one replay makes) and replays it
    each round of the timed run, whose launch counts are counted over the
    replays;
-5. graph check (``[graph-check]``): for six runs at K = 1e6 (fused sync,
-   fused async late-credit, the staged packed 1-bit and 2-bit replays, the
-   fused mesh ``block=4`` sync run and the staged mesh async deadline run)
-   a captured ``carry_key`` runner, at its first call and again, equals a
-   hand loop of ``build_step`` + ``draw_noise`` bit for bit: every output,
-   the state, the rings and the generator state;
+5. graph check (``[graph-check]``): for twelve runs at K = 1e6 (fused
+   sync, fused async late-credit, the staged packed 1-bit and 2-bit
+   replays, the fused mesh ``block=4`` sync run, the staged mesh async
+   deadline run, fused Markov and regional-outage volatility, a staged
+   flash crowd through its window, and the staged random, systematic and
+   FedCS selectors, whose noise holds permutations) a captured
+   ``carry_key`` runner, at its first call and again, equals a hand loop of
+   ``build_step`` + ``draw_noise`` bit for bit: every output, the state,
+   the rings and the generator state;
 6. checks: cohorts of k distinct clients every round, counts, allocation
    bounds, re-centred finite weights, fused == staged cohorts, the mesh's
    ``block=1`` run == the dense run bit for bit, ``block=4`` allocations
@@ -52,14 +55,30 @@ Phases, one line each; any failure raises and the script exits non-zero:
    ``chiprun_out/results/``: counters, the ``selected`` series, the sketch
    stream, the fairness series, the alerts (no cohort-size alert) and the
    run log (``validate_records``); ``[fleet-job]`` logs its rates;
-9. ops: the kernel layer's public ops, the path of the top-k and update
+9. scenarios: the scenario subsystem's entry points at K = 1e6, k = 1000,
+   T = 50 on the card, each with the launch counts set to 0 just before it
+   and checked exactly just after (a fresh runner's first call warms its
+   step up once and replays it T times: T + 1 launches a kernel a round):
+   ``record_trace`` of the seven registry scenarios (each trace's success
+   rate against the registry's rate hint, ``[scenario-trace]``) and
+   ``record_lag_trace`` of one; ``run_replay`` of E3CS and the four
+   baselines on the diurnal trace (the decode kernel a round, the same
+   bits for every selector, the top-k kernel a round for FedCS and UCB);
+   ``scan_selection_sim("e3cs", vol=<scenario>, allocator="bisect",
+   fused=True)`` for each scenario; ``async_selection_sim`` replaying the
+   lag trace (the 2-bit decode kernel); ``evaluate_cell("e3cs",
+   "flash_crowd", staleness=2, feedback="late_credit")``; and
+   ``sharded_selection_sim`` over Markov volatility on the one-rank mesh
+   (``block=4``, 12 block sums a round); ``[scenario-run]`` logs each
+   call's rounds/s (runner build, warm-up and capture included);
+10. ops: the kernel layer's public ops, the path of the top-k and update
    kernels: ``autotune`` sweeps all four kernel families at K = 1e4, 1e5
    and 1e6 into a fresh cache under ``chiprun_out/autotune/``, then
    ``gumbel_topk_sample``, ``fused_gumbel_topk_sample`` and
    ``e3cs_update_tiled`` run at K = 1e6, k = 1000 with ``tile=None``,
    resolved through that cache; launch counts set to 0 before the phase and
    checked exactly after it, outputs against the plain versions;
-10. times: rounds/s and client decisions/s of each run.
+11. times: rounds/s and client decisions/s of each run.
 
 Ends with a JSON line of per-kernel numbers and, last, ``{"ok": true,
 "device": ...}``.  Without CUDA it exits non-zero before printing a result.
@@ -97,13 +116,23 @@ CARDS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12), ("H200", 4.8
 TIMED_CALLS = 20
 # inputs that reach every path of the radix select (all scores equal: the
 # digits reach the index word; fewer than k positive: the -inf fill; one
-# binade: the chosen bin overflows the candidate buffer), k = 1, k = 2048 and
+# binade: the chosen bin overflows the candidate buffer; half the scores
+# +inf: UCB's unexplored clients, ties at the top key), k = 1, k = 2048 and
 # K = k, at K = 1e6 and 1,000,003
 ENGINE_CASES = [(case, K, k) for K in (K_MAIN, K_RAGGED)
-                for case, k in (("equal", k_MAIN), ("few_positive", k_MAIN), ("binade", k_MAIN), ("gumbel", 1),
-                                ("gumbel", 2048))] + [("gumbel", 2048, 2048), ("equal", 2048, 2048)]
+                for case, k in (("equal", k_MAIN), ("few_positive", k_MAIN), ("binade", k_MAIN), ("inf_ties", k_MAIN),
+                                ("gumbel", 1), ("gumbel", 2048))] + [("gumbel", 2048, 2048), ("equal", 2048, 2048)]
 # fused runs with no staged partner: every other "-fused" run must have one
 UNPAIRED_FUSED_RUNS = ("mesh-block1-sync-full-fused",)
+SCENARIO_SEED = 3
+SELECTORS = ("e3cs", "random", "fedcs", "pow_d", "ucb")
+# pow-d's candidate set at k = 1000 (FLConfig's 40 holds only for k <= 40)
+POW_D = 2 * k_MAIN
+# a trace's mean success rate against its rate hint: standard deviations of
+# the mean of its K * rounds Bernoulli draws, inflated by (1 + s) / (1 - s)
+# for a Markov chain of stickiness s (the variance of a sum of draws whose
+# lag-j correlation is s**j)
+RATE_Z = 6.0
 CHIPRUN_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
@@ -510,6 +539,8 @@ def main():
         profile_round(dev, K_MAIN, k_MAIN, label="mesh-block4-taps-sketch", card=smi, mesh=mesh, block=4,
                       runner=dict(taps=True, sketch=SketchSpec(window=5, n_regions=4)))
         fleet_job(dev, K_MAIN, T_MAIN, card=smi)
+        for n, c in scenarios_path(dev, K_MAIN, k_MAIN, T_MAIN, mesh, card=smi).items():
+            launched.setdefault(n, c)
     finally:
         dist.destroy_process_group()
 
@@ -560,6 +591,8 @@ def engine_select_inputs(case, K, k, with_active, rng, dev):
     if case in ("equal", "binade"):
         w = np.ones(K)
         g = np.zeros(K) if case == "equal" else rng.uniform(1.0, 2.0, K)
+    if case == "inf_ties":
+        g = np.where(rng.random(K) < 0.5, np.inf, g)
     if active is not None:
         w = w * active
     sigma = 0.3 * k / K
@@ -587,6 +620,8 @@ def engine_topk_inputs(case, K, k, rng, dev):
         p, scores = np.where(keep, p, 0.0), np.where(keep, scores, -np.inf)
     elif case == "binade":  # log p + Gumbel(u) and the scores in [1, 2)
         p, u, scores = np.full(K, np.exp(1.5)), rng.uniform(0.2, 0.54, K), rng.uniform(1.0, 2.0, K)
+    elif case == "inf_ties":  # UCB: every unexplored client scores +inf
+        scores = np.where(rng.random(K) < 0.5, np.inf, scores)
     return tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev) for a in (p, u, scores))
 
 
@@ -694,10 +729,11 @@ def packed_rows(rng, T, K):
 
 
 def graph_check(dev, K, k, T, rng, mesh, seed=5):
-    """Phase 5: each of six runs as a ``carry_key`` runner, called
+    """Phase 5: each of twelve runs as a ``carry_key`` runner, called
     twice (the first call captures on the card), against a hand loop of
     ``build_step`` + ``draw_noise`` from the same seed: every output, the
-    state, the rings and the generator state, bit for bit."""
+    state, the rings and the generator state, bit for bit; an E3CS run's
+    weights finite and re-centred to a maximum of 0."""
     import dataclasses
 
     import torch
@@ -718,6 +754,13 @@ def graph_check(dev, K, k, T, rng, mesh, seed=5):
         "packed_lags-staged": (fl_async, dict(fused=False, override="packed_lags"), lags),
         "mesh-sync-full-fused": (fl, dict(fused=True, **m4), None),
         "mesh-async-S2-deadline-staged": (fl_async, dict(fused=False, **m4), None),
+        "markov-fused": (dataclasses.replace(fl, volatility="markov"), dict(fused=True), None),
+        "regional_outage-fused": (dataclasses.replace(fl, volatility="regional_outage"), dict(fused=True), None),
+        # a 16-round flash crowd: its window [4, 8) falls inside the T rounds
+        "flash_crowd-staged": (dataclasses.replace(fl, volatility="flash_crowd", rounds=16), dict(fused=False), None),
+        "random-staged": (dataclasses.replace(fl, scheme="random"), dict(fused=False), None),
+        "systematic-staged": (dataclasses.replace(fl, sampler="systematic"), dict(fused=False), None),
+        "fedcs-staged": (dataclasses.replace(fl, scheme="fedcs"), dict(fused=False), None),
     }
     for label, (cfg, opts, xs) in cases.items():
         pm = RoundProgram.from_config(cfg, device=dev, **opts)
@@ -740,6 +783,9 @@ def graph_check(dev, K, k, T, rng, mesh, seed=5):
             if not same:
                 raise AssertionError(f"graph check {label}: call {call + 1} of the runner differs from the eager "
                                      "step loop")
+        logw = got[0][0].e3cs.logw
+        if cfg.scheme == "e3cs" and not (bool(torch.isfinite(logw).all()) and float(logw.max()) == 0.0):
+            raise AssertionError(f"graph check {label}: logw not finite or not re-centred to max 0")
         hz = run.horizon
         log("graph-check", run=label, K=K, rounds=T, calls=2, result="bit-identical",
             compared="outputs,state,rings,generator_state", captured=hz.graph is not None,
@@ -804,6 +850,212 @@ def fleet_job(dev, K, rounds, card):
             counters=json.dumps(counters), sketch_rows=count_hist.shape[0],
             jain_last=f"{fair['jain'][-1]:.6f}", alerts=len(rep.data["alerts"]), runlog_records=len(records),
             runlog=os.path.relpath(rep.log.path), launches=json.dumps(launches), card=repr(card))
+
+
+def scenarios_path(dev, K, k, T, mesh, card, seed=SCENARIO_SEED):
+    """Phase 9: the scenario subsystem's entry points at (K, k, T) on
+    ``dev``.  Each call starts with the launch counts at 0 and must end with
+    exactly the launches its path makes (none on the CPU): a fresh runner's
+    first call warms its step up once and replays it T times, so a kernel of
+    the step launches T + 1 times.  Returns the first launch count of each
+    wrapper."""
+    import torch
+
+    from repro_torch import kernels as kn
+    from repro_torch.configs import FLConfig
+    from repro_torch.core.volatility import CompletionLag
+    from repro_torch.engine import RoundProgram, async_selection_sim, scan_selection_sim, sharded_selection_sim
+    from repro_torch.engine.sharded import N_ITERS
+    from repro_torch.kernels.ref import unpack_bits_ref
+    from repro_torch.scenarios import SCENARIOS, evaluate_cell, harness, make_scenario, record_lag_trace, record_trace
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    launched = {}
+    n1 = T + 1  # one warm-up call of the step and T replays
+
+    def timed(label, expect, fn, rounds=T):
+        kn.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        secs = time.perf_counter() - t0
+        counts = kn.launch_counts()
+        want = {n: 0 for n in counts} | (expect if on_card else {})
+        if counts != want:
+            raise AssertionError(f"scenario run {label}: launches {counts}, expected {want}")
+        for n, c in counts.items():
+            if c:
+                launched.setdefault(n, c)
+        log("scenario-run", run=label, K=K, k=k, rounds=rounds, seconds=f"{secs:.4f}",
+            call_rounds_per_s=f"{rounds / secs:.3f}", launches=json.dumps({n: c for n, c in counts.items() if c}),
+            card=repr(card))
+        return out
+
+    def check_sim(label, out, allocated=True):
+        masks, ps, sigmas = out["masks"], out["ps"], out["sigmas"]
+        if masks.shape != (T, K) or not np.all(masks.sum(1) == k):
+            raise AssertionError(f"{label}: a round's cohort is not k distinct clients")
+        psum = ps.sum(1, dtype=np.float64)
+        if not np.allclose(psum, k, rtol=PSUM_RTOL):
+            raise AssertionError(f"{label}: sum(p) far from k: {psum.min()}..{psum.max()}")
+        if allocated and not (np.all(ps >= sigmas[:, None] - 1e-7) and np.all(ps <= 1.0)):
+            raise AssertionError(f"{label}: p outside [sigma, 1]")
+
+    # -- the seven scenarios' traces against their rate hints ------------------------
+    for name in SCENARIOS:
+        vol, rho = make_scenario(name, K, T, seed, device=dev)
+        packed = timed(f"record_trace-{name}", {}, lambda: record_trace(vol, T, seed=seed, device=dev))
+        if packed.shape != (T, (K + 7) // 8) or packed.dtype != np.uint8:
+            raise AssertionError(f"record_trace {name}: {packed.dtype}{packed.shape}")
+        check_rate_hint(name, vol, rho, unpack_bits_ref(torch.from_numpy(packed).to(dev), K), card)
+    # recorded from another seed than the replay's selection noise (see run_replay)
+    lag_vol, _ = make_scenario("diurnal", K, T, seed, device=dev)
+    lags = timed("record_lag_trace-diurnal", {},
+                 lambda: record_lag_trace(CompletionLag(lag_vol, max_lag=2), T, seed=seed + 1, device=dev))
+    if lags.shape != (T, (K + 3) // 4):
+        raise AssertionError(f"record_lag_trace: shape {lags.shape}")
+
+    # -- E3CS and the four baselines on one frozen diurnal trace ---------------------
+    # run_replay records the trace itself and keeps only each selector's
+    # metric row; a recorder around the harness's scan_selection_sim checks
+    # each selector's run (its bits, cohorts and launches) as it returns
+    seen, traces_seen = [], []
+
+    def recorder(sel, **kw):
+        before = kn.launch_counts()
+        t0 = time.perf_counter()
+        out = scan_selection_sim(sel, **kw)
+        sync()
+        secs = time.perf_counter() - t0
+        counts = {n: c - before[n] for n, c in kn.launch_counts().items() if c != before[n]}
+        log("scenario-run", run=f"run_replay-diurnal/scan_selection_sim-{sel}", K=K, k=k, rounds=T,
+            seconds=f"{secs:.4f}", call_rounds_per_s=f"{T / secs:.3f}", launches=json.dumps(counts), card=repr(card))
+        bits = unpack_bits_ref(torch.from_numpy(kw["packed_override"]).to(dev), K).cpu().numpy()
+        if not np.array_equal(out["xs"], bits):
+            raise AssertionError(f"run_replay {sel}: its outcomes are not the recorded trace")
+        check_sim(f"run_replay {sel}", out, allocated=sel == "e3cs")
+        want = {"unpack_bits": n1} | ({"gumbel_topk": n1} if sel in ("fedcs", "ucb") else {})
+        if on_card and counts != want:
+            raise AssertionError(f"run_replay {sel}: launches {counts}, expected {want}")
+        seen.append(sel)
+        traces_seen.append(kw["packed_override"])
+        return out
+
+    harness.scan_selection_sim = recorder
+    try:  # its time includes the recorder's checks
+        rows, packed = timed("run_replay-diurnal", {"unpack_bits": len(SELECTORS) * n1, "gumbel_topk": 2 * n1},
+                             lambda: harness.run_replay(SELECTORS, "diurnal", K=K, k=k, T=T, seed=seed, frac=0.5,
+                                                        pow_d=POW_D, device=dev), rounds=len(SELECTORS) * T)
+    finally:
+        harness.scan_selection_sim = scan_selection_sim
+    if seen != list(SELECTORS) or any(p is not packed for p in traces_seen):
+        raise AssertionError(f"run_replay ran {seen}, not every selector on the one recorded trace")
+    for row in rows:
+        if not all(np.isfinite(v) for v in row.values() if isinstance(v, float)):
+            raise AssertionError(f"run_replay row not finite: {row}")
+        log("scenario-row", **{key: f"{v:.6g}" if isinstance(v, float) else v for key, v in row.items()})
+
+    # -- the fused E3CS round under each scenario's model ---------------------------
+    fused = {"round_select.from_w": n1, "round_tail": n1}
+    for name in SCENARIOS:
+        vol, rho = make_scenario(name, K, T, seed, device=dev)
+        out = timed(f"scan_selection_sim-e3cs-{name}-fused", fused,
+                    lambda: scan_selection_sim("e3cs", K=K, k=k, T=T, frac=0.5, seed=seed, vol=vol, rho=rho,
+                                               allocator="bisect", fused=True, device=dev))
+        check_sim(f"scan_selection_sim {name}", out)
+        del out
+
+    # -- the async round replaying the 2-bit lag trace, and one harness cell ---------
+    aout = timed("async_selection_sim-e3cs-S2-packed_lags", {"unpack_crumbs": n1},
+                 lambda: async_selection_sim("e3cs", K=K, k=k, T=T, frac=0.5, seed=seed, staleness=2,
+                                             packed_lag_override=lags, device=dev))
+    codes = ((lags[..., None] >> np.arange(0, 8, 2, dtype=np.uint8)) & 3).reshape(T, -1)[:, :K].astype(np.int32)
+    if not (np.array_equal(aout["lags"], np.where(codes == 3, -1, codes)) and np.all(aout["masks"].sum(1) == k)):
+        raise AssertionError("async replay: lags are not the trace's, or a cohort is not k clients")
+    logw = aout["final_logw"]
+    if not (np.isfinite(logw).all() and float(logw.max()) == 0.0):
+        raise AssertionError("async replay: logw not finite or not re-centred to max 0")
+    del aout
+    row = timed("evaluate_cell-e3cs-flash_crowd-S2-late_credit", {},
+                lambda: evaluate_cell("e3cs", "flash_crowd", K=K, k=k, T=T, seed=seed, staleness=2,
+                                      feedback="late_credit", device=dev), rounds=3 * T)
+    if not all(np.isfinite(v) for v in row.values() if isinstance(v, float)):
+        raise AssertionError(f"evaluate_cell row not finite: {row}")
+    log("scenario-row", **{key: f"{v:.6g}" if isinstance(v, float) else v for key, v in row.items()})
+
+    # -- steady rounds/s: each scenario model under the fused E3CS round, and
+    # each selector over Bernoulli volatility, a runner's second call ------------
+    steady = [(name, "e3cs", "plackett_luce", True) for name in SCENARIOS] + [
+        ("paper_iid", sel, "plackett_luce", False) for sel in SELECTORS] + [("paper_iid", "e3cs", "systematic", False)]
+    for name, sel, sampler, fuse in steady:
+        cfg = FLConfig(K=K, k=k, rounds=T, scheme=sel, sampler=sampler, quota_frac=0.5, allocator="bisect",
+                       volatility=name, seed=seed, pow_d=POW_D)
+        pm = RoundProgram.from_config(cfg, fused=fuse, device=dev)
+        run, s0 = pm.build_runner(outputs="full")
+        run(s0, seed)  # warm-up and capture
+        sync()
+        label = f"{name}-{sel}{'-systematic' if sampler == 'systematic' else ''}-{'fused' if fuse else 'staged'}"
+        per_round = {"round_select.from_w": T, "round_tail": T} if fuse else (
+            {"gumbel_topk": T} if sel in ("fedcs", "ucb") or sampler == "systematic" else {})
+        out = timed(f"steady-{label}", per_round, lambda: run(s0, seed))
+        masks = out[1]
+        if not bool((masks.sum(1) == k).all()):
+            raise AssertionError(f"steady {label}: a round's cohort is not k distinct clients")
+        hz = run.horizon
+        if on_card:
+            log("scenario-capture", run=label, warmup_ms=f"{hz.warmup_s * 1e3:.1f}", capture_ms=f"{hz.capture_s * 1e3:.1f}",
+                launches_per_replay=json.dumps(hz.per_replay))
+        del out, masks, run
+
+    # -- the K-sharded round over Markov volatility ---------------------------------
+    out = timed("sharded_selection_sim-e3cs-markov-block4-fused",
+                fused | {"bisect_block_sums": -(-N_ITERS // 4) * n1},
+                lambda: sharded_selection_sim("e3cs", mesh, K=K, k=k, T=T, frac=0.5, volatility="markov", seed=seed,
+                                              block=4, fused=True, device=dev))
+    check_sim("sharded_selection_sim markov", out)
+    log("check", scenarios="all scenario-phase checks passed")
+    return launched
+
+
+def check_rate_hint(name, vol, rho, xs, card):
+    """A trace's mean success rate against the registry's rate hint, over
+    the rounds where the hint is the trace's expected rate: every round of
+    the iid, Markov (stationary from the start) and deadline (calibrated)
+    scenarios, the whole periods of the diurnal one, and the flash crowd's
+    rounds before its window.  A regional outage starts with every region
+    up, so its hint, the stationary rate, is not a 50-round trace's
+    expectation: its mean must lie between the all-down and the all-up
+    rates.  Within ``RATE_Z`` standard deviations of the draws' mean."""
+    import torch
+
+    T = xs.shape[0]
+    per_round = xs.to(torch.float64).mean(1).cpu().numpy()
+    rho = rho.to(torch.float64)
+    inflate = 1.0
+    rounds = T
+    if name.startswith("markov"):
+        s = vol.stickiness
+        inflate = (1 + s) / (1 - s)
+    elif name == "diurnal":
+        rounds = vol.period * (T // vol.period)
+    elif name == "flash_crowd":
+        rounds = vol.t_start
+    got = float(per_round[:rounds].mean())
+    if name == "regional_outage":
+        base = vol.rho.to(torch.float64)
+        lo, hi = float((base * (1 - vol.severity)).mean()), float(base.mean())
+        ok = lo <= got <= hi
+        log("scenario-trace", scenario=name, rounds=T, mean_rate=f"{got:.6f}", hint_mean=f"{float(rho.mean()):.6f}",
+            bounds=f"[{lo:.6f},{hi:.6f}]", card=repr(card))
+    else:
+        want = float(rho.mean())
+        sd = math.sqrt(float((rho * (1 - rho)).sum()) * rounds * inflate) / (xs.shape[1] * rounds)
+        ok = abs(got - want) <= RATE_Z * sd
+        log("scenario-trace", scenario=name, rounds=rounds, mean_rate=f"{got:.6f}", hint_mean=f"{want:.6f}",
+            diff=f"{got - want:.3g}", bound=f"{RATE_Z * sd:.3g}", card=repr(card))
+    if not ok:
+        raise AssertionError(f"scenario {name}: the trace's mean success rate {got} misses its rate hint")
 
 
 def ops_path(dev, K, k, K_list=AUTOTUNE_K):

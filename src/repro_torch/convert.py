@@ -9,9 +9,15 @@ staleness rings as numpy arrays under these names and builds the port's
     t           ()     int32    round counter (ServerState.t and e3cs.t)
     sel_counts  (K,)   float32
     loss_cache  (K,)   float32
-    vol_state   (K,)   float32  the volatility model's carried state
+    vol_state   (K,)   float32  the volatility model's carried state: one
+                                array, or a tuple of them for a model whose
+                                state is a pytree (a round index, int32;
+                                a region row; a flash crowd's (alive, t))
     cep         ()     float32
     succ_hist   ()     float32
+    ucb_succ    (K,)   float32  the UCB selector's state (ServerState.ucb);
+    ucb_pulls   (K,)   float32  optional in ``state_from_jax`` (zeros, the
+    ucb_t       ()     int32    initial state, when absent)
     credit      (S, K) float32  async only
     fb          (S, K) float32  async under late_credit feedback only
 
@@ -27,15 +33,18 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.selection import E3CSState
+from torch.utils import _pytree as pytree
+
+from repro_torch.core.selection import E3CSState, UCBState
 from repro_torch.device import resolve_device
 from repro_torch.fl.round import ServerState
 
 __all__ = ["state_from_jax", "state_to_numpy", "shard_arrays", "gather_state", "STATE_FIELDS"]
 
 STATE_FIELDS = ("logw", "t", "sel_counts", "loss_cache", "vol_state", "cep", "succ_hist")
-_DTYPES = {"t": np.int32}
-_SCALARS = ("t", "cep", "succ_hist")  # replicated on every rank; the rest are per client (last axis)
+_DTYPES = {"t": np.int32, "ucb_t": np.int32}
+_SCALARS = ("t", "cep", "succ_hist", "ucb_t")  # replicated on every rank; the rest are per client (last axis)
+_UCB_FIELDS = ("ucb_succ", "ucb_pulls", "ucb_t")
 
 
 def state_from_jax(arrays: Dict[str, np.ndarray], device=None) -> Tuple[ServerState, tuple]:
@@ -50,13 +59,23 @@ def state_from_jax(arrays: Dict[str, np.ndarray], device=None) -> Tuple[ServerSt
         a = np.array(arrays[name], dtype=_DTYPES.get(name, np.float32))  # a writable copy
         return torch.from_numpy(a).to(device)
 
+    def vol_leaf(a):
+        a = np.asarray(a)
+        return torch.from_numpy(np.array(a, dtype=np.int32 if a.dtype.kind in "iu" else np.float32)).to(device)
+
     t = tensor("t")
+    logw = tensor("logw")
+    if all(name in arrays for name in _UCB_FIELDS):
+        ucb = UCBState(*(tensor(name) for name in _UCB_FIELDS))
+    else:
+        ucb = UCBState(torch.zeros_like(logw), torch.zeros_like(logw), torch.zeros((), dtype=torch.int32, device=device))
+    vs = arrays["vol_state"]
     state = ServerState(
         params={},
-        e3cs=E3CSState(logw=tensor("logw"), t=t.clone()),
-        ucb=None,
+        e3cs=E3CSState(logw=logw, t=t.clone()),
+        ucb=ucb,
         loss_cache=tensor("loss_cache"),
-        vol_state=tensor("vol_state"),
+        vol_state=tuple(vol_leaf(a) for a in vs) if isinstance(vs, (tuple, list)) else vol_leaf(vs),
         t=t,
         sel_counts=tensor("sel_counts"),
         cep=tensor("cep"),
@@ -69,7 +88,7 @@ def state_from_jax(arrays: Dict[str, np.ndarray], device=None) -> Tuple[ServerSt
 def state_to_numpy(state: ServerState, rings: tuple = ()) -> Dict[str, np.ndarray]:
     """The named numpy arrays of ``state`` and ``rings`` (the inverse of
     ``state_from_jax``)."""
-    return {name: v.detach().cpu().numpy() for name, v in _named(state, rings).items()}
+    return {name: pytree.tree_map(lambda v: v.detach().cpu().numpy(), v) for name, v in _named(state, rings).items()}
 
 
 def _named(state: ServerState, rings: tuple) -> Dict[str, torch.Tensor]:
@@ -81,6 +100,7 @@ def _named(state: ServerState, rings: tuple) -> Dict[str, torch.Tensor]:
         "vol_state": state.vol_state,
         "cep": state.cep,
         "succ_hist": state.succ_hist,
+        **dict(zip(_UCB_FIELDS, state.ucb)),
     }
     out.update(zip(("credit", "fb"), rings))
     return out
@@ -111,7 +131,8 @@ def gather_state(state: ServerState, rings: tuple, mesh) -> Dict[str, np.ndarray
         parts = mesh.all_gather(t).reshape(mesh.size, *t.shape)
         return torch.cat(list(parts), dim=-1)
 
-    return {
-        name: (t if name in _SCALARS else gather(t)).detach().cpu().numpy()
-        for name, t in _named(state, rings).items()
-    }
+    def host(name, t):
+        per_client = name not in _SCALARS and t.dim() > 0
+        return (gather(t) if per_client else t).detach().cpu().numpy()
+
+    return {name: pytree.tree_map(lambda t: host(name, t), v) for name, v in _named(state, rings).items()}

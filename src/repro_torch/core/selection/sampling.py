@@ -20,6 +20,10 @@ __all__ = [
     "gumbel_row",
     "gumbel_from_uniform",
     "uniform_row",
+    "exact_top_k",
+    "systematic_sample",
+    "sample_selection",
+    "inclusion_probability_mc",
 ]
 
 _EPS = 1e-20
@@ -56,6 +60,18 @@ def top_k(scores: torch.Tensor, k: int):
     return scores[order], order.to(torch.int32)
 
 
+def exact_top_k(scores: torch.Tensor, k: int):
+    """``top_k`` of a client-wide ``(K,)`` float32 row through the exact
+    top-k kernel's wrapper (``kernels.gumbel_topk_kernel_call``: the kernel
+    on a CUDA tensor, its plain version, ``top_k``, on a CPU one), or
+    ``top_k`` itself when ``k`` exceeds what the kernel ranks."""
+    from repro_torch.kernels.gumbel_topk import MAX_K, gumbel_topk_kernel_call  # the kernels import this module
+
+    if k <= MAX_K:
+        return gumbel_topk_kernel_call(scores, k)
+    return top_k(scores, k)
+
+
 def plackett_luce_sample(g: torch.Tensor, p: torch.Tensor, k: int) -> torch.Tensor:
     """Gumbel top-k == multinomial sampling without replacement; ``(k,)``
     int32 indices of the selected clients."""
@@ -87,3 +103,72 @@ def merge_topk_candidates(vals: torch.Tensor, idx: torch.Tensor, k: int) -> torc
 def selection_mask(idx: torch.Tensor, K: int) -> torch.Tensor:
     """``(K,)`` float32 mask with ones at the selected indices."""
     return torch.zeros(K, dtype=torch.float32, device=idx.device).index_fill_(0, idx.long(), 1.0)
+
+
+_SCAN_ROW = 1024  # clients a row of the blocked cumulative sum
+
+
+def _cumsum(x: torch.Tensor) -> torch.Tensor:
+    """The float32 inclusive cumulative sum of a ``(K,)`` row, the same bits
+    at every call.  On the CPU: ``torch.cumsum``, in order (as the JAX
+    package sums on the CPU).  On CUDA ``torch.cumsum`` of a 1-D tensor is a
+    single-pass scan whose partial sums combine in an order that varies from
+    call to call; the row is cut into rows of ``_SCAN_ROW`` clients, each
+    scanned by one block in a fixed order (a 2-D scan along its last axis),
+    and the rows' exclusive prefix, scanned the same way, added to them."""
+    if x.device.type == "cpu":
+        return torch.cumsum(x, dim=0)
+    K = x.shape[0]
+    R = max(2, -(-K // _SCAN_ROW))  # at least two rows: one row would take the 1-D scan
+    within = torch.cumsum(torch.cat([x, x.new_zeros(R * _SCAN_ROW - K)]).reshape(R, _SCAN_ROW), dim=1)
+    totals = within[:, -1]
+    prefix = torch.cumsum(torch.stack([totals, totals]), dim=1)[0]  # (2, R): the 2-D scan again
+    before = torch.cat([x.new_zeros(1), prefix[:-1]])
+    return (within + before[:, None]).reshape(-1)[:K]
+
+
+def systematic_sample(perm: torch.Tensor, u: torch.Tensor, p: torch.Tensor, k: int) -> torch.Tensor:
+    """Madow's systematic sampling: exact inclusion probabilities.
+
+    With ``sum(p) = k`` and ``0 <= p_i <= 1``: permute the clients by
+    ``perm`` (so joint inclusions do not follow client order), then select
+    every client whose cumulative interval ``[C_{i-1}, C_i)`` holds one of
+    the points ``u, u+1, ..., u+k-1`` (``u`` a 0-d uniform).  No client is
+    hit twice, so k distinct clients are chosen, in permuted order.
+    """
+    K = p.shape[0]
+    p_perm = p[perm]
+    c = _cumsum(p_perm)
+    c0 = torch.cat([torch.zeros(1, dtype=p.dtype, device=p.device), c[:-1]])
+    hits = torch.floor(c - u) - torch.floor(c0 - u)
+    score = (hits >= 1.0).to(p.dtype) * (K - torch.arange(K, dtype=p.dtype, device=p.device))
+    _, pos = exact_top_k(score, k)
+    return perm[pos.long()].to(torch.int32)
+
+
+def sample_selection(noise, p: torch.Tensor, k: int, method: str = "plackett_luce") -> torch.Tensor:
+    """The cohort from ``p`` by ``method``: ``plackett_luce`` takes the
+    Gumbel row ``noise.g``, ``systematic`` the permutation ``noise.perm``
+    and the 0-d uniform ``noise.v``."""
+    if method == "plackett_luce":
+        return plackett_luce_sample(noise.g, p, k)
+    if method == "systematic":
+        return systematic_sample(noise.perm, noise.v, p, k)
+    raise ValueError(f"unknown sampling method: {method!r}")
+
+
+def inclusion_probability_mc(generator: torch.Generator, p: torch.Tensor, k: int, n: int, method: str) -> torch.Tensor:
+    """Monte-Carlo estimate of inclusion probabilities: the mean selection
+    mask of ``n`` draws, their noise from ``generator``."""
+    from types import SimpleNamespace
+
+    K, dev = p.shape[0], p.device
+    total = torch.zeros(K, dtype=torch.float32, device=dev)
+    for _ in range(n):
+        if method == "plackett_luce":
+            noise = SimpleNamespace(g=gumbel_row(generator, K, dev))
+        else:
+            perm = torch.randperm(K, generator=generator, device=dev)
+            noise = SimpleNamespace(perm=perm, v=torch.rand((), generator=generator, device=dev))
+        total += selection_mask(sample_selection(noise, p, k, method), K)
+    return total / n

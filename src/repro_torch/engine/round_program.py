@@ -19,11 +19,12 @@ of ``repro.engine.round_program``).
   ``repro_torch.kernels.round_fused``; otherwise the stages run staged.
 
 Noise.  The JAX package splits a carried key each round.  Here the step
-takes its noise as tensors (``RoundNoise``: the ``(K,)`` Gumbel row and the
-volatility model's uniform rows), and the runner draws them from one
-``torch.Generator`` on the device in a fixed order each round: the Gumbel
-row, then the model's rows.  The fused and the staged branch consume the
-identical row, so they select identically.
+takes its noise as tensors (``RoundNoise``: what the scheme's selection
+takes, ``fl.round.select_draws``, then the volatility model's uniform rows,
+``draw_rows()``), and the runner draws them from one ``torch.Generator`` on
+the device in that fixed order each round: ``torch.rand`` rows and 0-d
+uniforms, ``torch.randperm`` permutations.  The fused and the staged branch
+consume the identical Gumbel row, so they select identically.
 
 On CUDA the fused tail updates the rings in place; ``build_runner`` copies
 the rings it is given once, so a caller's rings are never changed.
@@ -75,7 +76,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import NamedTuple, Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
@@ -86,17 +87,26 @@ from repro_torch.core.selection import (
     E3CSState,
     e3cs_probs,
     e3cs_update,
-    gumbel_from_uniform,
     make_quota_schedule,
     merge_topk_candidates,
     perturbed_scores,
     selection_mask,
+    ucb_update,
 )
 from repro_torch.core.selection.e3cs import divide, residual_mass
-from repro_torch.core.volatility import DEAD_LAG, uniform_rows
+from repro_torch.core.volatility import (
+    DEAD_LAG,
+    BernoulliVolatility,
+    BinaryLag,
+    CompletionLag,
+    DeadlineVolatility,
+    MarkovVolatility,
+    OnTimeBits,
+    uniform_rows,
+)
 from repro_torch.device import resolve_device
 from repro_torch.engine.sharded import N_ITERS, TILE, _shard_topk_merge, masked_prob_alloc, masked_prob_alloc_scalars
-from repro_torch.fl.round import init_server_state, make_select_fn
+from repro_torch.fl.round import RoundNoise, init_server_state, make_select_fn, select_draws, select_noise
 from repro_torch.kernels import add_launch_counts, launch_counts
 from repro_torch.kernels.ref import LAG_DEAD_CODE, ring_pop_push
 from repro_torch.kernels.round_fused import MAX_S, fused_alloc_select, fused_perturb_select, fused_round_tail
@@ -120,12 +130,10 @@ FEEDBACK_MODES = ("deadline", "late_credit")
 _f32 = torch.float32
 
 
-class RoundNoise(NamedTuple):
-    """One round's noise: the Gumbel row for selection and the volatility
-    model's uniform rows (empty when outcomes come from a trace)."""
-
-    g: torch.Tensor
-    u: Tuple[torch.Tensor, ...] = ()
+# the models a mesh shards: (K,)-indexed fields and state (JAX's
+# ``_collect_k_fields``), and the lag views over them
+_SHARDABLE = (BernoulliVolatility, MarkovVolatility, DeadlineVolatility)
+_LAG_VIEWS = {CompletionLag: "base", BinaryLag: "base", OnTimeBits: "lag_model"}
 
 
 def lag_credit_schedule(mask, lag, S: int, alpha: float):
@@ -155,8 +163,8 @@ class _LocalCtx:
         if program.fused:
             allocator, quota_fn = fl.allocator, program.quota_fn
 
-            def select(state, g):
-                sigma = quota_fn(state.t)
+            def select(state, noise):
+                sigma, g = quota_fn(state.t), noise.g
                 if allocator == "bisect":
                     with stage("round.allocate"):
                         w = torch.exp(state.e3cs.logw - torch.max(state.e3cs.logw))
@@ -171,10 +179,10 @@ class _LocalCtx:
                 return idx, p, capped, sigma, selection_mask(idx, K)
 
         else:
-            base = make_select_fn(fl, program.quota_fn)
+            base = make_select_fn(fl, program.quota_fn, program.rho)
 
-            def select(state, g):
-                idx, p, capped, sigma = base(state, g)
+            def select(state, noise):
+                idx, p, capped, sigma = base(state, noise)
                 return idx, p, capped, sigma, selection_mask(idx, K)
 
         self.select = select
@@ -203,8 +211,8 @@ class _ShardCtx:
         alloc_kw = dict(active=active, n_iters=N_ITERS, tile=TILE, mesh=mesh, block=program.block)
         neg_inf = torch.full((Ks,), float("-inf"), dtype=_f32, device=program.device)
 
-        def select(state, g):
-            sigma = quota_fn(state.t)
+        def select(state, noise):
+            sigma, g = quota_fn(state.t), noise.g
             with stage("round.allocate"):
                 logw = state.e3cs.logw
                 w = torch.exp(logw - mesh.pmax(torch.max(torch.where(active > 0, logw, neg_inf)))) * active
@@ -284,11 +292,11 @@ def _make_step(program: "RoundProgram", ctx, lean: bool, taps: bool = False, ske
     the rank's ``(K_loc,)`` region ids.
     """
     fl = program.fl
-    k, eta, K = fl.k, fl.eta, fl.K
+    k, eta, K, scheme = fl.k, fl.eta, fl.K, fl.scheme
     sync = program.staleness is None
     S = 0 if sync else int(program.staleness)
     alpha = program.alpha
-    late_fb = (not sync) and program.feedback == "late_credit" and S > 0
+    late_fb = (not sync) and program.feedback == "late_credit" and scheme == "e3cs" and S > 0
     fused = program.fused
     if fused:
         decay = tuple(alpha ** (s + 1) for s in range(S))
@@ -334,7 +342,7 @@ def _make_step(program: "RoundProgram", ctx, lean: bool, taps: bool = False, ske
         tapc = carry[n_core] if taps else None
         skc = carry[n_core + 1] if sketch is not None else None
         with stage("round.select"):
-            idx, p, capped, sigma, mask = ctx.select(state, noise.g)
+            idx, p, capped, sigma, mask = ctx.select(state, noise)
         if fused:
             with stage("round.observe"):
                 if kind in ("bits", "crumbs"):
@@ -352,6 +360,7 @@ def _make_step(program: "RoundProgram", ctx, lean: bool, taps: bool = False, ske
                 logw = tail["logw_pre"] - ctx.pmax(tail["m"])
                 e3cs = E3CSState(logw=logw if active is None else logw * active, t=state.e3cs.t + 1)
                 loss_cache = tail["loss_cache"]
+                ucb = state.ucb
             if not sync:
                 lag = tail["lag"]
                 with stage("round.credit"):
@@ -371,8 +380,11 @@ def _make_step(program: "RoundProgram", ctx, lean: bool, taps: bool = False, ske
                 lag = obs
                 x = (lag == 0).to(_f32)  # deadline-based selector feedback
             with stage("round.update"):
-                e3cs = e3cs_update(state.e3cs, p, capped, mask, x, k, sigma, eta, **ctx.e3cs_kwargs)
-                loss_cache = torch.where(mask > 0, 1.0 - x, state.loss_cache)
+                e3cs = state.e3cs
+                if scheme == "e3cs":
+                    e3cs = e3cs_update(state.e3cs, p, capped, mask, x, k, sigma, eta, **ctx.e3cs_kwargs)
+                loss_cache = torch.where(mask > 0, 1.0 - x, state.loss_cache)  # the pow-d loss proxy
+                ucb = ucb_update(state.ucb, idx, x) if scheme == "ucb" else state.ucb
             if not sync:
                 with stage("round.credit"):
                     if S == 0:
@@ -392,15 +404,16 @@ def _make_step(program: "RoundProgram", ctx, lean: bool, taps: bool = False, ske
                         new_rings = (pending, fb)
         if sync:
             state = state._replace(
-                e3cs=e3cs, vol_state=vs, t=state.t + 1, sel_counts=state.sel_counts + mask, loss_cache=loss_cache,
+                e3cs=e3cs, ucb=ucb, vol_state=vs, t=state.t + 1, sel_counts=state.sel_counts + mask,
+                loss_cache=loss_cache,
             )
             out = (ctx.psum(torch.dot(mask, x)), sigma) if lean else (mask, x, p, sigma)
             return with_taps((state,), out, tapc, skc, mask, x, None, p, sigma, capped, state)
         on_time = ctx.psum(torch.dot(mask, x))
         stale = ctx.psum(torch.sum(arriving))
         state = state._replace(
-            e3cs=e3cs, vol_state=vs, t=state.t + 1, sel_counts=state.sel_counts + mask, loss_cache=loss_cache,
-            cep=state.cep + on_time + stale, succ_hist=state.succ_hist + on_time,
+            e3cs=e3cs, ucb=ucb, vol_state=vs, t=state.t + 1, sel_counts=state.sel_counts + mask,
+            loss_cache=loss_cache, cep=state.cep + on_time + stale, succ_hist=state.succ_hist + on_time,
         )
         out = (on_time, stale, sigma) if lean else (mask, lag, p, sigma, arriving)
         return with_taps((state, new_rings), out, tapc, skc, mask, x, lag, p, sigma, capped, state, arriving)
@@ -441,6 +454,31 @@ def _rebuild_vol(vol, arrs: dict):
             groups[head] = a
     kw = {head: _rebuild_vol(getattr(vol, head), v) if isinstance(v, dict) else v for head, v in groups.items()}
     return dataclasses.replace(vol, **kw)
+
+
+def _check_mesh(program: "RoundProgram") -> None:
+    """What the K-sharded round runs: E3CS with the Plackett-Luce sampler,
+    over a model with ``(K,)``-indexed fields and state (or a trace)."""
+    fl = program.fl
+    if fl.scheme != "e3cs":
+        raise NotImplementedError(
+            f"scheme {fl.scheme!r} on a mesh is not ported yet (ROADMAP.md A9 rest: the baselines on a mesh)"
+        )
+    if fl.sampler != "plackett_luce":
+        raise NotImplementedError(
+            f"sampler {fl.sampler!r} on a mesh is not ported yet (ROADMAP.md A9 rest: the systematic sampler on "
+            "a mesh; the JAX package's sharded engine has only the plackett_luce sampler)"
+        )
+    if program.override != "none":
+        return
+    vol = program.vol
+    while type(vol) in _LAG_VIEWS:
+        vol = getattr(vol, _LAG_VIEWS[type(vol)])
+    if not isinstance(vol, _SHARDABLE):
+        raise NotImplementedError(
+            f"volatility model {type(vol).__name__} on a mesh is not ported yet (ROADMAP.md A9 rest: the scenario "
+            "models on a mesh); replay a recorded trace through override='packed' / 'packed_lags' instead"
+        )
 
 
 def _slab(a: torch.Tensor, K_pad: int, rank: int, Ks: int, dim: int = -1) -> torch.Tensor:
@@ -514,7 +552,9 @@ class RoundProgram:
                 "feedback='late_credit' buffers selection-round allocations in the staleness "
                 "ring; it needs staleness=S (S=0 degenerates to deadline feedback)"
             )
-        make_select_fn(self.fl, None)  # raises for a scheme or sampler that is not ported
+        select_draws(self.fl, self.fl.K)  # raises for an unknown scheme or sampler
+        if mesh is not None:
+            _check_mesh(self)
         self.vol = self.vol.to(self.device)
         self.rho = torch.as_tensor(self.rho, dtype=_f32, device=self.device) if self.rho is not None else None
         if self.quota_fn is None:
@@ -597,7 +637,7 @@ class RoundProgram:
         S = 0 if self.staleness is None else int(self.staleness)
         shape = (S, self.K_loc)
         rings = (torch.zeros(shape, dtype=_f32, device=self.device),)
-        if self.feedback == "late_credit" and S > 0:
+        if self.feedback == "late_credit" and self.fl.scheme == "e3cs" and S > 0:
             rings = rings + (torch.zeros(shape, dtype=_f32, device=self.device),)
         return rings
 
@@ -614,39 +654,52 @@ class RoundProgram:
             gen.manual_seed(int(np.random.SeedSequence([int(key), self.mesh.rank]).generate_state(1, np.uint64)[0]))
         return gen
 
-    def _draw_bounds(self) -> tuple:
-        """The volatility model's row bounds (none when outcomes come from a
-        trace)."""
-        return self.local_vol.draw_bounds() if self.override == "none" else ()
+    def _model_rows(self) -> tuple:
+        """The volatility model's ``(n, lo)`` rows (none when outcomes come
+        from a trace)."""
+        return self.local_vol.draw_rows() if self.override == "none" else ()
+
+    def draws(self) -> tuple:
+        """One round's raw draws in the fixed order, each ``("rand" |
+        "perm", shape)``: the selection's (``select_draws``), then the
+        volatility model's rows (only when outcomes come from the model)."""
+        return select_draws(self.fl, self.K_loc) + tuple(("rand", (n,)) for n, _ in self._model_rows())
+
+    def _draw_buffers(self) -> list:
+        return [torch.empty(shape, dtype=torch.int64 if kind == "perm" else _f32, device=self.device)
+                for kind, shape in self.draws()]
 
     def draw_uniforms(self, gen: torch.Generator, out=None) -> tuple:
-        """One round's raw ``(K_loc,)`` uniform rows in the fixed order: the
-        Gumbel row's, then the volatility model's (only when outcomes come
-        from the model).  With ``out`` they are drawn into those buffers."""
-        n = 1 + len(self._draw_bounds())
-        if out is None:
-            return tuple(torch.rand(self.K_loc, generator=gen, device=self.device, dtype=_f32) for _ in range(n))
-        for buf in out:
-            torch.rand(self.K_loc, generator=gen, out=buf)
+        """One round's raw draws (``draws``): ``torch.rand`` rows and 0-d
+        uniforms, ``torch.randperm`` permutations.  With ``out`` they are
+        drawn into those buffers."""
+        out = self._draw_buffers() if out is None else out
+        for (kind, shape), buf in zip(self.draws(), out):
+            if kind == "perm":
+                torch.randperm(shape[0], generator=gen, out=buf)
+            else:
+                torch.rand(shape, generator=gen, out=buf)
         return tuple(out)
 
     def noise_from_uniforms(self, raw) -> RoundNoise:
-        """The round's noise from its raw rows: the Gumbel transform of the
-        first, the model's scaling of the rest."""
-        return RoundNoise(g=gumbel_from_uniform(raw[0]), u=uniform_rows(raw[1:], self._draw_bounds()))
+        """The round's noise from its raw draws: the selection's fields
+        (``select_noise``), then the model's scaling of its rows."""
+        n_sel = len(select_draws(self.fl, self.K_loc))
+        return RoundNoise(**select_noise(self.fl, raw[:n_sel]), u=uniform_rows(raw[n_sel:], self._model_rows()))
 
     def draw_noise(self, gen: torch.Generator) -> RoundNoise:
-        """One round's noise in the fixed order: the Gumbel row, then the
-        volatility model's rows (only when outcomes come from the model)."""
+        """One round's noise, drawn in the fixed order (``draws``)."""
         return self.noise_from_uniforms(self.draw_uniforms(gen))
 
     def _state0(self):
         if self.mesh is None:
             return init_server_state({}, self.fl.K, self.vol.init_state(), self.device)
         K_pad, Ks, _, _ = self._sharded_geometry()
-        vs = self.vol.init_state()
-        if isinstance(vs, torch.Tensor) and vs.dim() >= 1 and vs.shape[0] == self.fl.K:
-            vs = _slab(vs, K_pad, self.mesh.rank, Ks, dim=0)
+        vs = pytree.tree_map(
+            lambda v: _slab(v, K_pad, self.mesh.rank, Ks, dim=0)
+            if torch.is_tensor(v) and v.dim() >= 1 and v.shape[0] == self.fl.K else v,
+            self.vol.init_state(),
+        )
         return init_server_state({}, Ks, vs, self.device)
 
     def _step(self, lean: bool, taps: bool, sketch: Optional[SketchSpec] = None):
@@ -802,7 +855,7 @@ class _Horizon:
         self._spec = spec
         self._carry = [v.detach().clone() if torch.is_tensor(v) else v for v in leaves]
         self._x = None if xs_in is None else torch.as_tensor(xs_in[0], device=pm.device).clone()
-        self._raw = [torch.empty(pm.K_loc, dtype=_f32, device=pm.device) for _ in range(1 + len(pm._draw_bounds()))]
+        self._raw = pm._draw_buffers()
 
     def _body(self):
         """One step on the static buffers: the new carry is written back into

@@ -37,7 +37,7 @@ from repro_torch.core.selection.prob_alloc import clip_sigma_one
 from repro_torch.core.selection.sampling import local_topk_candidates, merge_topk_candidates
 from repro_torch.kernels.bisect_tiles import bisect_block_sums
 
-__all__ = ["masked_prob_alloc", "masked_prob_alloc_scalars", "N_ITERS", "TILE"]
+__all__ = ["masked_prob_alloc", "masked_prob_alloc_scalars", "sharded_selection_sim", "N_ITERS", "TILE"]
 
 N_ITERS = 48  # bisection halvings: the bracket shrinks to 2**-48 of its width
 TILE = 8192  # clients per tile of the two-level sums
@@ -164,3 +164,82 @@ def _shard_topk_merge(scores_loc: torch.Tensor, k: int, mesh) -> torch.Tensor:
         raise ValueError(f"k={k} exceeds the shard width {Ks}; need k <= K_pad/D")
     v, gi = local_topk_candidates(scores_loc, k, mesh.rank * Ks)
     return merge_topk_candidates(mesh.all_gather(v), mesh.all_gather(gi), k)
+
+
+def _gather_rows(x: torch.Tensor, mesh, K: int) -> torch.Tensor:
+    """The ranks' ``(T, Ks)`` slabs side by side, cut to the ``K`` clients."""
+    parts = mesh.all_gather(x).reshape(mesh.size, *x.shape)
+    return torch.cat(list(parts), dim=-1)[..., :K]
+
+
+def sharded_selection_sim(
+    scheme: str,
+    mesh,
+    K: int = 100,
+    k: int = 20,
+    T: int = 2500,
+    quota: str = "const",
+    frac: float = 0.0,
+    eta: float = 0.5,
+    volatility: str = "bernoulli",
+    stickiness: float = 0.8,
+    seed: int = 0,
+    xs_override=None,
+    packed_override=None,
+    outputs: str = "full",
+    block: int = 1,
+    vol=None,
+    rho=None,
+    taps: bool = False,
+    fused: bool = False,
+    device=None,
+):
+    """The K-sharded counterpart of ``scan_sim.scan_selection_sim`` on this
+    process's rank of ``mesh`` (``repro_torch.launch.mesh``): E3CS over a
+    Bernoulli, Markov or Deadline model (or a replayed trace), ``block``
+    halvings a sweep through the block-sum kernel.  Returns the same numpy
+    dict on every rank, per-client arrays gathered from the ranks and cut
+    to the K clients; ``taps=True`` adds ``"taps"``."""
+    import numpy as np
+
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.volatility import make_volatility, paper_success_rates
+    from repro_torch.engine.round_program import RoundProgram
+
+    if xs_override is not None and packed_override is not None:
+        raise ValueError("pass at most one of xs_override / packed_override")
+    override = "dense" if xs_override is not None else ("packed" if packed_override is not None else "none")
+    fl = FLConfig(K=K, k=k, rounds=T, scheme=scheme, quota=quota, quota_frac=frac, eta=eta, allocator="bisect")
+    if rho is None:
+        rho = getattr(vol, "rho", None)
+    if rho is None:
+        rho = paper_success_rates(K)
+    if vol is None:
+        vol = make_volatility(volatility, rho, stickiness=stickiness, seed=seed)
+    program = RoundProgram(fl=fl, vol=vol, rho=rho, override=override, mesh=mesh, block=block, fused=fused,
+                           device=device)
+    run, state = program.build_runner(outputs=outputs, taps=taps)
+    xs = None
+    if override != "none":
+        trace = xs_override if override == "dense" else packed_override
+        xs = program.local_rows(np.asarray(trace, np.float32 if override == "dense" else np.uint8))
+    state, *outs = run(state, seed, xs)
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    if taps:
+        *outs, payload = outs
+    if outputs == "lean":
+        successes, sigmas = outs
+        out = {"successes": host(successes), "sigmas": host(sigmas),
+               "counts": host(_gather_rows(state.sel_counts, mesh, K))}
+    else:
+        masks, xs_out, ps, sigmas = outs
+        masks = host(_gather_rows(masks, mesh, K))
+        out = {"masks": masks, "xs": host(_gather_rows(xs_out, mesh, K)), "ps": host(_gather_rows(ps, mesh, K)),
+               "sigmas": host(sigmas), "counts": masks.sum(0)}
+    if taps:
+        out["taps"] = {"series": {n: host(v) for n, v in payload["series"].items()},
+                       "counters": {n: float(v) for n, v in payload["counters"].items()}}
+    return out

@@ -238,3 +238,62 @@ def test_taps_and_sketches_in_the_graph(cuda, mesh, mesh_run):
     _assert_same(sk_runner(s0, SEED)[-1], payload)
     assert torch.all(payload["series"]["selected"] == k)
     assert torch.all(payload["sketches"]["count_hist"].sum(1) == pm.fl.K)
+
+
+SCHEME_CASES = [
+    ("random", "plackett_luce", "bernoulli", False),
+    ("fedcs", "plackett_luce", "bernoulli", False),
+    ("pow_d", "plackett_luce", "bernoulli", False),
+    ("ucb", "plackett_luce", "bernoulli", False),
+    ("e3cs", "systematic", "bernoulli", False),
+    ("e3cs", "plackett_luce", "markov", True),
+    ("e3cs", "plackett_luce", "deadline", True),
+    ("e3cs", "plackett_luce", "diurnal", True),
+    ("e3cs", "plackett_luce", "regional_outage", True),
+    ("e3cs", "plackett_luce", "flash_crowd", False),
+]
+
+
+@pytest.mark.parametrize("K", KS)
+@pytest.mark.parametrize("scheme,sampler,volatility,fused", SCHEME_CASES,
+                         ids=[f"{s}-{sm}-{v}" for s, sm, v, _ in SCHEME_CASES])
+def test_every_scheme_and_scenario_captures_as_the_eager_loop(cuda, K, scheme, sampler, volatility, fused):
+    """Permutations and uniforms drawn into static buffers, the exact top-k
+    kernel of FedCS, UCB and the systematic sampler, and a scenario model's
+    state (a flash crowd of ``2 * T`` rounds, its window inside the horizon)
+    replay as the eager loop, bit for bit."""
+    fl = FLConfig(K=K, k=k, rounds=2 * T, scheme=scheme, sampler=sampler, quota_frac=0.5, allocator="bisect",
+                  volatility=volatility, pow_d=4 * k)
+    pm = RoundProgram.from_config(fl, fused=fused, device=cuda)
+    run, s0 = pm.build_runner(outputs="full", carry_key=True, scan_length=T)
+    first, again = run(s0, SEED), run(s0, SEED)
+    carry, outs, gstate = _eager(pm, (s0,), SEED)
+    for got in (first, again):
+        _assert_same(got, (carry[0], gstate, *outs))
+    assert torch.all(outs[0].sum(1) == k)
+    topk = scheme in ("fedcs", "ucb") or sampler == "systematic"
+    assert run.horizon.per_replay.get("gumbel_topk", 0) == int(topk)
+
+
+@pytest.mark.parametrize("n", [1_000, 1_000_003])
+def test_systematic_cumsum_is_the_same_bits_every_call(cuda, n):
+    """The blocked cumulative sum behind the systematic sampler: the same
+    bits over 50 calls and a graph replay (PyTorch's 1-D CUDA cumsum is a
+    single-pass scan whose partial sums combine in a varying order), within
+    float32 rounding of the float64 sum."""
+    from repro_torch.core.selection.sampling import _cumsum
+
+    x = torch.rand(n, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    first = _cumsum(x)
+    assert all(torch.equal(_cumsum(x), first) for _ in range(50))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _cumsum(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, first)
+    ref = torch.cumsum(x.double(), 0)
+    # the worst case of the two-level sum: a rounding per add in a row (1024)
+    # and per row of the prefix, each at most an ulp of the total
+    ulp = 2.0 ** (np.floor(np.log2(float(ref[-1]))) - 23)
+    assert float((first.double() - ref).abs().max()) <= (1024 + -(-n // 1024)) * ulp

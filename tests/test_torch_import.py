@@ -17,7 +17,9 @@ from repro.configs import FLConfig as JFLConfig
 from repro_torch.configs import FLConfig
 from repro_torch.convert import state_from_jax
 from repro_torch.core.volatility import make_volatility, paper_success_rates
-from repro_torch.engine import RoundProgram
+from repro_torch import scenarios
+from repro_torch.core.sim import selection_sim
+from repro_torch.engine import RoundProgram, async_selection_sim, scan_selection_sim
 from repro_torch.kernels import fused_round_tail, unpack_bits
 from repro_torch.launch import HostMesh, make_host_mesh
 
@@ -29,7 +31,9 @@ def test_import_leaves_jax_unloaded():
     code = (
         "import sys, repro_torch, repro_torch.engine, repro_torch.kernels, repro_torch.convert, repro_torch.fl, "
         "repro_torch.launch.mesh, repro_torch.kernels.bisect_tiles, repro_torch.engine.sharded, "
-        "repro_torch.kernels.ops, repro_torch.kernels.autotune, repro_torch.obs.paths; "
+        "repro_torch.kernels.ops, repro_torch.kernels.autotune, repro_torch.obs.paths, repro_torch.scenarios, "
+        "repro_torch.engine.scan_sim, repro_torch.core.sim, repro_torch.core.fairness, "
+        "repro_torch.core.selection.regret; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'repro' "
         "or m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)"
     )
@@ -83,6 +87,23 @@ def test_entry_points_raise_without_cuda(no_cuda):
         make_host_mesh(1)
 
 
+SLICE_ENTRY_POINTS = {
+    "scan_selection_sim": lambda: scan_selection_sim("e3cs", K=64, k=8, T=2),
+    "async_selection_sim": lambda: async_selection_sim("e3cs", K=64, k=8, T=2),
+    "selection_sim": lambda: selection_sim("e3cs", K=64, k=8, T=2),
+    "make_scenario": lambda: scenarios.make_scenario("diurnal", 64, 4),
+    "record_trace": lambda: scenarios.record_trace(make_volatility("bernoulli", paper_success_rates(64)), 2),
+    "evaluate_cell": lambda: scenarios.evaluate_cell("e3cs", "markov", K=64, k=8, T=2),
+    "run_replay": lambda: scenarios.run_replay("ucb", "markov", K=64, k=8, T=2),
+}
+
+
+@pytest.mark.parametrize("name", list(SLICE_ENTRY_POINTS))
+def test_scenario_entry_points_raise_without_cuda(no_cuda, name):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SLICE_ENTRY_POINTS[name]()
+
+
 def test_entry_points_run_on_cpu_when_asked(no_cuda):
     fl, vol, rho = _program_args()
     pm = RoundProgram(fl=fl, vol=vol, rho=rho, device="cpu", fused=True)
@@ -111,14 +132,18 @@ def test_wrappers_refuse_a_device_with_no_kernel():
 
 @pytest.mark.parametrize("what", ["scheme", "sampler", "scenario"])
 def test_unported_paths_raise_with_their_roadmap_item(what):
+    """Every scheme, sampler and scenario runs at local placement; on a mesh
+    the baselines, the systematic sampler and the scenario models do not
+    yet (ROADMAP A9 rest)."""
     fl, vol, rho = _program_args()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    mesh = HostMesh(size=1, rank=0, device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A9 rest"):
         if what == "scheme":
-            RoundProgram(fl=dataclasses.replace(fl, scheme="random"), vol=vol, rho=rho, device="cpu")
+            RoundProgram(fl=dataclasses.replace(fl, scheme="random"), vol=vol, rho=rho, mesh=mesh)
         elif what == "sampler":
-            RoundProgram(fl=dataclasses.replace(fl, sampler="systematic"), vol=vol, rho=rho, device="cpu")
+            RoundProgram(fl=dataclasses.replace(fl, sampler="systematic"), vol=vol, rho=rho, mesh=mesh)
         else:
-            RoundProgram.from_config(dataclasses.replace(fl, volatility="diurnal"), device="cpu")
+            RoundProgram.from_config(dataclasses.replace(fl, volatility="diurnal"), mesh=mesh)
 
 
 def test_state_from_jax_names_missing_arrays():

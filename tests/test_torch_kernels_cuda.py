@@ -113,10 +113,11 @@ def topk_inputs(n, k, seed=11, zero_frac=0.1):
 
 # inputs that reach every path of the radix select: all scores equal (the
 # digits reach the index word), fewer than k positive p (the -inf fill),
-# one binade (the chosen bin overflows the candidate buffer), k = 1,
+# one binade (the chosen bin overflows the candidate buffer), half the
+# scores +inf (UCB's unexplored clients: ties at the top key), k = 1,
 # k = 2048, K = k, and the ragged K = 1,000,003
 ENGINE_CASES = [("equal", 1_000_003, 1000), ("few_positive", 1_000_003, 1000), ("binade", 1_000_003, 1000),
-                ("gumbel", 1_000_003, 1), ("gumbel", 1_000_003, 2048), ("gumbel", 2048, 2048), ("equal", 2048, 2048)]
+                ("inf_ties", 1_000_003, 1000), ("gumbel", 1_000_003, 1), ("gumbel", 1_000_003, 2048), ("gumbel", 2048, 2048), ("equal", 2048, 2048)]
 ENGINE_IDS = [f"{c}-K{K}-k{k}" for c, K, k in ENGINE_CASES]
 
 
@@ -134,6 +135,8 @@ def engine_select_inputs(case, n, k, with_active=False, seed=5):
     if case in ("equal", "binade"):
         w = ones.copy()
         g = np.zeros(n, np.float32) if case == "equal" else rng.uniform(1.0, 2.0, n).astype(np.float32)
+    if case == "inf_ties":
+        g = np.where(rng.random(n) < 0.5, np.float32(np.inf), g).astype(np.float32)
     if case == "binade":  # p = 1 everywhere: the scores are g, in [1, 2)
         return w, g, active, sigma, (np.float32(2.0), np.float32(1.0), np.float32(1.0))
     return w, g, active, sigma, (k - n * sigma, np.quantile(w, 0.999), w.sum())
@@ -154,6 +157,8 @@ def engine_topk_inputs(case, n, k, seed=11):
         p = np.full(n, np.exp(1.5), np.float32)
         u = rng.uniform(0.2, 0.54, n).astype(np.float32)
         scores = rng.uniform(1.0, 2.0, n).astype(np.float32)
+    elif case == "inf_ties":
+        scores = np.where(rng.random(n) < 0.5, np.float32(np.inf), scores).astype(np.float32)
     return p, u, scores
 
 
