@@ -71,14 +71,29 @@ Phases, one line each; any failure raises and the script exits non-zero:
    ``sharded_selection_sim`` over Markov volatility on the one-rank mesh
    (``block=4``, 12 block sums a round); ``[scenario-run]`` logs each
    call's rounds/s (runner build, warm-up and capture included);
-10. ops: the kernel layer's public ops, the path of the top-k and update
+10. mesh (``[mesh-baselines]``, ``[mesh-scenarios]``): random, FedCS,
+   pow-d (2k candidates) and UCB on the one-rank NCCL mesh at K = 1e6, k =
+   1000, T = 50, each bit-identical to its dense run; fused E3CS over the
+   diurnal, regional-outage and flash-crowd models at ``block=1``
+   (bit-identical to dense) and ``block=4`` (12 block sums a round), and an
+   async S = 2 flash crowd; each baseline and ``block=4`` runner also held
+   against its eager step loop; first-call launch counts exact (T + 1),
+   steady rounds/s;
+11. multi-job (``[multi-job]``): the batched multi-job step against J
+   single-job steps at K_max = 1e6 (cohorts bit for bit); the captured
+   ``run_service_compiled`` horizon against its eager ticks (bit for bit);
+   ``run_service_compiled`` (J = 8, K_max = 1e6, 50 ticks, S = 0 and 2),
+   ``run_service`` (J = 8, K_max = 1e5, 30 ticks, Bernoulli and diurnal
+   feedback) and ``run_grid_multi_job`` over the seven registry scenarios
+   (K = 1e6, k = 1000, T = 50), each with its launch counts checked;
+12. ops: the kernel layer's public ops, the path of the top-k and update
    kernels: ``autotune`` sweeps all four kernel families at K = 1e4, 1e5
    and 1e6 into a fresh cache under ``chiprun_out/autotune/``, then
    ``gumbel_topk_sample``, ``fused_gumbel_topk_sample`` and
    ``e3cs_update_tiled`` run at K = 1e6, k = 1000 with ``tile=None``,
    resolved through that cache; launch counts set to 0 before the phase and
    checked exactly after it, outputs against the plain versions;
-11. times: rounds/s and client decisions/s of each run.
+13. times: rounds/s and client decisions/s of each run.
 
 Ends with a JSON line of per-kernel numbers and, last, ``{"ok": true,
 "device": ...}``.  Without CUDA it exits non-zero before printing a result.
@@ -110,6 +125,9 @@ AUTOTUNE_K, AUTOTUNE_ITERS, AUTOTUNE_WARMUP = (10_000, 100_000, 1_000_000), 5, 1
 AUTOTUNE_WRAPPER = {"gumbel_topk": "gumbel_topk", "e3cs_tiles": "e3cs_update", "bisect_tiles": "bisect_block_sums",
                     "round_fused": "round_select.from_w"}
 LOGW_TOL = 1e-5  # fused vs staged log-weights after T rounds (expected equal)
+# the batched multi-job step against J single-job steps: the JAX package's own
+# tolerances (tests/test_engine.py); cohorts must be equal exactly
+MJ_LOGW_ATOL, MJ_P_ATOL = 1e-5, 1e-6
 PSUM_RTOL = 1e-3  # sum of 1e6 float32 probabilities against k
 # data-sheet rates (NVIDIA): HBM bytes/s and float32 (non-tensor) flop/s
 CARDS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12), ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12))
@@ -118,10 +136,13 @@ TIMED_CALLS = 20
 # digits reach the index word; fewer than k positive: the -inf fill; one
 # binade: the chosen bin overflows the candidate buffer; half the scores
 # +inf: UCB's unexplored clients, ties at the top key), k = 1, k = 2048 and
-# K = k, at K = 1e6 and 1,000,003
+# K = k, at K = 1e6 and 1,000,003; and the multi-job service's rows (K_max =
+# 1e5, k_max = 2000)
 ENGINE_CASES = [(case, K, k) for K in (K_MAIN, K_RAGGED)
                 for case, k in (("equal", k_MAIN), ("few_positive", k_MAIN), ("binade", k_MAIN), ("inf_ties", k_MAIN),
-                                ("gumbel", 1), ("gumbel", 2048))] + [("gumbel", 2048, 2048), ("equal", 2048, 2048)]
+                                ("gumbel", 1), ("gumbel", 2048))] + [("gumbel", 2048, 2048), ("equal", 2048, 2048),
+                                                                     ("few_positive", 100_000, 2000),
+                                                                     ("gumbel", 100_000, 2000)]
 # fused runs with no staged partner: every other "-fused" run must have one
 UNPAIRED_FUSED_RUNS = ("mesh-block1-sync-full-fused",)
 SCENARIO_SEED = 3
@@ -541,8 +562,12 @@ def main():
         fleet_job(dev, K_MAIN, T_MAIN, card=smi)
         for n, c in scenarios_path(dev, K_MAIN, k_MAIN, T_MAIN, mesh, card=smi).items():
             launched.setdefault(n, c)
+        for n, c in mesh_path(dev, K_MAIN, k_MAIN, T_MAIN, T_SHORT, mesh, card=smi).items():
+            launched.setdefault(n, c)
     finally:
         dist.destroy_process_group()
+    for n, c in multi_job_path(dev, K_MAIN, k_MAIN, T_MAIN, T_SHORT, card=smi).items():
+        launched.setdefault(n, c)
 
     # -- 9. the ops and the autotuner ----------------------------------------------
     ops_counts, ops_tiles = ops_path(dev, K_MAIN, k_MAIN)
@@ -737,7 +762,6 @@ def graph_check(dev, K, k, T, rng, mesh, seed=5):
     import dataclasses
 
     import torch
-    from torch.utils import _pytree as pytree
 
     from repro_torch.configs import FLConfig
     from repro_torch.engine import RoundProgram
@@ -764,32 +788,43 @@ def graph_check(dev, K, k, T, rng, mesh, seed=5):
     }
     for label, (cfg, opts, xs) in cases.items():
         pm = RoundProgram.from_config(cfg, device=dev, **opts)
-        xs = None if xs is None else pm.local_rows(xs)
-        run, s0 = pm.build_runner(outputs="full", carry_key=True, scan_length=T)
-        rings0 = () if pm.staleness is None else (pm.init_rings(),)
-        got = [run(s0, seed, *rings0, xs) for _ in range(2)]
-        step, _ = pm.build_step()
-        gen = pm.generator(seed)
-        carry = (s0,) + tuple(tuple(r.clone() for r in rings) for rings in rings0)
-        outs = []
-        for t in range(T):
-            carry, out = step(carry, None if xs is None else xs[t], pm.draw_noise(gen))
-            outs.append(out)
-        want = pytree.tree_leaves((carry[0], gen.get_state(), *carry[1:], *(torch.stack(c) for c in zip(*outs))))
-        for call, result in enumerate(got):
-            leaves = pytree.tree_leaves(result)
-            same = len(leaves) == len(want) and all(
-                torch.equal(a, b) if torch.is_tensor(a) else a == b for a, b in zip(leaves, want))
-            if not same:
-                raise AssertionError(f"graph check {label}: call {call + 1} of the runner differs from the eager "
-                                     "step loop")
-        logw = got[0][0].e3cs.logw
-        if cfg.scheme == "e3cs" and not (bool(torch.isfinite(logw).all()) and float(logw.max()) == 0.0):
-            raise AssertionError(f"graph check {label}: logw not finite or not re-centred to max 0")
-        hz = run.horizon
-        log("graph-check", run=label, K=K, rounds=T, calls=2, result="bit-identical",
-            compared="outputs,state,rings,generator_state", captured=hz.graph is not None,
-            launches_per_replay=json.dumps(hz.per_replay))
+        graph_vs_eager(label, pm, T, seed, None if xs is None else pm.local_rows(xs))
+
+
+def graph_vs_eager(label, pm, T, seed, xs=None):
+    """A ``carry_key`` runner of ``pm``, called twice (the first call
+    captures on the card), against a hand loop of ``build_step`` +
+    ``draw_noise`` from the same seed: every output, the state, the rings
+    and the generator state, bit for bit; an E3CS run's weights finite and
+    re-centred to a maximum of 0."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    run, s0 = pm.build_runner(outputs="full", carry_key=True, scan_length=T)
+    rings0 = () if pm.staleness is None else (pm.init_rings(),)
+    got = [run(s0, seed, *rings0, xs) for _ in range(2)]
+    step, _ = pm.build_step()
+    gen = pm.generator(seed)
+    carry = (s0,) + tuple(tuple(r.clone() for r in rings) for rings in rings0)
+    outs = []
+    for t in range(T):
+        carry, out = step(carry, None if xs is None else xs[t], pm.draw_noise(gen))
+        outs.append(out)
+    want = pytree.tree_leaves((carry[0], gen.get_state(), *carry[1:], *(torch.stack(c) for c in zip(*outs))))
+    for call, result in enumerate(got):
+        leaves = pytree.tree_leaves(result)
+        same = len(leaves) == len(want) and all(
+            torch.equal(a, b) if torch.is_tensor(a) else a == b for a, b in zip(leaves, want))
+        if not same:
+            raise AssertionError(f"graph check {label}: call {call + 1} of the runner differs from the eager "
+                                 "step loop")
+    logw = got[0][0].e3cs.logw
+    if pm.fl.scheme == "e3cs" and not (bool(torch.isfinite(logw).all()) and float(logw.max()) == 0.0):
+        raise AssertionError(f"graph check {label}: logw not finite or not re-centred to max 0")
+    hz = run.horizon
+    log("graph-check", run=label, K=pm.fl.K, rounds=T, calls=2, result="bit-identical",
+        compared="outputs,state,rings,generator_state", captured=hz.graph is not None,
+        launches_per_replay=json.dumps(hz.per_replay))
 
 
 def fleet_job(dev, K, rounds, card):
@@ -1016,6 +1051,325 @@ def scenarios_path(dev, K, k, T, mesh, card, seed=SCENARIO_SEED):
     check_sim("sharded_selection_sim markov", out)
     log("check", scenarios="all scenario-phase checks passed")
     return launched
+
+
+def counted_call(label, expect, fn, dev, launched):
+    """``fn()`` with the launch counts set to 0 just before it; the counts
+    just after must be ``expect`` (none on the CPU, where every wrapper
+    takes its plain version).  Each wrapper's first count goes into
+    ``launched``.  Returns ``(result, seconds, the counts that are not 0)``."""
+    import torch
+
+    from repro_torch import kernels as kn
+
+    kn.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = kn.launch_counts()
+    want = {n: 0 for n in counts} | (expect if dev.type == "cuda" else {})
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    for n, c in counts.items():
+        if c:
+            launched.setdefault(n, c)
+    return out, secs, {n: c for n, c in counts.items() if c}
+
+
+def mesh_path(dev, K, k, T, T_short, mesh, card, seed=SCENARIO_SEED):
+    """Phase 10: the baselines and the scenario models on the one-rank mesh
+    at (K, k, T).  ``[mesh-baselines]``: random, FedCS, pow-d (2k
+    candidates) and UCB, each bit-identical to the dense runner (masks, xs,
+    p, sigmas, the final state); ``[mesh-scenarios]``: fused E3CS over the
+    diurnal, regional-outage and flash-crowd models, at ``block=1``
+    bit-identical to the dense bisect runner, at ``block=4`` cohorts of k
+    distinct clients with 12 block sums a round, and one async S = 2 run
+    over ``CompletionLag(flash_crowd)``.  Each runner's first call (warm-up,
+    capture, T replays: T + 1 launches a kernel a round) and second call
+    (T replays: the steady rate) run with the launch counts set to 0 just
+    before and checked exactly just after; each ``block=4`` and baseline
+    runner is also held against its eager step loop (``graph_vs_eager``, at
+    ``T_short`` rounds).  Returns the first launch count of each wrapper."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import FLConfig
+    from repro_torch.engine import RoundProgram
+    from repro_torch.engine.sharded import N_ITERS
+
+    on_card = dev.type == "cuda"
+    launched = {}
+    n_block = -(-N_ITERS // 4)
+
+    def counted(label, expect, fn):
+        return counted_call(label, expect, fn, dev, launched)
+
+    def drive(phase, label, pm, per_round):
+        """The runner's first and second call; returns the second's outputs."""
+        run, s0 = pm.build_runner(outputs="full")
+        _, first_s, first = counted(f"{label} (first call)", {n: c * (T + 1) for n, c in per_round.items()},
+                                    lambda: run(s0, seed))
+        out, secs, steady = counted(f"{label} (second call)", {n: c * T for n, c in per_round.items()},
+                                    lambda: run(s0, seed))
+        masks = out[1]
+        if not bool((masks.sum(1) == k).all()):
+            raise AssertionError(f"{label}: a round's cohort is not k distinct clients")
+        hz = run.horizon
+        log(phase, run=label, K=K, k=k, rounds=T, first_call_s=f"{first_s:.4f}", steady_rounds_per_s=f"{T / secs:.3f}",
+            client_decisions_per_s=f"{T * K / secs:.6g}",
+            warmup_ms=f"{hz.warmup_s * 1e3:.1f}" if on_card else None,
+            capture_ms=f"{hz.capture_s * 1e3:.1f}" if on_card else None,
+            launches_first=json.dumps(first), launches_steady=json.dumps(steady), card=repr(card))
+        return out
+
+    def same(label, a, b):
+        la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+        if len(la) != len(lb) or not all(torch.equal(x, y) for x, y in zip(la, lb)):
+            raise AssertionError(f"{label}: the one-rank mesh differs from the dense runner")
+
+    # -- [mesh-baselines] ------------------------------------------------------------
+    for sel in ("random", "fedcs", "pow_d", "ucb"):
+        cfg = FLConfig(K=K, k=k, rounds=T, scheme=sel, quota_frac=0.5, allocator="bisect", volatility="bernoulli",
+                       seed=seed, pow_d=POW_D)
+        per_round = {"gumbel_topk": 1} if sel in ("fedcs", "ucb") else {}
+        dense = drive("mesh-baselines", f"{sel}-dense", RoundProgram.from_config(cfg, device=dev), per_round)
+        pm = RoundProgram.from_config(cfg, device=dev, mesh=mesh)
+        meshed = drive("mesh-baselines", f"{sel}-mesh", pm, per_round)
+        same(f"mesh {sel}", meshed, dense)
+        graph_vs_eager(f"mesh-{sel}", pm, T_short, seed)
+        log("mesh-baselines", run=sel, mesh_vs_dense="bit-identical", compared="masks,xs,p,sigmas,state")
+        del dense, meshed
+
+    # -- [mesh-scenarios] -----------------------------------------------------------
+    fused = {"round_select.from_w": 1, "round_tail": 1}
+    for name in ("diurnal", "regional_outage", "flash_crowd"):
+        cfg = FLConfig(K=K, k=k, rounds=T, scheme="e3cs", quota_frac=0.5, allocator="bisect", volatility=name,
+                       seed=seed)
+        dense = drive("mesh-scenarios", f"{name}-dense", RoundProgram.from_config(cfg, fused=True, device=dev), fused)
+        b1 = drive("mesh-scenarios", f"{name}-mesh-block1",
+                   RoundProgram.from_config(cfg, fused=True, device=dev, mesh=mesh, block=1), fused)
+        same(f"mesh {name} block=1", b1, dense)
+        del dense, b1
+        pm = RoundProgram.from_config(cfg, fused=True, device=dev, mesh=mesh, block=4)
+        drive("mesh-scenarios", f"{name}-mesh-block4", pm, fused | {"bisect_block_sums": n_block})
+        graph_vs_eager(f"mesh-{name}-block4", pm, T_short, seed)
+        log("mesh-scenarios", run=name, block1_vs_dense="bit-identical", block4="k distinct clients a round")
+    cfg = FLConfig(K=K, k=k, rounds=T, scheme="e3cs", quota_frac=0.5, allocator="bisect", volatility="flash_crowd",
+                   seed=seed, staleness_rounds=2)
+    pm = RoundProgram.from_config(cfg, fused=True, device=dev, mesh=mesh, block=4)
+    out = drive("mesh-scenarios", "flash_crowd-async-S2-mesh-block4", pm, fused | {"bisect_block_sums": n_block})
+    if not (bool(torch.isfinite(out[0].e3cs.logw).all()) and float(out[0].cep) > 0):
+        raise AssertionError("async flash crowd on the mesh: logw not finite or no credit")
+    graph_vs_eager("mesh-flash_crowd-async-S2-block4", pm, T_short, seed)
+    log("check", mesh="all mesh-phase checks passed")
+    return launched
+
+
+def multi_job_path(dev, K, k, T, T_short, card, seed=SCENARIO_SEED, J=8, K_service=100_000, rounds_service=30):
+    """Phase 11 (``[multi-job]``): the multi-job engine and its users.
+
+    * The batched step against J independent ``job_step`` calls over
+      ``T_short`` ticks at K_max = K, on the service's standard fleet (k_max
+      = K/50: the stable sort) and on the grid's seven jobs of k clients
+      (the top-k kernel a row): ``idx`` and ``mask`` bit for bit, ``logw``
+      within ``MJ_LOGW_ATOL`` and ``p`` within ``MJ_P_ATOL``.
+    * ``run_service_compiled`` at J jobs, K_max = K, T ticks, S = 0 and 2,
+      and its captured horizon against the eager tick loop over ``T_short``
+      ticks, bit for bit (state, ring, per-tick credit).
+    * ``run_service`` at J jobs, K_max = ``K_service``, ``rounds_service``
+      ticks, Bernoulli and diurnal feedback: ticks/s, request latency, and
+      the host's share (``feedback`` and ``dispatch`` spans).
+    * ``run_grid_multi_job`` over the seven registry scenarios at (K, k, T).
+
+    Each path runs with the launch counts set to 0 just before it and checked
+    exactly just after.  Returns the first launch count of each wrapper."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import kernels as kn
+    from repro_torch.core.selection.sampling import gumbel_from_uniform
+    from repro_torch.engine import MultiJobConfig, make_multi_job, multi_job_init, pack_jobs
+    from repro_torch.engine.multi_job import job_generator
+    from repro_torch.kernels import ref
+    from repro_torch.launch import select_serve
+    from repro_torch.obs import Reporter
+    from repro_torch.scenarios import SCENARIOS, run_grid_multi_job
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    launched = {}
+    os.environ["REPRO_RESULTS"] = os.path.join(CHIPRUN_OUT, "results")
+
+    def counted(label, expect, fn):
+        out, secs, counts = counted_call(label, expect, fn, dev, launched)
+        return out, secs, json.dumps(counts)
+
+    # -- the batched step against its rows ------------------------------------------
+    Ks, ks, fracs, etas = select_serve._heterogeneous_fleet(J, K, np.random.default_rng(seed))
+    n_sc = len(SCENARIOS)
+    for label, mix in (("standard-fleet", (Ks, ks, fracs, etas)), ("grid-jobs", ([K] * n_sc, [k] * n_sc,
+                                                                                 [0.5] * n_sc, [0.5] * n_sc))):
+        cfg, k_max = pack_jobs(*mix, K_max=K, device=dev)
+        job_step, batched = make_multi_job(k_max)
+        state = multi_job_init(cfg)
+        n_jobs = cfg.active.shape[0]
+        gens = [job_generator(seed, j, dev) for j in range(n_jobs)]
+        xgen = torch.Generator(device=dev).manual_seed(seed)
+        single = [(state.logw[j].clone(), state.t[j].clone()) for j in range(n_jobs)]
+        d_logw = d_p = 0.0
+        t_batched = 0.0
+        for tick in range(T_short):
+            gs = gumbel_from_uniform(torch.stack([torch.rand(K, generator=g, device=dev) for g in gens]))
+            xs = (torch.rand((n_jobs, K), generator=xgen, device=dev) < 0.6).float()
+            sync()
+            t0 = time.perf_counter()
+            state, out = batched(cfg, state, gs, xs)
+            sync()
+            t_batched += time.perf_counter() - t0 if tick else 0.0
+            for j in range(n_jobs):
+                row = MultiJobConfig(*(v[j] for v in cfg))
+                lw, tt, o = job_step(row, single[j][0], single[j][1], gs[j], xs[j])
+                single[j] = (lw, tt)
+                if not (torch.equal(o["idx"], out["idx"][j]) and torch.equal(o["mask"], out["mask"][j])):
+                    raise AssertionError(f"multi-job {label}: tick {tick} job {j}: the batched cohort differs "
+                                         "from the job's own step")
+                d_logw = max(d_logw, float((lw - state.logw[j]).abs().max()))
+                d_p = max(d_p, float((o["p"] - out["p"][j]).abs().max()))
+                if (out["idx"][j] >= 0).sum() != int(cfg.k[j]):
+                    raise AssertionError(f"multi-job {label}: job {j} selected {(out['idx'][j] >= 0).sum()} clients")
+        if not (d_logw <= MJ_LOGW_ATOL and d_p <= MJ_P_ATOL):
+            raise AssertionError(f"multi-job {label}: batched vs rows logw {d_logw} > {MJ_LOGW_ATOL} or p {d_p} > "
+                                 f"{MJ_P_ATOL}")
+        per = next(iter(batched.graphs.values()))[3] if on_card else {}
+        log("multi-job", check=f"batched-vs-rows-{label}", jobs=n_jobs, K_max=K, k_max=k_max, ticks=T_short,
+            cohorts="bit-identical", logw_max_abs_diff=d_logw, p_max_abs_diff=d_p,
+            topk="gumbel_topk kernel a row" if k_max <= 2048 else "stable sort (k_max > 2048)",
+            batched_step_ms=f"{t_batched / max(1, T_short - 1) * 1e3:.3f}", launches_per_replay=json.dumps(per),
+            card=repr(card))
+        if on_card:
+            profile_calls(f"batched-step-{label}", lambda: batched(cfg, state, gs, xs), card)
+        del cfg, state, single, out, gs, xs, batched
+    # -- the service's fleet at K_max = K_service: the top-k kernel a row ----------
+    # each tick's rows as the step ranks them (log p + g, -inf on dead slots)
+    # through the kernel and its plain version, bit for bit, and the kernel's
+    # first k_j indices against the step's cohort
+    mix = select_serve._heterogeneous_fleet(J, K_service, np.random.default_rng(seed))
+    cfg, k_max = pack_jobs(*mix, K_max=K_service, device=dev)
+    _, batched = make_multi_job(k_max)
+    state = multi_job_init(cfg)
+    gens = [job_generator(seed, j, dev) for j in range(J)]
+    xgen = torch.Generator(device=dev).manual_seed(seed)
+    for tick in range(T_short):
+        gs = gumbel_from_uniform(torch.stack([torch.rand(K_service, generator=g, device=dev) for g in gens]))
+        xs = (torch.rand((J, K_service), generator=xgen, device=dev) < 0.6).float()
+        state, out = batched(cfg, state, gs, xs)
+        scores = torch.where(cfg.active > 0, torch.log(torch.clamp(out["p"], min=1e-20)) + gs, float("-inf"))
+        for j in range(J):
+            vals, idx = kn.gumbel_topk_kernel_call(scores[j], k_max)
+            want_vals, want_idx = ref.gumbel_topk_kernel_ref(scores[j], k_max)
+            kj = int(cfg.k[j])
+            if not (torch.equal(vals, want_vals) and torch.equal(idx, want_idx)
+                    and torch.equal(idx[:kj], out["idx"][j, :kj])):
+                raise AssertionError(f"multi-job service fleet K_max={K_service}: tick {tick} job {j}: the top-k "
+                                     f"kernel at k={k_max} differs from its plain version or from the step's cohort")
+    log("multi-job", check=f"topk-rows-service-fleet-K{K_service}", jobs=J, K_max=K_service, k_max=k_max,
+        ticks=T_short, dead_slots=int((cfg.active == 0).sum()), kernel_vs_plain="bit-identical",
+        kernel_vs_step_cohort="bit-identical", card=repr(card))
+    if on_card:
+        profile_calls(f"batched-step-service-fleet-K{K_service}", lambda: batched(cfg, state, gs, xs), card)
+    del cfg, batched, gs, xs, state, out, scores
+
+    # -- run_service_compiled: the captured horizon against the eager ticks, then the rates
+    for S in (0, 2):
+        captured, _, ks_c = select_serve._service_horizon(J, K, seed, S, 0.5, 0.7, 0.5, 48, 8192, dev)
+        eager, _, _ = select_serve._service_horizon(J, K, seed, S, 0.5, 0.7, 0.5, 48, 8192, dev)
+        got = captured.run(T_short)
+        want = eager.run(T_short, eager=True)
+        if not all(torch.equal(a, b) for a, b in zip(pytree.tree_leaves(got), pytree.tree_leaves(want))):
+            raise AssertionError(f"run_service_compiled S={S}: the captured horizon differs from the eager ticks")
+        if not bool((got[2] <= torch.tensor(ks_c, device=dev)).all()):
+            raise AssertionError(f"run_service_compiled S={S}: more on-time clients than a cohort")
+        log("multi-job", check=f"service-horizon-S{S}", jobs=J, K_max=K, ticks=T_short, captured_vs_eager="bit-identical",
+            compared="state,ring,on_time,stale", warmup_ms=f"{captured.warmup_s * 1e3:.1f}" if on_card else None,
+            capture_ms=f"{captured.capture_s * 1e3:.1f}" if on_card else None,
+            launches_per_replay=json.dumps(captured.per_replay), card=repr(card))
+        del captured, eager, got, want
+        rep = Reporter(f"chip_select_serve_async_S{S}", config=dict(J=J, K_max=K, rounds=T, staleness=S))
+        report, secs, launches = counted(f"run_service_compiled S={S}", {},
+                                         lambda: select_serve.run_service_compiled(J=J, K_max=K, rounds=T, seed=seed,
+                                                                                   staleness=S, reporter=rep,
+                                                                                   device=dev))
+        rep.save(report)
+        log("multi-job", run=f"run_service_compiled-S{S}", jobs=J, K_max=K, rounds=T, mode=report["mode"],
+            ticks_per_s=report["ticks_per_s"], client_decisions_per_s=report["client_decisions_per_s"],
+            scan_step_us=report["scan_step_us"], tick_us=report["tick_us"], on_time_total=report["on_time_total"],
+            stale_credit_total=report["stale_credit_total"], call_s=f"{secs:.3f}", launches=launches, card=repr(card))
+
+    # -- run_service: the host queue, Bernoulli and diurnal feedback ------------------
+    for scenario in (None, "diurnal"):
+        rep = Reporter(f"chip_select_serve_{scenario or 'bernoulli'}", config=dict(J=J, K_max=K_service))
+        ks_s = select_serve._heterogeneous_fleet(J, K_service, np.random.default_rng(seed))[1]
+        # the top-k kernel a job a dispatch (k_max <= 2048): the first dispatch
+        # warms up, captures and replays (2 J), then one replay a tick
+        per_tick = {"gumbel_topk": J} if max(ks_s) <= 2048 else {}
+        report, secs, launches = counted(
+            f"run_service {scenario}", {n: c * (rounds_service + 2) for n, c in per_tick.items()},
+            lambda: select_serve.run_service(J=J, K_max=K_service, rounds=rounds_service, seed=seed,
+                                             scenario=scenario, reporter=rep, device=dev))
+        rep.save(report)
+        hists = rep.data["hists"]
+        lat = report["latency_ms"]
+        log("multi-job", run=f"run_service-{scenario or 'bernoulli'}", jobs=J, K_max=K_service, rounds=rounds_service,
+            ticks_per_s=report["ticks_per_s"], client_decisions_per_s=report["client_decisions_per_s"],
+            latency_p50_ms=lat["p50"], latency_p99_ms=lat["p99"],
+            dispatch_p50_ms=f"{hists['dispatch_latency']['p50_s'] * 1e3:.3f}",
+            feedback_p50_ms=f"{hists['feedback_latency']['p50_s'] * 1e3:.3f}", call_s=f"{secs:.3f}", launches=launches,
+            card=repr(card))
+
+    # -- run_grid_multi_job over the seven registry scenarios --------------------------
+    names = list(SCENARIOS)
+    rows, secs, launches = counted("run_grid_multi_job", {"gumbel_topk": len(names) * (T + 1)},
+                                   lambda: run_grid_multi_job(names, K=K, k=k, T=T, seed=seed, device=dev))
+    for row in rows:
+        if not (0 < row["cep"] <= T * k and all(np.isfinite(v) for v in row.values() if isinstance(v, float))):
+            raise AssertionError(f"run_grid_multi_job row out of range: {row}")
+        log("multi-job-row", **{key: f"{v:.6g}" if isinstance(v, float) else v for key, v in row.items()})
+    log("multi-job", run="run_grid_multi_job", jobs=len(names), K=K, k=k, rounds=T, call_s=f"{secs:.3f}",
+        call_rounds_per_s=f"{T / secs:.3f}", launches=launches, card=repr(card))
+    log("check", multi_job="all multi-job checks passed")
+    return launched
+
+
+def profile_calls(label, fn, card, n=5):
+    """Where ``n`` calls of ``fn`` spend the card's time: ``torch.profiler``
+    over them after one warm call, the device's busy time and operations a
+    call, its idle share of the window's wall time, and the operations that
+    take the most device time (``[profile-call]``, ``[profile-call-kernel]``)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in ops)
+    log("profile-call", call=label, calls=n, wall_ms_per_call=f"{wall_us / n / 1e3:.3f}",
+        device_busy_ms_per_call=f"{busy_us / n / 1e3:.3f}", device_ops_per_call=f"{len(ops) / n:.1f}",
+        device_idle_share=f"{1 - busy_us / wall_us:.4f}", card=repr(card))
+    by_name = {}
+    for e in ops:
+        calls, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (calls + 1, us + e.time_range.elapsed_us())
+    for kname, (calls, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
+        log("profile-call-kernel", call=label, name=repr(kname[:80]), calls_per_call=calls / n,
+            device_ms_per_call=f"{us / n / 1e3:.4f}")
 
 
 def check_rate_hint(name, vol, rho, xs, card):

@@ -24,7 +24,10 @@ staleness rings as numpy arrays under these names and builds the port's
 Under a mesh the JAX state is ``K_pad`` wide and each rank of the port holds
 its ``(Ks,)`` slab: ``shard_arrays`` cuts a rank's slab out of the named
 arrays (then ``state_from_jax``), and ``gather_state`` all-gathers the
-ranks' slabs back into ``K_pad``-wide arrays on every rank.
+ranks' slabs back into ``K_pad``-wide arrays on every rank.  An array is per
+client when its last axis is the population's (``sel_counts``'); the
+scalars, UCB's ``(K,)`` state and a model's other state (a regional
+outage's region row) are the same on every rank and pass as they are.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ __all__ = ["state_from_jax", "state_to_numpy", "shard_arrays", "gather_state", "
 
 STATE_FIELDS = ("logw", "t", "sel_counts", "loss_cache", "vol_state", "cep", "succ_hist")
 _DTYPES = {"t": np.int32, "ucb_t": np.int32}
-_SCALARS = ("t", "cep", "succ_hist", "ucb_t")  # replicated on every rank; the rest are per client (last axis)
+_REPLICATED = ("t", "cep", "succ_hist", "ucb_succ", "ucb_pulls", "ucb_t")  # the same on every rank of a mesh
 _UCB_FIELDS = ("ucb_succ", "ucb_pulls", "ucb_t")
 
 
@@ -109,18 +112,18 @@ def _named(state: ServerState, rings: tuple) -> Dict[str, torch.Tensor]:
 def shard_arrays(arrays: Dict[str, np.ndarray], rank: int, D: int) -> Dict[str, np.ndarray]:
     """Rank ``rank``'s slab of the named arrays of a ``K_pad``-wide mesh
     state: the last axis of every per-client array cut into ``D`` equal
-    slabs; the scalars as they are."""
-    out = {}
-    for name, a in arrays.items():
+    slabs; the replicated arrays as they are."""
+    K_pad = np.shape(arrays["sel_counts"])[-1]
+    if K_pad % D:
+        raise ValueError(f"shard_arrays: the state has {K_pad} clients, not a multiple of D={D}")
+    Ks = K_pad // D
+
+    def cut(name, a):
         a = np.asarray(a)
-        if name in _SCALARS:
-            out[name] = a
-            continue
-        if a.shape[-1] % D:
-            raise ValueError(f"shard_arrays: {name} has {a.shape[-1]} columns, not a multiple of D={D}")
-        Ks = a.shape[-1] // D
-        out[name] = a[..., rank * Ks:(rank + 1) * Ks]
-    return out
+        per_client = name not in _REPLICATED and a.ndim > 0 and a.shape[-1] == K_pad
+        return a[..., rank * Ks:(rank + 1) * Ks] if per_client else a
+
+    return {name: pytree.tree_map(lambda a: cut(name, a), v) for name, v in arrays.items()}
 
 
 def gather_state(state: ServerState, rings: tuple, mesh) -> Dict[str, np.ndarray]:
@@ -131,8 +134,10 @@ def gather_state(state: ServerState, rings: tuple, mesh) -> Dict[str, np.ndarray
         parts = mesh.all_gather(t).reshape(mesh.size, *t.shape)
         return torch.cat(list(parts), dim=-1)
 
+    Ks = state.sel_counts.shape[-1]
+
     def host(name, t):
-        per_client = name not in _SCALARS and t.dim() > 0
+        per_client = name not in _REPLICATED and t.dim() > 0 and t.shape[-1] == Ks
         return (gather(t) if per_client else t).detach().cpu().numpy()
 
     return {name: pytree.tree_map(lambda t: host(name, t), v) for name, v in _named(state, rings).items()}

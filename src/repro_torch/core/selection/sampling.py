@@ -64,9 +64,13 @@ def exact_top_k(scores: torch.Tensor, k: int):
     """``top_k`` of a client-wide ``(K,)`` float32 row through the exact
     top-k kernel's wrapper (``kernels.gumbel_topk_kernel_call``: the kernel
     on a CUDA tensor, its plain version, ``top_k``, on a CPU one), or
-    ``top_k`` itself when ``k`` exceeds what the kernel ranks."""
+    ``top_k`` itself when ``k`` exceeds what the kernel ranks.  A ``(J,
+    K)`` batch is ranked a row at a time, each row as a ``(K,)`` row is."""
     from repro_torch.kernels.gumbel_topk import MAX_K, gumbel_topk_kernel_call  # the kernels import this module
 
+    if scores.dim() > 1:
+        vals, idx = zip(*(exact_top_k(row, k) for row in scores))
+        return torch.stack(vals), torch.stack(idx)
     if k <= MAX_K:
         return gumbel_topk_kernel_call(scores, k)
     return top_k(scores, k)

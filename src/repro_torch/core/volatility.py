@@ -6,8 +6,9 @@ uniform rows that one round consumes, and ``sample(us, state)`` turns those
 rows into outcomes.  The split lets a test feed the JAX package's own
 uniforms into ``sample`` and compare outcomes exactly, while the engine
 draws the rows from one explicit ``torch.Generator`` on the device.
-``draw_rows()`` gives each row's length ``n`` and lower end ``lo``, in the
-order ``sample`` consumes them (the order ``jax.random.split`` hands the
+``draw_rows()`` gives each row's length ``n`` (or its shape, for a model
+over a ``(J, K_max)`` population of J jobs: ``row_shape``) and lower end
+``lo``, in the order ``sample`` consumes them (the order ``jax.random.split`` hands the
 JAX model its keys): ``draw`` is ``uniform_rows`` of one ``torch.rand`` row
 each, so a runner that draws the raw rows itself (into the buffers of a
 captured round step) scales them with the same operations.
@@ -36,6 +37,7 @@ __all__ = [
     "CompletionLag",
     "OnTimeBits",
     "uniform_rows",
+    "row_shape",
     "model_to",
 ]
 
@@ -142,6 +144,18 @@ def _scale_row(u: torch.Tensor, lo: float) -> torch.Tensor:
     return u
 
 
+def row_shape(n) -> tuple:
+    """A ``draw_rows()`` entry's length as a shape: ``(n,)`` for a length,
+    the shape itself for a model over a population with leading axes."""
+    return (n,) if isinstance(n, int) else tuple(n)
+
+
+def _per_client(rho: torch.Tensor):
+    """The ``draw_rows()`` entry of a row over ``rho``'s clients: its length,
+    or its shape when ``rho`` has leading axes (a ``(J, K_max)`` fleet)."""
+    return rho.shape[0] if rho.dim() == 1 else tuple(rho.shape)
+
+
 def uniform_rows(raw, rows) -> Tuple[torch.Tensor, ...]:
     """A model's rows from raw ``[0, 1)`` rows and its ``draw_rows()``."""
     return tuple(_scale_row(u, lo) for u, (_, lo) in zip(raw, rows))
@@ -175,7 +189,7 @@ class BernoulliVolatility(_Model):
         return torch.zeros_like(self.rho)
 
     def draw_rows(self):
-        return ((self.rho.shape[0], 0.0),)
+        return ((_per_client(self.rho), 0.0),)
 
     def sample(self, us, state):
         return (us[0] < self.rho).to(_f32), state
@@ -196,7 +210,7 @@ class MarkovVolatility(_Model):
         return self.rho.clone()  # P(up) at t=0 equals stationary
 
     def draw_rows(self):
-        return ((self.rho.shape[0], 0.0),)
+        return ((_per_client(self.rho), 0.0),)
 
     def sample(self, us, state):
         up = (us[0] < state).to(_f32)

@@ -39,12 +39,29 @@ merged exactly from a ``(D, k)`` all-gather, and the re-centring max is a
 ``K_pad``-wide arrays, the port's mesh runner takes and returns this rank's
 ``(Ks,)`` slab (``K_pad = D * Ks``, zero-padded, the padding frozen by an
 ``active`` mask; trace rows: ``local_rows``); scalars and cohort indices are
-the same on every rank.  A rank's noise is its own ``(Ks,)`` rows: at D = 1
-its generator is seeded as the dense runner's, so a one-rank mesh with
-``block=1`` equals the dense ``allocator="bisect"`` runner bit for bit (JAX
-skips ``fold_in`` at D = 1 for the same reason); at D > 1 rank ``d`` seeds
-from ``numpy.random.SeedSequence([seed, d])``.  As in JAX, ``block`` acts
-only under a mesh.
+the same on every rank.  The baselines select replicated, as JAX's
+``_ShardCtx`` does: random and FedCS from K-wide noise, UCB from its
+replicated ``(K,)`` state, pow-d from the all-gathered loss cache; every
+rank cuts its slab of the mask from the cohort.  A model shards when its
+per-client fields are K-indexed (JAX's ``_collect_k_fields``): Bernoulli,
+Markov, deadline, diurnal, flash crowd and regional outage (its region ids),
+and the lag views over them.
+
+A runner's noise comes from two streams (``NoiseStreams``).  The own
+stream draws the rank's ``(Ks,)`` rows (E3CS's Gumbel slab, a model's
+per-client rows: those of length K, the rule by which a model's fields
+shard); the shared stream draws the rows every rank must hold alike (the
+baselines' K-wide permutation or uniform row, a regional outage's
+``(n_regions,)`` chain row).  On a mesh of D > 1 ranks the own stream seeds
+from ``numpy.random.SeedSequence([seed, d])`` and the shared one from
+``seed``, and a ``carry_key`` runner carries both states.  Without a mesh
+and at D = 1 the two are one generator, seeded as the dense runner's, each
+row drawn in the dense order, so a one-rank mesh with ``block=1`` equals the
+dense ``allocator="bisect"`` runner bit for bit, for every scheme (JAX
+skips ``fold_in`` at D = 1 for the same reason).  JAX draws a regional
+outage's chain from each shard's folded key, so at D > 1 its shards see
+different outages; the port's chain is one, replicated.  As in JAX,
+``block`` acts only under a mesh.
 
 Taps and sketches.  ``build_step(taps=True)`` and ``build_runner(taps=True,
 sketch=SketchSpec(...))`` add the ``ROUND_TAPS`` gauge row, its counters and
@@ -76,7 +93,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -87,23 +104,19 @@ from repro_torch.core.selection import (
     E3CSState,
     e3cs_probs,
     e3cs_update,
+    fedcs_select,
     make_quota_schedule,
     merge_topk_candidates,
     perturbed_scores,
+    pow_d_select,
+    random_select,
     selection_mask,
+    ucb_init,
+    ucb_select,
     ucb_update,
 )
 from repro_torch.core.selection.e3cs import divide, residual_mass
-from repro_torch.core.volatility import (
-    DEAD_LAG,
-    BernoulliVolatility,
-    BinaryLag,
-    CompletionLag,
-    DeadlineVolatility,
-    MarkovVolatility,
-    OnTimeBits,
-    uniform_rows,
-)
+from repro_torch.core.volatility import DEAD_LAG, row_shape, uniform_rows
 from repro_torch.device import resolve_device
 from repro_torch.engine.sharded import N_ITERS, TILE, _shard_topk_merge, masked_prob_alloc, masked_prob_alloc_scalars
 from repro_torch.fl.round import RoundNoise, init_server_state, make_select_fn, select_draws, select_noise
@@ -118,6 +131,8 @@ from repro_torch.obs.trace import stage
 __all__ = [
     "RoundProgram",
     "RoundNoise",
+    "NoiseStreams",
+    "capture_step",
     "ring_pop_push",
     "lag_credit_schedule",
     "staleness_ring_step",
@@ -130,10 +145,20 @@ FEEDBACK_MODES = ("deadline", "late_credit")
 _f32 = torch.float32
 
 
-# the models a mesh shards: (K,)-indexed fields and state (JAX's
-# ``_collect_k_fields``), and the lag views over them
-_SHARDABLE = (BernoulliVolatility, MarkovVolatility, DeadlineVolatility)
-_LAG_VIEWS = {CompletionLag: "base", BinaryLag: "base", OnTimeBits: "lag_model"}
+class NoiseStreams(NamedTuple):
+    """A runner's noise streams (see the module docstring): ``own`` draws
+    the rank's slab rows, ``shared`` the rows every rank draws alike; one
+    generator without a mesh and at D = 1."""
+
+    own: torch.Generator
+    shared: torch.Generator
+
+    def get_state(self):
+        """What a ``carry_key`` runner returns: the generator's state, or
+        the ``(own, shared)`` states of two."""
+        if self.own is self.shared:
+            return self.own.get_state()
+        return self.own.get_state(), self.shared.get_state()
 
 
 def lag_credit_schedule(mask, lag, S: int, alpha: float):
@@ -196,6 +221,10 @@ class _LocalCtx:
     def pmax(v):
         return v
 
+    @staticmethod
+    def gather(v):
+        return v
+
 
 class _ShardCtx:
     """This rank's stage context under a mesh: the select and observe stages
@@ -203,16 +232,15 @@ class _ShardCtx:
 
     def __init__(self, program: "RoundProgram", Ks: int):
         fl, mesh = program.fl, program.mesh
-        K, k, d = fl.K, fl.k, mesh.rank
-        active = (torch.arange(d * Ks, (d + 1) * Ks, device=program.device) < K).to(_f32)
+        K, k, d, scheme, dev = fl.K, fl.k, mesh.rank, fl.scheme, program.device
+        active = (torch.arange(d * Ks, (d + 1) * Ks, device=dev) < K).to(_f32)
         self.active = active
         self.e3cs_kwargs = dict(K=K, mesh=mesh, active=active)
-        quota_fn, fused = program.quota_fn, program.fused
+        quota_fn, fused, rho_full = program.quota_fn, program.fused, program.rho
         alloc_kw = dict(active=active, n_iters=N_ITERS, tile=TILE, mesh=mesh, block=program.block)
-        neg_inf = torch.full((Ks,), float("-inf"), dtype=_f32, device=program.device)
+        neg_inf = torch.full((Ks,), float("-inf"), dtype=_f32, device=dev)
 
-        def select(state, noise):
-            sigma, g = quota_fn(state.t), noise.g
+        def select_e3cs(state, sigma, g):
             with stage("round.allocate"):
                 logw = state.e3cs.logw
                 w = torch.exp(logw - mesh.pmax(torch.max(torch.where(active > 0, logw, neg_inf)))) * active
@@ -228,16 +256,34 @@ class _ShardCtx:
                     idx = merge_topk_candidates(mesh.all_gather(vals), mesh.all_gather(loc + d * Ks), k)
                 else:
                     idx = _shard_topk_merge(torch.where(active > 0, perturbed_scores(g, p), neg_inf), k, mesh)
+            return idx, p, capped
+
+        def select(state, noise):
+            sigma = quota_fn(state.t)
+            if scheme == "e3cs":
+                idx, p, capped = select_e3cs(state, sigma, noise.g)
+            elif scheme == "random":
+                idx = random_select(noise.perm, K, k)
+            elif scheme == "fedcs":
+                idx = fedcs_select(rho_full, k, noise.v)
+            elif scheme == "ucb":
+                idx = ucb_select(state.ucb, k)
+            else:
+                idx = pow_d_select(noise.perm, self.gather(state.loss_cache), k, fl.pow_d)
             loc = idx - d * Ks
             valid = ((loc >= 0) & (loc < Ks)).to(_f32)
-            mask = torch.zeros(Ks, dtype=_f32, device=g.device).scatter_reduce_(
+            mask = torch.zeros(Ks, dtype=_f32, device=dev).scatter_reduce_(
                 0, torch.clamp(loc, 0, Ks - 1).long(), valid, reduce="amax"
             )
+            if scheme != "e3cs":
+                capped = torch.zeros(Ks, dtype=torch.bool, device=dev)
+                p = torch.full((Ks,), k / K, dtype=_f32, device=dev) if scheme == "random" else mask
             return idx, p, capped, sigma, mask
 
         self.select = select
         self.observe = _make_observe(program, Ks)
         self.psum, self.pmax = mesh.psum, mesh.pmax
+        self.gather = lambda v: mesh.all_gather(v)[:K]  # the ranks' slabs side by side, cut to the K clients
 
 
 def _make_observe(program: "RoundProgram", K: int):
@@ -384,7 +430,7 @@ def _make_step(program: "RoundProgram", ctx, lean: bool, taps: bool = False, ske
                 if scheme == "e3cs":
                     e3cs = e3cs_update(state.e3cs, p, capped, mask, x, k, sigma, eta, **ctx.e3cs_kwargs)
                 loss_cache = torch.where(mask > 0, 1.0 - x, state.loss_cache)  # the pow-d loss proxy
-                ucb = ucb_update(state.ucb, idx, x) if scheme == "ucb" else state.ucb
+                ucb = ucb_update(state.ucb, idx, ctx.gather(x)) if scheme == "ucb" else state.ucb
             if not sync:
                 with stage("round.credit"):
                     if S == 0:
@@ -454,31 +500,6 @@ def _rebuild_vol(vol, arrs: dict):
             groups[head] = a
     kw = {head: _rebuild_vol(getattr(vol, head), v) if isinstance(v, dict) else v for head, v in groups.items()}
     return dataclasses.replace(vol, **kw)
-
-
-def _check_mesh(program: "RoundProgram") -> None:
-    """What the K-sharded round runs: E3CS with the Plackett-Luce sampler,
-    over a model with ``(K,)``-indexed fields and state (or a trace)."""
-    fl = program.fl
-    if fl.scheme != "e3cs":
-        raise NotImplementedError(
-            f"scheme {fl.scheme!r} on a mesh is not ported yet (ROADMAP.md A9 rest: the baselines on a mesh)"
-        )
-    if fl.sampler != "plackett_luce":
-        raise NotImplementedError(
-            f"sampler {fl.sampler!r} on a mesh is not ported yet (ROADMAP.md A9 rest: the systematic sampler on "
-            "a mesh; the JAX package's sharded engine has only the plackett_luce sampler)"
-        )
-    if program.override != "none":
-        return
-    vol = program.vol
-    while type(vol) in _LAG_VIEWS:
-        vol = getattr(vol, _LAG_VIEWS[type(vol)])
-    if not isinstance(vol, _SHARDABLE):
-        raise NotImplementedError(
-            f"volatility model {type(vol).__name__} on a mesh is not ported yet (ROADMAP.md A9 rest: the scenario "
-            "models on a mesh); replay a recorded trace through override='packed' / 'packed_lags' instead"
-        )
 
 
 def _slab(a: torch.Tensor, K_pad: int, rank: int, Ks: int, dim: int = -1) -> torch.Tensor:
@@ -553,8 +574,8 @@ class RoundProgram:
                 "ring; it needs staleness=S (S=0 degenerates to deadline feedback)"
             )
         select_draws(self.fl, self.fl.K)  # raises for an unknown scheme or sampler
-        if mesh is not None:
-            _check_mesh(self)
+        if mesh is not None and self.fl.scheme == "e3cs" and self.fl.sampler != "plackett_luce":
+            raise ValueError("the sharded engine only implements the plackett_luce sampler")
         self.vol = self.vol.to(self.device)
         self.rho = torch.as_tensor(self.rho, dtype=_f32, device=self.device) if self.rho is not None else None
         if self.quota_fn is None:
@@ -563,9 +584,9 @@ class RoundProgram:
         self.local_vol = self.vol
         if mesh is not None:
             K_pad, Ks, _, _ = self._sharded_geometry()
-            if self.fl.k > Ks:
+            if self.fl.scheme == "e3cs" and self.fl.k > Ks:
                 raise ValueError(f"k={self.fl.k} exceeds the shard width {Ks}; need k <= K_pad/D for per-shard top-k")
-            if self.override == "none":
+            if self.override == "none":  # a model without (K,)-indexed fields raises TypeError here, as in JAX
                 fields = _collect_k_fields(self.vol, self.fl.K)
                 self.local_vol = _rebuild_vol(
                     self.vol, {n: _slab(a, K_pad, mesh.rank, Ks, dim=0) for n, a in fields.items()}
@@ -641,53 +662,78 @@ class RoundProgram:
             rings = rings + (torch.zeros(shape, dtype=_f32, device=self.device),)
         return rings
 
-    def generator(self, key) -> torch.Generator:
-        """The runner's generator on the device, from an int seed or from a
-        state that a ``carry_key`` runner returned.  Rank ``d`` of a mesh of
-        D > 1 ranks seeds from ``SeedSequence([seed, d])``."""
-        gen = torch.Generator(device=self.device)
-        if isinstance(key, torch.Tensor):
-            gen.set_state(key)
-        elif self.mesh is None or self.mesh.size == 1:
-            gen.manual_seed(int(key))
+    def generator(self, key) -> NoiseStreams:
+        """The runner's ``NoiseStreams`` on the device, from an int seed or
+        from what a ``carry_key`` runner returned: one generator seeded from
+        ``seed``, or on a mesh of D > 1 ranks the own stream seeded from
+        ``SeedSequence([seed, d])`` and the shared one from ``seed``."""
+        if self.mesh is None or self.mesh.size == 1:
+            gen = torch.Generator(device=self.device)
+            if isinstance(key, torch.Tensor):
+                gen.set_state(key)
+            else:
+                gen.manual_seed(int(key))
+            return NoiseStreams(gen, gen)
+        own, shared = torch.Generator(device=self.device), torch.Generator(device=self.device)
+        if isinstance(key, tuple):
+            own.set_state(key[0])
+            shared.set_state(key[1])
         else:
-            gen.manual_seed(int(np.random.SeedSequence([int(key), self.mesh.rank]).generate_state(1, np.uint64)[0]))
-        return gen
+            own.manual_seed(int(np.random.SeedSequence([int(key), self.mesh.rank]).generate_state(1, np.uint64)[0]))
+            shared.manual_seed(int(key))
+        return NoiseStreams(own, shared)
 
     def _model_rows(self) -> tuple:
         """The volatility model's ``(n, lo)`` rows (none when outcomes come
         from a trace)."""
         return self.local_vol.draw_rows() if self.override == "none" else ()
 
+    def _select_width(self) -> int:
+        """Clients a selection draw covers: E3CS's Gumbel row is the rank's
+        slab, a baseline's noise covers all K clients on every rank."""
+        return self.K_loc if self.fl.scheme == "e3cs" else self.fl.K
+
     def draws(self) -> tuple:
         """One round's raw draws in the fixed order, each ``("rand" |
         "perm", shape)``: the selection's (``select_draws``), then the
         volatility model's rows (only when outcomes come from the model)."""
-        return select_draws(self.fl, self.K_loc) + tuple(("rand", (n,)) for n, _ in self._model_rows())
+        rows = tuple(("rand", row_shape(n)) for n, _ in self._model_rows())
+        return select_draws(self.fl, self._select_width()) + rows
+
+    def _shared_draws(self) -> tuple:
+        """For each of ``draws()``, whether the shared stream draws it: the
+        baselines' selection noise, and a model's rows that are not per
+        client (a regional outage's chain row)."""
+        n_sel = len(select_draws(self.fl, self._select_width()))
+        per_client = (self.fl.K,)
+        rows = self.vol.draw_rows() if self.override == "none" else ()
+        return (self.fl.scheme != "e3cs",) * n_sel + tuple(row_shape(n) != per_client for n, _ in rows)
 
     def _draw_buffers(self) -> list:
         return [torch.empty(shape, dtype=torch.int64 if kind == "perm" else _f32, device=self.device)
                 for kind, shape in self.draws()]
 
-    def draw_uniforms(self, gen: torch.Generator, out=None) -> tuple:
+    def draw_uniforms(self, gen: NoiseStreams, out=None) -> tuple:
         """One round's raw draws (``draws``): ``torch.rand`` rows and 0-d
-        uniforms, ``torch.randperm`` permutations.  With ``out`` they are
-        drawn into those buffers."""
+        uniforms, ``torch.randperm`` permutations, each from its stream of
+        ``gen`` (``generator``).  With ``out`` they are drawn into those
+        buffers."""
         out = self._draw_buffers() if out is None else out
-        for (kind, shape), buf in zip(self.draws(), out):
+        for (kind, shape), shared, buf in zip(self.draws(), self._shared_draws(), out):
+            g = gen.shared if shared else gen.own
             if kind == "perm":
-                torch.randperm(shape[0], generator=gen, out=buf)
+                torch.randperm(shape[0], generator=g, out=buf)
             else:
-                torch.rand(shape, generator=gen, out=buf)
+                torch.rand(shape, generator=g, out=buf)
         return tuple(out)
 
     def noise_from_uniforms(self, raw) -> RoundNoise:
         """The round's noise from its raw draws: the selection's fields
         (``select_noise``), then the model's scaling of its rows."""
-        n_sel = len(select_draws(self.fl, self.K_loc))
+        n_sel = len(select_draws(self.fl, self._select_width()))
         return RoundNoise(**select_noise(self.fl, raw[:n_sel]), u=uniform_rows(raw[n_sel:], self._model_rows()))
 
-    def draw_noise(self, gen: torch.Generator) -> RoundNoise:
+    def draw_noise(self, gen: NoiseStreams) -> RoundNoise:
         """One round's noise, drawn in the fixed order (``draws``)."""
         return self.noise_from_uniforms(self.draw_uniforms(gen))
 
@@ -700,7 +746,8 @@ class RoundProgram:
             if torch.is_tensor(v) and v.dim() >= 1 and v.shape[0] == self.fl.K else v,
             self.vol.init_state(),
         )
-        return init_server_state({}, Ks, vs, self.device)
+        # UCB's small (K,) state is replicated, as in JAX
+        return init_server_state({}, Ks, vs, self.device)._replace(ucb=ucb_init(self.fl.K, self.device))
 
     def _step(self, lean: bool, taps: bool, sketch: Optional[SketchSpec] = None):
         ctx = _LocalCtx(self) if self.mesh is None else _ShardCtx(self, self.K_loc)
@@ -830,6 +877,35 @@ class RoundProgram:
         return out
 
 
+def capture_step(dev: torch.device, warm_up, body):
+    """``body()`` captured as a CUDA graph on ``dev``, after ``warm_up()``
+    (which runs ``body`` once) on a side stream: allocator pools, library
+    handles and the NCCL communicator come to exist there, outside the
+    capture.  The kernel launches the capture counted are taken back: a
+    replay's run when it is replayed, and the caller adds them then.
+    Returns ``(graph, body's outputs, launches a replay, warm-up s,
+    capture s)``; a capture that fails raises."""
+    with torch.cuda.device(dev):
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            warm_up()
+        main.wait_stream(side)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            outs = body()
+        torch.cuda.synchronize(dev)
+        after = launch_counts()
+    per_replay = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+    add_launch_counts({n: -c for n, c in per_replay.items()})
+    return graph, outs, per_replay, t1 - t0, time.perf_counter() - t1
+
+
 class _Horizon:
     """The rounds of one runner over static buffers (see the module
     docstring): ``horizon(carry, gen, xs_in) -> (carry, outs)`` runs ``T``
@@ -878,33 +954,17 @@ class _Horizon:
         return big, packed
 
     def _capture(self):
-        """Warm up eagerly on a side stream, then capture one step."""
+        """Warm up eagerly on a side stream, then capture one step.  The
+        warm-up's noise comes from a generator of its own, so the run's
+        generator is untouched."""
         pm = self.program
-        dev = pm.device
-        with torch.cuda.device(dev):
-            main = torch.cuda.current_stream(dev)
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(main)
-            t0 = time.perf_counter()
-            with torch.cuda.stream(side):
-                # allocator pools, library handles and the NCCL communicator come
-                # to exist here; the noise comes from a generator of the warm-up's
-                # own, so the run's generator is untouched
-                pm.draw_uniforms(torch.Generator(device=dev).manual_seed(0), self._raw)
-                self._body()
-            main.wait_stream(side)
-            torch.cuda.synchronize(dev)
-            t1 = time.perf_counter()
-            before = launch_counts()
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                outs = self._body()
-            torch.cuda.synchronize(dev)
-            after = launch_counts()
-        self.per_replay = {n: after[n] - before[n] for n in after if after[n] != before[n]}
-        add_launch_counts({n: -c for n, c in self.per_replay.items()})
-        self.graph, self._outs = graph, outs
-        self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
+
+        def warm_up():
+            pm.draw_uniforms(pm.generator(0), self._raw)
+            self._body()
+
+        self.graph, self._outs, self.per_replay, self.warmup_s, self.capture_s = capture_step(
+            pm.device, warm_up, self._body)
 
     def _stack(self, big, packed):
         """The ``(T, ...)`` outputs in the step's structure."""
@@ -919,7 +979,7 @@ class _Horizon:
                 bi += 1
         return pytree.tree_unflatten(out, self._out_spec)
 
-    def __call__(self, carry, gen: torch.Generator, xs_in):
+    def __call__(self, carry, gen: NoiseStreams, xs_in):
         leaves, spec = pytree.tree_flatten(carry)
         if self._spec is None:
             self._setup(leaves, spec, xs_in)

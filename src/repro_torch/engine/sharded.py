@@ -20,6 +20,15 @@ Both branches of the overflow test are computed and ``torch.where`` picks
 one (JAX takes one under ``lax.cond``), and the next bracket is taken with
 ``index_select``, so the allocation never waits on the host.
 
+Rows.  ``masked_prob_alloc`` also takes ``(J, K)`` weights and masks with a
+``(J,)`` ``k`` and ``sigma``, one allocation a row (the multi-job engine,
+``block=1`` and no mesh, as JAX vmaps it).  Each row's sums are taken as
+the 1-D call takes them, one row at a time: PyTorch's CUDA reduction picks
+its order from the number of outputs it makes, so a ``(J, n_tiles, tile)``
+sum could round a row otherwise than the row's own ``(n_tiles, tile)`` sum,
+and a job's allocation would depend on the batch it rides in.  Everything
+else is elementwise or an exact max over the rows at once.
+
 SPMD placement.  JAX's ``shard_map`` wrappers take a global array and shard
 it inside one process.  Here one process runs per rank (``repro_torch.
 launch.mesh``): under ``mesh`` the allocator and ``_shard_topk_merge`` take
@@ -34,10 +43,21 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.selection.prob_alloc import clip_sigma_one
-from repro_torch.core.selection.sampling import local_topk_candidates, merge_topk_candidates
+from repro_torch.core.selection.sampling import local_topk_candidates, merge_topk_candidates, perturbed_scores
 from repro_torch.kernels.bisect_tiles import bisect_block_sums
 
-__all__ = ["masked_prob_alloc", "masked_prob_alloc_scalars", "sharded_selection_sim", "N_ITERS", "TILE"]
+__all__ = [
+    "prob_alloc_sharded",
+    "masked_prob_alloc",
+    "masked_prob_alloc_scalars",
+    "prob_alloc_shmap",
+    "distributed_topk",
+    "plackett_luce_shmap",
+    "build_sharded_scan_runner",
+    "sharded_selection_sim",
+    "N_ITERS",
+    "TILE",
+]
 
 N_ITERS = 48  # bisection halvings: the bracket shrinks to 2**-48 of its width
 TILE = 8192  # clients per tile of the two-level sums
@@ -49,14 +69,23 @@ def _tiny(dt, device) -> torch.Tensor:
 
 
 def _pad_to_tile(x: torch.Tensor, tile: int) -> torch.Tensor:
-    pad = (-x.shape[0]) % tile
-    return torch.cat([x, x.new_zeros(pad)]) if pad else x
+    pad = (-x.shape[-1]) % tile
+    return torch.cat([x, x.new_zeros(*x.shape[:-1], pad)], dim=-1) if pad else x
 
 
 def _tiled_sum(x: torch.Tensor, tile: int) -> torch.Tensor:
     """Two-level (per-tile, then cross-tile) sum of an already tile-padded
-    vector: the shape and accuracy of ``repro.engine.sharded._tiled_sum``."""
+    vector: the shape and accuracy of ``repro.engine.sharded._tiled_sum``.
+    Rows give a ``(J, 1)`` column, each row summed as a vector is."""
+    if x.dim() > 1:
+        rows = x.reshape(-1, x.shape[-1])
+        return torch.stack([_tiled_sum(r, tile) for r in rows]).reshape(*x.shape[:-1], 1)
     return torch.sum(torch.sum(x.reshape(-1, tile), dim=1))
+
+
+def _row_max(x: torch.Tensor) -> torch.Tensor:
+    """The max of a vector, or each row's as a ``(J, 1)`` column."""
+    return torch.max(x) if x.dim() == 1 else torch.amax(x, dim=-1, keepdim=True)
 
 
 def _reduce_sum(x_padded: torch.Tensor, tile: int, mesh) -> torch.Tensor:
@@ -74,10 +103,14 @@ def _scalar(v, dt, device) -> torch.Tensor:
 
 
 def _alloc_prelude(w, k, sigma, active):
-    """Cast to the weight dtype and fold the activity mask into the weights."""
+    """Cast to the weight dtype and fold the activity mask into the weights;
+    over rows, a ``(J,)`` ``k`` and ``sigma`` become ``(J, 1)`` columns."""
     dt, dev = w.dtype, w.device
     active = torch.ones_like(w) if active is None else active.to(dt)
-    return w * active, active, _scalar(k, dt, dev), _scalar(sigma, dt, dev)
+    k, sigma = _scalar(k, dt, dev), _scalar(sigma, dt, dev)
+    if w.dim() > 1:
+        k, sigma = (v.reshape(*v.shape, 1) if v.dim() else v for v in (k, sigma))
+    return w * active, active, k, sigma
 
 
 def _alloc_scalars(w, k, sigma, active, *, n_iters: int, tile: int, mesh, block: int):
@@ -87,6 +120,8 @@ def _alloc_scalars(w, k, sigma, active, *, n_iters: int, tile: int, mesh, block:
     1) * active`` give the allocation."""
     if block < 1:
         raise ValueError(f"block must be at least 1, got {block}")
+    if w.dim() > 1 and (block > 1 or mesh is not None):
+        raise ValueError("an allocation over rows runs at block=1 on one device")
     dt, dev = w.dtype, w.device
     eps = _tiny(dt, dev)
     # zero padding is exact: min(0, cap) = 0 for every cap >= 0 the search tries
@@ -96,7 +131,7 @@ def _alloc_scalars(w, k, sigma, active, *, n_iters: int, tile: int, mesh, block:
     one_ms = 1.0 - sigma
 
     w_sum = _reduce_sum(w_t, tile, mesh)
-    w_max = torch.max(torch.where(active > 0, w, torch.full_like(w, float("-inf"))))
+    w_max = _row_max(torch.where(active > 0, w, torch.full_like(w, float("-inf"))))
     if mesh is not None:
         w_max = mesh.pmax(w_max)
     overflow = sigma + residual * w_max / torch.maximum(w_sum, eps) > 1.0 + 1e-9
@@ -133,7 +168,8 @@ def masked_prob_alloc(w, k, sigma, active=None, n_iters: int = N_ITERS, tile: in
     population: ``(p, capped)`` with ``sum(p) = k``, ``sigma <= p_i <= 1`` on
     active arms and ``p_i = 0`` off them.  With ``mesh``, ``w`` and
     ``active`` are this rank's slab, ``k`` and ``sigma`` stay global, and the
-    result is this rank's slab."""
+    result is this rank's slab.  ``(J, K)`` rows with a ``(J,)`` ``k`` and
+    ``sigma`` allocate each row (``block=1``, no mesh)."""
     w, active, k, sigma = _alloc_prelude(w, k, sigma, active)
     residual, cap, denom, use_cap = _alloc_scalars(
         w, k, sigma, active, n_iters=n_iters, tile=tile, mesh=mesh, block=block
@@ -150,6 +186,74 @@ def masked_prob_alloc_scalars(w, k, sigma, active=None, n_iters: int = N_ITERS, 
     cap, denom, use_cap)`` for the fused select kernel."""
     w, active, k, sigma = _alloc_prelude(w, k, sigma, active)
     return _alloc_scalars(w, k, sigma, active, n_iters=n_iters, tile=tile, mesh=mesh, block=block)
+
+
+def prob_alloc_sharded(w, k, sigma, n_iters: int = N_ITERS, tile: int = TILE, block: int = 1):
+    """The drop-in for ``core.selection.prob_alloc`` at fleet scale: the same
+    ``(p, capped)`` contract with no sort (``masked_prob_alloc`` over every
+    client)."""
+    return masked_prob_alloc(w, k, sigma, active=None, n_iters=n_iters, tile=tile, block=block)
+
+
+def _pad_slab(x: torch.Tensor, mesh, fill: float = 0.0) -> torch.Tensor:
+    """This rank's slab of a global ``(K,)`` row padded with ``fill`` to
+    ``K_pad = D * ceil(K / D)``."""
+    K, D = x.shape[0], mesh.size
+    Ks = -(-K // D)
+    if D * Ks != K:
+        x = torch.cat([x, x.new_full((D * Ks - K,), fill)])
+    return x[mesh.rank * Ks:(mesh.rank + 1) * Ks].contiguous()
+
+
+def prob_alloc_shmap(w, k, sigma, mesh, active=None, n_iters: int = N_ITERS, tile: int = TILE, block: int = 1):
+    """``masked_prob_alloc`` over the ranks of ``mesh``: every rank passes the
+    global ``(K,)`` weights (and mask), allocates its slab of them with one
+    collective per bisection step (or block), and returns the global ``(p,
+    capped)`` gathered from the ranks and cut to K, the same on every rank."""
+    K = w.shape[0]
+    active = torch.ones_like(w) if active is None else active.to(w.dtype)
+    p, capped = masked_prob_alloc(_pad_slab(w, mesh), k, sigma, active=_pad_slab(active, mesh), n_iters=n_iters,
+                                  tile=tile, mesh=mesh, block=block)
+    return _gather_rows(p, mesh, K), _gather_rows(capped.to(w.dtype), mesh, K) > 0
+
+
+def distributed_topk(scores: torch.Tensor, k: int, mesh) -> torch.Tensor:
+    """The global top-k indices of a ``(K,)`` score row that every rank
+    holds, each rank ranking only its slab: exactly ``top_k(scores, k)``,
+    ties included, the same ``(k,)`` int32 indices on every rank."""
+    Ks = -(-scores.shape[0] // mesh.size)
+    if k > Ks:
+        raise ValueError(f"k={k} exceeds the shard width {Ks} (= ceil(K/D)); need k <= K/D")
+    return _shard_topk_merge(_pad_slab(scores, mesh, float("-inf")), k, mesh)
+
+
+def plackett_luce_shmap(g_loc: torch.Tensor, p: torch.Tensor, k: int, mesh) -> torch.Tensor:
+    """A K-sharded Plackett-Luce draw: this rank perturbs its slab of ``log
+    p`` (``p`` global, ``(K,)``) with its ``(Ks,)`` Gumbel slab ``g_loc``
+    (JAX draws it from ``fold_in(key, rank)`` when D > 1) and the cohort is
+    the distributed top-k of the perturbed scores: ``(k,)`` global indices,
+    the same on every rank."""
+    K = p.shape[0]
+    Ks = -(-K // mesh.size)
+    if k > Ks:
+        raise ValueError(f"k={k} exceeds the shard width {Ks} (= ceil(K/D)); need k <= K/D")
+    pos = torch.arange(mesh.rank * Ks, (mesh.rank + 1) * Ks, device=p.device)
+    scores = perturbed_scores(g_loc, _pad_slab(p, mesh))
+    return _shard_topk_merge(torch.where(pos < K, scores, torch.full_like(scores, float("-inf"))), k, mesh)
+
+
+def build_sharded_scan_runner(fl, vol, rho, mesh, override: str = "none", outputs: str = "full", block: int = 1,
+                              staleness=None, alpha: float = 0.5, feedback: str = "deadline", carry_key: bool = False,
+                              scan_length=None, taps: bool = False, fused: bool = False, device=None):
+    """The K-sharded round over a whole horizon on this rank of ``mesh``:
+    ``RoundProgram(mesh=mesh, ...).build_runner(...)``, with its contracts
+    (every per-client array this rank's slab).  The bisection's halvings and
+    tile are the constants ``N_ITERS`` and ``TILE``."""
+    from repro_torch.engine.round_program import RoundProgram  # the round program imports this module
+
+    program = RoundProgram(fl=fl, vol=vol, rho=rho, override=override, staleness=staleness, alpha=alpha,
+                           feedback=feedback, mesh=mesh, block=block, fused=fused, device=device)
+    return program.build_runner(outputs=outputs, carry_key=carry_key, scan_length=scan_length, taps=taps)
 
 
 def _shard_topk_merge(scores_loc: torch.Tensor, k: int, mesh) -> torch.Tensor:
@@ -195,8 +299,8 @@ def sharded_selection_sim(
     device=None,
 ):
     """The K-sharded counterpart of ``scan_sim.scan_selection_sim`` on this
-    process's rank of ``mesh`` (``repro_torch.launch.mesh``): E3CS over a
-    Bernoulli, Markov or Deadline model (or a replayed trace), ``block``
+    process's rank of ``mesh`` (``repro_torch.launch.mesh``): every scheme,
+    over a model with K-indexed fields (or a replayed trace), ``block``
     halvings a sweep through the block-sum kernel.  Returns the same numpy
     dict on every rank, per-client arrays gathered from the ranks and cut
     to the K clients; ``taps=True`` adds ``"taps"``."""

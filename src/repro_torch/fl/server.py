@@ -6,6 +6,7 @@ import torch
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.volatility import make_volatility, paper_success_rates
+from repro_torch.device import resolve_device
 
 __all__ = ["build_volatility"]
 
@@ -19,8 +20,9 @@ def build_volatility(fl_cfg: FLConfig, K: int, volatility=None, device=None):
     ``repro_torch.scenarios`` name, made at ``(K, fl_cfg.rounds,
     fl_cfg.seed)`` with its own rate hint; or a model object passed through
     (``rho`` from its ``rho``, else its ``marginal_rate()``, else the paper
-    classes).
+    classes).  ``device=None`` means CUDA, and raises without it.
     """
+    device = resolve_device(device)
     spec = fl_cfg.volatility if volatility is None else volatility
     if not isinstance(spec, str):
         vol = spec.to(device) if hasattr(spec, "to") else spec

@@ -179,10 +179,11 @@ def decode_obs(obs, kind: str, K: int):
 
 def ring_pop_push(pending, sched):
     """One bounded-ring update: pop slot 0 (due now), shift, add the newly
-    scheduled ``(S, K)`` rows (slot s lands s + 1 rounds from now).  Returns
-    ``(arriving, new_pending)``."""
-    shifted = torch.cat([pending[1:], torch.zeros_like(pending[:1])], dim=0)
-    return pending[0], shifted + sched
+    scheduled rows (slot s lands s + 1 rounds from now).  ``pending`` and
+    ``sched`` are ``(..., S, K)``: any leading batch axes (the multi-job J
+    axis) ride along.  Returns ``(arriving, new_pending)``."""
+    shifted = torch.cat([pending[..., 1:, :], torch.zeros_like(pending[..., :1, :])], dim=-2)
+    return pending[..., 0, :], shifted + sched
 
 
 def round_tail_ref(

@@ -1,29 +1,363 @@
-"""The selection service's fleet job (the port of ``run_service_sharded`` in
-``repro.launch.select_serve``): one fleet-scale selection job with the K
-axis sharded over the caller's process group, its whole horizon one runner
-of ``RoundProgram`` with the round taps and the client-axis sketches on.
+"""Selection as a service (the port of ``repro.launch.select_serve``):
+request queue -> batched engine step -> per-job cohort responses.
 
-On one card the group is a one-rank NCCL group; the tests run it on gloo::
+* ``run_service``: each FL job posts a tick request carrying last round's
+  success bits; the server drains up to J requests from the host queue,
+  packs them into one batched multi-job step (``engine.multi_job``) and
+  answers every request with its cohort.  Feedback comes from the paper's
+  Bernoulli classes, or with ``scenario=<name>`` from a bit-packed trace of
+  that ``repro_torch.scenarios`` regime recorded per job and unpacked
+  row by row at enqueue time.  Reports ticks/s, client decisions/s and
+  request latency percentiles.
+* ``run_service_compiled``: the steady state with no host round trip a
+  tick: each tick draws the fleet's completion lags, runs the batched step
+  and credits late arrivals ``alpha**lag`` from a ``(J, S, K_max)``
+  staleness ring, the whole tick one CUDA-graph replay over static buffers
+  (JAX compiles one ``lax.scan`` with donated state).  ``staleness=0`` is
+  the compiled synchronous loop.
+* ``run_service_sharded``: one fleet-scale job with the K axis sharded over
+  the caller's process group, its whole horizon one runner of
+  ``RoundProgram`` with the round taps and the client-axis sketches on.
 
-    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
-    report = run_service_sharded(K=1_000_000, rounds=50, D=1, block=4, fused=True,
-                                 reporter=Reporter("serve_sharded"))
+Each job's selection noise comes from its own generator
+(``engine.multi_job.job_generator(seed, j)``), so a job's stream does not
+depend on J; a fleet's volatility rows come from one fleet generator, as
+JAX splits one carried key.  Reports go through the port's ``Reporter``
+(``results/bench/torch/``).  The command line takes JAX's flags and
+``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path)::
 
-The runner's first call (off the clock) captures the round step as a CUDA
-graph on the card; the timed horizons replay it.  The request-queue loop
-(``run_service``), the compiled multi-job loop (``run_service_compiled``),
-the socket server and the command line come with multi-job batching and
-serving.
+    python -m repro_torch.launch.select_serve --smoke
+    python -m repro_torch.launch.select_serve --smoke --async
+    python -m repro_torch.launch.select_serve --smoke --scenario diurnal
+    python -m repro_torch.launch.select_serve --smoke --mesh 1
+
+``--mesh D`` runs ``run_service_sharded`` on the caller's process group, or
+on a one-rank group it starts when D = 1 and none exists (NCCL on the card,
+gloo on the CPU).  ``--serve`` (the socket front end) is not ported yet.
 """
 from __future__ import annotations
 
+import argparse
+import collections
+import functools
 import time
 
+import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
-from repro_torch.obs import ROUND_TAPS, Reporter, SketchSpec
+from repro_torch.core.selection.sampling import gumbel_from_uniform
+from repro_torch.core.volatility import BernoulliVolatility, BinaryLag, CompletionLag, paper_success_rates
+from repro_torch.core.volatility import row_shape, uniform_rows
+from repro_torch.device import resolve_device
+from repro_torch.engine.multi_job import job_generator, make_multi_job, multi_job_init, pack_jobs, plain_batched_step
+from repro_torch.engine.round_program import capture_step, staleness_ring_step
+from repro_torch.kernels import add_launch_counts
+from repro_torch.obs import ROUND_TAPS, Reporter, SketchSpec, SpanTimer
 
-__all__ = ["run_service_sharded"]
+__all__ = ["run_service", "run_service_compiled", "run_service_sharded", "main"]
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _heterogeneous_fleet(J: int, K_max: int, rng):
+    """The service's standard heterogeneous job mix (shared by both paths)."""
+    Ks = [int(K_max // (2 ** (j % 3))) for j in range(J)]
+    ks = [max(4, Kj // 50) for Kj in Ks]
+    fracs = [float(rng.choice([0.0, 0.5, 0.8])) for _ in range(J)]
+    etas = [float(rng.choice([0.3, 0.5])) for _ in range(J)]
+    return Ks, ks, fracs, etas
+
+
+def _fleet_rhos(Ks, K_max: int) -> np.ndarray:
+    """``(J, K_max)`` paper success rates, each job's population padded with 0."""
+    return np.stack([np.pad(paper_success_rates(Kj), (0, K_max - Kj)) for Kj in Ks])
+
+
+def run_service(
+    J: int = 8,
+    K_max: int = 4096,
+    rounds: int = 30,
+    seed: int = 0,
+    n_iters: int = 48,
+    tile: int = 8192,
+    scenario: str | None = None,
+    reporter: Reporter | None = None,
+    device=None,
+):
+    """Simulate the service loop; returns the throughput and latency report
+    (the JAX package's keys).
+
+    Request latency goes into a bucketed ``LatencyHistogram`` through a
+    ``SpanTimer`` (nothing is stored per request); the report's p50/p95/p99
+    come from it.  With a ``reporter`` the request, dispatch and feedback
+    histograms land in the run log: ``dispatch`` is the batched step (copies
+    in, the replay, the wait for the device), ``feedback`` the host's work
+    a tick (the rows unpacked, stacked and copied to the device).
+    ``device=None`` means CUDA.
+    """
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    Ks, ks, fracs, etas = _heterogeneous_fleet(J, K_max, rng)
+    cfg, k_max = pack_jobs(Ks, ks, fracs, etas, K_max=K_max, device=dev)
+    _, batched_step = make_multi_job(k_max, n_iters=n_iters, tile=tile)
+    state = multi_job_init(cfg)
+    rhos = _fleet_rhos(Ks, K_max)
+    gens = [job_generator(seed, j, dev) for j in range(J)]
+
+    queue: collections.deque = collections.deque()  # (enqueue time, job id, feedback bits)
+    spans = SpanTimer(lo=1e-6, hi=60.0)
+    request_hist = spans.get("request")
+    n_ticks = 0
+    if scenario is None:
+        xs_host = (rng.random((rounds, J, K_max)) < rhos[None]).astype(np.float32)
+
+        def feedback(t, j):
+            return xs_host[t, j]
+
+    else:
+        from repro_torch.scenarios import make_scenario, record_trace, unpack_trace
+
+        # one bit-packed trace a job (jobs get distinct seeds); rows are
+        # expanded only at enqueue time, the dense (rounds, J, K_max) trace
+        # never exists
+        traces = [
+            record_trace(make_scenario(scenario, Kj, rounds, seed=seed + j, device=dev)[0], rounds, seed=seed + j,
+                         chunk=min(64, rounds), device=dev)
+            for j, Kj in enumerate(Ks)
+        ]
+
+        def feedback(t, j):
+            return np.pad(unpack_trace(traces[j][t], Ks[j]), (0, K_max - Ks[j]))
+
+    def gumbel_rows(generators):
+        return gumbel_from_uniform(torch.stack([torch.rand(K_max, generator=g, device=dev) for g in generators]))
+
+    # one dispatch off the clock (on the card, the capture), its noise from a
+    # generator of its own so the jobs' streams are untouched
+    warm = torch.Generator(device=dev).manual_seed(0)
+    xs0 = torch.from_numpy(np.stack([feedback(0, j) for j in range(J)])).to(dev)
+    batched_step(cfg, state, gumbel_rows([warm] * J), xs0)
+    _sync(dev)
+
+    t_start = time.perf_counter()
+    n_decisions = 0
+    for t in range(rounds):
+        for j in range(J):
+            queue.append((time.perf_counter(), j, feedback(t, j)))
+        # drain one full batch of J requests into a single engine dispatch
+        batch = [queue.popleft() for _ in range(min(J, len(queue)))]
+        with spans.span("feedback"):
+            xs = torch.from_numpy(np.stack([b[2] for b in batch])).to(dev)
+            gs = gumbel_rows(gens)
+        with spans.span("dispatch", annotate=True):
+            state, out = batched_step(cfg, state, gs, xs)
+            _sync(dev)
+        t_done = time.perf_counter()
+        cohorts = out["idx"].cpu().numpy()  # (J, k_max), -1 padded
+        for (t_enq, j, _), cohort in zip(batch, cohorts):
+            request_hist.observe(t_done - t_enq)
+            n_ticks += 1
+            n_decisions += Ks[j]  # one accept/reject decision per live client
+            if (cohort >= 0).sum() != ks[j]:
+                raise AssertionError(f"job {j}: a cohort of {(cohort >= 0).sum()} clients, not k={ks[j]}")
+    elapsed = time.perf_counter() - t_start
+
+    report = {
+        "jobs": J,
+        "K_max": K_max,
+        "rounds": rounds,
+        "scenario": scenario or "paper_iid(static)",
+        "ticks": n_ticks,
+        "ticks_per_s": round(n_ticks / elapsed, 1),
+        "client_decisions_per_s": round(n_decisions / elapsed, 1),
+        "latency_ms": {
+            "p50": round(request_hist.quantile(0.50) * 1e3, 3),
+            "p95": round(request_hist.quantile(0.95) * 1e3, 3),
+            "p99": round(request_hist.quantile(0.99) * 1e3, 3),
+            "max": round(request_hist.max * 1e3, 3),
+        },
+        "cohort_sizes": ks,
+        "populations": Ks,
+    }
+    if reporter is not None:
+        reporter.histogram("request_latency", request_hist)
+        reporter.histogram("dispatch_latency", spans.get("dispatch"))
+        reporter.histogram("feedback_latency", spans.get("feedback"))
+    return report
+
+
+class _ServiceHorizon:
+    """``run_service_compiled``'s ticks over static buffers.
+
+    A tick: the fleet's lag rows are drawn from the fleet generator and each
+    job's uniform row from its own (outside the graph, into static
+    buffers); then the lag model's ``sample``, the batched step on the
+    on-time bits, and the ``(J, S, K_max)`` staleness ring, writing the new
+    state, ring and the tick's per-job ``on_time`` and ``stale`` credit back
+    into the buffers.  On a CUDA device the first ``run`` warms the tick up
+    (a generator of its own) and captures it as a CUDA graph; every tick
+    after replays it (``run(eager=True)`` loops the tick eagerly instead, for
+    the check that both give the same bits).  ``reset`` starts a fresh
+    horizon: zero state and ring, the model's initial state, the generators
+    seeded again.
+    """
+
+    def __init__(self, cfg, k_max: int, lag_model, S: int, alpha: float, seed: int, n_iters: int, tile: int):
+        J, K_max = cfg.active.shape
+        self.cfg, self.lag_model, self.S, self.alpha, self.seed = cfg, lag_model, S, alpha, seed
+        self.dev = cfg.active.device
+        self.batched = functools.partial(plain_batched_step, k_max=k_max, n_iters=n_iters, tile=tile)
+        self.rows = lag_model.draw_rows()
+        self.state = multi_job_init(cfg)
+        self.pending = torch.zeros((J, S, K_max), dtype=torch.float32, device=self.dev)
+        self.vs = pytree.tree_map(lambda v: v.clone(), lag_model.init_state())
+        self.raw_vol = [torch.empty(row_shape(n), dtype=torch.float32, device=self.dev) for n, _ in self.rows]
+        self.raw_g = torch.empty((J, K_max), dtype=torch.float32, device=self.dev)
+        self.on_time = torch.zeros(J, dtype=torch.float32, device=self.dev)
+        self.stale = torch.zeros(J, dtype=torch.float32, device=self.dev)
+        self.graph, self.per_replay, self.warmup_s, self.capture_s = None, {}, None, None
+        self.reset()
+
+    def reset(self) -> None:
+        for buf in (*self.state, self.pending):
+            buf.zero_()
+        for buf, v in zip(pytree.tree_leaves(self.vs), pytree.tree_leaves(self.lag_model.init_state())):
+            buf.copy_(v)
+        self.fleet_gen = torch.Generator(device=self.dev).manual_seed(self.seed + 1)
+        self.job_gens = [job_generator(self.seed, j, self.dev) for j in range(self.raw_g.shape[0])]
+
+    def _draw(self, fleet, jobs) -> None:
+        for buf in self.raw_vol:
+            torch.rand(buf.shape, generator=fleet, out=buf)
+        for j, g in enumerate(jobs):
+            torch.rand(self.raw_g.shape[1], generator=g, out=self.raw_g[j])
+
+    def _tick(self) -> None:
+        lag, vs = self.lag_model.sample(uniform_rows(self.raw_vol, self.rows), self.vs)
+        x = (lag == 0).to(torch.float32)
+        state, out = self.batched(self.cfg, self.state, gumbel_from_uniform(self.raw_g), x)
+        mask = out["mask"]
+        arriving, pending = staleness_ring_step(self.pending, mask, lag, self.S, self.alpha)
+        self.stale.copy_(torch.sum(arriving, dim=1))
+        self.on_time.copy_(torch.sum(mask * x, dim=1))
+        for buf, v in zip((*self.state, self.pending, *pytree.tree_leaves(self.vs)),
+                          (*state, pending, *pytree.tree_leaves(vs))):
+            if v is not buf:
+                buf.copy_(v)
+
+    def _capture(self) -> None:
+        def warm_up():
+            warm = torch.Generator(device=self.dev).manual_seed(0)
+            self._draw(warm, [warm] * self.raw_g.shape[0])
+            self._tick()
+
+        self.graph, _, self.per_replay, self.warmup_s, self.capture_s = capture_step(self.dev, warm_up, self._tick)
+        self.reset()  # the warm-up ran a tick on the buffers
+
+    def run(self, rounds: int, eager: bool = False):
+        """``rounds`` ticks from the buffers' state: returns copies of the
+        ``(state, pending)`` after them and the ``(rounds, J)`` ``on_time``
+        and ``stale`` credit a tick."""
+        if self.dev.type == "cuda" and not eager and self.graph is None:
+            self._capture()
+        J = self.raw_g.shape[0]
+        on_time = torch.empty((rounds, J), dtype=torch.float32, device=self.dev)
+        stale = torch.empty((rounds, J), dtype=torch.float32, device=self.dev)
+        for t in range(rounds):
+            self._draw(self.fleet_gen, self.job_gens)
+            if self.graph is not None and not eager:
+                self.graph.replay()
+                add_launch_counts(self.per_replay)
+            else:
+                self._tick()
+            on_time[t].copy_(self.on_time)
+            stale[t].copy_(self.stale)
+        state = type(self.state)(*(v.clone() for v in self.state))
+        return state, self.pending.clone(), on_time, stale
+
+
+def _service_horizon(J, K_max, seed, staleness, alpha, p_late, lag_decay, n_iters, tile, device):
+    """The standard fleet's ``_ServiceHorizon`` and its ``(Ks, ks)``."""
+    S = int(staleness)
+    rng = np.random.default_rng(seed)
+    Ks, ks, fracs, etas = _heterogeneous_fleet(J, K_max, rng)
+    cfg, k_max = pack_jobs(Ks, ks, fracs, etas, K_max=K_max, device=device)
+    base = BernoulliVolatility(torch.as_tensor(_fleet_rhos(Ks, K_max), device=device))  # one draw serves a tick
+    lag_model = CompletionLag(base, p_late=p_late, lag_decay=lag_decay, max_lag=max(S, 1)) if S else BinaryLag(base)
+    return _ServiceHorizon(cfg, k_max, lag_model, S, alpha, seed, n_iters, tile), Ks, ks
+
+
+def run_service_compiled(
+    J: int = 8,
+    K_max: int = 4096,
+    rounds: int = 30,
+    seed: int = 0,
+    staleness: int = 2,
+    alpha: float = 0.5,
+    p_late: float = 0.7,
+    lag_decay: float = 0.5,
+    n_iters: int = 48,
+    tile: int = 8192,
+    reps: int = 3,
+    reporter: Reporter | None = None,
+    device=None,
+):
+    """Steady-state serving with no host round trip a tick: a batched step
+    issues every job's next cohort, a completion-lag draw over the fleet's
+    ``(J, K_max)`` Bernoulli classes decides who returns on time, late or
+    never, the on-time bits feed the E3CS update, and a ``(J, S, K_max)``
+    staleness ring credits late arrivals ``alpha**lag`` ticks later.  The
+    tick is one CUDA-graph replay on the card (``_ServiceHorizon``).
+    ``staleness=0`` is the synchronous loop.  One horizon off the clock (the
+    capture), then ``reps`` fresh timed horizons; the rates come from the
+    fastest.  Returns the JAX package's report; there is no host queue, so
+    the per-tick cost is the latency.  ``device=None`` means CUDA.
+    """
+    dev = resolve_device(device)
+    S = int(staleness)
+    horizon, Ks, ks = _service_horizon(J, K_max, seed, S, alpha, p_late, lag_decay, n_iters, tile, dev)
+    horizon.run(rounds)  # off the clock: on the card, the warm-up and the capture
+    _sync(dev)
+    elapsed = []
+    for _ in range(reps):
+        horizon.reset()
+        _sync(dev)
+        t0 = time.perf_counter()
+        _, _, on_time, stale = horizon.run(rounds)
+        _sync(dev)
+        elapsed.append(time.perf_counter() - t0)
+    best = min(elapsed)
+    n_decisions = rounds * sum(Ks)
+    on_time, stale = on_time.cpu().numpy(), stale.cpu().numpy()
+    if reporter is not None:
+        # the fleet-wide credit a tick (summed over the J jobs) as a windowed
+        # stream, and the detector pass over it
+        reporter.metrics_stream(
+            "serve_async", {"on_time": on_time.sum(1), "stale": stale.sum(1)}, window=max(1, rounds // 10),
+            better={"on_time": "higher", "stale": "none"},
+        )
+        reporter.alerts(series={"on_time": on_time.sum(1)})
+    return {
+        "mode": "compiled_async" if S else "compiled_sync",
+        "jobs": J,
+        "K_max": K_max,
+        "rounds": rounds,
+        "staleness": S,
+        "alpha": alpha,
+        "ticks": rounds * J,
+        "ticks_per_s": round(rounds * J / best, 1),
+        "client_decisions_per_s": round(n_decisions / best, 1),
+        "tick_us": round(best / (rounds * J) * 1e6, 1),  # per job-tick, = 1e6/ticks_per_s
+        "scan_step_us": round(best / rounds * 1e6, 1),  # per tick of all J jobs
+        "on_time_total": float(on_time.sum()),
+        "stale_credit_total": float(stale.sum()),
+        "cohort_sizes": ks,
+        "populations": Ks,
+    }
 
 
 def run_service_sharded(
@@ -121,3 +455,69 @@ def run_service_sharded(
         fair = reporter.fairness_stream("fairness", sketches)
         reporter.alerts(series=series, fairness=fair, expected_selected=k)
     return report
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--jobs", type=int, default=8)
+    ap.add_argument("--clients", type=int, default=None,
+                    help="K_max: largest job population (default 4096, or 512 under --smoke; "
+                         "with --mesh: 1,000,000, or 65,536 under --smoke)")
+    ap.add_argument("--rounds", type=int, default=30)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--scenario", type=str, default=None, help="repro_torch.scenarios name to replay as feedback")
+    ap.add_argument("--async", dest="async_mode", action="store_true",
+                    help="the captured steady-state path with overlapping in-flight rounds")
+    ap.add_argument("--staleness", type=int, default=2,
+                    help="async buffer depth S (with --async, alone or combined with --mesh; 0 = captured sync)")
+    ap.add_argument("--alpha", type=float, default=0.5, help="staleness decay per round of lag")
+    ap.add_argument("--fused", action="store_true",
+                    help="with --mesh: serve through the fused round kernels (repro_torch.kernels.round_fused)")
+    ap.add_argument("--mesh", type=int, default=None, metavar="D",
+                    help="serve one K-sharded job over the process group's D ranks (D = 1 starts a one-rank "
+                         "group when none exists)")
+    ap.add_argument("--serve", action="store_true", help="the socket front end (not ported yet)")
+    ap.add_argument("--smoke", action="store_true", help="a tiny run")
+    ap.add_argument("--device", type=str, default="cuda", help="torch device: cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if args.serve:
+        raise NotImplementedError("--serve: the socket front end (repro.serve) is not ported yet "
+                                  "(ROADMAP.md A, serving)")
+    if args.smoke:
+        args.jobs, args.rounds = 4, 10
+    dev = resolve_device(args.device)
+    K_max = args.clients or (512 if args.smoke else 4096)
+    if args.mesh is not None:
+        import torch.distributed as dist
+
+        K = args.clients or (65_536 if args.smoke else 1_000_000)
+        S = args.staleness if args.async_mode else 0
+        rep = Reporter("select_serve_sharded_async" if S else "select_serve_sharded", config=vars(args))
+        own_group = not dist.is_initialized()
+        if own_group:
+            if args.mesh != 1:
+                raise SystemExit(f"--mesh {args.mesh}: start the {args.mesh}-rank process group first "
+                                 "(one process per rank); only --mesh 1 starts its own")
+            dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", store=dist.HashStore(), rank=0,
+                                    world_size=1)
+        try:
+            report = run_service_sharded(K=K, rounds=args.rounds, D=args.mesh, seed=args.seed, staleness=S,
+                                         alpha=args.alpha, fused=args.fused, reporter=rep, device=dev)
+        finally:
+            if own_group:
+                dist.destroy_process_group()
+    elif args.async_mode:
+        rep = Reporter("select_serve_async", config=vars(args))
+        report = run_service_compiled(J=args.jobs, K_max=K_max, rounds=args.rounds, seed=args.seed,
+                                      staleness=args.staleness, alpha=args.alpha, reporter=rep, device=dev)
+    else:
+        rep = Reporter("select_serve", config=vars(args))
+        report = run_service(J=args.jobs, K_max=K_max, rounds=args.rounds, seed=args.seed, scenario=args.scenario,
+                             reporter=rep, device=dev)
+    path = rep.save(report)
+    with open(path) as f:
+        print(f.read())  # the saved report is the command's output
+
+
+if __name__ == "__main__":
+    main()

@@ -5,10 +5,11 @@
 runner (``engine.scan_sim``, the scenario's model carried in the captured
 round step); with ``staleness=S`` each cell also runs the async round on the
 same scenario wrapped in ``CompletionLag`` and reports the staleness-aware
-CEP.  ``run_replay`` records a scenario once and replays the frozen trace
-to each selector, so every selector sees identical bits.  ``format_grid``
-renders the table.  The batched multi-job grid, ``run_grid_multi_job``,
-waits for the multi-job engine.
+CEP.  ``run_grid_multi_job`` maps the scenario axis onto the batched
+multi-tenant engine (``engine.multi_job``): one E3CS row a scenario, one
+batched step a round.  ``run_replay`` records a scenario once and replays
+the frozen trace to each selector, so every selector sees identical bits.
+``format_grid`` renders the table.
 """
 from __future__ import annotations
 
@@ -18,8 +19,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.fairness import cep, gini, jain_index, selection_entropy, success_ratio, top_share
+from repro_torch.core.selection.sampling import gumbel_from_uniform
 from repro_torch.core.volatility import CompletionLag
 from repro_torch.device import resolve_device
+from repro_torch.engine.multi_job import job_generator, make_multi_job, multi_job_init, pack_jobs
 from repro_torch.engine.scan_sim import async_selection_sim, scan_selection_sim
 
 from .registry import make_scenario
@@ -121,13 +124,47 @@ def run_grid(
 
 
 def run_grid_multi_job(scenarios: Sequence[str], K: int = 100, k: int = 20, T: int = 300, seed: int = 0,
-                       sigma_frac: float = 0.5, eta: float = 0.5):
-    """E3CS against every scenario in one batched multi-job engine: not
-    ported yet."""
-    raise NotImplementedError(
-        "run_grid_multi_job runs on the multi-job engine (engine/multi_job.py), which is not ported yet "
-        "(ROADMAP.md A8: multi-job batching)"
-    )
+                       sigma_frac: float = 0.5, eta: float = 0.5, device=None) -> List[Dict[str, float]]:
+    """E3CS against every scenario in one batched engine: job j is scenario
+    j.  Each round every scenario's model draws its ``(K,)`` success bits
+    from its own stream (``SeedSequence([seed + 1, j])``; the models' states
+    differ, so they step one by one), the rows are stacked, and one batched
+    step advances all J selectors, each job's Gumbel row from its own
+    stream (``SeedSequence([seed, j])``)."""
+    dev = resolve_device(device)
+    J = len(scenarios)
+    cfg, k_max = pack_jobs([K] * J, [k] * J, [sigma_frac] * J, [eta] * J, device=dev)
+    _, batched = make_multi_job(k_max)
+    state = multi_job_init(cfg)
+    vols = [make_scenario(sc, K, T, seed, device=dev)[0] for sc in scenarios]
+    vol_states = [v.init_state() for v in vols]
+    vol_gens = [job_generator(seed + 1, j, dev) for j in range(J)]
+    sel_gens = [job_generator(seed, j, dev) for j in range(J)]
+    ceps = torch.zeros(J, dtype=torch.float32, device=dev)
+    counts = torch.zeros((J, K), dtype=torch.float32, device=dev)
+    for _ in range(T):
+        xs_rows = []
+        for j, vol in enumerate(vols):
+            x, vol_states[j] = vol.sample(vol.draw(vol_gens[j]), vol_states[j])
+            xs_rows.append(x)
+        xs = torch.stack(xs_rows)
+        gs = gumbel_from_uniform(torch.stack([torch.rand(K, generator=g, device=dev) for g in sel_gens]))
+        state, out = batched(cfg, state, gs, xs)
+        ceps += (out["mask"] * xs).sum(1)
+        counts += out["mask"]
+    rows = []
+    for j, sc in enumerate(scenarios):
+        cep_j = float(ceps[j])
+        rows.append({
+            "selector": "e3cs(multi_job)",
+            "scenario": sc,
+            "K": K, "k": k, "T": T,
+            "cep": cep_j,
+            "eff_participation": cep_j / (T * k),
+            "jain": float(jain_index(counts[j])),
+            "entropy": float(selection_entropy(counts[j])),
+        })
+    return rows
 
 
 def run_replay(

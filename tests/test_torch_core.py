@@ -174,9 +174,16 @@ def test_completion_lag_draws_its_rows_in_range():
 
 @pytest.mark.parametrize("name", ["markov", "deadline"])
 def test_unported_volatility_models_raise(name):
-    """Every volatility model is ported; what stays unported is the batched
-    multi-job grid over them (ROADMAP A8)."""
+    """Every volatility model is ported, and the batched multi-job grid over
+    them runs (it raised naming ROADMAP A8 before the multi-job engine): its
+    rows have the JAX package's keys and deterministic fields, and the
+    cohorts add up (CEP at most T k, the normalised entropy in (0, 1])."""
+    from repro.scenarios import run_grid_multi_job as jrun_grid_multi_job
     from repro_torch.scenarios import run_grid_multi_job
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
-        run_grid_multi_job([name], K=8, k=2, T=2)
+    (row,), (jrow,) = run_grid_multi_job([name], K=8, k=2, T=2, device="cpu"), jrun_grid_multi_job([name], K=8, k=2, T=2)
+    assert list(row) == list(jrow)
+    for key in ("selector", "scenario", "K", "k", "T"):
+        assert row[key] == jrow[key], key
+    assert 0 <= row["cep"] <= 2 * 2 and row["eff_participation"] == row["cep"] / 4
+    assert 0 < row["entropy"] <= 1 and 0 < row["jain"] <= 1

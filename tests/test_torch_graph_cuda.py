@@ -297,3 +297,44 @@ def test_systematic_cumsum_is_the_same_bits_every_call(cuda, n):
     # and per row of the prefix, each at most an ulp of the total
     ulp = 2.0 ** (np.floor(np.log2(float(ref[-1]))) - 23)
     assert float((first.double() - ref).abs().max()) <= (1024 + -(-n // 1024)) * ulp
+
+
+MESH_CASES = [
+    ("random", "bernoulli", False, 0),
+    ("fedcs", "bernoulli", False, 0),
+    ("pow_d", "bernoulli", False, 0),
+    ("ucb", "bernoulli", False, 2),
+    ("e3cs", "diurnal", True, 0),
+    ("e3cs", "regional_outage", True, 0),
+    ("e3cs", "flash_crowd", True, 0),
+    ("e3cs", "flash_crowd", False, 2),
+]
+
+
+def _mesh_program(K, scheme, volatility, fused, S, dev, mesh=None, block=1):
+    fl = FLConfig(K=K, k=k, rounds=2 * T, scheme=scheme, quota_frac=0.5, allocator="bisect", volatility=volatility,
+                  pow_d=4 * k, staleness_rounds=S)
+    return RoundProgram.from_config(fl, fused=fused, device=dev, mesh=mesh, block=block)
+
+
+@pytest.mark.parametrize("K", KS)
+@pytest.mark.parametrize("scheme,volatility,fused,S", MESH_CASES, ids=[f"{s}-{v}-S{S}" for s, v, _, S in MESH_CASES])
+def test_every_scheme_and_scenario_captures_on_the_mesh(cuda, mesh, K, scheme, volatility, fused, S):
+    """The baselines (replicated selection, UCB's replicated state, pow-d's
+    gathered loss cache) and the scenario models (a regional outage's chain
+    from the shared stream) on the one-rank NCCL mesh: the captured horizon
+    (``block=4``) replays as the eager loop, and at ``block=1`` the mesh
+    equals the dense runner bit for bit."""
+    pm = _mesh_program(K, scheme, volatility, fused, S, cuda, mesh=mesh, block=4)
+    run, s0 = pm.build_runner(outputs="full", carry_key=True, scan_length=T)
+    rings = _rings(pm)
+    first, again = run(s0, SEED, *rings), run(s0, SEED, *rings)
+    carry, outs, gstate = _eager(pm, (s0, *(tuple(r.clone() for r in rr) for rr in rings)), SEED)
+    for got in (first, again):
+        _assert_same(got, (carry[0], gstate, *carry[1:], *outs))
+    assert torch.all(outs[0].sum(1) == k)
+    runs = []
+    for m in (None, mesh):
+        run1, s1 = _mesh_program(K, scheme, volatility, fused, S, cuda, mesh=m).build_runner(outputs="full")
+        runs.append(run1(s1, SEED))
+    _assert_same(runs[1], runs[0])

@@ -20,6 +20,7 @@ from repro_torch.core.volatility import make_volatility, paper_success_rates
 from repro_torch import scenarios
 from repro_torch.core.sim import selection_sim
 from repro_torch.engine import RoundProgram, async_selection_sim, scan_selection_sim
+from repro_torch.fl import build_volatility
 from repro_torch.kernels import fused_round_tail, unpack_bits
 from repro_torch.launch import HostMesh, make_host_mesh
 
@@ -33,7 +34,7 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.launch.mesh, repro_torch.kernels.bisect_tiles, repro_torch.engine.sharded, "
         "repro_torch.kernels.ops, repro_torch.kernels.autotune, repro_torch.obs.paths, repro_torch.scenarios, "
         "repro_torch.engine.scan_sim, repro_torch.core.sim, repro_torch.core.fairness, "
-        "repro_torch.core.selection.regret; "
+        "repro_torch.core.selection.regret, repro_torch.engine.multi_job, repro_torch.launch.select_serve; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'repro' "
         "or m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)"
     )
@@ -88,6 +89,7 @@ def test_entry_points_raise_without_cuda(no_cuda):
 
 
 SLICE_ENTRY_POINTS = {
+    "build_volatility": lambda: build_volatility(FLConfig(K=64, k=8, rounds=4), 64),
     "scan_selection_sim": lambda: scan_selection_sim("e3cs", K=64, k=8, T=2),
     "async_selection_sim": lambda: async_selection_sim("e3cs", K=64, k=8, T=2),
     "selection_sim": lambda: selection_sim("e3cs", K=64, k=8, T=2),
@@ -102,6 +104,14 @@ SLICE_ENTRY_POINTS = {
 def test_scenario_entry_points_raise_without_cuda(no_cuda, name):
     with pytest.raises(RuntimeError, match="CUDA"):
         SLICE_ENTRY_POINTS[name]()
+
+
+@pytest.mark.parametrize("name", ["bernoulli", "diurnal"])
+def test_build_volatility_lands_on_the_device_asked(no_cuda, name):
+    """A builtin and a scenario name land on the same device: the CPU when
+    asked (without a device both raise, ``SLICE_ENTRY_POINTS``)."""
+    vol, rho = build_volatility(FLConfig(K=64, k=8, rounds=4, volatility=name), 64, device="cpu")
+    assert rho.device.type == "cpu" and vol.rho.device.type == "cpu" and vol.init_state().device.type == "cpu"
 
 
 def test_entry_points_run_on_cpu_when_asked(no_cuda):
@@ -132,18 +142,37 @@ def test_wrappers_refuse_a_device_with_no_kernel():
 
 @pytest.mark.parametrize("what", ["scheme", "sampler", "scenario"])
 def test_unported_paths_raise_with_their_roadmap_item(what):
-    """Every scheme, sampler and scenario runs at local placement; on a mesh
-    the baselines, the systematic sampler and the scenario models do not
-    yet (ROADMAP A9 rest)."""
+    """The paths a mesh once refused (ROADMAP A9 rest): a baseline scheme
+    and a scenario model now run on a one-rank mesh and equal the dense
+    ``allocator="bisect"`` run bit for bit; the systematic sampler is
+    refused with a ``ValueError``, as JAX's sharded runner refuses it."""
+    import torch.distributed as dist
+
+    from repro.engine.round_program import RoundProgram as JRoundProgram
+    from repro.launch.mesh import make_host_mesh as jmake_host_mesh
+
     fl, vol, rho = _program_args()
+    fl = dataclasses.replace(fl, allocator="bisect")
     mesh = HostMesh(size=1, rank=0, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A9 rest"):
-        if what == "scheme":
-            RoundProgram(fl=dataclasses.replace(fl, scheme="random"), vol=vol, rho=rho, mesh=mesh)
-        elif what == "sampler":
+    if what == "sampler":
+        with pytest.raises(ValueError, match="plackett_luce sampler"):
             RoundProgram(fl=dataclasses.replace(fl, sampler="systematic"), vol=vol, rho=rho, mesh=mesh)
-        else:
-            RoundProgram.from_config(dataclasses.replace(fl, volatility="diurnal"), mesh=mesh)
+        jfl = dataclasses.replace(JFLConfig(K=64, k=8, rounds=4, allocator="bisect"), sampler="systematic")
+        jpm = JRoundProgram(fl=jfl, vol=vol, rho=rho, mesh=jmake_host_mesh(1))
+        with pytest.raises(ValueError, match="plackett_luce sampler"):
+            jpm.build_runner()
+        return
+    cfg = dataclasses.replace(fl, scheme="random") if what == "scheme" else dataclasses.replace(fl, volatility="diurnal")
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        runs = []
+        for m in (None, mesh):
+            run, s0 = RoundProgram.from_config(cfg, mesh=m, device="cpu").build_runner()
+            runs.append(run(s0, 3))
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(*(torch.utils._pytree.tree_leaves(r) for r in runs)):
+        assert torch.equal(a, b)
 
 
 def test_state_from_jax_names_missing_arrays():

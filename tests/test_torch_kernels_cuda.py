@@ -115,9 +115,11 @@ def topk_inputs(n, k, seed=11, zero_frac=0.1):
 # digits reach the index word), fewer than k positive p (the -inf fill),
 # one binade (the chosen bin overflows the candidate buffer), half the
 # scores +inf (UCB's unexplored clients: ties at the top key), k = 1,
-# k = 2048, K = k, and the ragged K = 1,000,003
+# k = 2048, K = k, the ragged K = 1,000,003, and the multi-job service's
+# rows (K_max = 100,000, k_max = 2000)
 ENGINE_CASES = [("equal", 1_000_003, 1000), ("few_positive", 1_000_003, 1000), ("binade", 1_000_003, 1000),
-                ("inf_ties", 1_000_003, 1000), ("gumbel", 1_000_003, 1), ("gumbel", 1_000_003, 2048), ("gumbel", 2048, 2048), ("equal", 2048, 2048)]
+                ("inf_ties", 1_000_003, 1000), ("gumbel", 1_000_003, 1), ("gumbel", 1_000_003, 2048), ("gumbel", 2048, 2048), ("equal", 2048, 2048),
+                ("few_positive", 100_000, 2000), ("gumbel", 100_000, 2000)]
 ENGINE_IDS = [f"{c}-K{K}-k{k}" for c, K, k in ENGINE_CASES]
 
 

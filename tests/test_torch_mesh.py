@@ -4,13 +4,17 @@ processes (one process per rank, a ``FileStore`` under ``tmp_path``).
 
 * a one-rank mesh with ``block=1`` equals the dense ``allocator="bisect"``
   runner bit for bit, and ``block=4`` selects the same cohorts;
-* a chunked ``carry_key`` mesh horizon equals a one-shot one;
+* a chunked ``carry_key`` mesh horizon equals a one-shot one, also where
+  both noise streams are drawn (a baseline's K-wide rows and a regional
+  outage's chain row from the shared stream), and every rank holds the same
+  shared-stream state after each chunk;
 * at D > 1: the collectives, the distributed top-k (exact, ties included),
   the sharded allocator against the dense one, and the runner's invariants
   (k distinct clients a round, ``sum(p) = k``, fused == staged cohorts).
 
-``run_cases`` is also the port's side of ``test_torch_sharded.py``, which
-holds the mesh round against the JAX package; it lives here so that the
+``run_cases`` and ``run_mesh_cases`` are also the port's side of
+``test_torch_sharded.py`` and ``test_torch_sharded_baselines.py``, which
+hold the mesh round against the JAX package; they live here so that the
 spawned ranks import no JAX.
 """
 import dataclasses
@@ -22,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+from torch.utils import _pytree as pytree
 
 from repro_torch.configs import FLConfig
 from repro_torch.convert import gather_state, shard_arrays, state_from_jax
@@ -29,8 +34,10 @@ from repro_torch.core.selection import top_k
 from repro_torch.core.volatility import CompletionLag, make_volatility, paper_success_rates
 from repro_torch.engine import RoundNoise, RoundProgram
 from repro_torch.core.selection import perturbed_scores
+from repro_torch.engine import distributed_topk, plackett_luce_shmap, prob_alloc_shmap
 from repro_torch.engine.sharded import _shard_topk_merge, masked_prob_alloc
 from repro_torch.launch import make_host_mesh
+from repro_torch.scenarios import make_scenario
 
 SPAWN_TIMEOUT = 120  # seconds for a group of spawned ranks to finish
 ALLOC_RTOL = 1e-6  # a psum adds the ranks' tiled float32 sums in another order than one tiled sum
@@ -148,6 +155,107 @@ def run_cases(mesh, specs, npz_path):
     return out
 
 
+def mesh_case_program(spec, mesh, fused):
+    """The port's program of a ``test_torch_sharded_baselines`` case: any
+    scheme, over Bernoulli volatility (a dense trace's outcomes) or a
+    registry scenario's model, sync or async."""
+    K, S, T = spec["K"], spec["staleness"], spec["T"]
+    if spec["scenario"] is None:
+        rho = paper_success_rates(K)
+        vol = make_volatility("bernoulli", rho)
+    else:
+        vol, rho = make_scenario(spec["scenario"], K, T, spec["seed"], device="cpu")
+    if S is not None:
+        vol = CompletionLag(vol, max_lag=S)
+    fl = FLConfig(K=K, k=spec["k"], rounds=T, scheme=spec["scheme"], quota_frac=0.5, allocator="bisect",
+                  pow_d=spec["pow_d"])
+    return RoundProgram(fl=fl, vol=vol, rho=rho, override=spec["override"], staleness=S, alpha=0.5, mesh=mesh,
+                        fused=fused, device="cpu")
+
+
+def _rank_noise(inputs, name, t, d):
+    """Round ``t``'s noise of rank ``d``: the npz holds ``<name>/g`` and
+    ``<name>/u<i>`` as ``(T, D, n)`` per-rank rows, ``<name>/perm`` and
+    ``<name>/v`` as ``(T, K)`` rows every rank takes whole."""
+    noise = {}
+    if f"{name}/g" in inputs.files:
+        noise["g"] = torch.from_numpy(np.ascontiguousarray(inputs[f"{name}/g"][t, d]))
+    if f"{name}/perm" in inputs.files:
+        noise["perm"] = torch.from_numpy(inputs[f"{name}/perm"][t]).long()
+    if f"{name}/v" in inputs.files:
+        noise["v"] = torch.from_numpy(inputs[f"{name}/v"][t])
+    n_u = sum(1 for f in inputs.files if f.startswith(f"{name}/u"))
+    noise["u"] = tuple(torch.from_numpy(np.ascontiguousarray(inputs[f"{name}/u{i}"][t, d])) for i in range(n_u))
+    return RoundNoise(**noise)
+
+
+def run_mesh_cases(mesh, specs, npz_path):
+    """Each case's round step on this rank, fed its noise (``_rank_noise``)
+    and, for a dense trace, its slab of ``<name>/xs``; E3CS fused and
+    staged, a baseline staged.  Returns this rank's output slabs and the
+    final state gathered (``gather_state``).  A case with ``runner`` also
+    runs the mesh runner from its own streams and returns its final model
+    state (``<name>/runner/vol_state``)."""
+    inputs = np.load(npz_path)
+    out = {}
+    for spec in specs:
+        name = spec["name"]
+        for fused in (True, False) if spec["scheme"] == "e3cs" else (False,):
+            tag = f"{name}/{'fused' if fused else 'staged'}"
+            pm = mesh_case_program(spec, mesh, fused)
+            step, state = pm.build_step()
+            carry = (state,) if pm.staleness is None else (state, pm.init_rings())
+            rows = pm.local_rows(inputs[f"{name}/xs"]) if spec["override"] == "dense" else None
+            outs = []
+            for t in range(spec["T"]):
+                carry, o = step(carry, None if rows is None else rows[t], _rank_noise(inputs, name, t, mesh.rank))
+                outs.append(o)
+            for field, col in zip(("mask", "x", "p", "sigma", "arrived"), zip(*outs)):
+                out[f"{tag}/{field}"] = torch.stack(col).numpy()
+            for field, a in gather_state(carry[0], carry[1] if len(carry) > 1 else (), mesh).items():
+                if isinstance(a, tuple):
+                    out.update({f"{tag}/state/{field}{i}": v for i, v in enumerate(a)})
+                else:
+                    out[f"{tag}/state/{field}"] = a
+        if spec.get("runner"):
+            run, s0 = mesh_case_program(spec, mesh, False).build_runner()
+            vs = run(s0, spec["seed"])[0].vol_state
+            out[f"{name}/runner/vol_state"] = vs.numpy()
+    return out
+
+
+def surface_inputs(D):
+    """The inputs of ``test_torch_sharded_baselines``'s public-surface test:
+    1001 weights, scores with ties within and across ranks, an allocation,
+    and each rank's Gumbel slab."""
+    rng = np.random.default_rng(21)
+    K = 1001
+    Ks = -(-K // D)
+    w = rng.gamma(0.3, 1.0, K).astype(np.float32)
+    scores = np.round(rng.normal(size=K), 1).astype(np.float32)
+    p = rng.uniform(0.01, 1.0, K).astype(np.float32)
+    g_rows = rng.gumbel(size=(D, Ks)).astype(np.float32)
+    return w, scores, p, g_rows
+
+
+def surface_on_rank(mesh, D):
+    """``prob_alloc_shmap``, ``distributed_topk`` and ``plackett_luce_shmap``
+    on this rank, at k = 40."""
+    w, scores, p, g_rows = surface_inputs(D)
+    pt, ct = prob_alloc_shmap(torch.from_numpy(w), 40, 0.01, mesh)
+    return {"p": pt.numpy(), "capped": ct.numpy(),
+            "topk": distributed_topk(torch.from_numpy(scores), 40, mesh).numpy(),
+            "pl": plackett_luce_shmap(torch.from_numpy(g_rows[mesh.rank]), torch.from_numpy(p), 40, mesh).numpy()}
+
+
+def sharded_baselines_rank(mesh, specs, npz_path):
+    """Everything ``test_torch_sharded_baselines`` reads from one rank: its
+    ``run_mesh_cases`` and, under ``surface/``, its ``surface_on_rank``."""
+    out = run_mesh_cases(mesh, specs, npz_path)
+    out.update({f"surface/{n}": v for n, v in surface_on_rank(mesh, mesh.size).items()})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # one rank, in this process
 # ---------------------------------------------------------------------------
@@ -209,6 +317,40 @@ def _chunked_vs_one_shot(mesh, staleness, block):
         st2, _, _, *o2 = half(st1, key, rings)
     chunked = [torch.cat([a, b]).numpy() for a, b in zip(o1, o2)]
     return [o.numpy() for o in outs], chunked, st.e3cs.logw.numpy(), st2.e3cs.logw.numpy()
+
+
+# carry_key cases that draw from the shared stream: (scheme, scenario or None
+# for Bernoulli volatility)
+STREAM_CASES = {"random": ("random", None), "fedcs": ("fedcs", None),
+                "e3cs-regional_outage": ("e3cs", "regional_outage")}
+
+
+def _streams_chunked_vs_one_shot(mesh, scheme, scenario):
+    """A ``carry_key`` runner's two chunks against one shot, on a case that
+    draws from both streams.  ``one/*`` and ``two/*`` are the one-shot's and
+    the chunks' outputs, final state and final (own, shared) stream states;
+    ``after1/*`` the stream states after the first chunk."""
+    if scenario is None:
+        rho = paper_success_rates(K)
+        vol = make_volatility("bernoulli", rho)
+    else:
+        vol, rho = make_scenario(scenario, K, T, 3, device="cpu")
+    fl = FLConfig(K=K, k=k, rounds=T, scheme=scheme, quota_frac=0.5, allocator="bisect")
+    pm = RoundProgram(fl=fl, vol=vol, rho=rho, mesh=mesh, fused=scheme == "e3cs", device="cpu")
+    one, s0 = pm.build_runner(outputs="full", carry_key=True)
+    half, _ = pm.build_runner(outputs="full", carry_key=True, scan_length=T // 2)
+    st, key, *outs = one(s0, 5)
+    st1, key1, *o1 = half(s0, 5)
+    st2, key2, *o2 = half(st1, key1)
+    out = {}
+    for i, (a, b1, b2) in enumerate(zip(outs, o1, o2)):
+        out[f"one/out{i}"], out[f"two/out{i}"] = a.numpy(), torch.cat([b1, b2]).numpy()
+    for i, (a, b) in enumerate(zip(pytree.tree_leaves(st), pytree.tree_leaves(st2))):
+        out[f"one/state{i}"], out[f"two/state{i}"] = np.asarray(a), np.asarray(b)
+    out["one/vol_state"], out["two/vol_state"] = (np.asarray(v) for v in (st.vol_state, st2.vol_state))
+    for tag, (own, shared) in (("one", key), ("two", key2), ("after1", key1)):
+        out[f"{tag}/own"], out[f"{tag}/shared"] = own.numpy(), shared.numpy()
+    return out
 
 
 @pytest.mark.parametrize("staleness", [0, 2], ids=["sync", "async"])
@@ -294,6 +436,8 @@ def mesh_suite(mesh):
             tag = f"run{staleness}/{'fused' if fused else 'staged'}"
             out[f"{tag}/mask"], out[f"{tag}/p"], out[f"{tag}/sigma"] = masks.numpy(), ps.numpy(), sigmas.numpy()
             out[f"{tag}/logw"] = st.e3cs.logw.numpy()
+    for case, (scheme, scenario) in STREAM_CASES.items():
+        out.update({f"streams/{case}/{n}": v for n, v in _streams_chunked_vs_one_shot(mesh, scheme, scenario).items()})
     if D == 2:
         for staleness in (0, 2):
             outs, chunked, logw, logw2 = _chunked_vs_one_shot(mesh, staleness, block=1)
@@ -364,3 +508,26 @@ def test_mesh2_carry_key_chunks_equal_one_shot(suite, staleness):
         assert names
         for n in names:
             np.testing.assert_array_equal(r[n], r[n.replace("/one/", "/two/")])
+
+
+@pytest.mark.parametrize("case", list(STREAM_CASES))
+@pytest.mark.parametrize("D", [2, 4])
+def test_mesh_carry_key_resumes_both_streams(suite, D, case):
+    """Two ``carry_key`` chunks equal one shot on every rank where the shared
+    stream is drawn; after each chunk every rank holds the same shared state
+    (and a regional outage the same region row) and its own own state; the
+    ranks' mask slabs make one cohort of k a round."""
+    ranks = [{n[len(f"streams/{case}/"):]: v for n, v in r.items() if n.startswith(f"streams/{case}/")}
+             for r in suite[D]]
+    for r in ranks:
+        names = [n for n in r if n.startswith("one/")]
+        assert len(names) > 4
+        for n in names:
+            np.testing.assert_array_equal(r[n], r["two/" + n[4:]], err_msg=n)
+    for n in ("after1/shared", "two/shared", "two/vol_state"):
+        for r in ranks[1:]:
+            np.testing.assert_array_equal(r[n], ranks[0][n], err_msg=n)
+    own = [r["after1/own"].tobytes() for r in ranks]
+    assert len(set(own)) == D and ranks[0]["after1/shared"].tobytes() not in own
+    masks = np.concatenate([r["one/out0"] for r in ranks], axis=1)
+    assert masks.shape == (T, K) and (masks.sum(1) == k).all()

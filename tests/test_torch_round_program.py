@@ -277,3 +277,25 @@ def test_draw_noise_is_the_raw_rows_transformed():
     n1, n2 = pm.noise_from_uniforms(raw), pm.draw_noise(pm.generator(1))
     assert torch.equal(n1.g, n2.g) and all(torch.equal(x, y) for x, y in zip(n1.u, n2.u))
     assert torch.equal(a.get_state(), b.get_state())
+
+
+@pytest.mark.parametrize("S", [1, 2, 3])
+def test_staleness_ring_step_over_jobs_matches_jax(S):
+    """A ``(J, S, K)`` ring (the multi-job service's) pops slot 0 of every
+    job and shifts along the slots, as JAX's ring does on leading batch
+    axes: bit for bit over a few ticks."""
+    from repro.engine.round_program import staleness_ring_step as jstaleness_ring_step
+    from repro_torch.engine import staleness_ring_step
+
+    rng = np.random.default_rng(S)
+    J, Kj = 3, 40
+    pending = rng.random((J, S, Kj)).astype(np.float32)
+    jpending, tpending = jnp.asarray(pending), torch.from_numpy(pending)
+    for _ in range(4):
+        mask = (rng.random((J, Kj)) < 0.3).astype(np.float32)
+        lag = rng.choice(np.arange(-1, S + 1, dtype=np.int32), (J, Kj))
+        jarr, jpending = jstaleness_ring_step(jpending, jnp.asarray(mask), jnp.asarray(lag), S, 0.5)
+        arr, tpending = staleness_ring_step(tpending, torch.from_numpy(mask), torch.from_numpy(lag), S, 0.5)
+        assert arr.shape == (J, Kj) and tpending.shape == (J, S, Kj)
+        np.testing.assert_array_equal(arr.numpy(), np.asarray(jarr))
+        np.testing.assert_array_equal(tpending.numpy(), np.asarray(jpending))

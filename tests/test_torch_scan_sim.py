@@ -128,11 +128,32 @@ def test_sharded_sim_on_one_rank_equals_the_dense_run(mesh1, volatility, fused):
 
 
 def test_sharded_sim_refuses_what_the_mesh_does_not_run(mesh1):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A9 rest"):
-        sharded_selection_sim("fedcs", mesh1, K=K, k=k, T=2, device="cpu")
+    """The baselines and the scenario models run on a mesh (a one-rank mesh
+    equals the dense run bit for bit); what it refuses, as JAX does, is a
+    model without K-indexed dataclass fields to cut into slabs."""
+    kw = dict(K=K, k=k, T=T, frac=0.5, seed=SEED, device="cpu")
+    for key, want in scan_selection_sim("fedcs", **kw).items():
+        np.testing.assert_array_equal(sharded_selection_sim("fedcs", mesh1, **kw)[key], want, err_msg=key)
     vol, rho = P.make_scenario("diurnal", K, T, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A9 rest"):
-        sharded_selection_sim("e3cs", mesh1, K=K, k=k, T=2, vol=vol, rho=rho, device="cpu")
+    dense = scan_selection_sim("e3cs", allocator="bisect", vol=vol, rho=rho, **kw)
+    got = sharded_selection_sim("e3cs", mesh1, vol=vol, rho=rho, **kw)
+    for key in ("masks", "xs", "ps", "sigmas", "counts"):
+        np.testing.assert_array_equal(got[key], dense[key], err_msg=key)
+
+    class NotADataclass:
+        rho = vol.rho
+
+        def to(self, device):
+            return self
+
+        def init_state(self):
+            return vol.init_state()
+
+        def draw_rows(self):
+            return vol.draw_rows()
+
+    with pytest.raises(TypeError, match="replay traces through"):
+        sharded_selection_sim("e3cs", mesh1, K=K, k=k, T=2, vol=NotADataclass(), rho=rho, device="cpu")
 
 
 @pytest.mark.parametrize("scheme", ["e3cs", "pow_d", "fedcs"])

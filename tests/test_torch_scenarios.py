@@ -240,3 +240,21 @@ def test_format_grid_equals_jax():
             rows.append(row)
     for part in (rows[:1], rows[:3], rows):
         assert P.format_grid(part) == J.format_grid(part)
+
+
+def test_run_grid_multi_job_rows_match_jax_and_do_not_depend_on_the_batch():
+    """The seven registry scenarios as the jobs of one batched engine: the
+    rows have JAX's keys and deterministic fields; each job's selection and
+    model streams are its own (``SeedSequence([seed, j])``), so the first
+    scenario's row is the same alone or beside six others."""
+    names = ["paper_iid", "markov", "markov_sticky", "deadline", "diurnal", "regional_outage", "flash_crowd"]
+    kw = dict(K=256, k=8, T=12, seed=2)
+    rows, jrows = P.run_grid_multi_job(names, **kw, device="cpu"), J.run_grid_multi_job(names, **kw)
+    assert len(rows) == len(jrows) == 7
+    for row, jrow, name in zip(rows, jrows, names):
+        assert list(row) == list(jrow)
+        assert (row["selector"], row["scenario"], row["K"], row["k"], row["T"]) == (
+            "e3cs(multi_job)", name, 256, 8, 12)
+        assert 0 <= row["cep"] <= 12 * 8 and row["eff_participation"] == row["cep"] / (12 * 8)
+        assert 0 < row["jain"] <= 1 and 0 < row["entropy"] <= 1
+    assert P.run_grid_multi_job(names[:1], **kw, device="cpu") == rows[:1]
