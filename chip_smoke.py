@@ -86,14 +86,23 @@ Phases, one line each; any failure raises and the script exits non-zero:
    ``run_service`` (J = 8, K_max = 1e5, 30 ticks, Bernoulli and diurnal
    feedback) and ``run_grid_multi_job`` over the seven registry scenarios
    (K = 1e6, k = 1000, T = 50), each with its launch counts checked;
-12. ops: the kernel layer's public ops, the path of the top-k and update
+12. serve (``[serve-slots]``, ``[serve-sharded]``, ``[serve-chaos]``):
+   the selection service over loopback sockets, the
+   slot engine at K_max = 1e5 (k_cap = 2000: the top-k kernel a row) with
+   the standard fleet of 8 jobs at S = 0 and 2, the sharded engine (one-rank
+   NCCL mesh, ``block=4``, S = 2) at K = 1e6 and 5e5 across a checkpoint,
+   ``kill()`` and restore, and the JAX package's chaos plan at K = 1e6;
+   cohorts bit for bit in-process engines', the top-k and block-sum kernels
+   against their plain versions on the engines' own inputs, launch counts
+   exact, the serving rates and the checkpoint's cost (``serve_path``);
+13. ops: the kernel layer's public ops, the path of the top-k and update
    kernels: ``autotune`` sweeps all four kernel families at K = 1e4, 1e5
    and 1e6 into a fresh cache under ``chiprun_out/autotune/``, then
    ``gumbel_topk_sample``, ``fused_gumbel_topk_sample`` and
    ``e3cs_update_tiled`` run at K = 1e6, k = 1000 with ``tile=None``,
    resolved through that cache; launch counts set to 0 before the phase and
    checked exactly after it, outputs against the plain versions;
-13. times: rounds/s and client decisions/s of each run.
+14. times: rounds/s and client decisions/s of each run.
 
 Ends with a JSON line of per-kernel numbers and, last, ``{"ok": true,
 "device": ...}``.  Without CUDA it exits non-zero before printing a result.
@@ -154,6 +163,10 @@ POW_D = 2 * k_MAIN
 # for a Markov chain of stickiness s (the variance of a sum of draws whose
 # lag-j correlation is s**j)
 RATE_Z = 6.0
+# the serving chaos run: device memory after the recovery against before the
+# crash (the restored engine holds the same buffers and graphs as the crashed),
+# and what an engine's whole life leaves allocated
+SERVE_MEM_MARGIN = 16 << 20
 CHIPRUN_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
@@ -564,6 +577,8 @@ def main():
             launched.setdefault(n, c)
         for n, c in mesh_path(dev, K_MAIN, k_MAIN, T_MAIN, T_SHORT, mesh, card=smi).items():
             launched.setdefault(n, c)
+        # the serving paths are this slice's main path: their counts go in the kernels line
+        launched.update(serve_path(dev, card=smi))
     finally:
         dist.destroy_process_group()
     for n, c in multi_job_path(dev, K_MAIN, k_MAIN, T_MAIN, T_SHORT, card=smi).items():
@@ -1339,6 +1354,408 @@ def multi_job_path(dev, K, k, T, T_short, card, seed=SCENARIO_SEED, J=8, K_servi
     log("multi-job", run="run_grid_multi_job", jobs=len(names), K=K, k=k, rounds=T, call_s=f"{secs:.3f}",
         call_rounds_per_s=f"{T / secs:.3f}", launches=launches, card=repr(card))
     log("check", multi_job="all multi-job checks passed")
+    return launched
+
+
+def _feed(seed, j, t, K, S):
+    """Job ``j``'s round-``t`` feedback, made anew from ``(seed, j, t)``: the
+    paper's success rates decide who is on time (bits, S = 0); under S > 0 a
+    failure is late by 1..S rounds (p = 0.7) or never (lag codes)."""
+    from repro_torch.core.volatility import paper_success_rates
+
+    rng = np.random.default_rng([seed, j, t])
+    ok = rng.random(K) < paper_success_rates(K)
+    if not S:
+        return ok
+    return np.where(ok, 0, np.where(rng.random(K) < 0.7, rng.integers(1, S + 1, K), -1)).astype(np.int32)
+
+
+def _serve_clients(srv, jobs, feed_of):
+    """Each job ticked by its own loopback client on its own thread,
+    round-tagged, so ticks are in flight together and dispatches coalesce.
+    ``jobs`` maps job uid -> (its index, first round, rounds).  Returns
+    ({uid: [cohort a round]}, [request seconds], wall seconds)."""
+    import threading
+
+    from repro_torch.serve import ServeClient
+
+    cohorts = {u: [] for u in jobs}
+    lat, errors = [], []
+
+    def drive(uid, j, t0, n):
+        try:
+            with ServeClient.connect(srv.address, timeout=600.0) as c:
+                for t in range(t0, t0 + n):
+                    feed = feed_of(j, t)
+                    s = time.perf_counter()
+                    out = c.tick(uid, round=t, **({"bits": feed} if feed.dtype == bool else {"lags": feed}))
+                    lat.append(time.perf_counter() - s)
+                    cohorts[uid].append(out["cohort"])
+        except Exception as e:  # raised in the main thread below
+            errors.append(e)
+
+    threads = [threading.Thread(target=drive, args=(u, *spec)) for u, spec in jobs.items()]
+    w0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900.0)
+    wall = time.perf_counter() - w0
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"serving clients: {errors or 'a client thread did not finish'}")
+    return cohorts, lat, wall
+
+
+def _ms_quantiles(seconds):
+    a = np.asarray(seconds) * 1e3
+    return f"{np.percentile(a, 50):.3f}", f"{np.percentile(a, 99):.3f}"
+
+
+def serve_path(dev, card, seed=SCENARIO_SEED, J=8, K_slots=100_000, k_cap=2000, rounds=30, K_sharded=1_000_000,
+               k_sharded=1000, rounds_sharded=50, rounds_chaos=30):
+    """Phase 13: the selection service (``repro_torch.serve``) on the card,
+    driven over loopback sockets by ``ServeClient``s; the process group is
+    up (``ShardedEngine`` runs on it).  Each server runs with the launch
+    counts set to 0 just before it and checked exactly just after.  Returns
+    the launch counts of the serving paths.
+
+    * ``[serve-slots]``: a ``SelectionServer`` over ``SlotEngine(K_max=
+      K_slots, k_cap)`` at S = 0 and 2, the JAX package's standard fleet (J
+      jobs, ``_heterogeneous_fleet``) admitted one at a time: four jobs tick
+      once (the J = 4 capture), four more join (the ladder grows to 8, the
+      second capture) and all eight tick once, then every job ticks to
+      ``rounds`` rounds (the timed part), each on its own client thread.
+      Every cohort holds k_j distinct clients of [0, K_j); each job's
+      cohorts equal those of an in-process engine that ticks the job alone,
+      bit for bit; the top-k kernel equals its plain version on the live
+      rows of that engine and of an in-process engine of all J jobs (the
+      served bucket of 8); it launches J a dispatch plus one warm-up
+      dispatch's J a capture.
+    * ``[serve-sharded]``: a ``SelectionServer`` over ``ShardedEngine(D=1,
+      staleness=2, block=4)``, jobs of (K_sharded, k_sharded) and half that,
+      ``rounds_sharded`` rounds over ``xl`` lags; after half of them a
+      checkpoint and ``kill()``, and a new server restored from disk
+      finishes.  Every cohort equals an uninterrupted in-process engine's;
+      the block sums launch 12 a tick a job plus one warm-up round's 12 a
+      capture (the restore captures again), and equal their plain version
+      on each job's own inputs at the checkpoint and at the horizon's end.
+    * ``[serve-chaos]``: the JAX package's chaos plan against the sharded
+      async server, ``rounds_chaos`` rounds: the horizon equals the
+      fault-free run, ``fired()`` is as scheduled, recovery restores step
+      18, the device memory allocated after it is within
+      ``SERVE_MEM_MARGIN`` of its level before the crash, and the
+      fault-free run's engine leaves at most that margin behind it.
+    """
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import kernels as kn
+    from repro_torch.engine import MultiJobState
+    from repro_torch.engine import sharded
+    from repro_torch.engine.multi_job import plain_batched_step
+    from repro_torch.engine.sharded import N_ITERS
+    from repro_torch.kernels import ref
+    from repro_torch.launch import select_serve
+    from repro_torch.obs import LatencyHistogram
+    from repro_torch.serve import FaultPlan, JobSpec, SelectionServer, ServeClient, ServeError, ShardedEngine
+    from repro_torch.serve import SlotEngine, load_server
+
+    on_card = dev.type == "cuda"
+    launched = {}
+
+    def checked(label, want):
+        got = {n: c for n, c in kn.launch_counts().items() if c}
+        want = {n: c for n, c in want.items() if c} if on_card else {}
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+        for n, c in got.items():
+            launched[n] = launched.get(n, 0) + c
+        return json.dumps(got)
+
+    def distinct(label, cohorts, K, k):
+        for t, cohort in enumerate(cohorts):
+            if len(cohort) != k or len(set(cohort)) != k or not all(0 <= i < K for i in cohort):
+                raise AssertionError(f"{label}: round {t}'s cohort is not {k} distinct clients of [0, {K})")
+
+    def topk_on_live_rows(eng, before, outs, label):
+        """The top-k kernel against its plain version on each live row of the
+        slot engine's last dispatch (the scores its step ranked), and the
+        row's top k_j against the job's cohort; returns the rows checked."""
+        cfg, g = eng.cfg, eng._step.g
+        x = (eng._step.lag == 0).float() * cfg.active
+        _, o = plain_batched_step(cfg, before, g, x, k_max=k_cap)
+        scores = torch.where(cfg.active > 0, torch.log(torch.clamp(o["p"], min=1e-20)) + g, float("-inf"))
+        for uid, out in outs.items():
+            row, k = scores[eng.jobs[uid]["slot"]], eng.jobs[uid]["spec"].k
+            vals, idx = kn.gumbel_topk_kernel_call(row, k_cap)
+            wv, wi = ref.gumbel_topk_kernel_ref(row, k_cap)
+            if not (torch.equal(vals, wv) and torch.equal(idx, wi)):
+                raise AssertionError(f"{label}: the top-k kernel differs from its plain version on job {uid}'s row")
+            if idx[:k].tolist() != out["cohort"]:
+                raise AssertionError(f"{label}: job {uid}: the kernel's top k_j is not the cohort")
+        return len(outs)
+
+    # -- [serve-slots] ------------------------------------------------------------------
+    Ks, ks, fracs, etas = select_serve._heterogeneous_fleet(J, K_slots, np.random.default_rng(seed))
+    per_row = 1 if k_cap <= 2048 else 0  # the top-k kernel a row, or a stable sort
+    for S in (0, 2):
+        def feed_of(j, t):
+            return _feed(seed, j, t, Ks[j], S)
+
+        def admit(c, j):
+            return c.admit(K=Ks[j], k=ks[j], sigma_frac=fracs[j], eta=etas[j], seed=seed + j)
+
+        kn.reset_launch_counts()
+        srv = SelectionServer(SlotEngine(K_max=K_slots, k_cap=k_cap, staleness=S, device=dev), max_queue=4 * J)
+        srv.start()
+        with ServeClient.connect(srv.address, timeout=600.0) as c:
+            uids = [admit(c, j) for j in range(4)]
+            got, _, _ = _serve_clients(srv, {u: (j, 0, 1) for j, u in enumerate(uids)}, feed_of)
+            d4 = srv.stats["dispatches"]
+            uids += [admit(c, j) for j in range(4, J)]
+        slots = srv.engine.n_slots
+        step = srv.engine._step
+        warm, _, _ = _serve_clients(srv, {u: (j, int(j < 4), 1) for j, u in enumerate(uids)}, feed_of)
+        d_warm = srv.stats["dispatches"]
+        srv.latency = LatencyHistogram(lo=1e-5, hi=60.0)  # the timed part's dispatches only
+        rest, lat, wall = _serve_clients(srv, {u: (j, 1 + int(j < 4), rounds - 1 - int(j < 4))
+                                               for j, u in enumerate(uids)}, feed_of)
+        srv.close(checkpoint=False)
+        d_all, ticks = srv.stats["dispatches"], srv.stats["ticks"]
+        launches = checked(f"serve-slots S={S}", {"gumbel_topk": per_row * (4 * d4 + slots * (d_all - d4) + 4 + slots)})
+        cohorts = {u: got.get(u, []) + warm[u] + rest[u] for u in uids}
+        if slots != 8 or ticks != J * rounds:
+            raise AssertionError(f"serve-slots S={S}: {slots} slots, {ticks} ticks")
+        # each job alone in an in-process engine: the same cohorts; the top-k
+        # kernel against its plain version on that engine's live row, and on
+        # the rows of an engine of all J jobs (the served bucket)
+        def lags(j, t):
+            lag = feed_of(j, t)
+            return np.where(lag, 0, -1) if lag.dtype == bool else lag
+
+        def spec(j):
+            return JobSpec(K=Ks[j], k=ks[j], sigma_frac=fracs[j], eta=etas[j], seed=seed + j)
+
+        alone = SlotEngine(K_max=K_slots, k_cap=k_cap, staleness=S, device=dev)
+        rows_alone = 0
+        for j, u in enumerate(uids):
+            distinct(f"serve-slots S={S} job {j}", cohorts[u], Ks[j], ks[j])
+            a = alone.admit(spec(j))
+            for t in range(rounds):
+                before = MultiJobState(alone.state.logw.clone(), alone.state.t.clone())
+                outs = alone.tick([(a, lags(j, t))])
+                if outs[a]["cohort"] != cohorts[u][t]:
+                    raise AssertionError(f"serve-slots S={S}: job {j} round {t}: the server's cohort differs from "
+                                         "the job's alone")
+                if t < 2:
+                    rows_alone += topk_on_live_rows(alone, before, outs, f"serve-slots S={S} alone round {t}")
+            alone.retire(a)
+        batch = SlotEngine(K_max=K_slots, k_cap=k_cap, staleness=S, device=dev)
+        b_uids = [batch.admit(spec(j)) for j in range(J)]
+        rows_batch = 0
+        for t in range(2):
+            before = MultiJobState(batch.state.logw.clone(), batch.state.t.clone())
+            outs = batch.tick([(b, lags(j, t)) for j, b in enumerate(b_uids)])
+            if batch.n_slots != 8 or [outs[b]["cohort"] for b in b_uids] != [cohorts[u][t] for u in uids]:
+                raise AssertionError(f"serve-slots S={S}: round {t} of the {batch.n_slots}-slot batch differs from "
+                                     "the served cohorts")
+            rows_batch += topk_on_live_rows(batch, before, outs, f"serve-slots S={S} batch round {t}")
+        p50, p99 = _ms_quantiles(lat)
+        n_timed = len(lat)
+        log("serve-slots", S=S, jobs=J, K_max=K_slots, k_cap=k_cap, rounds=rounds, slots=slots,
+            ticks_per_s=f"{n_timed / wall:.1f}", request_p50_ms=p50, request_p99_ms=p99,
+            dispatch_p50_ms=f"{srv.latency.quantile(0.5) * 1e3:.3f}",
+            dispatch_p99_ms=f"{srv.latency.quantile(0.99) * 1e3:.3f}",
+            jobs_per_dispatch=f"{ticks / d_all:.2f}", timed_ticks=n_timed, timed_dispatches=d_all - d_warm,
+            warmup_ms=f"{step.warmup_s * 1e3:.1f}" if on_card else None,
+            capture_ms=f"{step.capture_s * 1e3:.1f}" if on_card else None,
+            launches=launches, card=repr(card))
+        log("serve-slots", S=S, check="cohorts", alone_vs_served="bit-identical", batch8_vs_served="bit-identical",
+            topk_live_rows_vs_plain=json.dumps({"alone_J4": rows_alone, "batch_J8": rows_batch}),
+            topk_vs_plain="bit-identical", distinct="k_j clients of [0, K_j) every round")
+        del srv, alone, batch, step
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- [serve-sharded] ----------------------------------------------------------------
+    n_block = -(-N_ITERS // 4)
+    specs = [dict(K=K_sharded, k=k_sharded, rounds=rounds_sharded, seed=seed),
+             dict(K=K_sharded // 2, k=k_sharded // 2, rounds=rounds_sharded, seed=seed + 1)]
+
+    def reference(specs, feed_of, n):
+        eng = ShardedEngine(D=1, staleness=2, block=4, device=dev)
+        uids = [eng.admit(JobSpec(**s)) for s in specs]
+        ticks = [eng.tick([(u, feed_of(i, t)) for i, u in enumerate(uids)]) for t in range(n)]
+        return [[r[u]["cohort"] for r in ticks] for u in uids]
+
+    def sharded_feed(i, t):
+        return _feed(seed + 10, i, t, specs[i]["K"], 2)
+
+    def block_sums_on_jobs(eng, when):
+        """The block-sum kernel against its plain version on the inputs each
+        job's next round gives it: the job's allocation run eagerly on its
+        state, every call of the kernel's wrapper recorded and held at
+        ``BISECT_RTOL``.  Returns one log field a job."""
+        rows = {}
+        for uid, job in sorted(eng.jobs.items()):
+            _, _, program = eng._runner(job["spec"])
+            state, calls = job["state"], []
+
+            def recorded(w, caps, tile=None):
+                out = kn.bisect_block_sums(w, caps, tile=tile)
+                calls.append((w, caps.clone(), tile, out.clone()))
+                return out
+
+            logw = state.e3cs.logw
+            wrapper, sharded.bisect_block_sums = sharded.bisect_block_sums, recorded
+            try:
+                sharded.masked_prob_alloc(torch.exp(logw - torch.max(logw)), program.fl.k, program.quota_fn(state.t),
+                                          active=torch.ones_like(logw), mesh=program.mesh, block=program.block)
+            finally:
+                sharded.bisect_block_sums = wrapper
+            errs = []
+            for w, caps, tile, got in calls:
+                want = ref.bisect_block_sums_ref(w, caps, tile=tile)
+                errs.append((float((got - want).abs().max()), float(((got - want).abs() / want.abs()).max())))
+            rel = max(e[1] for e in errs)
+            if len(calls) != n_block or not rel <= BISECT_RTOL["float32"]:
+                raise AssertionError(f"serve-sharded {when}: job {uid}: {len(calls)} block sums, max relative error "
+                                     f"{rel} against the plain version (rtol {BISECT_RTOL['float32']})")
+            rows[f"job{uid}_K{job['spec'].K}"] = dict(calls=len(calls), max_abs_err=max(e[0] for e in errs),
+                                                       max_rel_err=rel)
+        return rows
+
+    want = reference(specs, sharded_feed, rounds_sharded)
+    half = rounds_sharded // 2
+    tmp = tempfile.mkdtemp(prefix="serve_ckpt_")
+    try:
+        kn.reset_launch_counts()
+        srv = SelectionServer(ShardedEngine(D=1, staleness=2, block=4, device=dev), ckpt_dir=tmp)
+        srv.start()
+        with ServeClient.connect(srv.address, timeout=600.0) as c:
+            uids = [c.admit(**s) for s in specs]
+            got, _, _ = _serve_clients(srv, {u: (i, 0, 1) for i, u in enumerate(uids)}, sharded_feed)  # the captures
+            more, lat1, wall1 = _serve_clients(srv, {u: (i, 1, half - 1) for i, u in enumerate(uids)}, sharded_feed)
+            t0 = time.perf_counter()
+            stem = c.checkpoint()
+            ckpt_ms = (time.perf_counter() - t0) * 1e3
+        srv.kill()
+        killed = srv.engine
+        t0 = time.perf_counter()
+        engine, step_ = load_server(stem, device=dev)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        srv2 = SelectionServer(engine, ckpt_dir=tmp)
+        srv2.start()
+        first, _, first_s = _serve_clients(srv2, {u: (i, half, 1) for i, u in enumerate(uids)}, sharded_feed)
+        rest, lat2, wall2 = _serve_clients(srv2, {u: (i, half + 1, rounds_sharded - half - 1)
+                                                  for i, u in enumerate(uids)}, sharded_feed)
+        srv2.close(checkpoint=False)
+        launches = checked("serve-sharded", {"bisect_block_sums": n_block * (len(specs) * rounds_sharded + 4)})
+        if step_ != len(specs) * half:
+            raise AssertionError(f"serve-sharded: restored step {step_}, not {len(specs) * half}")
+        for when, eng in ((f"round {half}", killed), (f"round {rounds_sharded}", engine)):
+            log("serve-sharded", check="block_sums_vs_plain", at=when, rtol=BISECT_RTOL["float32"],
+                jobs=json.dumps(block_sums_on_jobs(eng, when)))
+        for i, u in enumerate(uids):
+            served = got[u] + more[u] + first[u] + rest[u]
+            distinct(f"serve-sharded job {i}", served, specs[i]["K"], specs[i]["k"])
+            if served != want[i]:
+                raise AssertionError(f"serve-sharded: job {i}: the served horizon differs from the uninterrupted one")
+        lat = lat1 + lat2
+        p50, p99 = _ms_quantiles(lat)
+        log("serve-sharded", jobs="K=%d,k=%d;K=%d,k=%d" % (specs[0]["K"], specs[0]["k"], specs[1]["K"], specs[1]["k"]),
+            rounds=rounds_sharded, staleness=2, block=4, ticks_per_s=f"{len(lat) / (wall1 + wall2):.1f}",
+            request_p50_ms=p50, request_p99_ms=p99, checkpoint_write_ms=f"{ckpt_ms:.1f}",
+            checkpoint_bytes=os.path.getsize(stem + ".ckpt"), codec=ckpt.checkpoint.CODEC,
+            restore_ms=f"{restore_ms:.1f}", first_ticks_after_restore_ms=f"{first_s * 1e3:.1f}",
+            restored_step=step_, served_vs_uninterrupted="bit-identical", launches=launches, card=repr(card))
+        del srv, srv2, engine, killed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if on_card:
+        torch.cuda.empty_cache()
+
+    def left_behind(fn):
+        """Device bytes still allocated after ``fn`` returns."""
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev) if on_card else 0
+        fn()
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize()
+        return (torch.cuda.memory_allocated(dev) if on_card else 0) - before
+
+    # -- [serve-chaos] ------------------------------------------------------------------
+    specs = [dict(s, rounds=rounds_chaos) for s in specs]
+
+    def chaos_feed(i, t):
+        return _feed(seed + 20, i, t, specs[i]["K"], 2)
+
+    want = []
+    engine_left = left_behind(lambda: want.extend(reference(specs, chaos_feed, rounds_chaos)))
+    if engine_left > SERVE_MEM_MARGIN:
+        raise AssertionError(f"serve-chaos: the fault-free run's engine left {engine_left} bytes allocated behind it")
+    if on_card:
+        torch.cuda.empty_cache()
+    plan = FaultPlan(crash_steps=(25,), corrupt_checkpoints=(3,), drop_responses=(12, 31), slow_steps={5: 0.02})
+    tmp = tempfile.mkdtemp(prefix="serve_chaos_")
+    try:
+        kn.reset_launch_counts()
+        srv = SelectionServer(ShardedEngine(D=1, staleness=2, block=4, device=dev), ckpt_dir=tmp, ckpt_every=6,
+                              faults=plan, restart_backoff=0.01)
+        mem_before = None
+        with srv, ServeClient.connect(srv.address, timeout=600.0, retries=6, seed=5) as c:
+            uids = [c.admit(**s) for s in specs]
+            cursors, got = {i: 0 for i in range(2)}, {i: {} for i in range(2)}
+            t0 = time.perf_counter()
+            while any(t < rounds_chaos for t in cursors.values()):
+                for i, u in enumerate(uids):
+                    t = cursors[i]
+                    if t >= rounds_chaos:
+                        continue
+                    if mem_before is None and srv.stats["dispatches"] == 25:  # the next dispatch crashes
+                        mem_before = torch.cuda.memory_allocated(dev) if on_card else 0
+                    try:
+                        out = c.tick(u, lags=chaos_feed(i, t), round=t)
+                    except ServeError as e:
+                        if e.code == "round_desync":
+                            cursors[i] = int(e.response["expected"])
+                            continue
+                        raise
+                    got[i][out["round"]] = out["cohort"]
+                    cursors[i] = out["round"] + 1
+            wall = time.perf_counter() - t0
+            mem_after = torch.cuda.memory_allocated(dev) if on_card else 0
+            gc.collect()  # logged beside: a difference would be a reference cycle's
+            mem_after_gc = torch.cuda.memory_allocated(dev) if on_card else 0
+            ticks = srv.stats["ticks"]
+        launches = checked("serve-chaos", {"bisect_block_sums": n_block * (ticks + 4)})
+        fired = plan.fired()
+        restart = [a for a in srv.alerts if a.rule == "engine_restart"]
+        if fired != {"crash": 1, "corrupt": 1, "drop": 2, "slow": 1} or len(restart) != 1 \
+                or restart[0].detail["restored_step"] != 18:
+            raise AssertionError(f"serve-chaos: fired {fired}, restarts {[a.detail for a in restart]}")
+        for i in range(2):
+            if [got[i].get(t) for t in range(rounds_chaos)] != want[i]:
+                raise AssertionError(f"serve-chaos: job {i}: the horizon differs from the fault-free run")
+        if mem_before is None or abs(mem_after - mem_before) > SERVE_MEM_MARGIN:
+            raise AssertionError(f"serve-chaos: device memory {mem_before} before the crash, {mem_after} after")
+        log("serve-chaos", jobs="K=%d;K=%d" % (specs[0]["K"], specs[1]["K"]), rounds=rounds_chaos, fired=json.dumps(fired),
+            restored_step=18, recovery_ms=f"{srv.recoveries[0] * 1e3:.1f}", ticks=ticks,
+            replayed=srv.stats["replayed"], horizon_s=f"{wall:.3f}", mem_before_bytes=mem_before,
+            mem_after_bytes=mem_after, mem_after_collect_bytes=mem_after_gc, mem_margin_bytes=SERVE_MEM_MARGIN,
+            fault_free_engine_left_bytes=engine_left, horizon_vs_fault_free="bit-identical",
+            launches=launches, card=repr(card))
+        del srv
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("check", serve="all serving checks passed")
     return launched
 
 

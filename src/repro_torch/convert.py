@@ -21,6 +21,14 @@ staleness rings as numpy arrays under these names and builds the port's
     credit      (S, K) float32  async only
     fb          (S, K) float32  async under late_credit feedback only
 
+The serving engines (``repro_torch.serve``) carry a JAX engine's state in
+as well: ``slot_state_from_jax`` loads a JAX ``SlotEngine``'s mid-horizon
+``(logw, t, pending)`` into the port's engine built from the same meta, and
+``sharded_job_from_jax`` a JAX ``ShardedEngine`` job's ``ServerState`` and
+rings (through ``state_from_jax``).  JAX's PRNG keys do not cross: a job
+continues with the port's noise from its seed (ROADMAP A2), so a test hands
+the slot engine JAX's rows through its ``gumbel_row``.
+
 Under a mesh the JAX state is ``K_pad`` wide and each rank of the port holds
 its ``(Ks,)`` slab: ``shard_arrays`` cuts a rank's slab out of the named
 arrays (then ``state_from_jax``), and ``gather_state`` all-gathers the
@@ -42,7 +50,8 @@ from repro_torch.core.selection import E3CSState, UCBState
 from repro_torch.device import resolve_device
 from repro_torch.fl.round import ServerState
 
-__all__ = ["state_from_jax", "state_to_numpy", "shard_arrays", "gather_state", "STATE_FIELDS"]
+__all__ = ["state_from_jax", "state_to_numpy", "shard_arrays", "gather_state", "slot_state_from_jax",
+           "sharded_job_from_jax", "STATE_FIELDS"]
 
 STATE_FIELDS = ("logw", "t", "sel_counts", "loss_cache", "vol_state", "cep", "succ_hist")
 _DTYPES = {"t": np.int32, "ucb_t": np.int32}
@@ -141,3 +150,34 @@ def gather_state(state: ServerState, rings: tuple, mesh) -> Dict[str, np.ndarray
         return (gather(t) if per_client else t).detach().cpu().numpy()
 
     return {name: pytree.tree_map(lambda t: host(name, t), v) for name, v in _named(state, rings).items()}
+
+
+def slot_state_from_jax(engine, arrays) -> None:
+    """Load a JAX ``SlotEngine``'s ``arrays()`` (as numpy: ``logw``, ``t``,
+    ``pending``; ``base_keys`` are left behind) into ``engine``, a port
+    ``SlotEngine`` built from the JAX engine's ``meta()``
+    (``serve.engine_from_meta``), so the jobs continue mid-horizon."""
+    engine.load_arrays({
+        "logw": torch.from_numpy(np.array(arrays["logw"], np.float32)),
+        "t": torch.from_numpy(np.array(arrays["t"], np.int32)),
+        "pending": torch.from_numpy(np.array(arrays["pending"], np.float32)),
+        "seeds": engine.seeds,
+    })
+
+
+def sharded_job_from_jax(engine, uid: int, job) -> None:
+    """Load one job of a JAX ``ShardedEngine`` (its ``arrays()[str(uid)]``:
+    ``{"state": ServerState, "key", "rings"}``) into job ``uid`` of
+    ``engine``, a port ``ShardedEngine`` built from the JAX engine's
+    ``meta()``: the state and rings through ``state_from_jax`` (the JAX state
+    of a one-device mesh is K wide); the job's round follows the state's."""
+    st = job["state"]
+    named = {
+        "logw": st.e3cs.logw, "t": st.t, "sel_counts": st.sel_counts, "loss_cache": st.loss_cache,
+        "vol_state": st.vol_state, "cep": st.cep, "succ_hist": st.succ_hist,
+        "ucb_succ": st.ucb.succ, "ucb_pulls": st.ucb.pulls, "ucb_t": st.ucb.t,
+        **dict(zip(("credit", "fb"), job["rings"])),
+    }
+    state, rings = state_from_jax(pytree.tree_map(np.asarray, named), device=engine.device)
+    target = engine.jobs[uid]
+    target["state"], target["rings"], target["t"] = state, rings, int(np.asarray(st.t))

@@ -19,6 +19,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.device import resolve_device
+
 from .sampling import exact_top_k, selection_mask, top_k
 
 __all__ = [
@@ -71,6 +73,8 @@ class UCBState(NamedTuple):
 
 
 def ucb_init(K: int, device=None) -> UCBState:
+    """No pulls yet, on ``device`` (``None``: CUDA, which raises without it)."""
+    device = resolve_device(device)
     return UCBState(torch.zeros(K, dtype=_f32, device=device), torch.zeros(K, dtype=_f32, device=device),
                     torch.zeros((), dtype=torch.int32, device=device))
 

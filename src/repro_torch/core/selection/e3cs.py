@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import resolve_device
+
 from .prob_alloc import prob_alloc
 
 __all__ = ["E3CSState", "e3cs_init", "e3cs_probs", "e3cs_update", "divide", "residual_mass"]
@@ -38,6 +40,9 @@ class E3CSState(NamedTuple):
 
 
 def e3cs_init(K: int, device=None, dtype=torch.float32) -> E3CSState:
+    """Uniform weights and round 0 on ``device`` (``None``: CUDA, which
+    raises without it)."""
+    device = resolve_device(device)
     return E3CSState(
         logw=torch.zeros(K, dtype=dtype, device=device),
         t=torch.zeros((), dtype=torch.int32, device=device),

@@ -10,6 +10,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.device import resolve_device
+
 __all__ = ["make_quota_schedule"]
 
 
@@ -18,8 +20,10 @@ def make_quota_schedule(name: str, k: int, K: int, T: int, frac: float = 0.0, de
 
     Names: ``const`` (``frac * k/K``), ``inc`` (0 for ``t < T//4``, then
     ``k/K``), ``linear`` (ramp 0 -> k/K over the horizon), ``cosine``
-    (smooth ramp 0 -> k/K).
+    (smooth ramp 0 -> k/K).  ``device`` holds the constant schedule's value
+    (``None``: CUDA, which raises without it).
     """
+    device = resolve_device(device)
     cap = k / K
     f32 = torch.float32
 

@@ -25,6 +25,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 __all__ = [
     "DEAD_LAG",
     "paper_success_rates",
@@ -94,7 +96,9 @@ def make_volatility(
     on ``device``: ``bernoulli | markov | deadline``; anything else raises.
     The deadline model draws each client's local epochs with
     ``np.random.default_rng(seed)``, as the JAX package does, and calibrates
-    ``base_time`` so the joint marginal matches ``rho``."""
+    ``base_time`` so the joint marginal matches ``rho``.  ``device=None``
+    means CUDA and raises without it."""
+    device = resolve_device(device)
     rho_np = np.asarray(rho.detach().cpu() if torch.is_tensor(rho) else rho, np.float32)
     rho_t = torch.as_tensor(rho_np, dtype=_f32, device=device)
     if name == "bernoulli":

@@ -240,6 +240,9 @@ class _ShardCtx:
         alloc_kw = dict(active=active, n_iters=N_ITERS, tile=TILE, mesh=mesh, block=program.block)
         neg_inf = torch.full((Ks,), float("-inf"), dtype=_f32, device=dev)
 
+        def gather(v):  # the ranks' slabs side by side, cut to the K clients
+            return mesh.all_gather(v)[:K]
+
         def select_e3cs(state, sigma, g):
             with stage("round.allocate"):
                 logw = state.e3cs.logw
@@ -269,7 +272,7 @@ class _ShardCtx:
             elif scheme == "ucb":
                 idx = ucb_select(state.ucb, k)
             else:
-                idx = pow_d_select(noise.perm, self.gather(state.loss_cache), k, fl.pow_d)
+                idx = pow_d_select(noise.perm, gather(state.loss_cache), k, fl.pow_d)
             loc = idx - d * Ks
             valid = ((loc >= 0) & (loc < Ks)).to(_f32)
             mask = torch.zeros(Ks, dtype=_f32, device=dev).scatter_reduce_(
@@ -280,10 +283,12 @@ class _ShardCtx:
                 p = torch.full((Ks,), k / K, dtype=_f32, device=dev) if scheme == "random" else mask
             return idx, p, capped, sigma, mask
 
-        self.select = select
+        # the stages close over locals, never over ``self``: a context in a
+        # reference cycle would hold its tensors (and a replaced engine's)
+        # until the collector ran
+        self.select, self.gather = select, gather
         self.observe = _make_observe(program, Ks)
         self.psum, self.pmax = mesh.psum, mesh.pmax
-        self.gather = lambda v: mesh.all_gather(v)[:K]  # the ranks' slabs side by side, cut to the K clients
 
 
 def _make_observe(program: "RoundProgram", K: int):
@@ -877,6 +882,9 @@ class RoundProgram:
         return out
 
 
+_WARMUP_STREAMS: dict = {}  # device index -> the side stream every capture on it warms up on
+
+
 def capture_step(dev: torch.device, warm_up, body):
     """``body()`` captured as a CUDA graph on ``dev``, after ``warm_up()``
     (which runs ``body`` once) on a side stream: allocator pools, library
@@ -884,10 +892,18 @@ def capture_step(dev: torch.device, warm_up, body):
     capture.  The kernel launches the capture counted are taken back: a
     replay's run when it is replayed, and the caller adds them then.
     Returns ``(graph, body's outputs, launches a replay, warm-up s,
-    capture s)``; a capture that fails raises."""
+    capture s)``; a capture that fails raises.
+
+    Every warm-up on a device runs on one side stream: cuBLAS keeps a
+    workspace (32 MiB on the card) for each stream a ``dot`` has run on, for
+    the life of the process, so a fresh stream a capture would leave one
+    behind at every capture (a restarted serving engine's, each time)."""
     with torch.cuda.device(dev):
         main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
+        index = torch.cuda.current_device()
+        side = _WARMUP_STREAMS.get(index)
+        if side is None:
+            side = _WARMUP_STREAMS[index] = torch.cuda.Stream(index)
         side.wait_stream(main)
         t0 = time.perf_counter()
         with torch.cuda.stream(side):

@@ -319,7 +319,8 @@ def sharded_selection_sim(
     if rho is None:
         rho = paper_success_rates(K)
     if vol is None:
-        vol = make_volatility(volatility, rho, stickiness=stickiness, seed=seed)
+        dev = mesh.device if device is None else device
+        vol = make_volatility(volatility, rho, stickiness=stickiness, seed=seed, device=dev)
     program = RoundProgram(fl=fl, vol=vol, rho=rho, override=override, mesh=mesh, block=block, fused=fused,
                            device=device)
     run, state = program.build_runner(outputs=outputs, taps=taps)

@@ -26,6 +26,7 @@ from repro_torch.core.selection import (
     ucb_init,
     ucb_select,
 )
+from repro_torch.device import resolve_device
 from repro_torch.obs.trace import stage
 
 __all__ = [
@@ -68,6 +69,9 @@ class RoundNoise(NamedTuple):
 
 
 def init_server_state(params, K: int, vol_state, device=None) -> ServerState:
+    """A fresh server state for ``K`` clients on ``device`` (``None``:
+    CUDA, which raises without it)."""
+    device = resolve_device(device)
     f32 = torch.float32
     return ServerState(
         params=params,

@@ -33,7 +33,13 @@ JAX splits one carried key.  Reports go through the port's ``Reporter``
 
 ``--mesh D`` runs ``run_service_sharded`` on the caller's process group, or
 on a one-rank group it starts when D = 1 and none exists (NCCL on the card,
-gloo on the CPU).  ``--serve`` (the socket front end) is not ported yet.
+gloo on the CPU).  ``--serve`` stands up the socket front end
+(``repro_torch.serve``, ``run_server``): a ``SlotEngine``, or with ``--mesh
+1`` a ``ShardedEngine``; ``--serve --smoke [--chaos SEED]`` drives it with
+the built-in loopback client::
+
+    python -m repro_torch.launch.select_serve --serve --smoke
+    python -m repro_torch.launch.select_serve --serve --smoke --async --mesh 1 --chaos 3
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from repro_torch.core.selection.sampling import gumbel_from_uniform
@@ -55,7 +62,7 @@ from repro_torch.engine.round_program import capture_step, staleness_ring_step
 from repro_torch.kernels import add_launch_counts
 from repro_torch.obs import ROUND_TAPS, Reporter, SketchSpec, SpanTimer
 
-__all__ = ["run_service", "run_service_compiled", "run_service_sharded", "main"]
+__all__ = ["run_service", "run_service_compiled", "run_service_sharded", "run_server", "main"]
 
 
 def _sync(dev: torch.device) -> None:
@@ -457,6 +464,107 @@ def run_service_sharded(
     return report
 
 
+def run_server(args, reporter: Reporter, device=None):
+    """``--serve``: stand up the socket front end (``repro_torch.serve``)
+    instead of a self-driving loop.
+
+    ``--mesh D`` serves K-sharded ``RoundProgram`` jobs (``ShardedEngine`` on
+    the process group); otherwise the multi-tenant ``SlotEngine`` handles up
+    to the bucket ladder's top in jobs.  Under ``--smoke`` a built-in
+    loopback client admits ``--jobs`` tenants, drives ``--rounds`` rounds
+    each and shuts the server down; without it the server runs until
+    interrupted (clients speak ``repro_torch.serve.protocol``, the JAX
+    package's wire contract).
+
+    ``--chaos SEED`` arms a seeded ``FaultPlan`` (engine crashes,
+    checkpoint corruption, dropped connections, slow dispatches) against the
+    server; the smoke client drives round-tagged ticks with retries and
+    rewinds on ``round_desync``, so the horizon completes through the
+    injected faults.  ``device=None`` means CUDA.
+    """
+    import shutil
+    import tempfile
+
+    from repro_torch.serve import FaultPlan, SelectionServer, ServeClient, ServeError, ShardedEngine, SlotEngine
+
+    dev = resolve_device(device)
+    S = args.staleness if args.async_mode else 0
+    K_max = args.clients or (512 if args.smoke else 4096)
+    if args.mesh is not None:
+        engine = ShardedEngine(D=args.mesh, staleness=S, alpha=args.alpha, device=dev)
+    else:
+        engine = SlotEngine(K_max=K_max, staleness=S, alpha=args.alpha, device=dev)
+    plan = None
+    tmp_ckpt = None
+    ckpt_dir, ckpt_every = args.ckpt_dir, args.ckpt_every
+    if args.chaos is not None:
+        plan = FaultPlan.sample(
+            args.chaos, n_steps=args.jobs * args.rounds,
+            crashes=1, corruptions=1, drops=2, slow=1, slow_s=0.005,
+            first_step=args.jobs + 2,
+        )
+        # recovery needs restore points: default a checkpoint cadence and dir
+        if ckpt_dir is None:
+            ckpt_dir = tmp_ckpt = tempfile.mkdtemp(prefix="serve_chaos_")
+        ckpt_every = ckpt_every or max(2, args.rounds // 4)
+    srv = SelectionServer(
+        engine, port=args.port, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+        ckpt_keep=4 if plan else 0, faults=plan,
+        restart_backoff=0.01 if plan else 0.05,
+    )
+    srv.start()
+    host, port = srv.address
+    print(f"serving {engine.kind} engine (S={S}) on {host}:{port}"
+          + (f" under chaos seed {args.chaos}" if plan else ""), flush=True)
+    try:
+        if args.smoke:
+            rng = np.random.default_rng(args.seed)
+            K = min(K_max, 256)
+            with ServeClient.connect(srv.address, retries=8, seed=args.seed) as c:
+                jobs = [c.admit(K=K, k=max(1, K // 16), seed=args.seed + j) for j in range(args.jobs)]
+                cursors = {j: 0 for j in jobs}
+                while any(t < args.rounds for t in cursors.values()):
+                    for j in jobs:
+                        t = cursors[j]
+                        if t >= args.rounds:
+                            continue
+                        if S:
+                            lag = rng.integers(0, S + 2, K)
+                            feed = dict(lags=np.where(lag > S, -1, lag))
+                        else:
+                            feed = dict(bits=rng.random(K) < 0.7)
+                        try:
+                            out = c.tick(j, round=t, **feed)
+                        except ServeError as e:
+                            if e.code == "round_desync":
+                                # recovery rolled the job back: replay from there
+                                cursors[j] = int(e.response["expected"])
+                                continue
+                            raise
+                        cursors[j] = out["round"] + 1
+        else:
+            while True:
+                time.sleep(1.0)
+    except KeyboardInterrupt:
+        print("interrupt: draining", flush=True)
+    finally:
+        srv.close()
+        srv.attach_report(reporter)
+        if tmp_ckpt is not None:
+            shutil.rmtree(tmp_ckpt, ignore_errors=True)
+    report = {"address": f"{host}:{port}", "engine": engine.kind, "staleness": S}
+    if plan is not None:
+        fired = plan.fired()
+        if srv.stats["ticks"] < args.jobs * args.rounds:
+            raise AssertionError(f"chaos run served {srv.stats['ticks']} ticks, not {args.jobs * args.rounds}")
+        report.update(
+            chaos_seed=args.chaos, fired=fired, restarts=srv.stats["restarts"],
+            recovery_s_total=float(sum(srv.recoveries)), replayed=srv.stats["replayed"],
+        )
+        print(f"chaos survived: fired={fired} restarts={srv.stats['restarts']}", flush=True)
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--jobs", type=int, default=8)
@@ -476,36 +584,52 @@ def main(argv=None):
     ap.add_argument("--mesh", type=int, default=None, metavar="D",
                     help="serve one K-sharded job over the process group's D ranks (D = 1 starts a one-rank "
                          "group when none exists)")
-    ap.add_argument("--serve", action="store_true", help="the socket front end (not ported yet)")
+    ap.add_argument("--serve", action="store_true",
+                    help="stand up the socket front end (repro_torch.serve) instead of a self-driving loop; "
+                         "combine with --mesh 1 for K-sharded jobs, --async for staleness-ring serving, --smoke "
+                         "for a loopback-driven run")
+    ap.add_argument("--port", type=int, default=0, help="--serve listen port (0 = ephemeral)")
+    ap.add_argument("--ckpt-dir", type=str, default=None, help="--serve: checkpoint directory for elastic restart")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="--serve: checkpoint every N served rounds (0 = only on drain)")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="--serve: arm a seeded FaultPlan (engine crashes, checkpoint corruption, dropped "
+                         "connections, slow dispatches) and prove the horizon completes through it")
     ap.add_argument("--smoke", action="store_true", help="a tiny run")
     ap.add_argument("--device", type=str, default="cuda", help="torch device: cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.serve:
-        raise NotImplementedError("--serve: the socket front end (repro.serve) is not ported yet "
-                                  "(ROADMAP.md A, serving)")
     if args.smoke:
         args.jobs, args.rounds = 4, 10
     dev = resolve_device(args.device)
     K_max = args.clients or (512 if args.smoke else 4096)
-    if args.mesh is not None:
-        import torch.distributed as dist
+    own_group = args.mesh is not None and not dist.is_initialized()
+    if own_group:
+        if args.mesh != 1:
+            raise SystemExit(f"--mesh {args.mesh}: start the {args.mesh}-rank process group first "
+                             "(one process per rank); only --mesh 1 starts its own")
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        report, rep = _run(args, dev, K_max)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+    path = rep.save(report)
+    with open(path) as f:
+        print(f.read())  # the saved report is the command's output
 
+
+def _run(args, dev, K_max):
+    """The report of the path the command line picked, and its reporter."""
+    if args.serve:
+        rep = Reporter("serve_front_cli", config=vars(args))
+        report = run_server(args, rep, device=dev)
+    elif args.mesh is not None:
         K = args.clients or (65_536 if args.smoke else 1_000_000)
         S = args.staleness if args.async_mode else 0
         rep = Reporter("select_serve_sharded_async" if S else "select_serve_sharded", config=vars(args))
-        own_group = not dist.is_initialized()
-        if own_group:
-            if args.mesh != 1:
-                raise SystemExit(f"--mesh {args.mesh}: start the {args.mesh}-rank process group first "
-                                 "(one process per rank); only --mesh 1 starts its own")
-            dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", store=dist.HashStore(), rank=0,
-                                    world_size=1)
-        try:
-            report = run_service_sharded(K=K, rounds=args.rounds, D=args.mesh, seed=args.seed, staleness=S,
-                                         alpha=args.alpha, fused=args.fused, reporter=rep, device=dev)
-        finally:
-            if own_group:
-                dist.destroy_process_group()
+        report = run_service_sharded(K=K, rounds=args.rounds, D=args.mesh, seed=args.seed, staleness=S,
+                                     alpha=args.alpha, fused=args.fused, reporter=rep, device=dev)
     elif args.async_mode:
         rep = Reporter("select_serve_async", config=vars(args))
         report = run_service_compiled(J=args.jobs, K_max=K_max, rounds=args.rounds, seed=args.seed,
@@ -514,9 +638,7 @@ def main(argv=None):
         rep = Reporter("select_serve", config=vars(args))
         report = run_service(J=args.jobs, K_max=K_max, rounds=args.rounds, seed=args.seed, scenario=args.scenario,
                              reporter=rep, device=dev)
-    path = rep.save(report)
-    with open(path) as f:
-        print(f.read())  # the saved report is the command's output
+    return report, rep
 
 
 if __name__ == "__main__":

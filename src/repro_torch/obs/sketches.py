@@ -124,9 +124,13 @@ def lag_bins(staleness: Optional[int]) -> int:
 
 
 def sketch_carry0(K_loc: int, L: int, device=None):
-    """Zeroed per-rank sketch accumulators for the round's carry."""
+    """Zeroed per-rank sketch accumulators for the round's carry, on
+    ``device`` (``None``: CUDA, which raises without it)."""
     import torch
 
+    from repro_torch.device import resolve_device
+
+    device = resolve_device(device)
     return {
         "cum_on_time": torch.zeros(K_loc, dtype=torch.float32, device=device),
         "lag_hist": torch.zeros(L, dtype=torch.float32, device=device),

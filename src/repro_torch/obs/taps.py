@@ -109,9 +109,12 @@ class TapRegistry:
 
     def init_counters(self, device=None):
         """Zeroed counters for the round's carry: 0-d float32 tensors on
-        ``device``."""
+        ``device`` (``None``: CUDA, which raises without it)."""
         import torch
 
+        from repro_torch.device import resolve_device
+
+        device = resolve_device(device)
         return {s.name: torch.zeros((), dtype=torch.float32, device=device) for s in self.counters()}
 
     def accumulate(self, counters, row):

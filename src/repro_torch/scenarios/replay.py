@@ -331,7 +331,7 @@ def replay_packed_stream(
         rho = np.zeros(K, np.float32)  # inert for every non-fedcs scheme
     rho = np.asarray(rho.cpu() if torch.is_tensor(rho) else rho, np.float32)
     fl = FLConfig(K=K, k=k, rounds=T, scheme=scheme, quota=quota, quota_frac=frac, eta=eta)
-    vol = make_volatility("bernoulli", rho)  # placeholder state; outcomes come from the trace
+    vol = make_volatility("bernoulli", rho, device=dev)  # placeholder state; outcomes come from the trace
     program = RoundProgram(
         fl=fl, vol=vol, rho=rho, override="packed_lags" if is_lags else "packed",
         staleness=staleness, alpha=alpha, feedback=feedback, device=dev,

@@ -1,0 +1,593 @@
+"""Serving engines: the selection backends behind the transport (the port of
+``repro.serve.engines``).
+
+Two backends, one interface (``admit`` / ``retire`` / ``job_round`` /
+``tick`` / ``meta`` / ``arrays`` / ``load_arrays`` / ``from_meta``):
+
+* :class:`SlotEngine`, the multi-tenant **streaming batcher** backend.  J
+  tenant jobs live as padding-mask *slots* of one ``(J, K_max)``-packed
+  ``engine.multi_job`` step, so a whole fleet tick is one dispatch: on a
+  CUDA device one CUDA-graph replay over static buffers (``_SlotStep``).
+  Admitting and retiring jobs edit slot rows (``slot_admit`` /
+  ``slot_retire``): data changes, shapes don't, so join and leave never
+  capture again.  When every slot is occupied the batch grows along a fixed
+  **bucket ladder** (4, 8, 16, ... slots), one capture a bucket reached.
+  ``staleness=S`` adds the bounded ``(J, S, K_max)`` late-credit ring.
+* :class:`ShardedEngine`, the fleet-scale backend: each job is a full
+  K-sharded ``RoundProgram`` on the caller's process group, stepped by a
+  ``build_runner(outputs="full", carry_key=True, scan_length=1)`` runner (one
+  graph replay a tick), so successive ticks resume the horizon bit for bit.
+  ``staleness=S`` serves the sharded-async composition, rings carried per
+  job.  Jobs of one geometry share one runner.
+
+A job's noise depends only on its own seed and round counter, never on its
+slot, its co-tenants, the batch width or a restart: the slot engine draws job
+round ``t``'s Gumbel row from a generator seeded by ``SeedSequence([seed,
+t])`` (``gumbel_row``), the sharded engine carries each job's generator
+state.  So a job's cohorts are a pure function of (spec, feedback history),
+and three things follow, as in the JAX package: batching invariance,
+elastic restart (``arrays`` / ``load_arrays`` round-trip the whole evolving
+state through ``repro_torch.checkpoint``), and replayability.  The noise
+differs from JAX's (threefry against Philox): the tests hand the slot engine
+JAX's rows through ``gumbel_row``.
+
+Feedback is the population's completion-lag codes for the round being
+issued: 0 on time, ``1..S`` late, ``DEAD_LAG`` never.  Every entry point
+runs on CUDA unless given ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.selection.sampling import gumbel_from_uniform
+from repro_torch.device import resolve_device
+from repro_torch.engine.multi_job import MultiJobConfig, MultiJobState, job_generator, pad_slots, plain_batched_step
+from repro_torch.engine.multi_job import slot_admit, slot_retire
+from repro_torch.engine.round_program import capture_step, staleness_ring_step
+from repro_torch.kernels import add_launch_counts
+
+__all__ = [
+    "JobSpec",
+    "CapacityError",
+    "NumericsError",
+    "SlotEngine",
+    "ShardedEngine",
+    "engine_from_meta",
+]
+
+_f32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class JobSpec:
+    """One tenant job's declaration, as posted with the ``admit`` op.
+
+    ``sigma_frac`` is the fairness floor as a fraction of the uniform rate
+    ``k/K`` (``sigma = sigma_frac * k / K``); ``rounds`` is the job's
+    declared horizon: the :class:`ShardedEngine` quota schedule spans it
+    (the :class:`SlotEngine` holds sigma constant, the ``multi_job``
+    semantics).  ``seed`` fully determines the job's noise.
+    """
+
+    K: int
+    k: int
+    rounds: int = 400
+    sigma_frac: float = 0.5
+    eta: float = 0.5
+    quota: str = "const"
+    seed: int = 0
+
+    def to_json(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_json(cls, obj: dict) -> "JobSpec":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(obj) - fields
+        if unknown:
+            raise ValueError(f"unknown JobSpec fields {sorted(unknown)}")
+        return cls(**{k: v for k, v in obj.items() if k in fields})
+
+
+class CapacityError(RuntimeError):
+    """No free slot and the bucket ladder is exhausted: shed the admit."""
+
+
+class NumericsError(RuntimeError):
+    """A selector update produced NaN/inf log-weights.  The update was
+    **refused** (engine state is unchanged), so a numerical blowup is never
+    checkpointed; the transport answers ``error: "numerics"`` and raises an
+    alert."""
+
+
+# ---------------------------------------------------------------------------
+# SlotEngine: the streaming-batcher backend
+# ---------------------------------------------------------------------------
+
+
+class _SlotStep:
+    """The service step of one bucket width J over static buffers (JAX's
+    ``SlotEngine._build_step``): the config rows, the state (``logw``,
+    ``t``, the ring), this tick's Gumbel rows ``g``, lag codes and
+    participation gate, and ``out``, one int32 vector holding ``idx``
+    ``(J, k_cap)``, the float32 bits of ``on_time`` and ``stale`` ``(J,)``
+    and the ``finite`` flag, so the host reads a tick in one copy.
+
+    The step writes the new state into its buffers, gated: a slot that does
+    not tick keeps its weights, counter and ring; a non-finite updated
+    log-weight in any ticking slot keeps the whole batch as it was (the
+    guard) and clears ``finite``.  On a CUDA device the first ``run`` warms
+    the step up and captures it as a CUDA graph, then puts the state back as
+    it was; every ``run`` replays it.  On the CPU ``run`` calls the same step
+    on the same buffers.
+    """
+
+    def __init__(self, cfg: MultiJobConfig, state: MultiJobState, pending: torch.Tensor, k_cap: int, S: int,
+                 alpha: float, n_iters: int, tile: int):
+        J, K_max = cfg.active.shape
+        dev = cfg.active.device
+        self.cfg, self.state, self.pending = cfg, state, pending
+        self.k_cap, self.S, self.alpha, self.n_iters, self.tile = k_cap, S, alpha, n_iters, tile
+        self.g = torch.zeros((J, K_max), dtype=_f32, device=dev)
+        self.lag = torch.zeros((J, K_max), dtype=torch.int32, device=dev)
+        self.participate = torch.zeros((J,), dtype=torch.bool, device=dev)
+        self.out = torch.zeros((J * k_cap + 2 * J + 1,), dtype=torch.int32, device=dev)
+        self.graph, self.per_replay, self.warmup_s, self.capture_s = None, {}, None, None
+
+    def _body(self) -> None:
+        cfg, part, S = self.cfg, self.participate, self.S
+        logw, t = self.state
+        x = (self.lag == 0).to(_f32) * cfg.active
+        new, out = plain_batched_step(cfg, self.state, self.g, x, k_max=self.k_cap, n_iters=self.n_iters,
+                                      tile=self.tile)
+        # dead slots step to NaN (an empty active mask) and are gated out:
+        # only ticking slots can refuse the batch
+        finite = torch.all(torch.isfinite(new.logw) | ~part[:, None])
+        pj = part.to(_f32)
+        keep = pj * finite.to(_f32)
+        mask = out["mask"] * pj[:, None]
+        arriving, new_pending = staleness_ring_step(self.pending, mask, self.lag, S, self.alpha)
+        on_time = torch.sum(mask * x, dim=1)
+        stale = torch.sum(arriving * pj[:, None], dim=1)
+        idx = torch.where(part[:, None], out["idx"], torch.full_like(out["idx"], -1))
+        logw.copy_(torch.where(keep[:, None] > 0, new.logw, logw))
+        t.copy_(torch.where(part & finite, new.t, t))
+        if S:
+            self.pending.copy_(torch.where(keep[:, None, None] > 0, new_pending, self.pending))
+        self.out.copy_(torch.cat([idx.reshape(-1), on_time.view(torch.int32), stale.view(torch.int32),
+                                  finite.to(torch.int32).reshape(1)]))
+
+    def run(self) -> None:
+        dev = self.g.device
+        if dev.type != "cuda":
+            self._body()
+            return
+        if self.graph is None:
+            held = [v.clone() for v in (*self.state, self.pending)]
+            self.graph, _, self.per_replay, self.warmup_s, self.capture_s = capture_step(dev, self._body, self._body)
+            for buf, v in zip((*self.state, self.pending), held):
+                buf.copy_(v)
+        self.graph.replay()
+        add_launch_counts(self.per_replay)
+
+
+class SlotEngine:
+    """Multi-tenant batched engine with padding-mask slots (see the module
+    docstring).
+
+    ``buckets`` is the slot-count ladder: the engine starts at the smallest
+    bucket and grows (``pad_slots``) when admits exceed it, one capture a
+    bucket ever reached.  ``k_cap`` bounds every job's cohort (the padded
+    top-k width is static in the step; the exact top-k kernel ranks a row
+    where ``k_cap <= 2048``, a stable sort above).  ``device=None`` means
+    CUDA.
+    """
+
+    kind = "slots"
+
+    def __init__(
+        self,
+        K_max: int = 4096,
+        k_cap: Optional[int] = None,
+        staleness: int = 0,
+        alpha: float = 0.5,
+        buckets: Sequence[int] = (4, 8, 16, 32, 64),
+        n_iters: int = 48,
+        tile: int = 8192,
+        device=None,
+    ):
+        if not buckets or list(buckets) != sorted(set(int(b) for b in buckets)):
+            raise ValueError(f"buckets must be a strictly increasing ladder, got {buckets!r}")
+        self.device = resolve_device(device)
+        self.K_max = int(K_max)
+        self.k_cap = int(k_cap if k_cap is not None else max(8, K_max // 8))
+        self.staleness = int(staleness)
+        self.alpha = float(alpha)
+        self.buckets = tuple(int(b) for b in buckets)
+        self.n_iters, self.tile = int(n_iters), int(tile)
+        J, dev = self.buckets[0], self.device
+        cfg = MultiJobConfig(
+            k=torch.ones((J,), dtype=torch.int32, device=dev),
+            sigma=torch.zeros((J,), dtype=_f32, device=dev),
+            eta=torch.zeros((J,), dtype=_f32, device=dev),
+            active=torch.zeros((J, self.K_max), dtype=_f32, device=dev),
+        )
+        state = MultiJobState(logw=torch.zeros((J, self.K_max), dtype=_f32, device=dev),
+                              t=torch.zeros((J,), dtype=torch.int32, device=dev))
+        self._set_step(cfg, state, torch.zeros((J, self.staleness, self.K_max), dtype=_f32, device=dev))
+        self.seeds = torch.zeros((J,), dtype=torch.int64)  # host: the noise is drawn from them on the host
+        self._t = np.zeros((J,), np.int64)  # host mirror of the round counters
+        self.jobs: Dict[int, dict] = {}  # uid -> {"slot": int, "spec": JobSpec}
+        self._next_uid = 0
+        self.faults = None  # chaos hook (repro_torch.serve.faults.FaultPlan) or None
+
+    def _set_step(self, cfg, state, pending) -> None:
+        self._step = _SlotStep(cfg, state, pending, self.k_cap, self.staleness, self.alpha, self.n_iters, self.tile)
+
+    # the evolving state lives in the current step's buffers
+    @property
+    def cfg(self) -> MultiJobConfig:
+        return self._step.cfg
+
+    @property
+    def state(self) -> MultiJobState:
+        return self._step.state
+
+    @property
+    def pending(self) -> torch.Tensor:
+        return self._step.pending
+
+    # -- capacity ---------------------------------------------------------
+
+    @property
+    def n_slots(self) -> int:
+        return self.cfg.active.shape[0]
+
+    def _free_slot(self) -> int:
+        used = {j["slot"] for j in self.jobs.values()}
+        for s in range(self.n_slots):
+            if s not in used:
+                return s
+        self._grow()
+        return len(used)
+
+    def _grow(self) -> None:
+        ladder = [b for b in self.buckets if b > self.n_slots]
+        if not ladder:
+            raise CapacityError(
+                f"all {self.n_slots} slots occupied and the bucket ladder {self.buckets} is exhausted"
+            )
+        new_J = ladder[0]
+        pad = new_J - self.n_slots
+        cfg, state = pad_slots(self.cfg, self.state, new_J)
+        pending = torch.cat([self.pending, self.pending.new_zeros((pad, *self.pending.shape[1:]))])
+        self._set_step(cfg, state, pending)  # the old bucket's graph goes with its step
+        self.seeds = torch.cat([self.seeds, self.seeds.new_zeros(pad)])
+        self._t = np.concatenate([self._t, np.zeros(pad, np.int64)])
+
+    def _write_cfg(self, cfg: MultiJobConfig) -> None:
+        for buf, v in zip(self.cfg, cfg):
+            buf.copy_(v)
+
+    # -- lifecycle --------------------------------------------------------
+
+    def admit(self, spec: JobSpec) -> int:
+        if spec.K > self.K_max:
+            raise ValueError(f"job K={spec.K} exceeds the server's K_max={self.K_max}")
+        if spec.k > self.k_cap:
+            raise ValueError(f"job k={spec.k} exceeds the server's cohort cap k_cap={self.k_cap}")
+        slot = self._free_slot()
+        uid = self._next_uid
+        self._next_uid += 1
+        self._write_cfg(slot_admit(self.cfg, slot, spec.K, spec.k, spec.sigma_frac, spec.eta))
+        self.state.logw[slot] = 0.0
+        self.state.t[slot] = 0
+        self.pending[slot] = 0.0
+        self.seeds[slot] = int(spec.seed)
+        self._t[slot] = 0
+        self.jobs[uid] = {"slot": slot, "spec": spec}
+        return uid
+
+    def retire(self, uid: int) -> None:
+        job = self.jobs.pop(uid)
+        self._write_cfg(slot_retire(self.cfg, job["slot"]))
+
+    def job_round(self, uid: int) -> int:
+        """The round the job's NEXT tick will serve (the idempotency cursor
+        the transport's retry cache compares request rounds against)."""
+        return int(self._t[self.jobs[uid]["slot"]])
+
+    # -- the batched serving step ----------------------------------------
+
+    def gumbel_row(self, seed: int, t: int) -> torch.Tensor:
+        """Job round ``t``'s ``(K_max,)`` Gumbel row, from the job's seed and
+        round alone: a generator seeded from ``SeedSequence([seed, t])``
+        (``job_generator`` with the round in the stream's place).  The tests
+        assign a function of ``(seed, t)`` on an instance to hand the engine
+        other rows."""
+        u = torch.rand(self.K_max, generator=job_generator(seed, t, self.device), device=self.device)
+        return gumbel_from_uniform(u)
+
+    def tick(self, items: List[Tuple[int, np.ndarray]]) -> Dict[int, dict]:
+        """One batched dispatch: ``items`` maps job uid -> this round's lag
+        codes ``(K_job,)`` (each uid at most once).  Returns per-uid results
+        ``{"round", "cohort", "on_time", "stale"}``."""
+        if self.faults is not None:
+            self.faults.on_engine_step()
+        J, K_max, step = self.n_slots, self.K_max, self._step
+        if len({u for u, _ in items}) != len(items):
+            raise ValueError("duplicate job uid in one batch (coalesce across dispatches)")
+        participate = np.zeros((J,), bool)
+        lag = np.zeros((J, K_max), np.int32)
+        rows = []
+        for uid, row in items:
+            job = self.jobs[uid]
+            slot, K = job["slot"], job["spec"].K
+            row = np.asarray(row, np.int32).reshape(-1)
+            if row.shape[0] != K:
+                raise ValueError(f"job {uid}: feedback has {row.shape[0]} entries, K={K}")
+            participate[slot] = True
+            lag[slot, :K] = row
+            rows.append(slot)
+        for slot in rows:
+            step.g[slot].copy_(self.gumbel_row(int(self.seeds[slot]), int(self._t[slot])))
+        step.lag.copy_(torch.from_numpy(lag))
+        step.participate.copy_(torch.from_numpy(participate))
+        step.run()
+        out = step.out.cpu().numpy()  # the tick's one copy to the host: cohorts, credit, the guard
+        if not out[-1]:
+            raise NumericsError("selector update produced non-finite log-weights; update refused")
+        idx = out[: J * self.k_cap].reshape(J, self.k_cap)
+        on_time = out[J * self.k_cap: J * self.k_cap + J].view(np.float32)
+        stale = out[J * self.k_cap + J: -1].view(np.float32)
+        results = {}
+        for uid, _ in items:
+            slot = self.jobs[uid]["slot"]
+            results[uid] = {
+                "round": int(self._t[slot]),
+                "cohort": idx[slot][idx[slot] >= 0].tolist(),
+                "on_time": float(on_time[slot]),
+                "stale": float(stale[slot]),
+            }
+        self._t[participate] += 1
+        return results
+
+    # -- checkpoint surface ----------------------------------------------
+
+    def meta(self) -> dict:
+        """The static half of a checkpoint: everything needed to rebuild an
+        identically-shaped engine (``engine_from_meta``) before restoring
+        the array state into it."""
+        return {
+            "kind": self.kind,
+            "K_max": self.K_max,
+            "k_cap": self.k_cap,
+            "staleness": self.staleness,
+            "alpha": self.alpha,
+            "buckets": list(self.buckets),
+            "n_iters": self.n_iters,
+            "tile": self.tile,
+            "n_slots": self.n_slots,
+            "next_uid": self._next_uid,
+            "jobs": [
+                {"uid": uid, "slot": j["slot"], "spec": j["spec"].to_json()}
+                for uid, j in sorted(self.jobs.items())
+            ],
+        }
+
+    def arrays(self) -> dict:
+        """The evolving array state (the checkpoint payload): weights, round
+        counters, the staleness ring and the jobs' seeds (the noise holds no
+        other state)."""
+        return {"logw": self.state.logw, "t": self.state.t, "pending": self.pending, "seeds": self.seeds}
+
+    def load_arrays(self, arrays) -> None:
+        """Copy the tensors of an ``arrays()`` tree into the engine's buffers."""
+        for buf, name in ((self.state.logw, "logw"), (self.state.t, "t"), (self.pending, "pending"),
+                          (self.seeds, "seeds")):
+            buf.copy_(arrays[name])
+        self._t = self.state.t.cpu().numpy().astype(np.int64)
+
+    @classmethod
+    def from_meta(cls, meta: dict, device=None) -> "SlotEngine":
+        eng = cls(
+            K_max=meta["K_max"], k_cap=meta["k_cap"], staleness=meta["staleness"], alpha=meta["alpha"],
+            buckets=meta["buckets"], n_iters=meta["n_iters"], tile=meta["tile"], device=device,
+        )
+        while eng.n_slots < meta["n_slots"]:
+            eng._grow()
+        for row in meta["jobs"]:
+            spec = JobSpec.from_json(row["spec"])
+            eng._write_cfg(slot_admit(eng.cfg, row["slot"], spec.K, spec.k, spec.sigma_frac, spec.eta))
+            eng.seeds[row["slot"]] = int(spec.seed)
+            eng.jobs[row["uid"]] = {"slot": row["slot"], "spec": spec}
+        eng._next_uid = meta["next_uid"]
+        return eng
+
+
+# ---------------------------------------------------------------------------
+# ShardedEngine: fleet-scale jobs, one RoundProgram each
+# ---------------------------------------------------------------------------
+
+
+class ShardedEngine:
+    """Each admitted job is one K-sharded ``RoundProgram`` stepped a round a
+    tick (see the module docstring) over the caller's process group
+    (``make_host_mesh(D)``: a one-rank NCCL group on the card, gloo in the
+    tests).  ``staleness=S`` serves sharded-async rounds with the ``(S,
+    K/D)`` rings carried per job; ``feedback`` picks the selector policy
+    (``"deadline"`` or ``"late_credit"``).  ``device=None`` is the rank's
+    CUDA device.
+
+    The server answers from one process, so the group has one rank: a tick
+    on D > 1 ranks would need every rank to take the same requests.
+    """
+
+    kind = "sharded"
+
+    def __init__(
+        self,
+        D: Optional[int] = None,
+        staleness: int = 0,
+        alpha: float = 0.5,
+        block: int = 4,
+        feedback: str = "deadline",
+        device=None,
+    ):
+        from repro_torch.launch.mesh import make_host_mesh
+
+        self.mesh = make_host_mesh(D, device=device)
+        self.D = int(self.mesh.size)
+        if self.D != 1:
+            raise ValueError(f"ShardedEngine serves from one process: a one-rank group, not D={self.D}")
+        self.device = self.mesh.device
+        self.staleness = int(staleness)
+        self.alpha = float(alpha)
+        self.block = int(block)
+        self.feedback = feedback
+        self._runners: dict = {}  # geometry key -> (run, state0, program)
+        self.jobs: Dict[int, dict] = {}
+        self._next_uid = 0
+        self.faults = None  # chaos hook (repro_torch.serve.faults.FaultPlan) or None
+
+    def _runner(self, spec: JobSpec):
+        from repro_torch.configs.base import FLConfig
+        from repro_torch.engine.round_program import RoundProgram
+
+        geom = (spec.K, spec.k, spec.rounds, spec.quota, spec.sigma_frac, spec.eta)
+        hit = self._runners.get(geom)
+        if hit is not None:
+            return hit
+        fl = FLConfig(
+            K=spec.K, k=spec.k, rounds=spec.rounds, scheme="e3cs", quota=spec.quota,
+            quota_frac=spec.sigma_frac, eta=spec.eta, allocator="bisect",
+            staleness_rounds=self.staleness, staleness_alpha=self.alpha,
+        )
+        program = RoundProgram.from_config(fl, mesh=self.mesh, override="dense", feedback=self.feedback,
+                                           block=self.block)
+        run, state0 = program.build_runner(outputs="full", carry_key=True, scan_length=1)
+        self._runners[geom] = (run, state0, program)
+        return self._runners[geom]
+
+    def admit(self, spec: JobSpec) -> int:
+        # geometry bounds (k <= K_pad/D for the per-shard top-k) are
+        # enforced by RoundProgram inside _runner
+        run, state0, program = self._runner(spec)
+        uid = self._next_uid
+        self._next_uid += 1
+        self.jobs[uid] = {
+            "spec": spec,
+            "state": state0,
+            "key": program.generator(spec.seed).get_state(),
+            "rings": program.init_rings() if self.staleness else (),
+            "t": 0,
+        }
+        return uid
+
+    def retire(self, uid: int) -> None:
+        del self.jobs[uid]
+
+    def job_round(self, uid: int) -> int:
+        """The round the job's NEXT tick will serve (the idempotency cursor
+        the transport's retry cache compares request rounds against)."""
+        return int(self.jobs[uid]["t"])
+
+    def tick(self, items: List[Tuple[int, np.ndarray]]) -> Dict[int, dict]:
+        """Advance each job one round (one runner call a job: the K axis is
+        the parallel one; there is no J axis to batch here)."""
+        if self.faults is not None:
+            self.faults.on_engine_step()
+        results = {}
+        for uid, row in items:
+            job = self.jobs[uid]
+            spec: JobSpec = job["spec"]
+            run, _, program = self._runner(spec)
+            row = np.asarray(row, np.int32).reshape(-1)
+            if row.shape[0] != spec.K:
+                raise ValueError(f"job {uid}: feedback has {row.shape[0]} entries, K={spec.K}")
+            xs = program.local_rows(row[None, :] if self.staleness else (row == 0).astype(np.float32)[None, :])
+            if self.staleness:
+                state, key, rings, masks, _, _, _, arrived = run(job["state"], job["key"], job["rings"], xs)
+                stale = torch.sum(arrived[0][: spec.K])
+            else:
+                state, key, masks, _, _, _ = run(job["state"], job["key"], xs)
+                rings, stale = None, torch.zeros((), dtype=_f32, device=self.device)
+            mask = masks[0][: spec.K]
+            on_time = torch.sum(mask * (xs[0][: spec.K] == 0 if self.staleness else xs[0][: spec.K]))
+            # the NaN/inf guard: the runner hands back new tensors, so the
+            # job's state is intact; refuse the update before assigning
+            finite, on_time, stale = torch.stack(
+                [torch.all(torch.isfinite(state.e3cs.logw)).to(_f32), on_time, stale]).tolist()
+            if not finite:
+                raise NumericsError(f"job {uid}: selector update produced non-finite log-weights; update refused")
+            if rings is not None:
+                job["rings"] = rings
+            job["state"], job["key"] = state, key
+            results[uid] = {
+                "round": job["t"],
+                "cohort": torch.nonzero(mask > 0).flatten().tolist(),
+                "on_time": on_time,
+                "stale": stale,
+            }
+            job["t"] += 1
+        return results
+
+    # -- checkpoint surface ----------------------------------------------
+
+    def meta(self) -> dict:
+        return {
+            "kind": self.kind,
+            "D": self.D,
+            "staleness": self.staleness,
+            "alpha": self.alpha,
+            "block": self.block,
+            "feedback": self.feedback,
+            "next_uid": self._next_uid,
+            "jobs": [
+                {"uid": uid, "t": j["t"], "spec": j["spec"].to_json()}
+                for uid, j in sorted(self.jobs.items())
+            ],
+        }
+
+    def arrays(self) -> dict:
+        """Per-job evolving state keyed by uid (string keys, in uid order):
+        the full ``ServerState``, the generator state, and the staleness /
+        late-credit rings."""
+        return {
+            str(uid): {"state": j["state"], "key": j["key"], "rings": list(j["rings"])}
+            for uid, j in sorted(self.jobs.items())
+        }
+
+    def load_arrays(self, arrays) -> None:
+        for uid, job in self.jobs.items():
+            blob = arrays[str(uid)]
+            job["state"], job["key"], job["rings"] = blob["state"], blob["key"], tuple(blob["rings"])
+
+    @classmethod
+    def from_meta(cls, meta: dict, device=None) -> "ShardedEngine":
+        eng = cls(
+            D=meta["D"], staleness=meta["staleness"], alpha=meta["alpha"], block=meta["block"],
+            feedback=meta["feedback"], device=device,
+        )
+        for row in meta["jobs"]:
+            eng._next_uid = row["uid"]  # admit under the job's own uid
+            eng.admit(JobSpec.from_json(row["spec"]))
+            eng.jobs[row["uid"]]["t"] = row["t"]
+        eng._next_uid = meta["next_uid"]
+        return eng
+
+
+def engine_from_meta(meta: dict, device=None):
+    """Rebuild an engine shell from its checkpoint meta (static config and
+    job table) on ``device`` (``None``: CUDA); the caller then restores the
+    array state into it (``repro_torch.serve.state.load_server`` does
+    both)."""
+    kinds = {SlotEngine.kind: SlotEngine, ShardedEngine.kind: ShardedEngine}
+    kind = meta.get("kind")
+    if kind not in kinds:
+        raise ValueError(f"unknown engine kind {kind!r} (want one of {sorted(kinds)})")
+    return kinds[kind].from_meta(meta, device=device)

@@ -91,7 +91,7 @@ def test_ucb_select_and_update_equal_jax_with_inf_ties():
     take the lowest unexplored indices, as ``lax.top_k`` does."""
     n = 4096
     rng = np.random.default_rng(3)
-    jstate, state = jb.ucb_init(n), tb.ucb_init(n)
+    jstate, state = jb.ucb_init(n), tb.ucb_init(n, device="cpu")
     for t in range(12):
         jidx, idx = jb.ucb_select(jstate, 64), tb.ucb_select(state, 64)
         np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
@@ -163,7 +163,7 @@ def _trace(staleness):
 def _programs(scheme, sampler, staleness, override):
     kw = dict(K=K, k=k, rounds=T, scheme=scheme, sampler=sampler, quota_frac=0.5, allocator="sort")
     rho = paper_success_rates(K)
-    jvol, vol = jmake_volatility("bernoulli", rho), make_volatility("bernoulli", rho)
+    jvol, vol = jmake_volatility("bernoulli", rho), make_volatility("bernoulli", rho, device="cpu")
     if staleness is not None:
         jvol, vol = JCompletionLag(jvol, max_lag=staleness), CompletionLag(vol, max_lag=staleness)
     common = dict(rho=rho, override=override, staleness=staleness, alpha=0.5)
@@ -272,5 +272,5 @@ def test_late_credit_feedback_leaves_a_baseline_alone():
 
 def test_pow_d_needs_k_candidates():
     with pytest.raises(ValueError, match="k <= d"):
-        RoundProgram(fl=FLConfig(K=K, k=50, scheme="pow_d"), vol=make_volatility("bernoulli", paper_success_rates(K)),
+        RoundProgram(fl=FLConfig(K=K, k=50, scheme="pow_d"), vol=make_volatility("bernoulli", paper_success_rates(K), device="cpu"),
                      rho=paper_success_rates(K), device="cpu")

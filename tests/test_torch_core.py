@@ -113,7 +113,7 @@ def test_e3cs_update_matches_jax(K, k, frac, with_active):
 def test_quota_schedules_match_jax(name):
     K, k, T = 1000, 50, 40
     jf = jmake_quota_schedule(name, k, K, T, 0.5)
-    f = make_quota_schedule(name, k, K, T, 0.5)
+    f = make_quota_schedule(name, k, K, T, 0.5, device="cpu")
     for t in range(T + 2):
         got = f(torch.tensor(t, dtype=torch.int32))
         assert got.dtype == torch.float32 and got.dim() == 0
@@ -122,7 +122,7 @@ def test_quota_schedules_match_jax(name):
 
 def test_unknown_quota_schedule_raises():
     with pytest.raises(ValueError, match="quota"):
-        make_quota_schedule("exp", 5, 50, 10)
+        make_quota_schedule("exp", 5, 50, 10, device="cpu")
 
 
 @pytest.mark.parametrize("K", [7, 100, 1001])
@@ -139,7 +139,7 @@ def test_bernoulli_matches_jax_given_its_uniforms(seed):
     key = jax.random.PRNGKey(seed)
     jx, _ = jmake_volatility("bernoulli", rho).sample(key, None)
     u = jax.random.uniform(key, (K,), jnp.float32)  # bernoulli's own draw
-    vol = make_volatility("bernoulli", rho)
+    vol = make_volatility("bernoulli", rho, device="cpu")
     x, _ = vol.sample((_t(u),), vol.init_state())
     np.testing.assert_array_equal(x.numpy(), np.asarray(jx))
 
@@ -157,14 +157,14 @@ def test_completion_lag_matches_jax_given_its_uniforms(max_lag, p_late, lag_deca
         jax.random.uniform(r_late, (K,), jnp.float32),
         jax.random.uniform(r_lag, (K,), jnp.float32, minval=1e-7, maxval=1.0),
     )
-    vol = CompletionLag(make_volatility("bernoulli", rho), p_late=p_late, lag_decay=lag_decay, max_lag=max_lag)
+    vol = CompletionLag(make_volatility("bernoulli", rho, device="cpu"), p_late=p_late, lag_decay=lag_decay, max_lag=max_lag)
     lag, _ = vol.sample(tuple(_t(u) for u in us), vol.init_state())
     assert lag.dtype == torch.int32
     np.testing.assert_array_equal(lag.numpy(), np.asarray(jlag))
 
 
 def test_completion_lag_draws_its_rows_in_range():
-    vol = CompletionLag(make_volatility("bernoulli", paper_success_rates(4096)), max_lag=3)
+    vol = CompletionLag(make_volatility("bernoulli", paper_success_rates(4096), device="cpu"), max_lag=3)
     us = vol.draw(torch.Generator().manual_seed(0))
     assert len(us) == 3 and all(u.shape == (4096,) and u.dtype == torch.float32 for u in us)
     assert float(us[2].min()) >= 1e-7 and float(us[2].max()) < 1.0

@@ -1,7 +1,8 @@
 """The port stands alone: ``import repro_torch`` loads no JAX, no file of the
-port (nor ``chip_smoke.py``) imports ``jax`` or ``repro``, its ``FLConfig``
-is the JAX package's field for field, and its entry points refuse to carry
-on silently without CUDA."""
+port (nor ``chip_smoke.py``) imports ``jax``, ``repro``, ``msgpack`` or
+``zstandard`` (the serving stack and its checkpoints import on a machine
+without them), its ``FLConfig`` is the JAX package's field for field, and
+its entry points refuse to carry on silently without CUDA."""
 import ast
 import dataclasses
 import os
@@ -17,12 +18,17 @@ from repro.configs import FLConfig as JFLConfig
 from repro_torch.configs import FLConfig
 from repro_torch.convert import state_from_jax
 from repro_torch.core.volatility import make_volatility, paper_success_rates
+from repro_torch.core.selection import e3cs_init, make_quota_schedule, ucb_init
+from repro_torch.fl.round import init_server_state
+from repro_torch.obs import ROUND_TAPS
+from repro_torch.obs.sketches import sketch_carry0
 from repro_torch import scenarios
 from repro_torch.core.sim import selection_sim
 from repro_torch.engine import RoundProgram, async_selection_sim, scan_selection_sim
 from repro_torch.fl import build_volatility
 from repro_torch.kernels import fused_round_tail, unpack_bits
 from repro_torch.launch import HostMesh, make_host_mesh
+from repro_torch.serve import ShardedEngine, SlotEngine, engine_from_meta
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -34,9 +40,31 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.launch.mesh, repro_torch.kernels.bisect_tiles, repro_torch.engine.sharded, "
         "repro_torch.kernels.ops, repro_torch.kernels.autotune, repro_torch.obs.paths, repro_torch.scenarios, "
         "repro_torch.engine.scan_sim, repro_torch.core.sim, repro_torch.core.fairness, "
-        "repro_torch.core.selection.regret, repro_torch.engine.multi_job, repro_torch.launch.select_serve; "
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'repro' "
-        "or m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)"
+        "repro_torch.core.selection.regret, repro_torch.engine.multi_job, repro_torch.launch.select_serve, "
+        "repro_torch.serve, repro_torch.checkpoint; "
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'msgpack', 'zstandard')); "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_serving_imports_without_msgpack_or_zstandard():
+    """The card's machine has neither package: with both made unimportable,
+    the serving stack and its checkpoints still import and round-trip."""
+    code = (
+        "import sys, tempfile, os\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('msgpack', 'zstandard', 'jax', 'repro'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import torch, repro_torch.serve, repro_torch.launch.select_serve\n"
+        "from repro_torch.checkpoint import save, restore\n"
+        "p = os.path.join(tempfile.mkdtemp(), 'c.ckpt')\n"
+        "t = {'a': torch.arange(3)}\n"
+        "assert torch.equal(restore(save(p, t), t)['a'], t['a'])\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
@@ -55,7 +83,7 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_file_imports_no_jax_and_no_repro(path):
-    bad = {m for m in _imported_roots(path) if m in ("jax", "jaxlib", "repro")}
+    bad = {m for m in _imported_roots(path) if m in ("jax", "jaxlib", "repro", "msgpack", "zstandard")}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
@@ -73,7 +101,7 @@ def no_cuda(monkeypatch):
 
 def _program_args():
     fl = FLConfig(K=64, k=8, rounds=4)
-    return fl, make_volatility("bernoulli", paper_success_rates(64)), paper_success_rates(64)
+    return fl, make_volatility("bernoulli", paper_success_rates(64), device="cpu"), paper_success_rates(64)
 
 
 def test_entry_points_raise_without_cuda(no_cuda):
@@ -94,9 +122,12 @@ SLICE_ENTRY_POINTS = {
     "async_selection_sim": lambda: async_selection_sim("e3cs", K=64, k=8, T=2),
     "selection_sim": lambda: selection_sim("e3cs", K=64, k=8, T=2),
     "make_scenario": lambda: scenarios.make_scenario("diurnal", 64, 4),
-    "record_trace": lambda: scenarios.record_trace(make_volatility("bernoulli", paper_success_rates(64)), 2),
+    "record_trace": lambda: scenarios.record_trace(make_volatility("bernoulli", paper_success_rates(64), device="cpu"), 2),
     "evaluate_cell": lambda: scenarios.evaluate_cell("e3cs", "markov", K=64, k=8, T=2),
     "run_replay": lambda: scenarios.run_replay("ucb", "markov", K=64, k=8, T=2),
+    "SlotEngine": lambda: SlotEngine(K_max=64),
+    "ShardedEngine": lambda: ShardedEngine(D=1),
+    "engine_from_meta": lambda: engine_from_meta(SlotEngine(K_max=64, device="cpu").meta()),
 }
 
 
@@ -104,6 +135,25 @@ SLICE_ENTRY_POINTS = {
 def test_scenario_entry_points_raise_without_cuda(no_cuda, name):
     with pytest.raises(RuntimeError, match="CUDA"):
         SLICE_ENTRY_POINTS[name]()
+
+
+CONSTRUCTORS = {
+    "make_volatility": lambda: make_volatility("bernoulli", paper_success_rates(64)),
+    "e3cs_init": lambda: e3cs_init(64),
+    "ucb_init": lambda: ucb_init(64),
+    "init_server_state": lambda: init_server_state({}, 64, None),
+    "make_quota_schedule": lambda: make_quota_schedule("const", 8, 64, 4, 0.5),
+    "init_counters": lambda: ROUND_TAPS.init_counters(),
+    "sketch_carry0": lambda: sketch_carry0(64, 2),
+}
+
+
+@pytest.mark.parametrize("name", list(CONSTRUCTORS))
+def test_constructors_raise_without_cuda(no_cuda, name):
+    """A public constructor given no device means CUDA, as the entry points
+    do: it raises without one instead of building its tensors on the CPU."""
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CONSTRUCTORS[name]()
 
 
 @pytest.mark.parametrize("name", ["bernoulli", "diurnal"])

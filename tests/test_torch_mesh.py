@@ -111,7 +111,7 @@ def mesh1():
 def port_program(spec, mesh, fused):
     K, S = spec["K"], spec["staleness"]
     rho = paper_success_rates(K)
-    vol = make_volatility("bernoulli", rho)
+    vol = make_volatility("bernoulli", rho, device="cpu")
     if S is not None:
         vol = CompletionLag(vol, max_lag=S)
     fl = FLConfig(K=K, k=spec["k"], rounds=spec["T"], scheme="e3cs", quota_frac=0.5, allocator="bisect")
@@ -162,7 +162,7 @@ def mesh_case_program(spec, mesh, fused):
     K, S, T = spec["K"], spec["staleness"], spec["T"]
     if spec["scenario"] is None:
         rho = paper_success_rates(K)
-        vol = make_volatility("bernoulli", rho)
+        vol = make_volatility("bernoulli", rho, device="cpu")
     else:
         vol, rho = make_scenario(spec["scenario"], K, T, spec["seed"], device="cpu")
     if S is not None:
@@ -332,7 +332,7 @@ def _streams_chunked_vs_one_shot(mesh, scheme, scenario):
     ``after1/*`` the stream states after the first chunk."""
     if scenario is None:
         rho = paper_success_rates(K)
-        vol = make_volatility("bernoulli", rho)
+        vol = make_volatility("bernoulli", rho, device="cpu")
     else:
         vol, rho = make_scenario(scenario, K, T, 3, device="cpu")
     fl = FLConfig(K=K, k=k, rounds=T, scheme=scheme, quota_frac=0.5, allocator="bisect")

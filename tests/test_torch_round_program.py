@@ -65,10 +65,10 @@ def _programs(*, staleness, allocator, feedback, override, fused, quota="const")
     kw = dict(K=K, k=k, rounds=T, scheme="e3cs", quota=quota, quota_frac=FRAC, allocator=allocator)
     rho = _rho()
     if staleness is None:
-        jvol, vol = jmake_volatility("bernoulli", rho), make_volatility("bernoulli", rho)
+        jvol, vol = jmake_volatility("bernoulli", rho), make_volatility("bernoulli", rho, device="cpu")
     else:
         jvol = JCompletionLag(jmake_volatility("bernoulli", rho), max_lag=staleness)
-        vol = CompletionLag(make_volatility("bernoulli", rho), max_lag=staleness)
+        vol = CompletionLag(make_volatility("bernoulli", rho, device="cpu"), max_lag=staleness)
     common = dict(rho=rho, override=override, staleness=staleness, alpha=0.5, feedback=feedback)
     jpm = JRoundProgram(fl=JFLConfig(**kw), vol=jvol, **common)
     pm = RoundProgram(fl=FLConfig(**kw), vol=vol, fused=fused, device="cpu", **common)

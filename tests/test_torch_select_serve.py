@@ -9,8 +9,9 @@ alert may not fire in either.
 The multi-job service (``run_service``, ``run_service_compiled``) on JAX's
 standard fleet at a small K_max: JAX's report keys and its deterministic
 fields (jobs, populations, cohort sizes, ticks, modes), and the command
-line's smoke runs on the CPU.  Rates and totals depend on the noise, which
-differs between the packages."""
+line's smoke runs on the CPU, the socket server's (``--serve --smoke``, with
+and without ``--chaos``) among them.  Rates and totals depend on the noise,
+which differs between the packages."""
 import json
 
 import numpy as np
@@ -148,6 +149,20 @@ def test_the_command_line_smoke(gloo1, tmp_path, monkeypatch, capsys, flags):
         assert report["scenario"] == ("diurnal" if flags else "paper_iid(static)")
 
 
-def test_the_command_line_refuses_the_socket_server():
-    with pytest.raises(NotImplementedError, match="serving"):
-        select_serve.main(["--serve", "--device", "cpu"])
+@pytest.mark.parametrize("flags", [[], ["--chaos", "3"]], ids=["serve", "chaos"])
+def test_the_command_line_serves_over_loopback(tmp_path, monkeypatch, capsys, flags):
+    """``--serve --smoke``: the socket server and the built-in loopback
+    client (4 jobs, 10 rounds); ``--chaos 3`` arms JAX's seeded fault plan
+    for that horizon and the run completes through it."""
+    monkeypatch.setenv("REPRO_RESULTS", str(tmp_path))
+    monkeypatch.delenv("REPRO_BENCH_OUT", raising=False)
+    select_serve.main(["--serve", "--smoke", "--device", "cpu", *flags])
+    out = capsys.readouterr().out
+    report = json.loads(out[out.index("\n{") + 1:])
+    assert report["engine"] == "slots" and report["staleness"] == 0
+    assert report["n_ticks"] >= 40 and report["n_admitted"] == 4 and report["rounds_served"] >= 40
+    if flags:
+        assert report["fired"] == {"crash": 1, "corrupt": 1, "drop": 2, "slow": 1} and report["restarts"] == 1
+        assert report["chaos_seed"] == 3 and "chaos survived" in out
+    else:
+        assert report["n_restarts"] == 0 and report["n_errors"] == 0

@@ -136,7 +136,7 @@ def test_models_draw_their_rows(name, n_rows):
 
 def test_unknown_volatility_model_raises():
     with pytest.raises(ValueError, match="unknown volatility model"):
-        tv.make_volatility("weibull", _rho())
+        tv.make_volatility("weibull", _rho(), device="cpu")
 
 
 @pytest.mark.parametrize("name", ["markov", "deadline"])
