@@ -86,7 +86,16 @@ Phases, one line each; any failure raises and the script exits non-zero:
    ``run_service`` (J = 8, K_max = 1e5, 30 ticks, Bernoulli and diurnal
    feedback) and ``run_grid_multi_job`` over the seven registry scenarios
    (K = 1e6, k = 1000, T = 50), each with its launch counts checked;
-12. serve (``[serve-slots]``, ``[serve-sharded]``, ``[serve-chaos]``):
+12. fl-train (``[fl-precision]``, ``[fl-check]``, ``[fl-train]``): the FL
+   training stack at ``FLConfig``'s defaults (K = 100, k = 20, 500 samples
+   a client, batch 40, epochs 1-4) on both CNNs at their published widths:
+   EMNIST sync 16 rounds (accuracy above 0.15) and async S = 2 10 rounds
+   (late updates applied), CIFAR sync 5 rounds; rounds/s, per round the
+   gather, copy and device ms; one round of each profiled; one EMNIST round
+   at K = 20 on the card against the CPU (cohort, mask, log-weights equal,
+   parameters within the FL tests' tolerance); the convs in IEEE float32
+   (``fl_train_path``);
+13. serve (``[serve-slots]``, ``[serve-sharded]``, ``[serve-chaos]``):
    the selection service over loopback sockets, the
    slot engine at K_max = 1e5 (k_cap = 2000: the top-k kernel a row) with
    the standard fleet of 8 jobs at S = 0 and 2, the sharded engine (one-rank
@@ -95,14 +104,14 @@ Phases, one line each; any failure raises and the script exits non-zero:
    cohorts bit for bit in-process engines', the top-k and block-sum kernels
    against their plain versions on the engines' own inputs, launch counts
    exact, the serving rates and the checkpoint's cost (``serve_path``);
-13. ops: the kernel layer's public ops, the path of the top-k and update
+14. ops: the kernel layer's public ops, the path of the top-k and update
    kernels: ``autotune`` sweeps all four kernel families at K = 1e4, 1e5
    and 1e6 into a fresh cache under ``chiprun_out/autotune/``, then
    ``gumbel_topk_sample``, ``fused_gumbel_topk_sample`` and
    ``e3cs_update_tiled`` run at K = 1e6, k = 1000 with ``tile=None``,
    resolved through that cache; launch counts set to 0 before the phase and
    checked exactly after it, outputs against the plain versions;
-14. times: rounds/s and client decisions/s of each run.
+15. times: rounds/s and client decisions/s of each run.
 
 Ends with a JSON line of per-kernel numbers and, last, ``{"ok": true,
 "device": ...}``.  Without CUDA it exits non-zero before printing a result.
@@ -583,6 +592,7 @@ def main():
         dist.destroy_process_group()
     for n, c in multi_job_path(dev, K_MAIN, k_MAIN, T_MAIN, T_SHORT, card=smi).items():
         launched.setdefault(n, c)
+    fl_train_path(dev, card=smi)
 
     # -- 9. the ops and the autotuner ----------------------------------------------
     ops_counts, ops_tiles = ops_path(dev, K_MAIN, k_MAIN)
@@ -1355,6 +1365,181 @@ def multi_job_path(dev, K, k, T, T_short, card, seed=SCENARIO_SEED, J=8, K_servi
         call_rounds_per_s=f"{T / secs:.3f}", launches=launches, card=repr(card))
     log("check", multi_job="all multi-job checks passed")
     return launched
+
+
+FL_RUNS = (("emnist", 0, 16), ("emnist", 2, 10), ("cifar", 0, 5))  # (task, staleness S, rounds)
+FL_ACC_MIN = 0.15  # EMNIST after 16 rounds: the threshold of the JAX package's test_end_to_end_fl_learns
+# card against CPU: the FL tests' tolerance on trained parameters (tests/test_torch_fl.py)
+FL_PARAM_RTOL, FL_PARAM_ATOL = 1e-3, 1e-4
+FL_CHECK = dict(K=20, k=4, rounds=1, samples_per_client=40, batch_size=10, local_epochs=(1, 2))
+FP32_CONV_RTOL = 1e-5  # a float32 conv against float64; TF32 misses by ~1e-3
+
+
+def fl_train_path(dev, card, runs=FL_RUNS, fl_kw=None, acc_min=FL_ACC_MIN):
+    """Phase 12 (``[fl-train]``; ``fl_kw`` overrides ``FLConfig`` fields for
+    a small rehearsal): the FL training stack at ``FLConfig``'s
+    defaults (the paper's Table I: K = 100, k = 20, 500 samples a client,
+    batch 40, local epochs 1-4, SGD lr 1e-2 momentum 0.9, fedavg, E3CS at
+    quota_frac 0.5, Bernoulli volatility) on both CNNs at their published
+    widths, through ``launch.train.build_task`` and ``FLServer``.
+
+    * ``[fl-precision]``: a conv under ``fp32_convs`` against float64 (no
+      TF32), and the TF32 time of one CIFAR cohort's training beside the
+      float32 one, as information (``[fl-tf32]``).
+    * ``[fl-check]``: one EMNIST round at ``FL_CHECK`` from the same state
+      and noise on the card and on the CPU: cohort, mask and log-weights
+      equal, parameters within the FL tests' tolerance.
+    * ``[fl-train]``: the runs of ``runs``; for each, rounds/s (host clock,
+      set-up excluded), per round the host gather ms, the host-to-device
+      copy ms and the round's device ms (CUDA events around ``round_fn``:
+      the cohort's training, then aggregation and the selector's update),
+      eval accuracy and loss; EMNIST sync above ``acc_min``, the async run
+      with late updates applied, finite parameters.
+    * ``[profile-call]``: one round of each CNN under ``torch.profiler``.
+    """
+    import torch
+
+    from repro_torch.configs import FLConfig
+    from repro_torch.fl import FLServer, make_local_update
+    from repro_torch.launch.train import build_task
+    from repro_torch.models.cnn import fp32_convs
+    from repro_torch.optim import sgd
+
+    fl_kw = fl_kw or {}
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # -- the convs run in IEEE float32 ---------------------------------------------
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(40, 64, 16, 16)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(64, 64, 5, 5)) / 40).astype(np.float32))
+    want = torch.nn.functional.conv2d(x.double(), w.double(), padding=2)
+    with fp32_convs():
+        got = torch.nn.functional.conv2d(x.to(dev), w.to(dev), padding=2).cpu().double()
+    rel = float((got - want).abs().max() / want.abs().max())
+    if not rel <= FP32_CONV_RTOL:
+        raise AssertionError(f"fp32_convs: conv error {rel} relative to float64 > {FP32_CONV_RTOL} (TF32?)")
+    log("fl-precision", conv_max_rel_err_vs_f64=f"{rel:.3g}", rtol=FP32_CONV_RTOL,
+        cudnn_allow_tf32_outside=torch.backends.cudnn.allow_tf32)
+
+    # -- one round on the card against the CPU ---------------------------------------
+    from torch.utils import _pytree as pytree
+
+    fl = FLConfig(**FL_CHECK)
+    params0 = noise = None
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        model, store, _ = build_task("emnist", fl, device=d)
+        srv = FLServer(model, fl, store, device=d)
+        if params0 is None:  # drawn once on the CPU, handed to both
+            params0 = model.init(torch.Generator().manual_seed(7))[0]
+            noise = srv._draw(srv.program.generator(11))[0]
+        idxs = []
+        select = srv._select
+        srv._select = lambda st, nz, select=select: (lambda o: (idxs.append(o[0].cpu()), o)[1])(select(st, nz))
+        st, _ = srv.run(srv.init_state(params={n: v.to(d) for n, v in params0.items()}),
+                        noise=[(pytree.tree_map(lambda v: None if v is None else v.to(d), noise), None)])
+        out[d.type] = (idxs, st)
+    (gidx, gst), (cidx, cst) = out[dev.type], out["cpu"]
+    same = all(torch.equal(a, b) for a, b in zip(gidx, cidx)) and torch.equal(gst.sel_counts.cpu(), cst.sel_counts) \
+        and torch.equal(gst.e3cs.logw.cpu(), cst.e3cs.logw)
+    if not same:
+        raise AssertionError(f"fl-check: cohort, mask or log-weights differ, card {gidx} vs cpu {cidx}")
+    err = 0.0
+    for n, v in cst.params.items():
+        a = gst.params[n].cpu()
+        np.testing.assert_allclose(a.numpy(), v.numpy(), rtol=FL_PARAM_RTOL, atol=FL_PARAM_ATOL, err_msg=n)
+        err = max(err, float((a - v).abs().max()))
+    log("fl-check", device=dev.type, K=fl.K, k=fl.k, rounds=fl.rounds, cohort=gidx[0].tolist(),
+        cohort_mask_logw="equal", params_max_abs_err=f"{err:.3g}", rtol=FL_PARAM_RTOL, atol=FL_PARAM_ATOL)
+    del out
+
+    # -- the training runs at the defaults --------------------------------------------
+    for task, S, rounds in runs:
+        fl = FLConfig(rounds=rounds, staleness_rounds=S, **fl_kw)
+        t0 = time.perf_counter()
+        model, store, eval_fn = build_task(task, fl, device=dev)
+        srv = FLServer(model, fl, store, eval_fn, device=dev)
+        state = srv.init_state(fl.seed)
+        setup_s = time.perf_counter() - t0
+        gather, copy, events, nbytes = [], [], [], []
+        round_batches, to_device, round_fn = store.round_batches, srv._to_device, srv._round
+
+        def timed_gather(*a, **kw):
+            t = time.perf_counter()
+            res = round_batches(*a, **kw)
+            gather.append(time.perf_counter() - t)
+            nbytes.append(sum(r.nbytes for r in res))
+            return res
+
+        def timed_copy(*arrays):
+            sync()
+            t = time.perf_counter()
+            res = to_device(*arrays)
+            sync()
+            if len(arrays) == 3:  # the round's batches and mask
+                copy.append(time.perf_counter() - t)
+            return res
+
+        def timed_round(*a):
+            if on_card:  # device time between two events on the stream
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                res = round_fn(*a)
+                ev[1].record()
+                events.append(lambda ev=ev: ev[0].elapsed_time(ev[1]))
+            else:  # a CPU rehearsal: host clock
+                t = time.perf_counter()
+                res = round_fn(*a)
+                events.append(lambda secs=time.perf_counter() - t: secs * 1e3)
+            last_args.append(a)
+            return res
+
+        last_args = []
+        store.round_batches, srv._to_device, srv._round = timed_gather, timed_copy, timed_round
+        sync()
+        t0 = time.perf_counter()
+        state, hist = srv.run(state, eval_every=rounds)
+        sync()
+        secs = time.perf_counter() - t0
+        round_ms = [ms() for ms in events]
+        finite = all(bool(torch.isfinite(v).all()) for v in state.params.values())
+        acc, loss = hist["acc"][-1], hist["loss"][-1]
+        label = f"{task}-{'sync' if S == 0 else f'async-S{S}'}"
+        log("fl-train", run=label, K=fl.K, k=fl.k, rounds=rounds, n_steps=srv.n_steps, batch=fl.batch_size,
+            rounds_per_s=f"{rounds / secs:.4f}", setup_s=f"{setup_s:.2f}",
+            round_device_ms_median=f"{np.median(round_ms):.2f}", round_device_ms_first=f"{round_ms[0]:.2f}",
+            gather_ms_median=f"{np.median(gather) * 1e3:.2f}", copy_ms_median=f"{np.median(copy) * 1e3:.2f}",
+            batch_mb=f"{np.median(nbytes) / 1e6:.1f}", eval_acc=f"{acc:.4f}", eval_loss=f"{loss:.4f}",
+            cep=float(state.cep), n_late=hist.get("n_late"), card=repr(card))
+        if not finite:
+            raise AssertionError(f"fl-train {label}: non-finite parameters")
+        if task == "emnist" and S == 0 and not acc > acc_min:
+            raise AssertionError(f"fl-train {label}: accuracy {acc} after {rounds} rounds, not above {acc_min}")
+        if S and not hist["n_late"] > 0:
+            raise AssertionError(f"fl-train {label}: no late update was applied")
+        if S == 0 and on_card:
+            profile_calls(f"fl-round-{task}", lambda: round_fn(*last_args[-1]), card, n=2)
+        if task == "cifar" and on_card:  # TF32 beside float32 on one cohort's training, information only
+            a = last_args[-1]
+            local = make_local_update(model, sgd(fl.lr, fl.momentum))
+            ms = {}
+            for tf32 in (False, True, True, False):  # each warmed up once: the least of two
+                c = torch.backends.cudnn
+                with c.flags(enabled=c.enabled, benchmark=c.benchmark, deterministic=c.deterministic,
+                             allow_tf32=tf32):
+                    t = time.perf_counter()
+                    local(a[0].params, a[5], a[6])
+                    sync()
+                    ms.setdefault(tf32, []).append((time.perf_counter() - t) * 1e3)
+            log("fl-tf32", task=task, fp32_ms=f"{min(ms[False]):.1f}", tf32_ms=f"{min(ms[True]):.1f}",
+                note="information; the port trains in float32", card=repr(card))
+        del srv, store, state, last_args
+        torch.cuda.empty_cache()
+    log("check", fl_train="all fl-train checks passed")
 
 
 def _feed(seed, j, t, K, S):

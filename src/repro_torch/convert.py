@@ -29,6 +29,14 @@ rings (through ``state_from_jax``).  JAX's PRNG keys do not cross: a job
 continues with the port's noise from its seed (ROADMAP A2), so a test hands
 the slot engine JAX's rows through its ``gumbel_row``.
 
+The FL training server's state also holds the model's parameters:
+``fl_state_from_jax`` is ``state_from_jax`` with ``arrays["params"]``, the
+JAX package's CNN parameters, carried by ``cnn_params_from_jax``.  Its conv
+kernels are HWIO and the port's OIHW (``models.cnn``), so those two are
+permuted; the dense weights and biases cross as they are (``fc1``'s rows
+keep the JAX package's flatten order).  ``cnn_params_to_numpy`` is the
+inverse.
+
 Under a mesh the JAX state is ``K_pad`` wide and each rank of the port holds
 its ``(Ks,)`` slab: ``shard_arrays`` cuts a rank's slab out of the named
 arrays (then ``state_from_jax``), and ``gather_state`` all-gathers the
@@ -50,8 +58,8 @@ from repro_torch.core.selection import E3CSState, UCBState
 from repro_torch.device import resolve_device
 from repro_torch.fl.round import ServerState
 
-__all__ = ["state_from_jax", "state_to_numpy", "shard_arrays", "gather_state", "slot_state_from_jax",
-           "sharded_job_from_jax", "STATE_FIELDS"]
+__all__ = ["state_from_jax", "state_to_numpy", "fl_state_from_jax", "cnn_params_from_jax", "cnn_params_to_numpy",
+           "shard_arrays", "gather_state", "slot_state_from_jax", "sharded_job_from_jax", "STATE_FIELDS"]
 
 STATE_FIELDS = ("logw", "t", "sel_counts", "loss_cache", "vol_state", "cep", "succ_hist")
 _DTYPES = {"t": np.int32, "ucb_t": np.int32}
@@ -95,6 +103,41 @@ def state_from_jax(arrays: Dict[str, np.ndarray], device=None) -> Tuple[ServerSt
     )
     rings = tuple(tensor(name) for name in ("credit", "fb") if name in arrays)
     return state, rings
+
+
+_HWIO_TO_OIHW, _OIHW_TO_HWIO = (3, 2, 0, 1), (2, 3, 1, 0)
+
+
+def _kernel_axes(a: np.ndarray, perm) -> np.ndarray:
+    """``a`` with the last four axes of a conv kernel (ndim >= 4; leading
+    axes, a cohort's, stay) permuted by ``perm``; any other leaf copied."""
+    if a.ndim < 4:
+        return np.array(a)
+    lead = a.ndim - 4
+    return np.ascontiguousarray(a.transpose(tuple(range(lead)) + tuple(lead + i for i in perm)))
+
+
+def cnn_params_from_jax(arrays: Dict[str, np.ndarray], device=None) -> Dict[str, torch.Tensor]:
+    """The JAX package's CNN parameters (numpy, by name; a cohort's stacked
+    ``(k, ...)`` leaves too) as the port's on ``device``: conv kernels HWIO
+    -> OIHW, the rest as they are."""
+    device = resolve_device(device)
+    return {name: torch.from_numpy(_kernel_axes(np.asarray(a, dtype=np.float32), _HWIO_TO_OIHW)).to(device)
+            for name, a in arrays.items()}
+
+
+def cnn_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's CNN parameters in the JAX package's layout (numpy): the
+    inverse of ``cnn_params_from_jax``."""
+    return {name: _kernel_axes(t.detach().cpu().numpy(), _OIHW_TO_HWIO) for name, t in params.items()}
+
+
+def fl_state_from_jax(arrays: Dict[str, np.ndarray], device=None) -> Tuple[ServerState, tuple]:
+    """``state_from_jax`` of an FL training server's state: the named arrays
+    plus ``params``, the JAX package's CNN parameters by name."""
+    device = resolve_device(device)
+    state, rings = state_from_jax(arrays, device)
+    return state._replace(params=cnn_params_from_jax(arrays["params"], device)), rings
 
 
 def state_to_numpy(state: ServerState, rings: tuple = ()) -> Dict[str, np.ndarray]:

@@ -4,6 +4,9 @@
     p, capped = e3cs_probs(state, k, sigma_t)          # Algorithm 2
     state = e3cs_update(state, p, capped, sel_mask, x, k, sigma_t, eta)
 
+or, one whole bandit round given the round's noise,
+``e3cs_round(state, noise, x, k, sigma_t, eta)``.
+
 Weights live in log space and are re-centred after every update (ProbAlloc
 is invariant to a common shift).  The operations and their order are those
 of ``repro.core.selection.e3cs``.
@@ -12,13 +15,16 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 
 from .prob_alloc import prob_alloc
+from .sampling import sample_selection, selection_mask
 
-__all__ = ["E3CSState", "e3cs_init", "e3cs_probs", "e3cs_update", "divide", "residual_mass"]
+__all__ = ["E3CSState", "e3cs_init", "e3cs_probs", "e3cs_update", "e3cs_round", "theorem1_eta", "theorem1_bound",
+           "divide", "residual_mass"]
 
 
 def divide(x: torch.Tensor, n) -> torch.Tensor:
@@ -82,3 +88,29 @@ def e3cs_update(
     if active is not None:
         logw = logw * active
     return E3CSState(logw=logw, t=state.t + 1)
+
+
+def e3cs_round(state: E3CSState, noise, x: torch.Tensor, k: int, sigma, eta: float, method: str = "plackett_luce"):
+    """One full bandit round against a success-bit row ``x`` (K,): allocate,
+    sample the cohort from ``noise`` (``sample_selection``: a Gumbel row
+    ``noise.g``, or ``noise.perm`` and ``noise.v`` for the systematic
+    sampler), mask, update.  Returns ``(new_state, sel_idx, sel_mask, p)``."""
+    p, capped = e3cs_probs(state, k, sigma)
+    idx = sample_selection(noise, p, k, method)
+    mask = selection_mask(idx, p.shape[0])
+    new_state = e3cs_update(state, p, capped, mask, x, k, sigma, eta)
+    return new_state, idx, mask, p
+
+
+def theorem1_eta(K: int, k: int, sigmas) -> float:
+    """Optimal learning rate of Theorem 1: sqrt(K ln K / sum_t (k - K sigma_t))."""
+    s = float(np.sum(k - K * np.asarray(sigmas)))
+    return float(np.sqrt(K * np.log(K) / max(s, 1e-12)))
+
+
+def theorem1_bound(K: int, k: int, sigmas, eta: float | None = None) -> float:
+    """Regret upper bound of Theorem 1 (Eq. 28 / Eq. 29 when eta is None)."""
+    s = float(np.sum(k - K * np.asarray(sigmas)))
+    if eta is None:
+        return 2.0 * float(np.sqrt(K * s * np.log(K)))
+    return eta * s + K / eta * float(np.log(K))

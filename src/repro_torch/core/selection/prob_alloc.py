@@ -6,12 +6,15 @@ sorted case search of Eq. 24 (``allocator="sort"``).
 with ``w'_i = min(w_i, (1 - sigma) * alpha)`` and ``alpha`` the largest
 value that keeps every ``p_i <= 1``.  Both branches are computed and
 ``torch.where`` picks one, so the allocation never waits on the host.
+``prob_alloc_reference`` is the paper's literal case enumeration in float64
+numpy, the test oracle.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["prob_alloc"]
+__all__ = ["prob_alloc", "prob_alloc_reference"]
 
 _EPS = 1e-12
 
@@ -61,3 +64,35 @@ def prob_alloc(w: torch.Tensor, k: int, sigma: torch.Tensor):
 def clip_sigma_one(p: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
     """``jnp.clip(p, sigma, 1)``: ``min(max(p, sigma), 1)``."""
     return torch.clamp(torch.maximum(p, sigma), max=1.0)
+
+
+def prob_alloc_reference(w, k: int, sigma: float):
+    """Brute-force iterative reference (the paper's literal case enumeration)
+    in float64 numpy: ``(p, capped)`` as numpy arrays."""
+    w = np.asarray(w, dtype=np.float64)
+    K = w.shape[0]
+    residual = k - K * sigma
+    p = sigma + residual * w / w.sum()
+    if p.max() <= 1.0 + 1e-12:
+        return p, np.zeros(K, bool)
+    # iterate the cases of Eq. (24)
+    order = np.argsort(w)
+    ws = w[order]
+    psi = ws / max(1.0 - sigma, _EPS)
+    best_alpha = None
+    tol = 1e-5
+    for v in range(K):
+        denom = residual - (K - 1 - v) * (1.0 - sigma)
+        if denom <= _EPS:
+            continue
+        alpha = ws[: v + 1].sum() / denom
+        hi = psi[v + 1] if v + 1 < K else np.inf
+        if psi[v] * (1 - tol) - 1e-9 <= alpha < hi * (1 + tol) + 1e-9:
+            best_alpha = alpha if best_alpha is None else max(best_alpha, alpha)
+    if best_alpha is None:
+        # degenerate ties at sigma -> k/K: fall back to Claim 1's witness
+        best_alpha = float(ws.min()) / max(1.0 - sigma, _EPS)
+    cap = (1.0 - sigma) * best_alpha
+    w_c = np.minimum(w, cap)
+    p = sigma + residual * w_c / w_c.sum()
+    return p, p >= 1.0 - 1e-6

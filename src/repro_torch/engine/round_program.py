@@ -640,6 +640,18 @@ class RoundProgram:
         return K_pad, K_pad // D, K_pad, D
 
     @property
+    def lag_model(self):
+        """The lag model driving async rounds (None when synchronous)."""
+        return self.vol if self.staleness is not None else None
+
+    def select_fn(self):
+        """The dense per-round ``select(state, noise) -> (idx, p, capped,
+        sigma)``: the allocate + select stages for host-driven loops (the FL
+        training server gathers the cohort's data between select and
+        train)."""
+        return make_select_fn(self.fl, self.quota_fn, self.rho)
+
+    @property
     def K_loc(self) -> int:
         """Per-client width of this process's arrays: ``fl.K``, or the rank's
         slab ``Ks`` under a mesh."""

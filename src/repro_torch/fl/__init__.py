@@ -1,4 +1,25 @@
-from .round import ServerState, init_server_state, make_select_fn
-from .server import build_volatility
+from .aggregation import aggregate, aggregate_async, staleness_weights
+from .client import make_local_update, prox_penalty
+from .round import (
+    ServerState,
+    init_server_state,
+    make_async_cohort_round,
+    make_cohort_round,
+    make_select_fn,
+)
+from .server import FLServer, build_volatility
 
-__all__ = ["ServerState", "init_server_state", "make_select_fn", "build_volatility"]
+__all__ = [
+    "ServerState",
+    "init_server_state",
+    "make_select_fn",
+    "make_cohort_round",
+    "make_async_cohort_round",
+    "make_local_update",
+    "prox_penalty",
+    "aggregate",
+    "aggregate_async",
+    "staleness_weights",
+    "FLServer",
+    "build_volatility",
+]

@@ -1,11 +1,20 @@
-"""Server state and the staged allocate + select stage (the part of
-``repro.fl.round`` that the selection round needs).
+"""Server state, the staged allocate + select stage and the FL cohort
+rounds (the port of ``repro.fl.round``; ``make_silo_steps``, for the huge
+architectures, comes with the model zoo, ROADMAP A13).
 
-Noise.  Where the JAX package hands ``select`` a key, the port hands it the
-round's noise as tensors (``RoundNoise``), drawn by the caller in the order
-``select_draws`` names: E3CS with the Plackett-Luce sampler takes a Gumbel
+``make_cohort_round`` is the paper's full round: volatile outcomes, the
+cohort's local training (``fl.client``, vectorised over the k clients),
+masked deadline aggregation and the selector's update;
+``make_async_cohort_round`` its staleness-aware form, which returns the
+late deltas for the server to apply when they arrive.
+
+Noise.  Where the JAX package hands ``select`` and ``round_fn`` a key, the
+port hands them the round's noise as tensors (``RoundNoise``), drawn by the
+caller in the order ``select_draws`` names: E3CS with the Plackett-Luce sampler takes a Gumbel
 row, the systematic sampler a permutation and a 0-d uniform, ``random``
-and ``pow_d`` a permutation, ``fedcs`` a uniform row, and ``ucb`` nothing.
+and ``pow_d`` a permutation, ``fedcs`` a uniform row, and ``ucb`` nothing;
+``round_fn`` takes the volatility model's uniform rows ``u`` (JAX draws them
+from ``split(fold_in(rng, 1))[0]``).
 """
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ from repro_torch.core.selection import (
     E3CSState,
     e3cs_init,
     e3cs_probs,
+    e3cs_update,
     fedcs_select,
     gumbel_from_uniform,
     pow_d_select,
@@ -25,9 +35,15 @@ from repro_torch.core.selection import (
     selection_mask,
     ucb_init,
     ucb_select,
+    ucb_update,
 )
 from repro_torch.device import resolve_device
+from repro_torch.models.cnn import fp32_convs
 from repro_torch.obs.trace import stage
+from repro_torch.optim import sgd
+
+from .aggregation import aggregate, aggregate_async
+from .client import make_local_update
 
 __all__ = [
     "ServerState",
@@ -36,6 +52,8 @@ __all__ = [
     "SAMPLERS",
     "init_server_state",
     "make_select_fn",
+    "make_cohort_round",
+    "make_async_cohort_round",
     "select_draws",
     "select_noise",
 ]
@@ -162,3 +180,113 @@ def make_select_fn(fl_cfg, quota_fn, rho=None):
         return idx, selection_mask(idx, K), capped, sigma
 
     return select
+
+
+def _selector_update(state: ServerState, fl_cfg, idx, p, capped, mask, x_full, sigma, local_losses):
+    new_e3cs = state.e3cs
+    new_ucb = state.ucb
+    if fl_cfg.scheme == "e3cs":
+        new_e3cs = e3cs_update(state.e3cs, p, capped, mask, x_full, fl_cfg.k, sigma, fl_cfg.eta)
+    elif fl_cfg.scheme == "ucb":
+        new_ucb = ucb_update(state.ucb, idx, x_full)
+    # participating successful clients refresh the pow-d loss cache
+    loss_cache = state.loss_cache
+    i = idx.long()
+    upd = torch.zeros_like(loss_cache).index_put((i,), local_losses.to(loss_cache.dtype))
+    got = torch.zeros_like(loss_cache).index_put((i,), x_full[i])
+    loss_cache = torch.where(got > 0, upd, loss_cache)
+    return new_e3cs, new_ucb, loss_cache
+
+
+def _cohort_round(model, fl_cfg, quota_fn, rho, aggregation, select, observe, merge):
+    """The round both factories share: ``observe(u, vol_state) -> (x_full,
+    lag_full or None, vol_state)`` and ``merge(state, cohort, success,
+    lag_sel, ...)`` are the sync and async halves."""
+    opt = sgd(fl_cfg.lr, fl_cfg.momentum)
+    local = make_local_update(model, opt, fl_cfg.local_update, fl_cfg.prox_coef)
+    agg_scheme = aggregation or fl_cfg.aggregation
+    select = select if select is not None else make_select_fn(fl_cfg, quota_fn, rho)
+    K = fl_cfg.K
+
+    def round_fn(state: ServerState, idx, p, capped, sigma, batches, step_mask, data_sizes, total_data, epochs, u):
+        x_full, lag_full, vol_state = observe(u, state.vol_state)  # (K,)
+        mask = selection_mask(idx, K)
+        i = idx.long()
+        success = x_full[i]
+        with fp32_convs():
+            cohort_params, stats = local(state.params, batches, step_mask)
+        new_params, extra = merge(state.params, cohort_params, success, None if lag_full is None else lag_full[i],
+                                  data_sizes, total_data, K, agg_scheme, epochs, p[i])
+        new_e3cs, new_ucb, loss_cache = _selector_update(
+            state, fl_cfg, idx, p, capped, mask, x_full, sigma, stats["local_loss"]
+        )
+        n_succ = torch.sum(success)
+        metrics = {
+            "cep": state.cep + n_succ,
+            "n_success": n_succ,
+            **extra.get("metrics", {}),
+            "mean_local_loss": torch.mean(stats["local_loss"]),
+            "sigma": sigma,
+        }
+        new_state = ServerState(
+            params=new_params,
+            e3cs=new_e3cs,
+            ucb=new_ucb,
+            loss_cache=loss_cache,
+            vol_state=vol_state,
+            t=state.t + 1,
+            sel_counts=state.sel_counts + mask,
+            cep=state.cep + n_succ,
+            succ_hist=state.succ_hist + n_succ,
+        )
+        if "late_deltas" in extra:
+            return new_state, metrics, extra["late_deltas"]
+        return new_state, metrics
+
+    return select, round_fn
+
+
+def make_cohort_round(model, fl_cfg, quota_fn, volatility, rho=None, aggregation: Optional[str] = None, select=None):
+    """The full round.  Returns ``(select, round_fn)``: ``round_fn(state,
+    idx, p, capped, sigma, batches, step_mask, data_sizes, total_data,
+    epochs, u) -> (state, metrics)``, ``u`` the volatility model's uniform
+    rows; the host calls ``select`` first to gather the cohort's data.
+    ``select`` overrides the allocate + select stage (``FLServer`` passes
+    ``RoundProgram.select_fn()``); the default builds the same function from
+    the config.  ``batches`` hold ``(k, n_steps, B, ...)`` tensors on the
+    state's device."""
+
+    def observe(u, vol_state):
+        x_full, vol_state = volatility.sample(u, vol_state)
+        return x_full, None, vol_state
+
+    def merge(g, cohort, success, lag_sel, sizes, total, K, scheme, epochs, sel_probs):
+        return aggregate(g, cohort, success, sizes, total, K, scheme, epochs=epochs, sel_probs=sel_probs), {}
+
+    return _cohort_round(model, fl_cfg, quota_fn, rho, aggregation, select, observe, merge)
+
+
+def make_async_cohort_round(model, fl_cfg, quota_fn, lag_model, rho=None, aggregation: Optional[str] = None,
+                            select=None):
+    """Staleness-aware ``make_cohort_round``: ``lag_model`` draws per-client
+    completion lags (int32: 0 on time, ``l >= 1`` late, negative dead);
+    ``round_fn`` aggregates the on-time deltas now and returns, third, the
+    decayed late contributions (leaves with a leading ``(S,)`` axis, slice
+    ``s`` due ``s+1`` rounds later) for the host loop to apply when they
+    arrive (``FLServer.run``).  The selector observes the on-time bits
+    ``1{lag == 0}``, as the async scan engine does; ``metrics["n_late"]``
+    counts the cohort's clients ``1 <= lag <= S``."""
+    S = int(fl_cfg.staleness_rounds)
+    alpha = float(fl_cfg.staleness_alpha)
+
+    def observe(u, vol_state):
+        lag_full, vol_state = lag_model.sample(u, vol_state)  # (K,) int32
+        return (lag_full == 0).to(torch.float32), lag_full, vol_state  # deadline-based feedback
+
+    def merge(g, cohort, success, lag_sel, sizes, total, K, scheme, epochs, sel_probs):
+        new_params, late = aggregate_async(g, cohort, lag_sel, sizes, total, K, scheme, alpha=alpha, staleness=S,
+                                           epochs=epochs, sel_probs=sel_probs)
+        n_late = torch.sum(((lag_sel >= 1) & (lag_sel <= S)).to(torch.float32))
+        return new_params, {"late_deltas": late, "metrics": {"n_late": n_late}}
+
+    return _cohort_round(model, fl_cfg, quota_fn, rho, aggregation, select, observe, merge)

@@ -1,14 +1,42 @@
-"""Volatility resolution for a run (the part of ``repro.fl.server`` that the
-selection round needs; the training loop comes with the FL stack)."""
+"""FL server: the deadline-based round loop (paper §III) around the round
+step, with evaluation, pow-d candidate loss reporting and history capture
+(the port of ``repro.fl.server``).
+
+The loop realises the paper's five stages: (1) client selection and model
+distribution (``select`` and the host's data gather), (2) local training,
+(3) model transmission, (4) force stop — stages 2-4 collapse into the
+success-mask semantics of the round (volatile clients' deltas are masked
+out, which *is* the deadline drop) — and (5) aggregation.
+
+With ``staleness_rounds=S > 0`` the rounds are async: late-but-alive
+clients' deltas (relative to the global model they were handed) wait in a
+pending buffer and are added to the global model when they arrive, decayed
+by ``staleness_alpha**lag`` (``aggregate_async``).  The selector still sees
+deadline-based feedback.
+
+Noise.  The JAX package splits a key four ways a round (the selection's,
+the round's volatility through ``fold_in(., 1)``, pow-d's candidate
+permutation).  ``FLServer.run`` draws the same roles from one
+``torch.Generator`` on the device seeded from ``seed + 1``, each round in a
+fixed order: the selection's draws and the volatility model's rows
+(``RoundProgram.draw_noise``), then pow-d's candidate permutation.  A test
+hands ``run`` the JAX package's own draws instead (``noise=``).
+"""
 from __future__ import annotations
 
+from typing import Dict, Iterable, List, Optional
+
+import numpy as np
 import torch
+from torch.func import vmap
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.volatility import make_volatility, paper_success_rates
 from repro_torch.device import resolve_device
 
-__all__ = ["build_volatility"]
+from .round import ServerState, init_server_state, make_async_cohort_round, make_cohort_round
+
+__all__ = ["FLServer", "build_volatility"]
 
 
 def build_volatility(fl_cfg: FLConfig, K: int, volatility=None, device=None):
@@ -48,3 +76,118 @@ def build_volatility(fl_cfg: FLConfig, K: int, volatility=None, device=None):
             f"and not a repro_torch.scenarios name ({e})"
         ) from None
     return vol, torch.as_tensor(rho, dtype=torch.float32, device=device)
+
+
+class FLServer:
+    """Runs paper-scale FL (the CNN workloads, cohort mapping) on ``device``
+    (``None``: CUDA, which raises without it).
+
+    ``volatility`` overrides ``fl_cfg.volatility`` with a scenario name or a
+    model object (see ``build_volatility``); the knobs resolve through one
+    path, ``RoundProgram.from_config``, as in the JAX package.
+    """
+
+    def __init__(self, model, fl_cfg: FLConfig, store, eval_fn=None, volatility=None, device=None):
+        from repro_torch.engine.round_program import RoundProgram  # the engine imports fl.round
+
+        self.model = model
+        self.cfg = fl_cfg
+        self.store = store
+        self.program = RoundProgram.from_config(fl_cfg, volatility=volatility, device=device)
+        self.device = self.program.device
+        self.quota = self.program.quota_fn
+        self.vol, self.rho = self.program.base_vol, self.program.rho
+        self.staleness = 0 if self.program.staleness is None else int(self.program.staleness)
+        self.lag_model = self.program.lag_model
+        self._select = self.program.select_fn()
+        if self.staleness > 0:
+            _, self._round = make_async_cohort_round(model, fl_cfg, self.quota, self.lag_model, self.rho,
+                                                     select=self._select)
+        else:
+            _, self._round = make_cohort_round(model, fl_cfg, self.quota, self.vol, self.rho, select=self._select)
+        self._eval_fn = eval_fn
+        rng = np.random.default_rng(fl_cfg.seed)
+        self.epochs = rng.choice(fl_cfg.local_epochs, fl_cfg.K).astype(np.int32)
+        # one per-round step budget, so every round has one shape
+        spe = max(1, int(max(store.sizes())) // fl_cfg.batch_size)
+        self.n_steps = int(max(fl_cfg.local_epochs)) * spe
+
+    def init_state(self, seed: int = 0, params=None) -> ServerState:
+        """A fresh server state: ``params``, or the model's initial parameters
+        drawn from a generator on the device seeded with ``seed``."""
+        if params is None:
+            params, _ = self.model.init(torch.Generator(device=self.device).manual_seed(seed))
+        vol_state = self.lag_model.init_state() if self.lag_model is not None else self.vol.init_state()
+        return init_server_state(params, self.cfg.K, vol_state, self.device)
+
+    def _to_device(self, *arrays):
+        """Host arrays (the round's numpy batches: images NHWC, labels, the
+        step mask) as tensors on the device."""
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrays)
+
+    def _draw(self, gen):
+        noise = self.program.draw_noise(gen)
+        cand = torch.randperm(self.cfg.K, generator=gen.own, device=self.device) if self.cfg.scheme == "pow_d" else None
+        return noise, cand
+
+    def _report_candidate_losses(self, state: ServerState, perm: torch.Tensor) -> ServerState:
+        """pow-d stage: the first d of ``perm`` report their loss on the
+        global model, one batch each."""
+        cand = perm[: self.cfg.pow_d].cpu().numpy()
+        xb, yb, _ = self.store.round_batches(cand, np.ones(self.cfg.K, np.int32), self.cfg.batch_size)
+        x, y = self._to_device(xb[:, 0], yb[:, 0])
+        batch = {"x": x, "y": y}
+        with torch.no_grad():
+            losses = vmap(lambda b: self.model.loss(state.params, b)[0])(batch)
+        cache = state.loss_cache.clone()
+        cache[torch.from_numpy(cand).to(self.device)] = losses
+        return state._replace(loss_cache=cache)
+
+    def run(self, state: ServerState, rounds: Optional[int] = None, eval_every: int = 10,
+            noise: Optional[Iterable] = None):
+        """``rounds`` rounds from ``state``: ``(state, history)``.  ``noise``,
+        when given, yields each round's ``(RoundNoise, cand)`` in place of
+        the server's draws (``cand`` pow-d's candidate permutation, else
+        None)."""
+        cfg = self.cfg
+        rounds = rounds or cfg.rounds
+        history: Dict[str, List] = {"round": [], "acc": [], "loss": [], "cep": [], "succ_ratio": []}
+        gen = self.program.generator(cfg.seed + 1)
+        draws = iter(noise) if noise is not None else None
+        dev = self.device
+        sizes = self.store.sizes()
+        total_q = torch.tensor(float(sizes.sum()), dtype=torch.float32, device=dev)
+        pending: Dict[int, List] = {}  # arrival round -> [late deltas]
+        n_late_total = 0.0
+        for t in range(rounds):
+            # async: stale updates scheduled for this round land first
+            for delta in pending.pop(t, []):
+                state = state._replace(params={n: (g.to(torch.float32) + delta[n]).to(g.dtype)
+                                               for n, g in state.params.items()})
+            sel_noise, cand = next(draws) if draws is not None else self._draw(gen)
+            if cfg.scheme == "pow_d":
+                state = self._report_candidate_losses(state, cand)
+            idx, p, capped, sigma = self._select(state, sel_noise)
+            idx_np = idx.cpu().numpy()
+            xb, yb, mask = self.store.round_batches(idx_np, self.epochs, cfg.batch_size, self.n_steps)
+            x, y, step_mask = self._to_device(xb, yb, mask)
+            q_sel, e_sel = self._to_device(sizes[idx_np], self.epochs[idx_np].astype(np.float32))
+            out = self._round(state, idx, p, capped, sigma, {"x": x, "y": y}, step_mask, q_sel, total_q, e_sel,
+                              sel_noise.u)
+            if self.staleness > 0:
+                state, metrics, late_deltas = out
+                n_late_total += float(metrics["n_late"])
+                for s in range(self.staleness):
+                    pending.setdefault(t + s + 1, []).append({n: a[s] for n, a in late_deltas.items()})
+            else:
+                state, metrics = out
+            if self._eval_fn is not None and ((t + 1) % eval_every == 0 or t == rounds - 1):
+                acc, loss = self._eval_fn(state.params)
+                history["round"].append(t + 1)
+                history["acc"].append(float(acc))
+                history["loss"].append(float(loss))
+                history["cep"].append(float(state.cep))
+                history["succ_ratio"].append(float(state.cep) / ((t + 1) * cfg.k))
+        if self.staleness > 0:
+            history["n_late"] = n_late_total
+        return state, history

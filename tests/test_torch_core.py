@@ -187,3 +187,74 @@ def test_unported_volatility_models_raise(name):
         assert row[key] == jrow[key], key
     assert 0 <= row["cep"] <= 2 * 2 and row["eff_participation"] == row["cep"] / 4
     assert 0 < row["entropy"] <= 1 and 0 < row["jain"] <= 1
+
+
+# -- the rest of the selection core: e3cs_round, Theorem 1, the reference allocator
+
+@pytest.mark.parametrize("K,k", [(100, 20), (1000, 50), (33, 33)])
+@pytest.mark.parametrize("frac", [0.0, 0.5, 0.999])
+def test_theorem1_functions_equal_jax(K, k, frac):
+    """Numpy in both packages, the same operations: equal exactly."""
+    from repro.core.selection import theorem1_bound as jbound, theorem1_eta as jeta
+    from repro_torch.core.selection import theorem1_bound, theorem1_eta
+
+    sigmas = np.full(50, frac * k / K)
+    assert theorem1_eta(K, k, sigmas) == jeta(K, k, sigmas)
+    assert theorem1_bound(K, k, sigmas) == jbound(K, k, sigmas)
+    assert theorem1_bound(K, k, sigmas, eta=0.3) == jbound(K, k, sigmas, eta=0.3)
+
+
+@pytest.mark.parametrize("K,k,frac,spread", ALLOC_CASES + [(33, 33, frac, 3.0) for frac in (0.0, 0.5, 0.999)])
+def test_prob_alloc_reference_equals_jax(K, k, frac, spread):
+    """The float64 oracle is a copy: equal exactly, at K = k = 33 too, where
+    ``capped`` is every client.  The sorted float32 allocator's overflow set
+    is JAX's (its disagreement with the oracle there is the reference's,
+    ROADMAP §C)."""
+    from repro.core.selection import prob_alloc_reference as jreference
+    from repro_torch.core.selection import prob_alloc_reference
+
+    w = _weights(K, K + k + 1, spread)
+    sigma = frac * k / K
+    p, c = prob_alloc_reference(w, k, sigma)
+    jp, jc = jreference(w, k, sigma)
+    np.testing.assert_array_equal(p, jp)
+    np.testing.assert_array_equal(c, jc)
+    _, tc = prob_alloc(_t(w), k, _t(np.float32(sigma)))
+    _, jtc = jprob_alloc(jnp.asarray(w), k, jnp.float32(sigma))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jtc))
+
+
+@pytest.mark.parametrize("method", ["plackett_luce", "systematic"])
+@pytest.mark.parametrize("K,k,frac", [(100, 20, 0.5), (4099, 7, 0.0)])
+def test_e3cs_round_equals_jax_given_its_noise(K, k, frac, method):
+    """Five rounds of ``e3cs_round`` from JAX's draws (the Gumbel row of its
+    key; for the systematic sampler the permutation and uniform of its
+    split): cohorts and masks equal exactly, ``p`` within ``RTOL``/``ATOL``
+    (float32 sums taken in another order), the log-weights within ``RTOL``
+    and an absolute 1e-6: a step (at most 1, the clamp) carries ``p``'s
+    relative error into each updated arm, re-centred near 0."""
+    from types import SimpleNamespace
+
+    from repro.core.selection import e3cs_init as je3cs_init, e3cs_round as je3cs_round
+    from repro_torch.core.selection import e3cs_init, e3cs_round
+
+    rng = np.random.default_rng(K + k)
+    js, s = je3cs_init(K), e3cs_init(K, device="cpu")
+    key = jax.random.PRNGKey(K)
+    sigma = np.float32(frac * k / K)
+    for _ in range(5):
+        key, sub = jax.random.split(key)
+        if method == "plackett_luce":
+            noise = SimpleNamespace(g=_t(jax.random.gumbel(sub, (K,), jnp.float32)))
+        else:
+            r_perm, r_u = jax.random.split(sub)
+            noise = SimpleNamespace(perm=_t(jax.random.permutation(r_perm, K)).long(),
+                                    v=_t(jax.random.uniform(r_u, (), jnp.float32)))
+        x = (rng.random(K) < 0.6).astype(np.float32)
+        js, jidx, jmask, jp = je3cs_round(js, sub, jnp.asarray(x), k, jnp.float32(sigma), 0.5, method)
+        s, idx, mask, p = e3cs_round(s, noise, _t(x), k, _t(sigma), 0.5, method)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+        np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+        np.testing.assert_allclose(p.numpy(), np.asarray(jp), rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(s.logw.numpy(), np.asarray(js.logw), rtol=RTOL, atol=1e-6)
+        assert int(s.t) == int(js.t)

@@ -41,7 +41,8 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.kernels.ops, repro_torch.kernels.autotune, repro_torch.obs.paths, repro_torch.scenarios, "
         "repro_torch.engine.scan_sim, repro_torch.core.sim, repro_torch.core.fairness, "
         "repro_torch.core.selection.regret, repro_torch.engine.multi_job, repro_torch.launch.select_serve, "
-        "repro_torch.serve, repro_torch.checkpoint; "
+        "repro_torch.serve, repro_torch.checkpoint, repro_torch.optim, repro_torch.data, repro_torch.models, "
+        "repro_torch.fl.client, repro_torch.fl.aggregation, repro_torch.launch.train; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'msgpack', 'zstandard')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -129,6 +130,61 @@ SLICE_ENTRY_POINTS = {
     "ShardedEngine": lambda: ShardedEngine(D=1),
     "engine_from_meta": lambda: engine_from_meta(SlotEngine(K_max=64, device="cpu").meta()),
 }
+
+
+def _fl_task():
+    from repro_torch.configs import FLConfig
+    from repro_torch.launch.train import build_task
+
+    fl = FLConfig(K=8, k=2, rounds=2, samples_per_client=20)
+    return fl, build_task("emnist", fl, device="cpu")
+
+
+def _fl_server():
+    from repro_torch.fl import FLServer
+
+    fl, (model, store, eval_fn) = _fl_task()
+    return FLServer(model, fl, store, eval_fn)
+
+
+def _train_main():
+    from repro_torch.launch.train import main
+
+    return main(["--rounds", "1", "--K", "8", "--k", "2", "--spc", "20"])
+
+
+def _cnn_params():
+    from repro_torch.convert import cnn_params_from_jax
+
+    return cnn_params_from_jax({"b1": np.zeros(3, np.float32)})
+
+
+def _build_task():
+    from repro_torch.configs import FLConfig
+    from repro_torch.launch.train import build_task
+
+    return build_task("emnist", FLConfig(K=8, k=2, rounds=2, samples_per_client=20))
+
+
+FL_ENTRY_POINTS = {"FLServer": _fl_server, "train.main": _train_main, "cnn_params_from_jax": _cnn_params,
+                   "build_task": _build_task}
+
+
+@pytest.mark.parametrize("name", list(FL_ENTRY_POINTS))
+def test_fl_entry_points_raise_without_cuda(no_cuda, name):
+    """The training stack's ``device=None`` entry points mean CUDA (the
+    command line's ``--device`` defaults to it): without one they raise."""
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FL_ENTRY_POINTS[name]()
+
+
+def test_fl_server_runs_on_cpu_when_asked(no_cuda):
+    from repro_torch.fl import FLServer
+
+    fl, (model, store, eval_fn) = _fl_task()
+    srv = FLServer(model, fl, store, eval_fn, device="cpu")
+    state = srv.init_state(0)
+    assert srv.device.type == "cpu" and state.params["conv1"].device.type == "cpu"
 
 
 @pytest.mark.parametrize("name", list(SLICE_ENTRY_POINTS))
