@@ -37,6 +37,17 @@ permuted; the dense weights and biases cross as they are (``fc1``'s rows
 keep the JAX package's flatten order).  ``cnn_params_to_numpy`` is the
 inverse.
 
+The model zoo's parameters cross as nested dicts with the reference's names
+and layouts (``(d, H, hd)``, ``(E, d, 2, f)``, ...; no axis moves):
+``lm_params_from_jax`` takes any family's tree of numpy arrays (JAX arrays
+pass through ``np.asarray``), ``lm_params_to_numpy`` is its inverse, and
+``caches_from_jax`` carries a prefilled cache tree (``KVCache``,
+``MLACache``, ``SSMCache`` by their fields, the enc-dec ``cross`` pair) with
+each stacked ``pos`` made one host ``int``.  A bf16 array leaves JAX as an
+``ml_dtypes.bfloat16`` numpy array, which ``torch.from_numpy`` refuses: its
+bits cross through a 16-bit integer view into ``torch.bfloat16``, exactly;
+on the way back a bf16 tensor becomes float32 (exactly: numpy has no bf16).
+
 Under a mesh the JAX state is ``K_pad`` wide and each rank of the port holds
 its ``(Ks,)`` slab: ``shard_arrays`` cuts a rank's slab out of the named
 arrays (then ``state_from_jax``), and ``gather_state`` all-gathers the
@@ -57,9 +68,13 @@ from torch.utils import _pytree as pytree
 from repro_torch.core.selection import E3CSState, UCBState
 from repro_torch.device import resolve_device
 from repro_torch.fl.round import ServerState
+from repro_torch.models.attention import KVCache
+from repro_torch.models.mla import MLACache
+from repro_torch.models.ssm import SSMCache
 
 __all__ = ["state_from_jax", "state_to_numpy", "fl_state_from_jax", "cnn_params_from_jax", "cnn_params_to_numpy",
-           "shard_arrays", "gather_state", "slot_state_from_jax", "sharded_job_from_jax", "STATE_FIELDS"]
+           "shard_arrays", "gather_state", "slot_state_from_jax", "sharded_job_from_jax", "STATE_FIELDS",
+           "lm_params_from_jax", "lm_params_to_numpy", "caches_from_jax"]
 
 STATE_FIELDS = ("logw", "t", "sel_counts", "loss_cache", "vol_state", "cep", "succ_hist")
 _DTYPES = {"t": np.int32, "ucb_t": np.int32}
@@ -224,3 +239,62 @@ def sharded_job_from_jax(engine, uid: int, job) -> None:
     state, rings = state_from_jax(pytree.tree_map(np.asarray, named), device=engine.device)
     target = engine.jobs[uid]
     target["state"], target["rings"], target["t"] = state, rings, int(np.asarray(st.t))
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes.bfloat16: cross as its bits
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def lm_params_from_jax(tree, device=None):
+    """A model zoo parameter tree (nested dicts of numpy or JAX arrays) as
+    the port's on ``device``, leaf for leaf: same names, shapes, dtypes and
+    layouts."""
+    device = resolve_device(device)
+
+    def conv(t):
+        return {k: conv(v) for k, v in t.items()} if isinstance(t, dict) else _tensor(t, device)
+
+    return conv(tree)
+
+
+def lm_params_to_numpy(params):
+    """The inverse of ``lm_params_from_jax``: nested dicts of numpy arrays;
+    a bf16 tensor comes back as float32 (each value exactly)."""
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return conv(params)
+
+
+_CACHES = {cls._fields: cls for cls in (KVCache, MLACache, SSMCache)}
+
+
+def caches_from_jax(tree, device=None):
+    """A model zoo cache tree of the JAX package (``prefill``'s or
+    ``init_caches``'s: dicts of stacked ``KVCache`` / ``MLACache`` /
+    ``SSMCache``, and the enc-dec ``cross`` pair) as the port's on
+    ``device``.  A stacked cache's ``(L,)`` positions must be equal; they
+    become the port's host ``int``."""
+    device = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        fields = getattr(t, "_fields", None)
+        if fields in _CACHES:
+            pos = np.unique(np.asarray(t.pos))
+            if pos.size != 1:
+                raise ValueError(f"caches_from_jax: a stacked cache's layers hold different positions {pos}")
+            return _CACHES[fields](*(_tensor(a, device) for a in t[:-1]), int(pos[0]))
+        if isinstance(t, tuple):
+            return tuple(conv(v) for v in t)
+        return _tensor(t, device)
+
+    return conv(tree)

@@ -1,5 +1,4 @@
-"""The paper's CNNs and the model façade (the ``cnn`` family of
-``repro.models``)."""
-from .api import Model, build_model, cross_entropy
+"""The model zoo and the paper's CNNs: the port of ``repro.models``."""
+from .api import Model, build_model, cross_entropy, input_specs
 
-__all__ = ["Model", "build_model", "cross_entropy"]
+__all__ = ["Model", "build_model", "cross_entropy", "input_specs"]

@@ -31,10 +31,12 @@ CNNS = ["emnist-cnn", "cifar-cnn"]
 
 @pytest.mark.parametrize("name", CNNS)
 def test_registered_config_equals_jax(name):
+    from repro.configs import list_archs as jlist_archs
+
     assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(jget_config(name))
-    assert list_archs() == CNNS[::-1]
+    assert list_archs() == jlist_archs() and set(CNNS) <= set(list_archs())
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("gemma-2b")
+        get_config("gemma-3b")
 
 
 def test_model_config_fields_equal_jax():
@@ -45,8 +47,14 @@ def test_model_config_fields_equal_jax():
 
 
 def test_other_families_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A13"):
-        build_model(ModelConfig(name="x", family="dense"))
+    """The model zoo builds every other family (its tests are
+    ``test_torch_zoo*.py``); a family neither package knows raises
+    ``ValueError`` naming it at ``init``, as the JAX package's does."""
+    assert build_model(ModelConfig(name="x", family="dense")).module is None
+    for build in (build_model, jbuild_model):
+        with pytest.raises(ValueError, match="retnet"):
+            build(ModelConfig(name="x", family="retnet")).init(torch.Generator() if build is build_model
+                                                                  else jax.random.PRNGKey(0))
 
 
 def test_param_builder_law():

@@ -42,7 +42,10 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.engine.scan_sim, repro_torch.core.sim, repro_torch.core.fairness, "
         "repro_torch.core.selection.regret, repro_torch.engine.multi_job, repro_torch.launch.select_serve, "
         "repro_torch.serve, repro_torch.checkpoint, repro_torch.optim, repro_torch.data, repro_torch.models, "
-        "repro_torch.fl.client, repro_torch.fl.aggregation, repro_torch.launch.train; "
+        "repro_torch.fl.client, repro_torch.fl.aggregation, repro_torch.launch.train, repro_torch.configs, "
+        "repro_torch.models.attention, repro_torch.models.mla, repro_torch.models.moe, repro_torch.models.ssm, "
+        "repro_torch.models.transformer, repro_torch.models.encdec, repro_torch.models.api, "
+        "repro_torch.launch.serve; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'msgpack', 'zstandard')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -166,8 +169,34 @@ def _build_task():
     return build_task("emnist", FLConfig(K=8, k=2, rounds=2, samples_per_client=20))
 
 
+def _serve_main():
+    from repro_torch.launch.serve import main
+
+    return main(["--arch", "gemma-2b", "--smoke", "--gen", "1"])
+
+
+def _zoo_init_caches():
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import build_model
+
+    return build_model(smoke_variant(get_config("gemma-2b"))).init_caches(1, 4)
+
+
+def _lm_params():
+    from repro_torch.convert import lm_params_from_jax
+
+    return lm_params_from_jax({"tok_emb": np.zeros((3, 2), np.float32)})
+
+
+def _caches():
+    from repro_torch.convert import caches_from_jax
+
+    return caches_from_jax({"x": np.zeros(2, np.float32)})
+
+
 FL_ENTRY_POINTS = {"FLServer": _fl_server, "train.main": _train_main, "cnn_params_from_jax": _cnn_params,
-                   "build_task": _build_task}
+                   "build_task": _build_task, "serve.main": _serve_main, "init_caches": _zoo_init_caches,
+                   "lm_params_from_jax": _lm_params, "caches_from_jax": _caches}
 
 
 @pytest.mark.parametrize("name", list(FL_ENTRY_POINTS))
@@ -176,6 +205,18 @@ def test_fl_entry_points_raise_without_cuda(no_cuda, name):
     command line's ``--device`` defaults to it): without one they raise."""
     with pytest.raises(RuntimeError, match="CUDA"):
         FL_ENTRY_POINTS[name]()
+
+
+def test_zoo_runs_on_the_generators_device(no_cuda):
+    """A zoo model's ``init`` draws onto its generator's device (a CUDA
+    generator needs CUDA), and the serving CLI runs on the CPU when asked."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.launch.serve import main
+    from repro_torch.models import build_model
+
+    params, _ = build_model(smoke_variant(get_config("mamba2-130m"))).init(torch.Generator())
+    assert all(t.device.type == "cpu" for t in torch.utils._pytree.tree_leaves(params))
+    assert main(["--arch", "mamba2-130m", "--smoke", "--gen", "1", "--device", "cpu"])["generated_shape"] == [4, 2]
 
 
 def test_fl_server_runs_on_cpu_when_asked(no_cuda):

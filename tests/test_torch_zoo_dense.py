@@ -1,0 +1,33 @@
+"""The model zoo's dense and VLM archs (GQA, MQA with GeGLU and tied embeddings, LayerNorm, squared ReLU, M-RoPE with stub patches) end to end at
+``smoke_variant`` in float32: the port's ``loss`` (and its metrics),
+``forward``, ``prefill`` (logits and every cache leaf) and 3 greedy
+``decode`` steps against the JAX package's from JAX's parameters
+(``torch_zoo_common.run_both``; tolerance ``F32_TOL``, tokens and cache
+positions exact)."""
+import pytest
+
+from torch_zoo_common import BF16_TOL, CHECKS, check, configs, run_both
+
+ARCHS = ["stablelm-1.6b", "llama3-405b", "qwen2-vl-72b", "gemma-2b", "nemotron-4-15b"]
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def run(request):
+    return run_both(*configs(request.param))
+
+
+@pytest.mark.parametrize("what", CHECKS)
+def test_smoke_equals_jax(run, what):
+    check(run, what)
+
+
+@pytest.fixture(scope="module")
+def run_bf16():
+    return run_both(*configs("gemma-2b", dtype="bfloat16"))
+
+
+@pytest.mark.parametrize("what", CHECKS)
+def test_bf16_smoke_equals_jax(run_bf16, what):
+    """The smoke gemma-2b with bfloat16 parameters and activations, within
+    ``BF16_TOL``."""
+    check(run_bf16, what, BF16_TOL, tokens=False)
