@@ -108,7 +108,19 @@ Phases, one line each; any failure raises and the script exits non-zero:
    qwen2-vl-72b and deepseek-v3-671b to two layers), a prefill of 4 x 64
    and 8 decode steps each, finite logits (``zoo_serve_path``).  The zoo
    has no TPU kernel, so it launches none of the kernels line's;
-14. serve (``[serve-slots]``, ``[serve-sharded]``, ``[serve-chaos]``):
+14. zoo-train (``[zoo-train-check]``, ``[zoo-train]``, ``[zoo-train-remat]``,
+   ``[zoo-train-consistency]``, ``[zoo-silo]``): the model zoo's training,
+   after the zoo phase with the device freed first: each smoke arch's loss
+   and gradients (``remat=True``) on the card against the CPU and remat on
+   against off; one ``examples/fl_lm.py`` round of the gemma and qwen3-moe
+   smokes on the card against the CPU; gemma-2b at its full config, uncut,
+   through ``make_cohort_round`` (K = 32, k = 2, 2 local steps of 2 x 512
+   tokens, 3 rounds: ms a round and a step, tokens/s, peak memory, remat
+   against none, a profiled round); one bf16 local step against float32 at
+   full width (2 layers); qwen3-moe at full width (``ZOO_TRAIN_DEPTH`` of
+   48 layers) through ``make_silo_steps``, the update against a hand sum
+   (``zoo_train_path``).  No kernel of the kernels line runs on it;
+15. serve (``[serve-slots]``, ``[serve-sharded]``, ``[serve-chaos]``):
    the selection service over loopback sockets, the
    slot engine at K_max = 1e5 (k_cap = 2000: the top-k kernel a row) with
    the standard fleet of 8 jobs at S = 0 and 2, the sharded engine (one-rank
@@ -117,14 +129,14 @@ Phases, one line each; any failure raises and the script exits non-zero:
    cohorts bit for bit in-process engines', the top-k and block-sum kernels
    against their plain versions on the engines' own inputs, launch counts
    exact, the serving rates and the checkpoint's cost (``serve_path``);
-15. ops: the kernel layer's public ops, the path of the top-k and update
+16. ops: the kernel layer's public ops, the path of the top-k and update
    kernels: ``autotune`` sweeps all four kernel families at K = 1e4, 1e5
    and 1e6 into a fresh cache under ``chiprun_out/autotune/``, then
    ``gumbel_topk_sample``, ``fused_gumbel_topk_sample`` and
    ``e3cs_update_tiled`` run at K = 1e6, k = 1000 with ``tile=None``,
    resolved through that cache; launch counts set to 0 before the phase and
    checked exactly after it, outputs against the plain versions;
-16. times: rounds/s and client decisions/s of each run.
+17. times: rounds/s and client decisions/s of each run.
 
 Ends with a JSON line of per-kernel numbers and, last, ``{"ok": true,
 "device": ...}``.  Without CUDA it exits non-zero before printing a result.
@@ -607,6 +619,7 @@ def main():
         launched.setdefault(n, c)
     fl_train_path(dev, card=smi)
     zoo_serve_path(dev, card=smi)
+    zoo_train_path(dev, card=smi)
 
     # -- 9. the ops and the autotuner ----------------------------------------------
     ops_counts, ops_tiles = ops_path(dev, K_MAIN, k_MAIN)
@@ -1796,6 +1809,372 @@ def zoo_serve_path(dev, card, smoke_widths=False):
     log("check", zoo="all zoo checks passed", seconds=f"{time.time() - t_phase:.1f}")
 
 
+# the model zoo's training phase
+ZOO_TRAIN_CHECK = dict(B=2, S=32)  # each smoke arch's loss and gradients, card against CPU
+# card against CPU in float32 (TF32 off), loss and every gradient leaf, and
+# remat on against off on the card: the same products summed in other
+# orders, and the MoE backward adds its rows by atomics on the card.  The
+# card showed 9.06e-6 at most (zamba2's gradients; remat on against off
+# equal; NVIDIA H100 80GB HBM3, 700 W); the CPU tests hold JAX to the same
+ZOO_TRAIN_TOL = dict(rtol=1e-4, atol=2e-5)
+ZOO_TRAIN_FL = dict(K=32, k=8, rounds=25, scheme="e3cs", quota="inc", lr=5e-3)  # examples/fl_lm.py
+ZOO_TRAIN_FL_RUN = dict(n_steps=2, B=8, S=64)  # examples/fl_lm.py's round
+ZOO_TRAIN = dict(K=32, k=2, rounds=3, n_steps=2, B=2, S=512)  # gemma-2b uncut, through make_cohort_round
+ZOO_TRAIN_LR = 5e-3  # examples/fl_lm.py's learning rate
+# gemma-2b at full width cut to two layers: one local step in bf16 against
+# float32 (TF32 off), the loss and the largest difference of a parameter's
+# change.  The card showed 0.00124 on a loss of 17.09 and 2.57e-4 on changes
+# of at most 6.4e-4 (NVIDIA H100 80GB HBM3, 700 W); the bounds are twice that
+ZOO_TRAIN_BF16 = dict(n_layers=2, B=2, S=512, loss_atol=2.5e-3, delta_atol=5e-4)
+# qwen3-moe at full width on the silo mapping: 4 of its 48 layers keep the
+# parameters, the momentum, the gradients, two clients' local copies and the
+# float32 accumulator on one 80 GB card (8 would need ~67 GB before
+# activations)
+ZOO_TRAIN_DEPTH = 4
+ZOO_SILO = dict(clients=2, steps=2, B=2, S=512, weights=(0.25, 0.75))
+
+
+def zoo_train_path(dev, card, smoke_widths=False):
+    """Phase 14 (``[zoo-train-check]``, ``[zoo-train]``,
+    ``[zoo-train-consistency]``, ``[zoo-silo]``): the model zoo's training,
+    after the zoo phase with the device freed first.  ``smoke_widths`` runs
+    the full-width parts at ``smoke_variant`` (a CPU rehearsal).
+
+    * ``[zoo-train-check]``: each of the ten archs' ``smoke_variant`` with
+      ``remat=True`` (MoE at ``capacity_factor=64``), from one CPU
+      generator's parameters and batch, float32 without TF32: the loss and
+      every gradient leaf (``torch.func.grad_and_value``) on ``dev`` against
+      the CPU, and remat on against off on ``dev``, within
+      ``ZOO_TRAIN_TOL``; then one ``make_cohort_round`` of the gemma and
+      qwen3-moe smokes (scatter MoE) at ``ZOO_TRAIN_FL`` as
+      ``examples/fl_lm.py`` runs it, from the same state and noise: cohort,
+      mask and log-weights equal, parameters within the FL tests' tolerance.
+    * ``[zoo-train]``: gemma-2b at its full config, uncut (bf16,
+      ``remat=True``), through ``make_cohort_round`` at ``ZOO_TRAIN``, data
+      from ``make_lm_dataset`` and ``lm_client_batches``, the selector's noise
+      drawn on the device: ms a round and a local step, tokens/s, peak device
+      memory; one round under ``torch.profiler`` (``[profile-call]``); remat
+      on against off (``[zoo-train-remat]``): the local update's and one
+      step's gradients' times and peaks (the gradients' lower with remat,
+      or none without it) and the memory the forward keeps for the
+      backward (lower with remat).
+    * ``[zoo-train-consistency]``: gemma-2b at full width cut to two layers,
+      one local step in bf16 against float32 (TF32 off).
+    * ``[zoo-silo]``: qwen3-moe at full width cut to ``ZOO_TRAIN_DEPTH``
+      layers, ``make_silo_steps`` for ``ZOO_SILO``: ms a local step, peak
+      memory, and the update against a hand sum of the weighted deltas.
+    """
+    import dataclasses
+    import gc
+
+    import torch
+    from torch.func import grad_and_value, vmap
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import ASSIGNED, FLConfig, get_config, smoke_variant
+    from repro_torch.data import lm_client_batches, make_lm_dataset
+    from repro_torch.engine import RoundProgram
+    from repro_torch.fl import init_server_state, make_cohort_round, make_local_update, make_silo_steps
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import fp32_matmuls
+    from repro_torch.optim import sgd
+
+    on_card = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    t_phase = time.time()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    held = {}
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held["bytes"] = torch.cuda.memory_allocated()
+
+    def peak_mib():
+        if not on_card:
+            return "not measured"
+        return f"{(torch.cuda.max_memory_allocated() - held['bytes']) / 2**20:.1f}"
+
+    def to(tree, d):
+        return pytree.tree_map(lambda t: t.to(d) if isinstance(t, torch.Tensor) else t, tree)
+
+    def tree_err(got, want, what, tol=ZOO_TRAIN_TOL):
+        """max |got - want| over two trees of one structure, each leaf
+        within ``tol``."""
+        err = 0.0
+        for (path, a), b in zip(pytree.tree_leaves_with_path(got), pytree.tree_leaves(want)):
+            a, b = a.float().cpu(), b.float().cpu()
+            if a.shape != b.shape or not torch.allclose(a, b, **tol):
+                raise AssertionError(f"{what} {pytree.keystr(path)}: max |difference| "
+                                     f"{float((a - b).abs().max())} (tol {tol})")
+            err = max(err, float((a - b).abs().max()))
+        return err
+
+    def lm_batches(cfg, K, idx, n_steps, B, S, seed, stream, d):
+        blocks = lm_client_batches(stream, K, idx.cpu().numpy(), n_steps, B, S, seed=seed)
+        tok = torch.from_numpy(blocks[..., :-1]).to(d)
+        return {"tokens": tok, "labels": tok}
+
+    free()
+    # -- [zoo-train-check]: gradients -----------------------------------------
+    with fp32_matmuls():
+        for arch in ASSIGNED:
+            cfg = dataclasses.replace(smoke_variant(get_config(arch)), remat=True)
+            if cfg.family == "moe":
+                cfg = dataclasses.replace(cfg, capacity_factor=64.0)
+            p_cpu, _ = build_model(cfg).init(torch.Generator().manual_seed(0))
+            b_cpu = serve.make_batch(cfg, ZOO_TRAIN_CHECK["B"], ZOO_TRAIN_CHECK["S"], torch.Generator().manual_seed(1))
+            b_cpu["labels"] = b_cpu["tokens"]
+            out = {}
+            for label, d, remat in (("cpu", cpu, True), ("card", dev, True), ("card-no-remat", dev, False)):
+                m = build_model(dataclasses.replace(cfg, remat=remat))
+                out[label] = grad_and_value(m.loss, has_aux=True)(to(p_cpu, d), to(b_cpu, d))
+            sync()
+            (g_cpu, (l_cpu, _)), (g_dev, (l_dev, _)), (g_off, (l_off, _)) = out["cpu"], out["card"], out["card-no-remat"]
+            loss_err = abs(float(l_dev) - float(l_cpu))
+            if not loss_err <= ZOO_TRAIN_TOL["atol"] + ZOO_TRAIN_TOL["rtol"] * abs(float(l_cpu)):
+                raise AssertionError(f"zoo-train-check {arch}: loss {float(l_dev)} on the card, {float(l_cpu)} on the CPU")
+            err = tree_err(g_dev, g_cpu, f"zoo-train-check {arch} gradient")
+            remat_err = max(tree_err(g_dev, g_off, f"zoo-train-check {arch} remat on/off"),
+                            abs(float(l_dev) - float(l_off)))
+            log("zoo-train-check", arch=cfg.name, device=dev.type, batch=f"{ZOO_TRAIN_CHECK['B']}x{ZOO_TRAIN_CHECK['S']}",
+                loss=f"{float(l_dev):.6f}", loss_abs_err=f"{loss_err:.3g}", grad_max_abs_err=f"{err:.3g}",
+                remat_on_off_max_abs_diff=f"{remat_err:.3g}", leaves=len(pytree.tree_leaves(g_dev)), tol=ZOO_TRAIN_TOL)
+            del out, g_cpu, g_dev, g_off, p_cpu, b_cpu
+    free()
+
+    # -- [zoo-train-check]: one examples/fl_lm.py round, card against CPU --------
+    fl = FLConfig(**ZOO_TRAIN_FL)
+    run = ZOO_TRAIN_FL_RUN
+    for arch in ("gemma-2b", "qwen3-moe-30b-a3b"):
+        cfg = dataclasses.replace(smoke_variant(get_config(arch)), remat=True)
+        model = build_model(cfg)
+        stream = make_lm_dataset(cfg.vocab, 200_000, n_chains=fl.K, seed=0)
+        p0, _ = model.init(torch.Generator().manual_seed(0))
+        noise = None
+        res = {}
+        with fp32_matmuls():
+            for d in (cpu, dev):
+                pm = RoundProgram.from_config(fl, device=d)
+                if noise is None:  # drawn once on the CPU, handed to both
+                    noise = pm.draw_noise(pm.generator(11))
+                nz = pytree.tree_map(lambda v: v.to(d) if isinstance(v, torch.Tensor) else v, noise)
+                select = pm.select_fn()
+                _, round_fn = make_cohort_round(model, fl, pm.quota_fn, pm.base_vol, pm.rho, select=select)
+                st = init_server_state(to(p0, d), fl.K, pm.base_vol.init_state(), d)
+                idx, p, capped, sigma = select(st, nz)
+                batches = lm_batches(cfg, fl.K, idx, run["n_steps"], run["B"], run["S"], 0, stream, d)
+                ones = torch.ones(fl.k, device=d)
+                st, met = round_fn(st, idx, p, capped, sigma, batches, torch.ones(fl.k, run["n_steps"], device=d),
+                                   ones, torch.tensor(float(fl.K), device=d), ones, nz.u)
+                res[d.type] = (idx.cpu(), st, float(met["mean_local_loss"]))
+        (cidx, cst, closs), (gidx, gst, gloss) = res["cpu"], res[dev.type]
+        same = torch.equal(gidx, cidx) and torch.equal(gst.sel_counts.cpu(), cst.sel_counts) \
+            and torch.equal(gst.e3cs.logw.cpu(), cst.e3cs.logw)
+        if not same:
+            raise AssertionError(f"zoo-train-check {arch} round: cohort, mask or log-weights differ: {gidx} vs {cidx}")
+        err = tree_err(gst.params, cst.params, f"zoo-train-check {arch} round params",
+                       tol=dict(rtol=FL_PARAM_RTOL, atol=FL_PARAM_ATOL))
+        log("zoo-train-check", arch=cfg.name, run="cohort-round", K=fl.K, k=fl.k, n_steps=run["n_steps"],
+            batch=f"{run['B']}x{run['S']}", moe_impl=cfg.moe_impl if cfg.family == "moe" else None,
+            cohort=gidx.tolist(), cohort_mask_logw="equal", local_loss=f"{gloss:.5f}",
+            local_loss_abs_err=f"{abs(gloss - closs):.3g}", params_max_abs_err=f"{err:.3g}",
+            rtol=FL_PARAM_RTOL, atol=FL_PARAM_ATOL)
+        del res, cst, gst, model, p0
+    free()
+
+    def full_cfg(arch, **over):
+        cfg = get_config(arch)
+        return dataclasses.replace(smoke_variant(cfg) if smoke_widths else cfg, **over)
+
+    # -- [zoo-train]: gemma-2b uncut through make_cohort_round --------------------
+    cfg = full_cfg("gemma-2b", remat=True)
+    z = ZOO_TRAIN
+    fl = FLConfig(K=z["K"], k=z["k"], rounds=z["rounds"], scheme="e3cs", quota="inc", lr=ZOO_TRAIN_LR)
+    model = build_model(cfg)
+    pm = RoundProgram.from_config(fl, device=dev)
+    gen = pm.generator(1)
+    params, _ = model.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    stream = make_lm_dataset(cfg.vocab, 200_000, n_chains=fl.K, seed=0)
+    select = pm.select_fn()
+    _, round_fn = make_cohort_round(model, fl, pm.quota_fn, pm.base_vol, pm.rho, select=select)
+    state = init_server_state(params, fl.K, pm.base_vol.init_state(), dev)
+    del params
+    ones = torch.ones(fl.k, device=dev)
+    mask = torch.ones(fl.k, z["n_steps"], device=dev)
+    total = torch.tensor(float(fl.K), device=dev)
+    tokens = fl.k * z["n_steps"] * z["B"] * z["S"]
+    free()
+    held_round = held.get("bytes", 0)
+    round_ms, losses, last = [], [], None
+    for t in range(z["rounds"]):
+        noise = pm.draw_noise(gen)
+        idx, p, capped, sigma = select(state, noise)
+        batches = lm_batches(cfg, fl.K, idx, z["n_steps"], z["B"], z["S"], t, stream, dev)
+        sync()
+        t0 = time.perf_counter()
+        state, met = round_fn(state, idx, p, capped, sigma, batches, mask, ones, total, ones, noise.u)
+        sync()
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["mean_local_loss"]))
+        last = (state, idx, p, capped, sigma, batches, mask, ones, total, ones, noise.u)
+    peak = peak_mib()
+    finite = all(math.isfinite(v) for v in losses) and all(bool(torch.isfinite(t).all())
+                                                           for t in pytree.tree_leaves(state.params))
+    log("zoo-train", arch=cfg.name, layers=cfg.n_layers, params=n_params, dtype=cfg.param_dtype, remat=True,
+        K=fl.K, k=fl.k, rounds=z["rounds"], n_steps=z["n_steps"], batch=f"{z['B']}x{z['S']}",
+        round_ms=",".join(f"{v:.1f}" for v in round_ms), round_ms_warm=f"{np.median(round_ms[1:]):.1f}",
+        tokens_per_s=f"{tokens / (np.median(round_ms[1:]) / 1e3):.1f}", peak_mib=peak,
+        held_before_mib=f"{held_round / 2**20:.1f}", mean_local_loss=",".join(f"{v:.4f}" for v in losses),
+        finite=finite, card=repr(card))
+    if not finite:
+        raise AssertionError("zoo-train: non-finite loss or parameters")
+    if on_card:
+        profile_calls("zoo-train-round-gemma-2b", lambda: round_fn(*last), card, n=1)
+
+    def measured(fn):
+        """(ms, peak MiB) of ``fn``'s second call, or "does not fit" twice."""
+        try:
+            free()
+            out = fn()
+            del out
+            free()
+            sync()
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            return f"{(time.perf_counter() - t0) * 1e3:.1f}", peak_mib()
+        except torch.cuda.OutOfMemoryError:
+            return "does not fit", "does not fit (80 GB)"
+
+    # remat on against off: the local update and one step's gradients, and
+    # what the forward keeps for the backward (one client, plain autograd)
+    batch0 = {k: v[:, 0] for k, v in last[5].items()}
+    leaves, spec = pytree.tree_flatten(state.params)
+    rm = {}
+    for remat in (True, False):
+        m = build_model(dataclasses.replace(cfg, remat=remat))
+        grad_fn = vmap(grad_and_value(lambda p, b, m=m: m.loss(p, b)[0]), in_dims=(None, 0))
+        rm["local", remat] = measured(lambda: make_local_update(m, sgd(fl.lr, fl.momentum))(state.params, last[5],
+                                                                                            mask))
+        rm["grad", remat] = measured(lambda: grad_fn(state.params, batch0))
+        if on_card and remat:  # where a step's gradients spend the card's time
+            profile_calls("zoo-train-grad-gemma-2b", lambda: grad_fn(state.params, batch0), card, n=1)
+        free()
+        before = torch.cuda.memory_allocated() if on_card else 0
+        loss, _ = m.loss(pytree.tree_unflatten([t.detach().requires_grad_() for t in leaves], spec),
+                         {k: v[0] for k, v in batch0.items()})
+        rm["saved", remat] = (torch.cuda.memory_allocated() - before) / 2**20 if on_card else 0.0
+        del loss, m, grad_fn
+    log("zoo-train-remat", arch=cfg.name, batch=f"{z['B']}x{z['S']}",
+        local_step_ms=f"{float(rm['local', True][0]) / z['n_steps']:.1f}" if rm["local", True][0][0].isdigit()
+        else rm["local", True][0],
+        local_update_ms_remat=rm["local", True][0], local_update_ms_no_remat=rm["local", False][0],
+        local_update_peak_mib_remat=rm["local", True][1], local_update_peak_mib_no_remat=rm["local", False][1],
+        grad_step_ms_remat=rm["grad", True][0], grad_step_ms_no_remat=rm["grad", False][0],
+        grad_step_peak_mib_remat=rm["grad", True][1], grad_step_peak_mib_no_remat=rm["grad", False][1],
+        forward_saved_mib_remat=f"{rm['saved', True]:.1f}", forward_saved_mib_no_remat=f"{rm['saved', False]:.1f}",
+        held_before_mib=f"{held['bytes'] / 2**20:.1f}" if on_card else "not measured", card=repr(card))
+    if on_card:
+        if not rm["saved", True] < rm["saved", False]:
+            raise AssertionError(f"zoo-train: the forward keeps {rm['saved', True]} MiB with remat, "
+                                 f"{rm['saved', False]} without")
+        gp = rm["grad", True][1], rm["grad", False][1]
+        if gp[0].startswith("does") or not (gp[1].startswith("does") or float(gp[0]) < float(gp[1])):
+            raise AssertionError(f"zoo-train: a step's gradients peak at {gp[0]} MiB with remat, {gp[1]} without")
+    del state, last, round_fn, model, batches
+    free()
+
+    # -- [zoo-train-consistency]: one local step in bf16 against float32 ----------
+    zc = ZOO_TRAIN_BF16
+    with fp32_matmuls():
+        steps = {}
+        for dtype in ("float32", "bfloat16"):
+            c = full_cfg("gemma-2b", remat=True, n_layers=zc["n_layers"], dtype=dtype, param_dtype=dtype)
+            m = build_model(c)
+            if dtype == "float32":
+                p32, _ = m.init(torch.Generator(device=dev).manual_seed(0))
+                g = torch.Generator(device=dev).manual_seed(1)
+                tok = torch.randint(0, c.vocab, (1, 1, zc["B"], zc["S"]), generator=g, device=dev, dtype=torch.int32)
+            p = pytree.tree_map(lambda t: t.to(getattr(torch, dtype)), p32)
+            new, stats = make_local_update(m, sgd(ZOO_TRAIN_LR, 0.9))(p, {"tokens": tok, "labels": tok},
+                                                                    torch.ones(1, 1, device=dev))
+            delta = pytree.tree_map(lambda a, b: a[0].float() - b.float(), new, p)
+            steps[dtype] = (float(stats["local_loss"][0]), delta)
+            del new, p
+        (l32, d32), (l16, d16) = steps["float32"], steps["bfloat16"]
+        loss_gap = abs(l16 - l32)
+        delta_gap = max(float((a - b).abs().max()) for a, b in zip(pytree.tree_leaves(d16), pytree.tree_leaves(d32)))
+        delta_max = max(float(a.abs().max()) for a in pytree.tree_leaves(d32))
+    log("zoo-train-consistency", arch=c.name, layers=zc["n_layers"], batch=f"{zc['B']}x{zc['S']}",
+        loss_f32=f"{l32:.5f}", loss_bf16=f"{l16:.5f}", loss_abs_diff=f"{loss_gap:.4g}",
+        param_change_max_f32=f"{delta_max:.4g}", param_change_max_abs_diff=f"{delta_gap:.4g}",
+        loss_atol=zc["loss_atol"], delta_atol=zc["delta_atol"], card=repr(card))
+    if not (loss_gap <= zc["loss_atol"] and delta_gap <= zc["delta_atol"]):
+        raise AssertionError(f"zoo-train-consistency: bf16 against float32: loss {loss_gap}, change {delta_gap}")
+    del steps, d32, d16, p32, m
+    free()
+
+    # -- [zoo-silo]: qwen3-moe at full width on the silo mapping ----------------------
+    cfg = full_cfg("qwen3-moe-30b-a3b", remat=True, **({} if smoke_widths else dict(n_layers=ZOO_TRAIN_DEPTH)))
+    zs = ZOO_SILO
+    model = build_model(cfg)
+    params, _ = model.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    local_step, opt_init, agg_accum, agg_apply = make_silo_steps(model, FLConfig(lr=ZOO_TRAIN_LR))
+    g = torch.Generator(device=dev).manual_seed(2)
+    free()
+    acc = pytree.tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32, device=dev), params)
+    step_ms, losses, locals_ = [], [], []
+    for c, w in zip(range(zs["clients"]), zs["weights"]):
+        q, s = params, opt_init(params)
+        for i in range(zs["steps"]):
+            tok = torch.randint(0, cfg.vocab, (zs["B"], zs["S"]), generator=g, device=dev, dtype=torch.int32)
+            sync()
+            t0 = time.perf_counter()
+            q, s, loss = local_step(q, s, {"tokens": tok, "labels": tok}, i)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        del s
+        acc = agg_accum(acc, q, params, w)
+        locals_.append(to(q, cpu))  # kept on the host for the check below, off the card's peak
+        del q
+    new = agg_apply(params, acc)
+    sync()
+    peak = peak_mib()
+    # the update against a hand sum of the weighted deltas, leaf by leaf in float32 on the card
+    err = 0.0
+    for leaves in zip(pytree.tree_leaves(params), pytree.tree_leaves(acc), pytree.tree_leaves(new),
+                      *(pytree.tree_leaves(q) for q in locals_)):
+        gl, a, n, qs = leaves[0], leaves[1], leaves[2], leaves[3:]
+        hand = sum(w * (q.to(dev).to(torch.float32) - gl.to(torch.float32)) for w, q in zip(zs["weights"], qs))
+        err = max(err, float((a - hand).abs().max()))
+        if not (torch.equal(a, hand) and torch.equal(n, (gl.to(torch.float32) + hand).to(gl.dtype))):
+            raise AssertionError(f"zoo-silo: the update differs from the hand sum by {err}")
+    finite = all(math.isfinite(v) for v in losses) and all(bool(torch.isfinite(t).all())
+                                                           for t in pytree.tree_leaves(new))
+    log("zoo-silo", arch=cfg.name, layers=cfg.n_layers, cut=f"{ZOO_TRAIN_DEPTH} of 48" if not smoke_widths else "smoke",
+        params=n_params, dtype=cfg.param_dtype, moe_impl=cfg.moe_impl, experts=cfg.n_experts, top_k=cfg.moe_top_k,
+        clients=zs["clients"], steps=zs["steps"], batch=f"{zs['B']}x{zs['S']}",
+        step_ms=",".join(f"{v:.1f}" for v in step_ms), step_ms_warm=f"{np.median(step_ms[1:]):.1f}",
+        loss=",".join(f"{v:.4f}" for v in losses), update_vs_hand_sum=f"equal (max abs diff {err})",
+        finite=finite, peak_mib=peak, card=repr(card))
+    if not finite:
+        raise AssertionError("zoo-silo: non-finite loss or parameters")
+    del params, acc, new, locals_, model
+    free()
+    log("check", zoo_train="all zoo-train checks passed", seconds=f"{time.time() - t_phase:.1f}")
+
+
 def _feed(seed, j, t, K, S):
     """Job ``j``'s round-``t`` feedback, made anew from ``(seed, j, t)``: the
     paper's success rates decide who is on time (bits, S = 0); under S > 0 a
@@ -1852,7 +2231,7 @@ def _ms_quantiles(seconds):
 
 def serve_path(dev, card, seed=SCENARIO_SEED, J=8, K_slots=100_000, k_cap=2000, rounds=30, K_sharded=1_000_000,
                k_sharded=1000, rounds_sharded=50, rounds_chaos=30):
-    """Phase 13: the selection service (``repro_torch.serve``) on the card,
+    """Phase 15: the selection service (``repro_torch.serve``) on the card,
     driven over loopback sockets by ``ServeClient``s; the process group is
     up (``ShardedEngine`` runs on it).  Each server runs with the launch
     counts set to 0 just before it and checked exactly just after.  Returns
@@ -2269,7 +2648,7 @@ def check_rate_hint(name, vol, rho, xs, card):
 
 
 def ops_path(dev, K, k, K_list=AUTOTUNE_K):
-    """Phase 7: the kernel layer's public ops with their autotuner, on
+    """Phase 16: the kernel layer's public ops with their autotuner, on
     ``dev``.  The sweep over ``K_list`` writes a fresh cache under
     ``chiprun_out/autotune/`` (git-ignored; the JAX package's cache is never
     touched), the ops resolve ``tile=None`` through it.  Launch counts start

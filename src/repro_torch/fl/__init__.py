@@ -6,6 +6,7 @@ from .round import (
     make_async_cohort_round,
     make_cohort_round,
     make_select_fn,
+    make_silo_steps,
 )
 from .server import FLServer, build_volatility
 
@@ -15,6 +16,7 @@ __all__ = [
     "make_select_fn",
     "make_cohort_round",
     "make_async_cohort_round",
+    "make_silo_steps",
     "make_local_update",
     "prox_penalty",
     "aggregate",

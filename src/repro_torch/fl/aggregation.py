@@ -19,12 +19,14 @@ so every scheme works in delta form over the cohort only:
 1`` late, negative dead), applies the on-time deltas now and returns the
 late-but-alive ones as ``(S, ...)`` deferred contributions already scaled by
 ``alpha**lag``.  ``staleness=0`` with lags ``0 / -1`` is ``aggregate``.
-Parameters are dicts of tensors; cohort leaves carry a leading ``(k,)``
+Parameters are trees of tensors (nested dicts, mapped leaf by leaf as the
+JAX package's ``jax.tree.map``); cohort leaves carry a leading ``(k,)``
 axis.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils import _pytree as pytree
 
 __all__ = ["aggregate", "aggregate_async", "staleness_weights"]
 
@@ -71,7 +73,7 @@ def aggregate(global_params, cohort_params, success, data_sizes, total_data, K: 
         contrib = torch.tensordot(w, _delta(g, c), dims=([0], [0]))
         return (g.to(_f32) + contrib).to(g.dtype)
 
-    return {n: upd(global_params[n], cohort_params[n]) for n in global_params}
+    return pytree.tree_map(upd, global_params, cohort_params)
 
 
 def aggregate_async(global_params, cohort_params, lag, data_sizes, total_data, K: int, scheme: str = "fedavg", *,
@@ -91,7 +93,7 @@ def aggregate_async(global_params, cohort_params, lag, data_sizes, total_data, K
     arrive = (lag[None, :] == s_idx[:, None]).to(_f32)  # (S+1, k) one-hot by lag
     decay = torch.pow(torch.full((), alpha, dtype=_f32, device=lag.device), s_idx.to(_f32))
     A = arrive * decay[:, None] * w[None, :]  # (S+1, k) credit matrix
-    parts = {n: torch.tensordot(A, _delta(global_params[n], cohort_params[n]), dims=([1], [0]))
-             for n in global_params}
-    new_params = {n: (g.to(_f32) + parts[n][0]).to(g.dtype) for n, g in global_params.items()}
-    return new_params, {n: part[1:] for n, part in parts.items()}
+    parts = pytree.tree_map(lambda g, c: torch.tensordot(A, _delta(g, c), dims=([1], [0])), global_params,
+                            cohort_params)
+    new_params = pytree.tree_map(lambda g, part: (g.to(_f32) + part[0]).to(g.dtype), global_params, parts)
+    return new_params, pytree.tree_map(lambda part: part[1:], parts)

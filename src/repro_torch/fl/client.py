@@ -15,8 +15,10 @@ optimizer state are ``(k, ...)`` stacks from then on.  A masked step
 (heterogeneous epoch counts, paper §VI-A) blends ``keep * new + (1 - keep)
 * old`` for parameters and optimizer state, as the JAX package does, which
 leaves both as they were.  FedProx adds ``gamma/2 * ||theta -
-theta_global||^2`` to every step's loss (Li et al.).  The CNN's loss takes
-no noise, so no key is handed on (the JAX package passes one it ignores).
+theta_global||^2`` to every step's loss (Li et al.).  Parameters are any
+tree of tensors: the CNN's flat dict or a zoo model's nested one.  Neither
+loss draws noise, so no key is handed on (the JAX package passes one the
+losses ignore).
 """
 from __future__ import annotations
 
@@ -24,15 +26,27 @@ from typing import Callable, Dict
 
 import torch
 from torch.func import grad_and_value, vmap
-from torch.utils import _pytree as pytree
+
+from repro_torch.optim import leafwise
 
 __all__ = ["make_local_update", "prox_penalty"]
 
 _f32 = torch.float32
 
 
+def _jax_leaves(tree) -> list:
+    """A parameter tree's leaves in ``jax.tree.leaves`` order (a dict's keys
+    sorted, at every level)."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in _jax_leaves(tree[key])]
+    return [tree]
+
+
 def prox_penalty(params, global_params) -> torch.Tensor:
-    sq = [torch.sum(torch.square(params[n].to(_f32) - global_params[n].to(_f32))) for n in params]
+    """``||params - global_params||^2`` over every leaf in float32, the
+    leaves' sums added one at a time in ``jax.tree.reduce``'s order."""
+    sq = [torch.sum(torch.square(a.to(_f32) - b.to(_f32)))
+          for a, b in zip(_jax_leaves(params), _jax_leaves(global_params))]
     total = sq[0]
     for s in sq[1:]:
         total = total + s
@@ -48,7 +62,7 @@ def _blend(keep, new, old):
         kk = keep.reshape(keep.shape + (1,) * (n.dim() - 1))
         return (kk * n.to(_f32) + (1 - kk) * o.to(_f32)).to(o.dtype)
 
-    return pytree.tree_map(one, new, old)
+    return leafwise(one, new, old, lead=1)  # keep's row runs along the leading axis
 
 
 def make_local_update(model, opt, update_kind: str = "fedavg", prox_coef: float = 0.5) -> Callable:
@@ -69,10 +83,13 @@ def make_local_update(model, opt, update_kind: str = "fedavg", prox_coef: float 
             batch = {name: b[:, i] for name, b in batches.items()}
             grads, loss = (shared if i == 0 else stacked)(params, batch, global_params)
             new_params, new_opt = opt.update(params, grads, opt_state, i)
+            del grads  # each stack is freed as soon as it is spent: a zoo model's are gigabytes
             # masked step: heterogeneous local epochs — skipped steps are no-ops
             keep = step_mask[:, i].to(_f32)
             params = _blend(keep, new_params, params)
+            del new_params
             opt_state = _blend(keep, new_opt, opt_state)
+            del new_opt
             losses.append(loss * keep)
         n_eff = torch.clamp(torch.sum(step_mask, dim=1), min=1.0)
         return params, {"local_loss": torch.sum(torch.stack(losses, dim=1), dim=1) / n_eff}

@@ -1,12 +1,15 @@
-"""Server state, the staged allocate + select stage and the FL cohort
-rounds (the port of ``repro.fl.round``; ``make_silo_steps``, for the huge
-architectures, comes with the model zoo, ROADMAP A13).
+"""Server state, the staged allocate + select stage and the FL rounds, the
+port of ``repro.fl.round``.
 
 ``make_cohort_round`` is the paper's full round: volatile outcomes, the
 cohort's local training (``fl.client``, vectorised over the k clients),
 masked deadline aggregation and the selector's update;
 ``make_async_cohort_round`` its staleness-aware form, which returns the
-late deltas for the server to apply when they arrive.
+late deltas for the server to apply when they arrive.  Both take any model
+of ``models.build_model``: the paper's CNNs and the zoo's LMs (the configs'
+``fl_mapping="cohort"``).  ``make_silo_steps`` is the other mapping, for
+the huge architectures (``fl_mapping="silo"``): one client trains at a time
+and the server accumulates the clients' weighted deltas.
 
 Noise.  Where the JAX package hands ``select`` and ``round_fn`` a key, the
 port hands them the round's noise as tensors (``RoundNoise``), drawn by the
@@ -21,6 +24,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.core.selection import (
     E3CSState,
@@ -40,7 +44,7 @@ from repro_torch.core.selection import (
 from repro_torch.device import resolve_device
 from repro_torch.models.cnn import fp32_convs
 from repro_torch.obs.trace import stage
-from repro_torch.optim import sgd
+from repro_torch.optim import leafwise, sgd
 
 from .aggregation import aggregate, aggregate_async
 from .client import make_local_update
@@ -54,6 +58,7 @@ __all__ = [
     "make_select_fn",
     "make_cohort_round",
     "make_async_cohort_round",
+    "make_silo_steps",
     "select_draws",
     "select_noise",
 ]
@@ -290,3 +295,37 @@ def make_async_cohort_round(model, fl_cfg, quota_fn, lag_model, rho=None, aggreg
         return new_params, {"late_deltas": late, "metrics": {"n_late": n_late}}
 
     return _cohort_round(model, fl_cfg, quota_fn, rho, aggregation, select, observe, merge)
+
+
+def make_silo_steps(model, fl_cfg):
+    """The huge-architecture mapping: one client at a time on the whole
+    device.  Returns ``(local_step, opt_init, agg_accum, agg_apply)``:
+
+    * ``local_step(params, opt_state, batch, step) -> (params, opt_state,
+      loss)``: one ``sgd(fl_cfg.lr, fl_cfg.momentum)`` step on the loss's
+      gradients (plain autograd; the model's layers rematerialise where its
+      config says so).  The zoo's losses draw no noise, so no key is taken.
+    * ``agg_accum(acc, local, global, w) -> acc``: ``acc + w * (local -
+      global)`` leaf by leaf in float32 (``acc`` starts as float32 zeros).
+    * ``agg_apply(global, acc) -> new_global``: ``global + acc``, cast back
+      to each parameter's dtype.
+    """
+    opt = sgd(fl_cfg.lr, fl_cfg.momentum)
+    f32 = torch.float32
+
+    def local_step(params, opt_state, batch, step):
+        leaves, spec = pytree.tree_flatten(params)
+        with torch.enable_grad():
+            diff = [t.detach().requires_grad_() for t in leaves]
+            loss, _ = model.loss(pytree.tree_unflatten(diff, spec), batch)
+            grads = torch.autograd.grad(loss, diff)
+        params, opt_state = opt.update(params, pytree.tree_unflatten(list(grads), spec), opt_state, step)
+        return params, opt_state, loss.detach()
+
+    def agg_accum(acc, local_params, global_params, w):
+        return leafwise(lambda a, l, g: a + w * (l.to(f32) - g.to(f32)), acc, local_params, global_params)
+
+    def agg_apply(global_params, acc):
+        return leafwise(lambda g, a: (g.to(f32) + a).to(g.dtype), global_params, acc)
+
+    return local_step, opt.init, agg_accum, agg_apply

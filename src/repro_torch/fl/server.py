@@ -29,6 +29,7 @@ from typing import Dict, Iterable, List, Optional
 import numpy as np
 import torch
 from torch.func import vmap
+from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.volatility import make_volatility, paper_success_rates
@@ -162,8 +163,8 @@ class FLServer:
         for t in range(rounds):
             # async: stale updates scheduled for this round land first
             for delta in pending.pop(t, []):
-                state = state._replace(params={n: (g.to(torch.float32) + delta[n]).to(g.dtype)
-                                               for n, g in state.params.items()})
+                state = state._replace(params=pytree.tree_map(lambda g, d: (g.to(torch.float32) + d).to(g.dtype),
+                                                              state.params, delta))
             sel_noise, cand = next(draws) if draws is not None else self._draw(gen)
             if cfg.scheme == "pow_d":
                 state = self._report_candidate_losses(state, cand)
@@ -178,7 +179,7 @@ class FLServer:
                 state, metrics, late_deltas = out
                 n_late_total += float(metrics["n_late"])
                 for s in range(self.staleness):
-                    pending.setdefault(t + s + 1, []).append({n: a[s] for n, a in late_deltas.items()})
+                    pending.setdefault(t + s + 1, []).append(pytree.tree_map(lambda a, s=s: a[s], late_deltas))
             else:
                 state, metrics = out
             if self._eval_fn is not None and ((t + 1) % eval_every == 0 or t == rounds - 1):

@@ -15,7 +15,8 @@ import torch
 
 from . import attention as attn_mod
 from .layers import ParamBuilder, mlp_apply, mlp_init, norm_apply, norm_init, sinusoidal_positions
-from .transformer import _layer, _stacked, depth, torch_dtype
+from .remat import remat
+from .transformer import _layer, _stacked, depth, torch_dtype, unstack
 
 __all__ = ["encdec_init", "encdec_forward", "encdec_encode", "encdec_decode_step", "encdec_init_caches"]
 
@@ -51,14 +52,11 @@ def encdec_init(generator, cfg, device=None):
     return pb.params, pb.specs
 
 
-def encdec_encode(params, cfg, frames):
-    """frames: (B, enc_len, d_model) stub embeddings -> encoder output."""
-    B, S, d = frames.shape
-    dt = torch_dtype(cfg.dtype)
-    x = frames.to(dt) + sinusoidal_positions(S, d, frames.device).to(dt)[None]
-    full = torch.ones((B, 1, S, S), dtype=torch.bool, device=frames.device)
-    for i in range(depth(params["enc"])):
-        p = _layer(params["enc"], i)
+def _enc_layer(cfg):
+    """One encoder layer as ``body(x, p, full) -> (x,)``, ``full`` its
+    attention mask."""
+
+    def body(x, p, full):
         h = norm_apply(p, "norm1", x, cfg.norm, cfg.norm_eps)
         # bidirectional: no positions (sinusoidal already added), full mask
         q = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wq"])
@@ -67,7 +65,22 @@ def encdec_encode(params, cfg, frames):
         o = attn_mod._sdpa(q, k, v, full, None)
         x = x + torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"])
         h = norm_apply(p, "norm2", x, cfg.norm, cfg.norm_eps)
-        x = x + mlp_apply(p["ffn"], h, cfg.act)
+        return (x + mlp_apply(p["ffn"], h, cfg.act),)
+
+    return body
+
+
+def encdec_encode(params, cfg, frames):
+    """frames: (B, enc_len, d_model) stub embeddings -> encoder output.
+    Each layer runs through ``remat`` where ``cfg.remat`` holds (the plain
+    layer under no gradient)."""
+    B, S, d = frames.shape
+    dt = torch_dtype(cfg.dtype)
+    x = frames.to(dt) + sinusoidal_positions(S, d, frames.device).to(dt)[None]
+    full = torch.ones((B, 1, S, S), dtype=torch.bool, device=frames.device)
+    body = _enc_layer(cfg)
+    for p in unstack(params["enc"]):
+        (x,) = remat(body, x, p, full) if cfg.remat else body(x, p, full)
     return norm_apply(params, "enc_final", x, cfg.norm, cfg.norm_eps)
 
 
@@ -78,25 +91,40 @@ def _cross_kv(p_dec, cfg, enc_out):
     return k, v
 
 
+def _dec_layer(cfg, mode, window):
+    """One decoder layer as ``body(x, p, xk, xv) -> (x, self-attention
+    cache)``, ``(xk, xv)`` its cross K/V."""
+
+    def body(x, p, xk, xv):
+        h = norm_apply(p, "norm1", x, cfg.norm, cfg.norm_eps)
+        y, cache = attn_mod.attn_apply(p["self_attn"], h, cfg, None, mode, window)
+        x = x + y
+        h = norm_apply(p, "norm_x", x, cfg.norm, cfg.norm_eps)
+        y, _ = attn_mod.attn_apply(p["cross_attn"], h, cfg, None, "train", 0, cross_kv=(xk, xv))
+        x = x + y
+        h = norm_apply(p, "norm2", x, cfg.norm, cfg.norm_eps)
+        return x + mlp_apply(p["ffn"], h, cfg.act), cache
+
+    return body
+
+
 def encdec_forward(params, cfg, batch, mode: str = "train", window: int = 0):
-    """Teacher-forced decoder over (B, S) tokens; returns (logits, caches, aux)."""
+    """Teacher-forced decoder over (B, S) tokens; returns (logits, caches,
+    aux).  Each decoder layer runs through ``remat`` where ``cfg.remat``
+    holds and ``mode == "train"``."""
     enc_out = encdec_encode(params, cfg, batch["frames"])
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = (params["tok_emb"][tokens] + params["dec_pos"][:S][None]).to(torch_dtype(cfg.dtype))
     xk, xv = _cross_kv(params["dec"], cfg, enc_out)
+    body = _dec_layer(cfg, mode, window)
     caches = []
-    for i in range(depth(params["dec"])):
-        p = _layer(params["dec"], i)
-        h = norm_apply(p, "norm1", x, cfg.norm, cfg.norm_eps)
-        y, cache = attn_mod.attn_apply(p["self_attn"], h, cfg, None, mode, window)
+    for p, k, v in zip(unstack(params["dec"]), xk.unbind(0), xv.unbind(0)):
+        if cfg.remat and mode == "train":
+            x, cache = remat(lambda *a: body(*a)[:1], x, p, k, v)[0], None
+        else:
+            x, cache = body(x, p, k, v)
         caches.append(cache)
-        x = x + y
-        h = norm_apply(p, "norm_x", x, cfg.norm, cfg.norm_eps)
-        y, _ = attn_mod.attn_apply(p["cross_attn"], h, cfg, None, "train", 0, cross_kv=(xk[i], xv[i]))
-        x = x + y
-        h = norm_apply(p, "norm2", x, cfg.norm, cfg.norm_eps)
-        x = x + mlp_apply(p["ffn"], h, cfg.act)
     x = norm_apply(params, "dec_final", x, cfg.norm, cfg.norm_eps)
     logits = torch.einsum("bsd,vd->bsv", x, params["tok_emb"])
     out_caches = None

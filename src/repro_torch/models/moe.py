@@ -7,13 +7,16 @@ sort of the router's probabilities, so a tie goes to the lowest expert
 index, as ``lax.top_k`` orders it (``torch.topk`` promises no order among
 ties), and the capacity is ``max(1, int(N * k / E * cf))`` in Python, as the
 reference computes it.
+
+Both dispatches vectorise with ``torch.func.vmap`` (the FL cohort's local
+update maps them over clients): one-hots are comparisons with an
+``arange``, and every scatter writes out of place into a new buffer.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 
 from .layers import ParamBuilder, gated_act, plain_act
 
@@ -76,7 +79,7 @@ def route(p, xf: torch.Tensor, cfg):
     gate_vals, expert_idx = gate_vals[:, :k], expert_idx[:, :k]
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
     me = probs.mean(0)  # (E,) mean router prob
-    one_hot_k = F.one_hot(expert_idx, E).to(torch.float32)  # (N,k,E)
+    one_hot_k = (expert_idx[..., None] == torch.arange(E, device=xf.device)).to(torch.float32)  # (N,k,E)
     ce = one_hot_k.sum(1).mean(0) / k  # fraction of tokens per expert
     aux = E * torch.sum(me * ce)
     return gate_vals, expert_idx, one_hot_k, aux
@@ -108,7 +111,8 @@ def moe_apply_einsum(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tenso
     keep = pos < C
     gate_vals = gate_vals * keep.to(gate_vals.dtype)
 
-    pos_oh = F.one_hot(torch.where(keep, pos, float(C)).long(), C + 1).to(x.dtype)[..., :C]
+    # a dropped choice (pos >= C) matches no slot
+    pos_oh = (pos[..., None] == torch.arange(C, device=x.device)).to(x.dtype)  # (N,k,C)
     oh = one_hot_k.to(x.dtype)
     disp = torch.einsum("nke,nkc->nec", oh, pos_oh)  # (N,E,C)
     comb = torch.einsum("nk,nke,nkc->nec", gate_vals.to(x.dtype), oh, pos_oh)
@@ -140,10 +144,10 @@ def moe_apply_scatter(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tens
     # position-in-expert via a stable sort
     sorted_e, order = torch.sort(flat_e, stable=True)
     # a bincount (torch.bincount would wait for the device to size its output)
-    counts = torch.zeros(E, dtype=flat_e.dtype, device=x.device).scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    counts = torch.zeros(E, dtype=flat_e.dtype, device=x.device).scatter_add(0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts  # (E,)
     pos_sorted = torch.arange(flat_e.shape[0], device=x.device) - starts[sorted_e]
-    pos = torch.empty_like(flat_e).scatter_(0, order, pos_sorted)
+    pos = torch.empty_like(flat_e).scatter(0, order, pos_sorted)
     C = capacity(N, cfg)
     keep = pos < C
     slot = torch.where(keep, flat_e * C + pos, E * C)  # E*C = trash slot
@@ -152,7 +156,7 @@ def moe_apply_scatter(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tens
     src = xf[tok] * keep[:, None].to(xf.dtype)  # (N*k, d)
     # every kept slot is written once and only the trash row E*C takes many
     # writes, so the sum is deterministic on the card too
-    xe = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device).index_add_(0, slot, src)
+    xe = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device).index_add(0, slot, src)
     xe = xe[: E * C].reshape(E, C, d)
     ye = _expert_ffn(p, xe, cfg.act)
     ye_flat = torch.cat([ye.reshape(E * C, d), torch.zeros((1, d), dtype=ye.dtype, device=ye.device)], 0)

@@ -8,8 +8,11 @@ a Python loop over its layers' views (the reference's ``scan_layers=False``
 branch; its ``lax.scan`` computes the same).  Zamba2-style hybrids apply a
 weight-shared attention block after every ``hybrid_attn_every``-th SSM layer
 (per-site KV caches): the reference's ``lax.cond`` is an ``if`` on the layer
-index here.  ``remat`` acts only under a gradient and is not applied: this
-module serves (forward, prefill, decode).
+index here.  Where ``cfg.remat`` holds and ``mode == "train"``, each layer
+(with the hybrid's shared attention at its site, the unit the reference
+checkpoints) runs through ``remat.remat``: under a gradient its activations
+are recomputed in the backward; under no gradient it is the plain layer, so
+the serving path (prefill, decode, a ``forward`` without grad) is untouched.
 
 Entry points:
   * ``model_init(generator, cfg, device)``        -> (params, specs)
@@ -27,12 +30,14 @@ import math
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils import _pytree as pytree
 
 from . import attention as attn_mod
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import ParamBuilder, mlp_apply, mlp_init, norm_apply, norm_init
+from .remat import remat
 
 __all__ = ["segments_of", "model_init", "forward", "decode_step", "init_caches", "pad_caches", "cache_specs",
            "vlm_positions"]
@@ -188,6 +193,16 @@ def _layer(tree, i):
     return tree[i]
 
 
+def unstack(stack) -> list:
+    """The per-layer views of a stacked parameter tree, one ``unbind`` a
+    leaf.  A gradient through them is stacked once, at the end of the
+    backward; indexing the stack a layer at a time would instead make a
+    zero-filled gradient of the whole stack for every layer and add it in."""
+    leaves, spec = pytree.tree_flatten(stack)
+    cols = [t.unbind(0) for t in leaves]
+    return [pytree.tree_unflatten([c[i] for c in cols], spec) for i in range(len(cols[0]))]
+
+
 def _advanced(cache):
     return type(cache)(*cache[:-1], cache.pos + 1)
 
@@ -199,30 +214,55 @@ def _store(stacked, i, cache):
     return type(stacked)(*stacked[:-1], cache.pos)
 
 
+def _layer_body(cfg, kind, mode, window, impl, site, cache, site_cache):
+    """One layer of a segment as ``body(x, p, shared, emb0, positions) -> (x,
+    aux, cache, site cache)``: the block and, at a hybrid site (``site`` not None), the
+    weight-shared attention over ``[x, emb0]`` -- the unit the reference
+    checkpoints.  Everything but its arguments is bound here, so a remat's
+    backward recomputes this layer and no other."""
+
+    def body(x, p, shared, emb0, positions):
+        x, c_out, aux = _block_apply(p, x, cfg, kind, positions, mode, window, cache, impl)
+        c_site = None
+        if site is not None:
+            h = torch.einsum("bsd,de->bse", torch.cat([x, emb0], dim=-1), shared["w_concat"])
+            h2, c_site, _ = _block_apply(shared, h, cfg, "attn_mlp", positions, mode, window, site_cache, impl)
+            x = x + h2
+        return x, aux, c_out, c_site
+
+    return body
+
+
 def _run_segment(params, cfg, si, kind, x, positions, mode, window, caches, impl, emb0=None):
-    """Run a stacked segment layer by layer.  Returns (x, shared attention
-    caches, the segment's caches, aux)."""
+    """Run a stacked segment layer by layer, each layer through ``remat``
+    where ``cfg.remat`` and ``mode == "train"``.  Returns (x, shared
+    attention caches, the segment's caches, aux)."""
     seg = params[f"seg{si}"]
     n = depth(seg)
     every = cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
     shared = params.get("shared_attn")
     attn_caches = caches.get("shared") if (every and caches is not None) else None
     seg_caches = caches.get(f"seg{si}") if (caches is not None and mode == "decode") else None
+    rematted = cfg.remat and mode == "train"
+    layers = unstack(seg)
     outs, aux = [], None
     for li in range(n):
+        site = (li + 1) // every - 1 if every and (li + 1) % every == 0 else None
         c_in = _layer(seg_caches, li) if seg_caches is not None else None
-        x, c_out, a = _block_apply(_layer(seg, li), x, cfg, kind, positions, mode, window, c_in, impl)
+        c_site = _layer(attn_caches, site) if (site is not None and mode == "decode") else None
+        body = _layer_body(cfg, kind, mode, window, impl, site, c_in, c_site)
+        site_args = (shared, emb0) if site is not None else (None, None)
+        if rematted:  # train mode: no caches; the body's outputs are x and the MoE's aux
+            out = remat(lambda *a, body=body: tuple(t for t in body(*a)[:2] if t is not None),
+                        x, layers[li], *site_args, positions)
+            x, a, c_out, c2 = out[0], (out[1] if len(out) > 1 else None), None, None
+        else:
+            x, a, c_out, c2 = body(x, layers[li], *site_args, positions)
         outs.append(c_out)
         if a is not None:
             aux = a if aux is None else aux + a
-        if every and (li + 1) % every == 0:
-            site = (li + 1) // every - 1
-            h = torch.einsum("bsd,de->bse", torch.cat([x, emb0], dim=-1), shared["w_concat"])
-            c = _layer(attn_caches, site) if mode == "decode" else None
-            h2, c2, _ = _block_apply(shared, h, cfg, "attn_mlp", positions, mode, window, c, impl)
-            if mode == "prefill":
-                attn_caches = _store(attn_caches, site, c2)
-            x = x + h2
+        if mode == "prefill" and site is not None:
+            attn_caches = _store(attn_caches, site, c2)
     if mode == "decode":
         new_caches = _advanced(seg_caches)
         if attn_caches is not None:
@@ -243,7 +283,10 @@ def forward(params, cfg, batch, mode: str = "train", window: int = 0, impl: str 
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         if cfg.mrope_sections is not None:
             positions = positions[None].expand(3, B, S)
-    emb0 = x if cfg.family == "hybrid" else None
+    # the hybrid's sites read the embeddings through a node of their own, so
+    # their gradients sum apart from the residual stream's and then join it
+    # in one order, rematerialised or not
+    emb0 = x.view_as(x) if cfg.family == "hybrid" else None
     caches_out: Dict[str, Any] = {}
     caches = None
     if mode == "prefill" and cfg.family == "hybrid" and cfg.hybrid_attn_every:

@@ -325,3 +325,28 @@ def test_unported_paths_raise_with_their_roadmap_item(what):
 def test_state_from_jax_names_missing_arrays():
     with pytest.raises(KeyError, match="logw"):
         state_from_jax({"t": np.int32(0)}, device="cpu")
+
+
+def test_zoo_training_names_import_without_jax():
+    """``make_silo_steps`` and the remat helper load without JAX, and the
+    port's ``fl`` exports every public name of the JAX package's ``fl``."""
+    code = (
+        "import sys\n"
+        "from repro_torch.fl import make_silo_steps\n"
+        "from repro_torch.fl.round import make_silo_steps as m2\n"
+        "from repro_torch.models.remat import remat\n"
+        "assert make_silo_steps is m2 and callable(remat)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
+        "print(bad); sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    import types
+
+    import repro.fl as jfl
+    import repro_torch.fl as pfl
+
+    jax_names = {n for n, v in vars(jfl).items() if not n.startswith("_") and not isinstance(v, types.ModuleType)}
+    assert jax_names == set(pfl.__all__)
+    assert all(hasattr(pfl, n) for n in pfl.__all__)

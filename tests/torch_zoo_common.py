@@ -2,6 +2,7 @@
 same smoke-size inputs, made from a numpy seed, through the JAX package's
 model and the port's, with the port's parameters converted from JAX's."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -191,3 +192,78 @@ def jparams(init, cfg, seed=0):
     pb = jlayers.ParamBuilder(jax.random.PRNGKey(seed), jnp.float32)
     init(pb, cfg)
     return pb.params, lm_params_from_jax(jax.tree.map(np.asarray, pb.params), "cpu")
+
+
+# -- training ------------------------------------------------------------------
+
+# float32 gradients: the two packages sum the same products in other orders
+# (XLA's dots against ATen's), and a gradient is a sum over every token of
+# the batch; the largest gap seen over the ten smoke archs is 4.5e-6 on a
+# gradient leaf (zamba2's tied embedding, 0.16 of this bound) and 3.8e-6 on
+# the loss after the step.  gemma in bf16 parts by 0.026 on its embedding's
+# gradient, within BF16_TOL
+GRAD_TOL = dict(rtol=1e-4, atol=2e-5)
+TRAIN_LR, TRAIN_MOMENTUM = 1e-2, 0.9  # tests/test_models.py's step
+
+
+@functools.lru_cache(maxsize=None)
+def train_both(arch, dtype=None, **over):
+    """One training step in both packages, with ``remat=True`` in both
+    configs, from JAX's parameters: the loss and its metrics, the gradients,
+    the parameters after one ``sgd(TRAIN_LR, TRAIN_MOMENTUM)`` step and the
+    loss there.  JAX's side is one jitted program."""
+    from torch.func import grad_and_value
+
+    from repro.optim import sgd as jsgd
+    from repro_torch.optim import sgd
+
+    jcfg, cfg = configs(arch, dtype, remat=True, **over)
+    jm, m = jbuild_model(jcfg), build_model(cfg)
+    jp, _ = jm.init(jax.random.PRNGKey(0))
+    p = lm_params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    batch = np_batch(jcfg)
+    jopt, opt = jsgd(TRAIN_LR, TRAIN_MOMENTUM), sgd(TRAIN_LR, TRAIN_MOMENTUM)
+
+    def jstep(params, b):
+        (loss, metrics), grads = jax.value_and_grad(jm.loss, has_aux=True)(params, b)
+        new, _ = jopt.update(params, grads, jopt.init(params), 0)
+        return loss, metrics, grads, new, jm.loss(new, b)[0]
+
+    out = {"jax": dict(zip(("loss", "metrics", "grads", "new", "loss1"), jax.jit(jstep)(jp, jx(batch))))}
+    grads, (loss, metrics) = grad_and_value(m.loss, has_aux=True)(p, tc(batch))
+    new, _ = opt.update(p, grads, opt.init(p), 0)
+    out["port"] = dict(loss=loss, metrics=metrics, grads=grads, new=new, loss1=m.loss(new, tc(batch))[0])
+    return out
+
+
+def assert_tree_close(got, want, **tol):
+    """A port parameter tree against a JAX one, leaf by leaf by path."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.convert import lm_params_to_numpy
+
+    flat_g = pytree.tree_leaves_with_path(lm_params_to_numpy(got))
+    flat_w = dict(pytree.tree_leaves_with_path(to_np(want)))
+    assert len(flat_g) == len(flat_w)
+    for path, a in flat_g:
+        np.testing.assert_allclose(a, flat_w[path], **tol, err_msg=pytree.keystr(path))
+
+
+def check_train(arch, what, dtype=None, tol=GRAD_TOL):
+    """One comparison of ``train_both``: ``"grads"`` (the loss, its metrics
+    and every gradient leaf) or ``"sgd"`` (the parameters after the step and
+    the loss there)."""
+    out = train_both(arch, dtype)
+    j, p = out["jax"], out["port"]
+    if what == "grads":
+        np.testing.assert_allclose(float(p["loss"]), float(j["loss"]), **tol)
+        assert p["metrics"].keys() == j["metrics"].keys()
+        for k in j["metrics"]:
+            np.testing.assert_allclose(float(p["metrics"][k]), float(j["metrics"][k]), **tol, err_msg=k)
+        assert_tree_close(p["grads"], j["grads"], **tol)
+    elif what == "sgd":
+        assert_tree_close(p["new"], j["new"], **tol)
+        assert np.isfinite(float(p["loss1"]))
+        np.testing.assert_allclose(float(p["loss1"]), float(j["loss1"]), **tol)
+    else:
+        raise ValueError(what)
