@@ -120,7 +120,21 @@ Phases, one line each; any failure raises and the script exits non-zero:
    full width (2 layers); qwen3-moe at full width (``ZOO_TRAIN_DEPTH`` of
    48 layers) through ``make_silo_steps``, the update against a hand sum
    (``zoo_train_path``).  No kernel of the kernels line runs on it;
-15. serve (``[serve-slots]``, ``[serve-sharded]``, ``[serve-chaos]``):
+15. mesh-zoo (``[mesh-zoo]``, ``[dryrun]``, ``[dryrun-check]``): the model
+   zoo on a mesh, after the zoo-train phase: gemma-2b at its full config on
+   a one-rank NCCL ``make_mesh((1, 1), ("data", "model"))``, parameters
+   placed as DTensors by the logical rules: prefill (4 x 64, 4 x 1024) and
+   8 greedy decode steps, one ``make_silo_steps`` step under
+   ``silo_rules``, one ``make_cohort_round(spmd_axes="data")`` round, each
+   equal bit for bit to the same call without a mesh (``mesh_zoo_path``);
+   after the ops phase, the last timed one, the dry run's records
+   (``launch.dryrun`` in a process of its own on fake tensors over a
+   ``"fake"`` group of 256 or 512 ranks: gemma-2b and llama3-405b
+   ``train_4k``, deepseek-v3-671b ``decode_32k`` on two pods) and its
+   check programs run for real: FLOPs equal, the predicted peak within
+   ``DRYRUN_MEM_RTOL`` (``dryrun_path``).  No kernel of the kernels line
+   runs on it;
+16. serve (``[serve-slots]``, ``[serve-sharded]``, ``[serve-chaos]``):
    the selection service over loopback sockets, the
    slot engine at K_max = 1e5 (k_cap = 2000: the top-k kernel a row) with
    the standard fleet of 8 jobs at S = 0 and 2, the sharded engine (one-rank
@@ -129,14 +143,14 @@ Phases, one line each; any failure raises and the script exits non-zero:
    cohorts bit for bit in-process engines', the top-k and block-sum kernels
    against their plain versions on the engines' own inputs, launch counts
    exact, the serving rates and the checkpoint's cost (``serve_path``);
-16. ops: the kernel layer's public ops, the path of the top-k and update
+17. ops: the kernel layer's public ops, the path of the top-k and update
    kernels: ``autotune`` sweeps all four kernel families at K = 1e4, 1e5
    and 1e6 into a fresh cache under ``chiprun_out/autotune/``, then
    ``gumbel_topk_sample``, ``fused_gumbel_topk_sample`` and
    ``e3cs_update_tiled`` run at K = 1e6, k = 1000 with ``tile=None``,
    resolved through that cache; launch counts set to 0 before the phase and
    checked exactly after it, outputs against the plain versions;
-17. times: rounds/s and client decisions/s of each run.
+18. times: rounds/s and client decisions/s of each run.
 
 Ends with a JSON line of per-kernel numbers and, last, ``{"ok": true,
 "device": ...}``.  Without CUDA it exits non-zero before printing a result.
@@ -620,6 +634,7 @@ def main():
     fl_train_path(dev, card=smi)
     zoo_serve_path(dev, card=smi)
     zoo_train_path(dev, card=smi)
+    mesh_zoo_path(dev, card=smi)
 
     # -- 9. the ops and the autotuner ----------------------------------------------
     ops_counts, ops_tiles = ops_path(dev, K_MAIN, k_MAIN)
@@ -631,6 +646,10 @@ def main():
                          ("e3cs_update", "e3cs_tiles")):
         rows[kname]["ms"] = tile_ms[kname][ops_tiles[tname]]
         log("kernel-time", kernel=kname, tile=ops_tiles[tname], ms=f"{rows[kname]['ms']:.4f}", card=repr(smi))
+
+    # the dry run plans on the host, in a process of its own, after the last
+    # timed phase: no time above shares the host with it
+    dryrun_path(dev, card=smi)
 
     # -- 10. times --------------------------------------------------------------
     for label, (_, secs, T, cfg) in runs.items():
@@ -2175,6 +2194,389 @@ def zoo_train_path(dev, card, smoke_widths=False):
     log("check", zoo_train="all zoo-train checks passed", seconds=f"{time.time() - t_phase:.1f}")
 
 
+# the mesh phase: gemma-2b uncut on a one-rank (data, model) mesh against the
+# same calls without one (PR 23's round and silo settings)
+MESH_ZOO = dict(B=4, prompts=(64, 1024), decode=8, silo_B=2, silo_S=512, K=32, k=2, n_steps=2, B_round=2,
+                S_round=512)
+# the dry run's cells (one process, a "fake" group of 256 or 512 ranks) and
+# its check programs at a one-rank mesh (gemma-2b prefill 4 x 1024, and the
+# silo step of 2 x 512 tokens on gemma-2b mapped to the silo mapping)
+DRYRUN_CELLS = (("gemma-2b", "train_4k", "single"), ("llama3-405b", "train_4k", "single"),
+                ("deepseek-v3-671b", "decode_32k", "multi"))
+DRYRUN_CHECKS = (("prefill", 1024, 4), ("train", 512, 2))
+# predicted peak above what is held against torch.cuda.max_memory_allocated:
+# the caching allocator rounds each block up (to 512 B, and large ones to
+# 2 MiB segments), which the count of live storages does not see; the H100
+# read 0.0000 to 0.0002 of the measured peak in two calls, and 1 % of it
+# leaves room for the allocator's rounding and no more
+DRYRUN_MEM_RTOL = 0.01
+# the CPU rehearsal's silo step and cohort round on the mesh against
+# without (on the card they must be equal bit for bit): the silo step's tied
+# embedding adds its lookup's and its logits head's gradients in another
+# order on a mesh (autograd's accumulation over DTensor's graph), and the
+# CPU's threaded backward sums differ between two runs of one round, by
+# float32 ulps; after the step's rounding to bf16 an element that crosses a
+# rounding boundary moves by one bf16 ulp, at most 2^-7 of it
+MESH_TRAIN_TOL = dict(rtol=2.0 ** -7, atol=1e-6)
+DRYRUN_TIMEOUT = 600  # seconds the dry-run process may take
+
+
+def dryrun_worker(out_dir):
+    """The ``[dryrun]`` process (``chip_smoke.py --dryrun-worker DIR``,
+    started and read by ``dryrun_path``): each of ``DRYRUN_CELLS`` through
+    ``launch.dryrun.run_one``, then the check programs at a one-rank fake
+    mesh, their summaries as JSON in ``DIR``.  It never touches the card:
+    the dry run plans on ``meta`` tensors."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun, make_mesh
+
+    os.makedirs(out_dir, exist_ok=True)
+    for arch, shape, mesh in DRYRUN_CELLS:
+        t0 = time.time()
+        rec = dryrun.run_one(arch, shape, mesh, out_dir, skip_existing=False)
+        print(f"[dryrun-cell] {arch} {shape} {mesh} {rec['status']} {time.time() - t0:.1f}s", flush=True)
+    dryrun._fake_group(1)
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    checks = {}
+    for kind, S, B in DRYRUN_CHECKS:
+        cfg, shape = dryrun_check_program(kind, S, B, get_config, InputShape, dataclasses)
+        build = dryrun.build_serve_program if kind == "prefill" else dryrun.build_train_program
+        step, args, rules, held = build(cfg, shape, mesh, fill=dryrun.meta_fill)
+        summary, _ = dryrun.run_program(step, args, rules, held, train=kind == "train")
+        checks[kind] = summary
+        print(f"[dryrun-cell] check {kind} flops={summary['flops']}", flush=True)
+    with open(os.path.join(out_dir, "checks.json"), "w") as f:
+        json.dump(checks, f)
+    torch.distributed.destroy_process_group()
+
+
+def dryrun_check_program(kind, S, B, get_config, InputShape, dataclasses):
+    """gemma-2b at its full config and the check's shape (the train check on
+    the silo mapping, one microbatch)."""
+    cfg = get_config("gemma-2b")
+    if kind == "train":
+        cfg = dataclasses.replace(cfg, fl_mapping="silo")
+    return cfg, InputShape(f"check_{kind}", S, B, kind)
+
+
+def mesh_zoo_path(dev, card, smoke_widths=False):
+    """Phase 15 (``[mesh-zoo]``): the model zoo on a mesh.  On a one-rank
+    NCCL ``make_mesh((1, 1), ("data", "model"))``, gemma-2b at its full
+    config (``smoke_widths``: its smoke, a CPU rehearsal on a gloo group),
+    parameters placed by the dry run's ``serve_rules`` / ``silo_rules`` /
+    ``cohort_rules`` as DTensors, each against the same call without a mesh
+    from the same seed, all equal bit for bit on the card (a one-rank mesh
+    runs the same local operations: the einsums on the local shards, the
+    vocab-parallel pick a gather over the whole vocab, the data axis of one
+    rank the vectorised local update):
+
+    * prefill at 4 x 64 and 4 x 1024, then 8 greedy decode steps: tokens
+      and logits;
+    * one ``make_silo_steps`` step under ``silo_rules`` (2 x 512): loss and
+      parameters (the CPU rehearsal: parameters within ``MESH_TRAIN_TOL``);
+    * one ``make_cohort_round(spmd_axes="data")`` round at PR 23's settings
+      (K = 32, k = 2, 2 steps of 2 x 512): cohort, mask and log-weights
+      equal, loss and parameters (the CPU rehearsal: within
+      ``MESH_TRAIN_TOL``)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import FLConfig, get_config, smoke_variant
+    from repro_torch.data import lm_client_batches, make_lm_dataset
+    from repro_torch.engine import RoundProgram
+    from repro_torch.fl import init_server_state, make_cohort_round, make_silo_steps
+    from repro_torch.launch import axis_sizes, dryrun, make_mesh
+    from repro_torch.launch.serve import make_batch
+    from repro_torch.models import build_model
+    from repro_torch.models.sharding import cohort_rules, distribute_params, silo_rules, use_rules
+
+    on_card = dev.type == "cuda"
+    t_phase = time.time()
+    held = {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held["bytes"] = torch.cuda.memory_allocated()
+
+    def peak_mib():
+        return f"{(torch.cuda.max_memory_allocated() - held['bytes']) / 2**20:.1f}" if on_card else "not measured"
+
+    def whole(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    def max_diff(a, b):
+        """max |a - b| over two trees of tensors of one structure (0.0: equal bit for bit)."""
+        err = 0.0
+        for x, y in zip(pytree.tree_leaves(a), pytree.tree_leaves(b)):
+            x, y = whole(x), whole(y)
+            if x.shape != y.shape:
+                raise AssertionError(f"mesh-zoo: shapes {tuple(x.shape)} and {tuple(y.shape)}")
+            if not torch.equal(x, y):
+                err = max(err, float((x.float() - y.float()).abs().max()), 1e-30)
+        return err
+
+    tol = "bit for bit" if on_card else MESH_TRAIN_TOL
+
+    def hold(what, a, b):
+        """``(elements differing, max |a - b|)`` over two trees of tensors
+        of one structure, each pair equal bit for bit on the card and within
+        ``MESH_TRAIN_TOL`` on the CPU, else it raises."""
+        n_diff, worst = 0, 0.0
+        for (path, x), y in zip(pytree.tree_leaves_with_path(a), pytree.tree_leaves(b)):
+            x, y = whole(x), whole(y)
+            d = float((x.float() - y.float()).abs().max()) if x.numel() else 0.0
+            if not (torch.equal(x, y) if on_card else torch.allclose(x.float(), y.float(), **MESH_TRAIN_TOL)):
+                raise AssertionError(f"mesh-zoo: {what} {pytree.keystr(path)} differs on the mesh by {d} (tol {tol})")
+            n_diff += int((x != y).sum())
+            worst = max(worst, d)
+        return n_diff, worst
+
+    dist.init_process_group("nccl" if on_card else "gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+        sizes = axis_sizes(mesh)
+        base = get_config("gemma-2b")
+        cfg = smoke_variant(base) if smoke_widths else base
+        model = build_model(cfg)
+        params, specs = model.init(torch.Generator(device=dev).manual_seed(0))
+        n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+        z = MESH_ZOO
+
+        # -- serving: prefill and greedy decode --------------------------------
+        for S in z["prompts"]:
+            batch = make_batch(cfg, z["B"], S, torch.Generator(device=dev).manual_seed(S))
+            out = {}
+            for sharded in (False, True):
+                pre = dryrun.serve_rules(cfg, sizes, "prefill") if sharded else None
+                dec = dryrun.serve_rules(cfg, sizes, "decode") if sharded else None
+                pp = distribute_params(params, specs, mesh, pre) if sharded else params
+                pd = distribute_params(params, specs, mesh, dec) if sharded else params
+                free()
+                with torch.no_grad():
+                    sync()
+                    t0 = time.perf_counter()
+                    with use_rules(pre):
+                        logits, caches = model.prefill(pp, batch, max_len=S + z["decode"])
+                    sync()
+                    pre_ms = (time.perf_counter() - t0) * 1e3
+                    tok = torch.argmax(whole(logits)[:, -1:], -1).to(torch.int32)
+                    toks, logs = [tok], [whole(logits)[:, -1:]]
+                    sync()
+                    t0 = time.perf_counter()
+                    for _ in range(z["decode"]):
+                        with use_rules(dec):
+                            ld, caches = model.decode(pd, tok, caches)
+                        tok = torch.argmax(whole(ld)[:, -1:], -1).to(torch.int32)
+                        toks.append(tok)
+                        logs.append(whole(ld))
+                    sync()
+                    dec_s = time.perf_counter() - t0
+                out[sharded] = (torch.cat(toks, 1), torch.cat(logs, 1), whole(logits))
+                log("mesh-zoo", what="serve", arch=cfg.name, mesh="1x1 (data, model)", sharded=sharded,
+                    batch=f"{z['B']}x{S}", prefill_ms=f"{pre_ms:.3f}",
+                    decode_tokens_per_s=f"{z['B'] * z['decode'] / dec_s:.2f}", peak_mib=peak_mib(), card=repr(card))
+                del logits, caches, ld, pp, pd
+            if not torch.equal(out[False][0], out[True][0]):
+                raise AssertionError(f"mesh-zoo: greedy tokens differ on the mesh at prompt {S}")
+            diff = max_diff(out[True][1:], out[False][1:])
+            log("mesh-zoo", what="serve-check", batch=f"{z['B']}x{S}", tokens="equal",
+                logits_max_abs_diff=diff, tol="bit for bit")
+            if diff:
+                raise AssertionError(f"mesh-zoo: logits differ on the mesh at prompt {S} by {diff}")
+            del out
+        free()
+
+        # -- one silo step under silo_rules -------------------------------------
+        local_step, opt_init, _, _ = make_silo_steps(model, FLConfig(lr=5e-3, momentum=0.9))
+        g = torch.Generator(device=dev).manual_seed(2)
+        tok = torch.randint(0, cfg.vocab, (z["silo_B"], z["silo_S"]), generator=g, device=dev, dtype=torch.int32)
+        res = {}
+        for sharded in (False, True):
+            rules = silo_rules(cfg, sizes) if sharded else None
+            p0 = distribute_params(params, specs, mesh, rules) if sharded else params
+            free()
+            with use_rules(rules):
+                s0 = opt_init(p0)
+                sync()
+                t0 = time.perf_counter()
+                q, s1, loss = local_step(p0, s0, {"tokens": tok, "labels": tok}, 0)
+                sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            log("mesh-zoo", what="silo-step", arch=cfg.name, sharded=sharded, batch=f"{z['silo_B']}x{z['silo_S']}",
+                step_ms=f"{ms:.1f}", loss=f"{float(whole(loss)):.6f}", peak_mib=peak_mib(), card=repr(card))
+            res[sharded] = (whole(loss), pytree.tree_map(whole, q))
+            del q, s0, s1, p0
+        loss_diff = max_diff(res[True][0], res[False][0])
+        n_diff, worst = hold("the silo step's parameter", res[True][1], res[False][1])
+        log("mesh-zoo", what="silo-check", loss_max_abs_diff=loss_diff, params_max_abs_diff=worst,
+            params_elements_differing=n_diff, loss_tol="bit for bit", params_tol=tol)
+        if loss_diff:
+            raise AssertionError(f"mesh-zoo: the silo step's loss differs on the mesh by {loss_diff}")
+        del res
+        free()
+
+        # -- one cohort round over the data axis ---------------------------------
+        fl = FLConfig(K=z["K"], k=z["k"], rounds=3, scheme="e3cs", quota="inc", lr=5e-3)
+        pm = RoundProgram.from_config(fl, device=dev)
+        noise = pm.draw_noise(pm.generator(1))
+        stream = make_lm_dataset(cfg.vocab, 200_000, n_chains=fl.K, seed=0)
+        ones = torch.ones(fl.k, device=dev)
+        mask = torch.ones(fl.k, z["n_steps"], device=dev)
+        total = torch.tensor(float(fl.K), device=dev)
+        rounds = {}
+        for sharded in (False, True):
+            rules = cohort_rules(cfg, sizes) if sharded else None
+            select = pm.select_fn()
+            _, round_fn = make_cohort_round(model, fl, pm.quota_fn, pm.base_vol, pm.rho,
+                                            "data" if sharded else None, select=select)
+            p0 = distribute_params(params, specs, mesh, rules) if sharded else params
+            state = init_server_state(p0, fl.K, pm.base_vol.init_state(), dev)
+            idx, p, capped, sigma = select(state, noise)
+            blocks = lm_client_batches(stream, fl.K, idx.cpu().numpy(), z["n_steps"], z["B_round"], z["S_round"],
+                                       seed=0)
+            b = torch.from_numpy(blocks[..., :-1]).to(dev)
+            free()
+            sync()
+            t0 = time.perf_counter()
+            with use_rules(rules):
+                state, met = round_fn(state, idx, p, capped, sigma, {"tokens": b, "labels": b}, mask, ones, total,
+                                      ones, noise.u)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            tokens = fl.k * z["n_steps"] * z["B_round"] * z["S_round"]
+            log("mesh-zoo", what="cohort-round", arch=cfg.name, sharded=sharded, spmd_axes="data" if sharded else None,
+                K=fl.K, k=fl.k, n_steps=z["n_steps"], batch=f"{z['B_round']}x{z['S_round']}", round_ms=f"{ms:.1f}",
+                tokens_per_s=f"{tokens / (ms / 1e3):.1f}", loss=f"{float(met['mean_local_loss']):.6f}",
+                peak_mib=peak_mib(), card=repr(card))
+            rounds[sharded] = (idx, state.sel_counts, state.e3cs.logw, met["mean_local_loss"],
+                               pytree.tree_map(whole, state.params))
+            del state, p0, b
+        a, b = rounds[True], rounds[False]
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])):
+            raise AssertionError("mesh-zoo: the cohort, mask or log-weights differ on the mesh")
+        n_diff, worst = hold("the cohort round's", a[3:], b[3:])
+        log("mesh-zoo", what="cohort-check", cohort="equal", mask="equal", logw="equal",
+            loss_and_params_max_abs_diff=worst, elements_differing=n_diff, tol=tol)
+        del rounds, a, b, params
+        free()
+
+    finally:
+        dist.destroy_process_group()
+    log("check", mesh_zoo="all mesh-zoo checks passed", params=n_params,
+        seconds=f"{time.time() - t_phase:.1f}")
+
+
+def dryrun_path(dev, card, smoke_widths=False):
+    """Phase 15, its second part (``[dryrun]``, ``[dryrun-check]``), after
+    the last timed phase, so that no time shares the host with it: the dry
+    run in a process of its own (its ``"fake"`` process group never meets
+    this one's), ``dryrun_worker`` planning ``DRYRUN_CELLS`` while this
+    process runs the check programs for real on a one-rank NCCL
+    ``make_mesh((1, 1), ("data", "model"))`` under the same counter.  Then
+    ``[dryrun]``: each cell's record (per-device GB, FLOPs, collective
+    bytes, the roofline's bottleneck at data-sheet rates), and
+    ``[dryrun-check]``: FLOPs planned equal to FLOPs run, and the predicted
+    peak within ``DRYRUN_MEM_RTOL`` of the allocator's (``smoke_widths``: a
+    CPU rehearsal on a gloo group, which runs the checks at smoke widths and
+    holds them against nothing)."""
+    import dataclasses
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun, make_mesh
+
+    on_card = dev.type == "cuda"
+    t_phase = time.time()
+    out_dir = os.path.join(CHIPRUN_OUT, "dryrun_torch")
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"),
+               CUDA_VISIBLE_DEVICES="")
+    configs = (lambda a: smoke_variant(get_config(a))) if smoke_widths else get_config
+    ran = {}
+    with open(os.path.join(out_dir, "worker.log"), "w") as worker_log:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dryrun-worker", out_dir],
+                                env=env, stdout=worker_log, stderr=subprocess.STDOUT)
+        try:
+            dist.init_process_group("nccl" if on_card else "gloo", store=dist.HashStore(), rank=0, world_size=1)
+            try:
+                mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+                for kind, S, B in DRYRUN_CHECKS:
+                    cfg_c, shape = dryrun_check_program(kind, S, B, configs, InputShape, dataclasses)
+                    build = dryrun.build_serve_program if kind == "prefill" else dryrun.build_train_program
+                    step, args, rules, held_trees = build(cfg_c, shape, mesh)
+                    gc.collect()
+                    if on_card:
+                        torch.cuda.empty_cache()
+                        torch.cuda.reset_peak_memory_stats()
+                        held = torch.cuda.memory_allocated()
+                    summary, out = dryrun.run_program(step, args, rules, held_trees, train=kind == "train")
+                    if on_card:
+                        torch.cuda.synchronize()
+                    ran[kind] = (summary, (torch.cuda.max_memory_allocated() - held) if on_card
+                                 else summary["peak_above_start"])
+                    del step, args, held_trees, out
+            finally:
+                dist.destroy_process_group()
+            rc = proc.wait(timeout=DRYRUN_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise AssertionError(f"dryrun: the dry-run process exited {rc}; see {out_dir}/worker.log")
+    for arch, shape, mk in DRYRUN_CELLS:
+        with open(os.path.join(out_dir, f"{arch}__{shape}__{mk}.json")) as f:
+            rec = json.load(f)
+        if rec["status"] != "ok":
+            raise AssertionError(f"dryrun {arch} {shape} {mk}: {rec['status']}: {rec.get('error')}")
+        r, c = rec["roofline"], rec["collectives"]
+        log("dryrun", arch=arch, shape=shape, mesh=mk, mesh_shape="x".join(map(str, rec["mesh_shape"])),
+            per_device_gb=rec["per_device_hbm_gb"], flops_per_dev=f"{rec['flops_per_dev']:.4g}",
+            collective_bytes_per_dev=f"{c['total']:.4g}", bottleneck=r["bottleneck"],
+            compute_s=f"{r['compute_s']:.4g}", memory_s=f"{r['memory_s']:.4g}",
+            collective_s=f"{r['collective_s']:.4g}", run_s=rec["run_s"],
+            rates="H100 data-sheet peaks (989 TFLOP/s bf16, 3.35 TB/s HBM, 50 GB/s a link), not measured")
+    with open(os.path.join(out_dir, "checks.json")) as f:
+        planned = json.load(f)
+    for kind, S, B in DRYRUN_CHECKS:
+        summary, measured = ran[kind]
+        want = planned[kind]
+        rel = abs(want["peak_above_start"] - measured) / max(measured, 1)
+        log("dryrun-check", program=f"gemma-2b {kind} {B}x{S}", flops_planned=want["flops"],
+            flops_run=summary["flops"], predicted_peak_mib=f"{want['peak_above_start'] / 2**20:.1f}",
+            counted_peak_mib=f"{summary['peak_above_start'] / 2**20:.1f}",
+            allocator_peak_mib=f"{measured / 2**20:.1f}", rel_diff=f"{rel:.4f}", rtol=DRYRUN_MEM_RTOL,
+            collectives_planned=want["collectives"]["total"], card=repr(card))
+        if smoke_widths:
+            continue  # the rehearsal plans the full config: nothing to hold against
+        if want["flops"] != summary["flops"]:
+            raise AssertionError(f"dryrun-check {kind}: FLOPs planned {want['flops']} != run {summary['flops']}")
+        if rel > DRYRUN_MEM_RTOL:
+            raise AssertionError(f"dryrun-check {kind}: predicted peak {want['peak_above_start']} B against "
+                                 f"{measured} B measured (relative {rel:.3f} > {DRYRUN_MEM_RTOL})")
+    log("check", dryrun="all dry-run checks passed", seconds=f"{time.time() - t_phase:.1f}")
+
+
 def _feed(seed, j, t, K, S):
     """Job ``j``'s round-``t`` feedback, made anew from ``(seed, j, t)``: the
     paper's success rates decide who is on time (bits, S = 0); under S > 0 a
@@ -2865,4 +3267,6 @@ def profile_round(dev, K, k, rounds=5, label="dense", card="", runner=None, **op
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-worker"]:
+        sys.exit(dryrun_worker(sys.argv[2]))
     sys.exit(main())

@@ -62,22 +62,31 @@ def _delta(g, c):
 
 
 def aggregate(global_params, cohort_params, success, data_sizes, total_data, K: int, scheme: str = "fedavg",
-              epochs=None, sel_probs=None):
+              epochs=None, sel_probs=None, rows=None, psum=None):
     """``global + sum_i w_i * success_i * (cohort_i - global)`` leaf by leaf;
-    ``success`` (k,) {0,1}, ``data_sizes`` (k,) q_i, ``total_data`` q."""
+    ``success`` (k,) {0,1}, ``data_sizes`` (k,) q_i, ``total_data`` q.
+
+    On a data axis (``fl.make_cohort_round(spmd_axes=...)``) each rank holds
+    the cohort's ``rows`` (a slice of the k clients): the weights are the
+    whole cohort's, each rank sums its rows' contributions and ``psum``
+    adds them over the ranks in place."""
     k = success.shape[0]
     w = _scheme_weights(scheme, data_sizes, total_data, K, k, epochs, sel_probs)
     w = w * success  # failed clients contribute the global model (zero delta)
+    if rows is not None:
+        w = w[rows]
 
     def upd(g, c):
         contrib = torch.tensordot(w, _delta(g, c), dims=([0], [0]))
+        if psum is not None:
+            psum(contrib)
         return (g.to(_f32) + contrib).to(g.dtype)
 
     return pytree.tree_map(upd, global_params, cohort_params)
 
 
 def aggregate_async(global_params, cohort_params, lag, data_sizes, total_data, K: int, scheme: str = "fedavg", *,
-                    alpha: float = 0.5, staleness: int = 0, epochs=None, sel_probs=None):
+                    alpha: float = 0.5, staleness: int = 0, epochs=None, sel_probs=None, rows=None, psum=None):
     """Staleness-aware aggregation: ``(new_params, late_deltas)``.
 
     On-time clients (``lag == 0``) are aggregated now at their full scheme
@@ -85,7 +94,8 @@ def aggregate_async(global_params, cohort_params, lag, data_sizes, total_data, K
     staleness``) contributes ``alpha**lag * w_i * (theta_i - theta_t)``,
     returned in ``late_deltas``: leaves with a leading ``(staleness,)`` axis,
     slice ``s`` the summed contribution that lands ``s+1`` rounds from now.
-    Dead lags and lags beyond ``staleness`` are dropped.
+    Dead lags and lags beyond ``staleness`` are dropped.  ``rows`` and
+    ``psum`` split the cohort over a data axis, as in ``aggregate``.
     """
     k = lag.shape[0]
     w = _scheme_weights(scheme, data_sizes, total_data, K, k, epochs, sel_probs)
@@ -93,7 +103,15 @@ def aggregate_async(global_params, cohort_params, lag, data_sizes, total_data, K
     arrive = (lag[None, :] == s_idx[:, None]).to(_f32)  # (S+1, k) one-hot by lag
     decay = torch.pow(torch.full((), alpha, dtype=_f32, device=lag.device), s_idx.to(_f32))
     A = arrive * decay[:, None] * w[None, :]  # (S+1, k) credit matrix
-    parts = pytree.tree_map(lambda g, c: torch.tensordot(A, _delta(g, c), dims=([1], [0])), global_params,
-                            cohort_params)
+    if rows is not None:
+        A = A[:, rows]
+
+    def part(g, c):
+        out = torch.tensordot(A, _delta(g, c), dims=([1], [0]))
+        if psum is not None:
+            psum(out)
+        return out
+
+    parts = pytree.tree_map(part, global_params, cohort_params)
     new_params = pytree.tree_map(lambda g, part: (g.to(_f32) + part[0]).to(g.dtype), global_params, parts)
     return new_params, pytree.tree_map(lambda part: part[1:], parts)

@@ -26,6 +26,7 @@ from typing import Callable, Dict
 
 import torch
 from torch.func import grad_and_value, vmap
+from torch.utils import _pytree as pytree
 
 from repro_torch.optim import leafwise
 
@@ -65,13 +66,22 @@ def _blend(keep, new, old):
     return leafwise(one, new, old, lead=1)  # keep's row runs along the leading axis
 
 
-def make_local_update(model, opt, update_kind: str = "fedavg", prox_coef: float = 0.5) -> Callable:
+def make_local_update(model, opt, update_kind: str = "fedavg", prox_coef: float = 0.5,
+                      per_client: bool = False) -> Callable:
+    """``local_train(global_params, batches, step_mask) -> (cohort_params,
+    stats)``.  ``per_client=True`` trains the clients one after another with
+    plain autograd and stacks their results, the same steps in the same
+    order; the cohort round takes it for DTensor parameters (a mesh's
+    ``model`` axis), which ``torch.func.vmap`` does not map over."""
+
     def loss_fn(params, batch, global_params):
         loss, _ = model.loss(params, batch)
         if update_kind == "fedprox":
             loss = loss + 0.5 * prox_coef * prox_penalty(params, global_params)
         return loss
 
+    if per_client:
+        return _per_client(loss_fn, opt)
     grad_fn = grad_and_value(loss_fn)
     shared = vmap(grad_fn, in_dims=(None, 0, None))  # step 0: every client holds the global parameters
     stacked = vmap(grad_fn, in_dims=(0, 0, None))
@@ -93,5 +103,45 @@ def make_local_update(model, opt, update_kind: str = "fedavg", prox_coef: float 
             losses.append(loss * keep)
         n_eff = torch.clamp(torch.sum(step_mask, dim=1), min=1.0)
         return params, {"local_loss": torch.sum(torch.stack(losses, dim=1), dim=1) / n_eff}
+
+    return local_train
+
+
+def _whole(t):
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _per_client(loss_fn, opt) -> Callable:
+    def one(global_params, batches, mask):
+        """One client: ``mask`` its ``(n_steps,)`` row."""
+        params, opt_state = global_params, opt.init(global_params)
+        losses = []
+        for i in range(mask.shape[0]):
+            batch = {name: b[i] for name, b in batches.items()}
+            leaves, spec = pytree.tree_flatten(params)
+            with torch.enable_grad():
+                diff = [t.detach().requires_grad_() for t in leaves]
+                loss = loss_fn(pytree.tree_unflatten(diff, spec), batch, global_params)
+                grads = pytree.tree_unflatten(list(torch.autograd.grad(loss, diff)), spec)
+            loss = _whole(loss.detach())
+            new_params, new_opt = opt.update(params, grads, opt_state, i)
+            del grads
+            keep = mask[i].to(_f32)
+            blend = lambda n, o: (keep * n.to(_f32) + (1 - keep) * o.to(_f32)).to(o.dtype)  # noqa: E731
+            params = leafwise(blend, new_params, params)
+            opt_state = leafwise(blend, new_opt, opt_state)
+            del new_params, new_opt
+            losses.append(loss * keep)
+        return params, torch.stack(losses)
+
+    def local_train(global_params, batches: Dict[str, torch.Tensor], step_mask: torch.Tensor):
+        outs = [one(global_params, {name: b[c] for name, b in batches.items()}, step_mask[c])
+                for c in range(step_mask.shape[0])]
+        cohort = pytree.tree_map(lambda *leaves: torch.stack(leaves), *(o[0] for o in outs))
+        losses = torch.stack([o[1] for o in outs])
+        n_eff = torch.clamp(torch.sum(step_mask, dim=1), min=1.0)
+        return cohort, {"local_loss": torch.sum(losses, dim=1) / n_eff}
 
     return local_train

@@ -203,12 +203,99 @@ def _selector_update(state: ServerState, fl_cfg, idx, p, capped, mask, x_full, s
     return new_e3cs, new_ucb, loss_cache
 
 
-def _cohort_round(model, fl_cfg, quota_fn, rho, aggregation, select, observe, merge):
+class _DataSplit:
+    """The cohort's client axis over the mesh axes ``spmd_axes`` (JAX's
+    ``vmap(..., spmd_axis_name=spmd_axes)``): this rank trains the clients
+    ``rows`` of the cohort, on parameters replicated over those axes (and
+    placed over the mesh's other axes, a ``model`` axis for tensor
+    parallelism, by ``models.sharding.distribute_params``)."""
+
+    def __init__(self, params, spmd_axes, k: int):
+        from torch.distributed.tensor import DTensor
+
+        leaf = pytree.tree_leaves(params)[0]
+        if not isinstance(leaf, DTensor):
+            raise ValueError("spmd_axes splits the cohort over a mesh: the parameters must be DTensors "
+                             "(models.sharding.distribute_params)")
+        mesh = leaf.device_mesh
+        names = tuple(mesh.mesh_dim_names)
+        axes = (spmd_axes,) if isinstance(spmd_axes, str) else tuple(spmd_axes)
+        if any(a not in names for a in axes):
+            raise ValueError(f"spmd_axes {axes} are not all axes of the mesh {names}")
+        self.mesh, self.k = mesh, k
+        self.dims = [names.index(a) for a in axes]
+        coord = mesh.get_coordinate()
+        D, r = 1, 0
+        for j in self.dims:  # the first axis the major, as JAX splits the client axis
+            r, D = r * mesh.size(j) + coord[j], D * mesh.size(j)
+        if k % D:
+            raise ValueError(f"a cohort of k={k} clients does not split over {D} ranks of {axes}")
+        self.rows = slice(r * (k // D), (r + 1) * (k // D))
+        self.rest = [j for j in range(mesh.ndim) if j not in self.dims]
+        tp = any(mesh.size(j) > 1 for j in self.rest)
+        self.sub = mesh[tuple(names[j] for j in self.rest)] if tp else None
+        self.groups = [mesh.get_group(j) for j in self.dims]
+
+    def local(self, t):
+        """A parameter leaf as this rank's clients see it: its local tensor,
+        or a DTensor on the mesh's other axes."""
+        from torch.distributed.tensor import DTensor
+
+        if any(t.placements[j].is_shard() for j in self.dims):
+            raise ValueError(f"a parameter of shape {tuple(t.shape)} is sharded over the cohort's data axes "
+                             f"({t.placements}): the cohort mapping replicates parameters there (cohort_rules)")
+        loc = t.to_local()
+        if self.sub is None:
+            return loc
+        return DTensor.from_local(loc, self.sub, [t.placements[j] for j in self.rest], run_check=False,
+                                  shape=t.shape, stride=t.stride())
+
+    def psum(self, t) -> None:
+        """Sum ``t`` over the data axes, in place."""
+        import torch.distributed as dist
+        from torch.distributed.tensor import DTensor
+
+        loc = t.to_local() if isinstance(t, DTensor) else t
+        for g in self.groups:
+            dist.all_reduce(loc, op=dist.ReduceOp.SUM, group=g)
+
+    def to_global(self, like, t, lead: int = 0):
+        """A local result laid out as the parameter ``like`` (with ``lead``
+        more leading axes) as a DTensor on the whole mesh."""
+        from torch.distributed.tensor import DTensor, Shard
+
+        from repro_torch.models.sharding import contiguous_strides
+
+        loc = t.to_local() if isinstance(t, DTensor) else t
+        pl = [Shard(p.dim + lead) if p.is_shard() else p for p in like.placements]
+        shape = (*t.shape[:lead], *like.shape)
+        return DTensor.from_local(loc, self.mesh, pl, run_check=False, shape=shape, stride=contiguous_strides(shape))
+
+    def gather_rows(self, v: torch.Tensor) -> torch.Tensor:
+        """This rank's ``(k / D,)`` row of a per-client value as the whole
+        cohort's ``(k,)`` (zeros elsewhere, summed over the ranks: exact)."""
+        from torch.distributed.tensor import DTensor
+
+        v = v.full_tensor() if isinstance(v, DTensor) else v
+        full = torch.zeros((self.k,), dtype=v.dtype, device=v.device)
+        full[self.rows] = v
+        self.psum(full)
+        return full
+
+
+def _plain(t):
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _cohort_round(model, fl_cfg, quota_fn, rho, aggregation, select, observe, merge, spmd_axes=None):
     """The round both factories share: ``observe(u, vol_state) -> (x_full,
     lag_full or None, vol_state)`` and ``merge(state, cohort, success,
     lag_sel, ...)`` are the sync and async halves."""
     opt = sgd(fl_cfg.lr, fl_cfg.momentum)
     local = make_local_update(model, opt, fl_cfg.local_update, fl_cfg.prox_coef)
+    per_client = make_local_update(model, opt, fl_cfg.local_update, fl_cfg.prox_coef, per_client=True)
     agg_scheme = aggregation or fl_cfg.aggregation
     select = select if select is not None else make_select_fn(fl_cfg, quota_fn, rho)
     K = fl_cfg.K
@@ -218,19 +305,36 @@ def _cohort_round(model, fl_cfg, quota_fn, rho, aggregation, select, observe, me
         mask = selection_mask(idx, K)
         i = idx.long()
         success = x_full[i]
+        params, train, split, kw = state.params, local, None, {}
+        if spmd_axes is not None:
+            split = _DataSplit(state.params, spmd_axes, fl_cfg.k)
+            params = pytree.tree_map(split.local, state.params)
+            batches = {name: b[split.rows] for name, b in batches.items()}
+            step_mask = step_mask[split.rows]
+            train = per_client if split.sub is not None else local  # vmap does not map DTensors
+            kw = {"rows": split.rows, "psum": split.psum}
         with fp32_convs():
-            cohort_params, stats = local(state.params, batches, step_mask)
-        new_params, extra = merge(state.params, cohort_params, success, None if lag_full is None else lag_full[i],
-                                  data_sizes, total_data, K, agg_scheme, epochs, p[i])
+            cohort_params, stats = train(params, batches, step_mask)
+        if split is not None:  # the aggregation maps each element alone: it runs on the local shards
+            params, cohort_params = pytree.tree_map(_plain, params), pytree.tree_map(_plain, cohort_params)
+        new_params, extra = merge(params, cohort_params, success, None if lag_full is None else lag_full[i],
+                                  data_sizes, total_data, K, agg_scheme, epochs, p[i], **kw)
+        local_loss = stats["local_loss"]
+        if split is not None:
+            new_params = pytree.tree_map(split.to_global, state.params, new_params)
+            if "late_deltas" in extra:
+                extra["late_deltas"] = pytree.tree_map(lambda g, d: split.to_global(g, d, lead=1), state.params,
+                                                       extra["late_deltas"])
+            local_loss = split.gather_rows(local_loss)
         new_e3cs, new_ucb, loss_cache = _selector_update(
-            state, fl_cfg, idx, p, capped, mask, x_full, sigma, stats["local_loss"]
+            state, fl_cfg, idx, p, capped, mask, x_full, sigma, local_loss
         )
         n_succ = torch.sum(success)
         metrics = {
             "cep": state.cep + n_succ,
             "n_success": n_succ,
             **extra.get("metrics", {}),
-            "mean_local_loss": torch.mean(stats["local_loss"]),
+            "mean_local_loss": torch.mean(local_loss),
             "sigma": sigma,
         }
         new_state = ServerState(
@@ -251,7 +355,8 @@ def _cohort_round(model, fl_cfg, quota_fn, rho, aggregation, select, observe, me
     return select, round_fn
 
 
-def make_cohort_round(model, fl_cfg, quota_fn, volatility, rho=None, aggregation: Optional[str] = None, select=None):
+def make_cohort_round(model, fl_cfg, quota_fn, volatility, rho=None, spmd_axes=None, aggregation: Optional[str] = None,
+                      select=None):
     """The full round.  Returns ``(select, round_fn)``: ``round_fn(state,
     idx, p, capped, sigma, batches, step_mask, data_sizes, total_data,
     epochs, u) -> (state, metrics)``, ``u`` the volatility model's uniform
@@ -259,20 +364,31 @@ def make_cohort_round(model, fl_cfg, quota_fn, volatility, rho=None, aggregation
     ``select`` overrides the allocate + select stage (``FLServer`` passes
     ``RoundProgram.select_fn()``); the default builds the same function from
     the config.  ``batches`` hold ``(k, n_steps, B, ...)`` tensors on the
-    state's device."""
+    state's device.
+
+    ``spmd_axes`` (a mesh axis name or a tuple of them) splits the cohort's
+    clients over those axes of the parameters' mesh, as JAX's
+    ``vmap(spmd_axis_name=...)``: the parameters are DTensors placed by
+    ``models.sharding`` (``cohort_rules``, replicated over the data axes),
+    every rank gets the whole cohort's batches and trains its ``k / D``
+    clients (vectorised, or one after another where the parameters are
+    sharded over a ``model`` axis), and the aggregation adds the ranks'
+    weighted deltas with an ``all_reduce``.  Selection, volatility and the
+    selector's update run alike on every rank from the same noise.  The
+    caller runs ``round_fn`` under ``models.sharding.use_rules``."""
 
     def observe(u, vol_state):
         x_full, vol_state = volatility.sample(u, vol_state)
         return x_full, None, vol_state
 
-    def merge(g, cohort, success, lag_sel, sizes, total, K, scheme, epochs, sel_probs):
-        return aggregate(g, cohort, success, sizes, total, K, scheme, epochs=epochs, sel_probs=sel_probs), {}
+    def merge(g, cohort, success, lag_sel, sizes, total, K, scheme, epochs, sel_probs, **kw):
+        return aggregate(g, cohort, success, sizes, total, K, scheme, epochs=epochs, sel_probs=sel_probs, **kw), {}
 
-    return _cohort_round(model, fl_cfg, quota_fn, rho, aggregation, select, observe, merge)
+    return _cohort_round(model, fl_cfg, quota_fn, rho, aggregation, select, observe, merge, spmd_axes)
 
 
-def make_async_cohort_round(model, fl_cfg, quota_fn, lag_model, rho=None, aggregation: Optional[str] = None,
-                            select=None):
+def make_async_cohort_round(model, fl_cfg, quota_fn, lag_model, rho=None, spmd_axes=None,
+                            aggregation: Optional[str] = None, select=None):
     """Staleness-aware ``make_cohort_round``: ``lag_model`` draws per-client
     completion lags (int32: 0 on time, ``l >= 1`` late, negative dead);
     ``round_fn`` aggregates the on-time deltas now and returns, third, the
@@ -280,7 +396,8 @@ def make_async_cohort_round(model, fl_cfg, quota_fn, lag_model, rho=None, aggreg
     ``s`` due ``s+1`` rounds later) for the host loop to apply when they
     arrive (``FLServer.run``).  The selector observes the on-time bits
     ``1{lag == 0}``, as the async scan engine does; ``metrics["n_late"]``
-    counts the cohort's clients ``1 <= lag <= S``."""
+    counts the cohort's clients ``1 <= lag <= S``.  ``spmd_axes`` as in
+    ``make_cohort_round``."""
     S = int(fl_cfg.staleness_rounds)
     alpha = float(fl_cfg.staleness_alpha)
 
@@ -288,13 +405,13 @@ def make_async_cohort_round(model, fl_cfg, quota_fn, lag_model, rho=None, aggreg
         lag_full, vol_state = lag_model.sample(u, vol_state)  # (K,) int32
         return (lag_full == 0).to(torch.float32), lag_full, vol_state  # deadline-based feedback
 
-    def merge(g, cohort, success, lag_sel, sizes, total, K, scheme, epochs, sel_probs):
+    def merge(g, cohort, success, lag_sel, sizes, total, K, scheme, epochs, sel_probs, **kw):
         new_params, late = aggregate_async(g, cohort, lag_sel, sizes, total, K, scheme, alpha=alpha, staleness=S,
-                                           epochs=epochs, sel_probs=sel_probs)
+                                           epochs=epochs, sel_probs=sel_probs, **kw)
         n_late = torch.sum(((lag_sel >= 1) & (lag_sel <= S)).to(torch.float32))
         return new_params, {"late_deltas": late, "metrics": {"n_late": n_late}}
 
-    return _cohort_round(model, fl_cfg, quota_fn, rho, aggregation, select, observe, merge)
+    return _cohort_round(model, fl_cfg, quota_fn, rho, aggregation, select, observe, merge, spmd_axes)
 
 
 def make_silo_steps(model, fl_cfg):

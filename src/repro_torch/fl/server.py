@@ -86,11 +86,19 @@ class FLServer:
     ``volatility`` overrides ``fl_cfg.volatility`` with a scenario name or a
     model object (see ``build_volatility``); the knobs resolve through one
     path, ``RoundProgram.from_config``, as in the JAX package.
+    ``spmd_axes`` splits each round's cohort over those mesh axes
+    (``make_cohort_round``); the caller then hands ``init_state`` the
+    parameters placed on the mesh and runs ``run`` under
+    ``models.sharding.use_rules``.
     """
 
-    def __init__(self, model, fl_cfg: FLConfig, store, eval_fn=None, volatility=None, device=None):
+    def __init__(self, model, fl_cfg: FLConfig, store, eval_fn=None, spmd_axes=None, volatility=None, device=None):
         from repro_torch.engine.round_program import RoundProgram  # the engine imports fl.round
 
+        if spmd_axes is not None and fl_cfg.scheme == "pow_d":
+            raise NotImplementedError(
+                "FLServer(spmd_axes=...) with scheme='pow_d': the candidates' loss report maps the model over "
+                "clients with torch.func.vmap, which does not take DTensor parameters (ROADMAP A, mesh)")
         self.model = model
         self.cfg = fl_cfg
         self.store = store
@@ -102,10 +110,11 @@ class FLServer:
         self.lag_model = self.program.lag_model
         self._select = self.program.select_fn()
         if self.staleness > 0:
-            _, self._round = make_async_cohort_round(model, fl_cfg, self.quota, self.lag_model, self.rho,
+            _, self._round = make_async_cohort_round(model, fl_cfg, self.quota, self.lag_model, self.rho, spmd_axes,
                                                      select=self._select)
         else:
-            _, self._round = make_cohort_round(model, fl_cfg, self.quota, self.vol, self.rho, select=self._select)
+            _, self._round = make_cohort_round(model, fl_cfg, self.quota, self.vol, self.rho, spmd_axes,
+                                               select=self._select)
         self._eval_fn = eval_fn
         rng = np.random.default_rng(fl_cfg.seed)
         self.epochs = rng.choice(fl_cfg.local_epochs, fl_cfg.K).astype(np.int32)

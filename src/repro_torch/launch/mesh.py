@@ -1,5 +1,6 @@
-"""The 1-D ``shards`` mesh that the K-sharded round runs on (the port of
-``repro.launch.mesh.make_host_mesh``).
+"""The port's meshes (``repro.launch.mesh``): the 1-D ``shards`` mesh that
+the K-sharded round runs on (``make_host_mesh``), and the named meshes of
+the model zoo (``make_mesh``, ``make_production_mesh``).
 
 JAX's ``shard_map`` runs every shard of a mesh inside one process.  The port
 runs one process per device under ``torch.distributed``: a ``HostMesh`` names
@@ -17,17 +18,23 @@ The caller starts the process group; nothing here opens a socket::
     # D CPU processes (the tests): gloo over a file store, one process per rank
     dist.init_process_group("gloo", store=dist.FileStore(path, D), rank=r, world_size=D)
     mesh = make_host_mesh(D, device="cpu")
+
+``make_mesh`` names the axes of a ``torch.distributed`` ``DeviceMesh`` over
+the same group, for the model zoo's sharded paths (``models.sharding``):
+parameters are DTensors placed by the logical rules, one process a device.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Dict
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
-__all__ = ["HostMesh", "make_host_mesh"]
+__all__ = ["HostMesh", "make_host_mesh", "make_mesh", "make_production_mesh", "PRODUCTION_MESH", "axis_sizes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,3 +90,53 @@ def make_host_mesh(D: int | None = None, device=None) -> HostMesh:
     elif dist.get_backend() == "nccl":
         raise ValueError(f"an NCCL group reduces CUDA tensors; the mesh's device is {dev}")
     return HostMesh(size=D, rank=rank, device=dev)
+
+
+def make_mesh(shape, axes, device=None):
+    """A named ``DeviceMesh`` of ``shape`` over the default process group,
+    which the caller has started (see the module docstring; the dry run
+    starts a ``"fake"`` group of as many ranks as the mesh has devices).
+    The product of ``shape`` must equal the group's size; ranks fill the
+    mesh in row-major order, the last axis fastest, as ``jax.make_mesh``
+    lays devices out.  ``device=None`` means CUDA (each rank on
+    ``cuda:<rank mod device count>``) and raises without it; ``"cpu"`` makes
+    a gloo or fake group's mesh.
+    """
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dev = resolve_device(device)
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in length")
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_mesh needs a started process group: e.g. on one card "
+            "dist.init_process_group('nccl', store=dist.HashStore(), rank=0, world_size=1)"
+        )
+    world = dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"a mesh of shape {shape} has {math.prod(shape)} devices, but the group has {world} ranks")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev if dev.index is not None else dist.get_rank() % torch.cuda.device_count())
+    elif dist.get_backend() == "nccl":
+        raise ValueError(f"an NCCL group reduces CUDA tensors; the mesh's device is {dev}")
+    return DeviceMesh(dev.type, torch.arange(world).reshape(shape), mesh_dim_names=axes)
+
+
+# the dry run's meshes, with the JAX package's shapes and names
+PRODUCTION_MESH = {
+    "single": ((16, 16), ("data", "model")),  # 256 devices
+    "multi": ((2, 16, 16), ("pod", "data", "model")),  # 512
+}
+
+
+def make_production_mesh(multi_pod: bool = False, device=None):
+    """``PRODUCTION_MESH``'s ``"single"`` mesh, or with ``multi_pod`` its
+    ``"multi"`` one.  The group must have that many ranks (a ``"fake"``
+    group for a plan)."""
+    return make_mesh(*PRODUCTION_MESH["multi" if multi_pod else "single"], device)
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """``{axis name: size}`` of a named ``DeviceMesh``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))

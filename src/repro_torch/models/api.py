@@ -38,6 +38,7 @@ from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.device import resolve_device
 
 from . import cnn as cnn_mod
+from . import sharding
 from . import encdec as encdec_mod
 from . import transformer as tr
 
@@ -47,12 +48,53 @@ __all__ = ["Model", "build_model", "input_specs", "cross_entropy"]
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean token CE in fp32. logits (..., V), labels (...) int."""
     logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    logz, ll = _ce_terms(logits, labels)
     nll = logz - ll
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+def _ce_terms(logits: torch.Tensor, labels: torch.Tensor):
+    """``(logsumexp(logits), logits[..., labels])`` over the last (vocab)
+    dimension.  On a DTensor both are computed on each rank's shard, as
+    Megatron's vocab-parallel loss does, so no rank gathers the logits:
+    where the vocab is split, each rank takes its slice's max, sum of
+    exponentials and the labels its slice holds, and the ranks combine them
+    (a max and two sums); where it is whole (one rank), the plain ops run
+    on the local tensor."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(logits, DTensor):
+        return torch.logsumexp(logits, dim=-1), torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    if any(p.is_partial() for p in logits.placements):
+        logits = logits.redistribute(mesh, [Replicate() if p.is_partial() else p for p in logits.placements])
+    rows = [Replicate() if p.is_shard(last) else p for p in logits.placements]
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    lab = labels.redistribute(mesh, rows).to_local().long()
+    local = logits.to_local()
+    start, length = sharding.shard_range(logits, last)
+    if length == logits.shape[-1]:  # the whole vocab on every rank
+        logz = torch.logsumexp(local, dim=-1)
+        ll = torch.gather(local, -1, lab[..., None])[..., 0]
+        return (DTensor.from_local(logz, mesh, rows, run_check=False),
+                DTensor.from_local(ll, mesh, rows, run_check=False))
+
+    def combined(t, op):
+        part = [Partial(op) if p.is_shard(last) else p for p in logits.placements]
+        return DTensor.from_local(t, mesh, part, run_check=False).redistribute(mesh, rows)
+
+    m = combined(local.detach().amax(dim=-1), "max").to_local()
+    sumexp = combined(torch.exp(local - m[..., None]).sum(dim=-1), "sum")
+    logz = torch.log(sumexp) + DTensor.from_local(m, mesh, rows, run_check=False)
+    inside = (lab >= start) & (lab < start + length)
+    got = torch.gather(local, -1, torch.where(inside, lab - start, 0)[..., None])[..., 0]
+    got = torch.where(inside, got, torch.zeros((), dtype=got.dtype, device=got.device))
+    return logz, combined(got, "sum")
 
 
 class Model(NamedTuple):

@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .layers import ParamBuilder, apply_mrope, apply_rope
+from .sharding import einsum, shard, splits_evenly, write_slot
 
 __all__ = ["attn_init", "attn_apply", "attn_decode", "init_kv_cache", "KVCache"]
 
@@ -50,9 +51,9 @@ def attn_init(pb: ParamBuilder, cfg):
 
 
 def _project_qkv(p, x, cfg, positions):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    k = einsum("bsd,dhk->bshk", x, p["wk"])
+    v = einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.mrope_sections is not None:
         q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
@@ -62,19 +63,32 @@ def _project_qkv(p, x, cfg, positions):
     return q, k, v
 
 
+def _mesh_heads(q, k, v):
+    """``(k, v)``, each KV head repeated for its G query heads where the
+    query heads' shards on a mesh straddle the KV groups (e.g. 128 heads
+    over 16 ranks against 8 KV heads), so the grouped reshape below keeps
+    them whole; otherwise as given (always on one device)."""
+    H, KV = q.shape[2], k.shape[2]
+    if splits_evenly(q, 2, KV):
+        return k, v
+    B, T, _, hd = k.shape
+    return tuple(t[:, :, :, None, :].expand(B, T, KV, H // KV, hd).reshape(B, T, H, hd) for t in (k, v))
+
+
 def _sdpa(q, k, v, mask, softcap: Optional[float]):
     """q: (B,S,H,hd), k/v: (B,T,KV,hd) with H = G*KV.  mask: (B,1,S,T) bool
     (or any shape that broadcasts against the (B,KV,G,S,T) scores)."""
     B, S, H, hd = q.shape
+    k, v = _mesh_heads(q, k, v)
     KV = k.shape[2]
     G = H // KV
     qg = q.reshape(B, S, KV, G, hd)
-    scores = torch.einsum("bskgh,btkh->bkgst", qg, k).to(torch.float32) / math.sqrt(hd)
+    scores = einsum("bskgh,btkh->bkgst", qg, k).to(torch.float32) / math.sqrt(hd)
     if softcap:
         scores = torch.tanh(scores / softcap) * softcap
     scores = torch.where(mask[:, :, None] if mask.dim() == 4 else mask, scores, NEG_FILL)
     w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkh->bskgh", w.to(v.dtype), v)
+    out = einsum("bkgst,btkh->bskgh", w.to(v.dtype), v)
     return out.reshape(B, S, H, hd)
 
 
@@ -86,6 +100,7 @@ def _chunked_sdpa(q, k, v, causal: bool, window: int, softcap, chunk_q: int = 51
     q: (B,S,H,hd); k/v: (B,T,KV,hd).
     """
     B, S, H, hd = q.shape
+    k, v = _mesh_heads(q, k, v)
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
     cq = min(chunk_q, S)
@@ -106,7 +121,7 @@ def _chunked_sdpa(q, k, v, causal: bool, window: int, softcap, chunk_q: int = 51
         acc = torch.zeros((B, KV, G, cq, hd), dtype=torch.float32, device=q.device)
         for kj in range(nk):
             kb, vb = kc[:, kj], vc[:, kj]
-            s = torch.einsum("bqkgh,btkh->bkgqt", qb, kb).to(torch.float32) * scale
+            s = einsum("bqkgh,btkh->bkgqt", qb, kb).to(torch.float32) * scale
             if softcap:
                 s = torch.tanh(s / softcap) * softcap
             q_pos = qi * cq + ar_q
@@ -121,7 +136,7 @@ def _chunked_sdpa(q, k, v, causal: bool, window: int, softcap, chunk_q: int = 51
             pr = torch.exp(s - m_new[..., None])
             alpha = torch.exp(m - m_new)
             l = l * alpha + pr.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum("bkgqt,btkh->bkgqh", pr.to(vb.dtype), vb).to(torch.float32)
+            acc = acc * alpha[..., None] + einsum("bkgqt,btkh->bkgqh", pr.to(vb.dtype), vb).to(torch.float32)
             m = m_new
         out = acc / torch.where(l == 0, 1.0, l)[..., None]
         outs.append(torch.movedim(out, 3, 1).reshape(B, cq, KV * G, hd).to(q.dtype))  # (B,cq,H,hd)
@@ -151,28 +166,29 @@ def attn_apply(
     """Full-sequence attention. Returns (out, cache|None)."""
     B, S, _ = x.shape
     if cross_kv is not None:
-        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        q = einsum("bsd,dhk->bshk", x, p["wq"])
         k, v = cross_kv
         mask = torch.ones((B, 1, S, k.shape[1]), dtype=torch.bool, device=x.device)
         out = _sdpa(q, k, v, mask, cfg.attn_logit_softcap)
     else:
         q, k, v = _project_qkv(p, x, cfg, positions)
+        k = shard(k, "batch", "seq", "kv_heads", "head_dim")
+        v = shard(v, "batch", "seq", "kv_heads", "head_dim")
         if impl == "chunked":
             out = _chunked_sdpa(q, k, v, True, window, cfg.attn_logit_softcap)
         else:
             mask = _causal_mask(S, S, 0, window, x.device)[None, None]
             out = _sdpa(q, k, v, mask, cfg.attn_logit_softcap)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = shard(out, "batch", "seq", "q_heads", "head_dim")
+    y = einsum("bshk,hkd->bsd", out, p["wo"])
     cache = None
     if mode == "prefill" and cross_kv is None:
         if window > 0:
             # the trailing `window` keys at slots 0..keep-1, oldest first (the
             # reference's layout; its decode then writes slot pos % window)
             keep = min(window, S)
-            kw = torch.zeros((B, window, *k.shape[2:]), dtype=k.dtype, device=k.device)
-            vw = torch.zeros((B, window, *v.shape[2:]), dtype=v.dtype, device=v.device)
-            kw[:, :keep] = k[:, S - keep:]
-            vw[:, :keep] = v[:, S - keep:]
+            kw, vw = (torch.cat([t[:, S - keep:], torch.zeros((B, window - keep, *t.shape[2:]), dtype=t.dtype,
+                                                              device=t.device)], dim=1) for t in (k, v))
             cache = KVCache(kw, vw, S)
         else:
             cache = KVCache(k, v, S)
@@ -218,11 +234,11 @@ def attn_decode(
     value are written into ``cache``'s buffers."""
     B = x.shape[0]
     if cross_kv is not None:
-        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        q = einsum("bsd,dhk->bshk", x, p["wq"])
         k, v = cross_kv
         mask = torch.ones((B, 1, 1, k.shape[1]), dtype=torch.bool, device=x.device)
         out = _sdpa(q, k, v, mask, cfg.attn_logit_softcap)
-        return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+        return einsum("bshk,hkd->bsd", out, p["wo"]), cache
 
     pos = cache.pos  # number of tokens already in context
     if positions is None:
@@ -231,9 +247,11 @@ def attn_decode(
     n_slots = cache.k.shape[1]
     slot = decode_slot(pos, n_slots, window)
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)
-    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+    write_slot(cache.k, slot, k_new[:, 0].to(cache.k.dtype))
+    write_slot(cache.v, slot, v_new[:, 0].to(cache.v.dtype))
+    k = shard(cache.k, "batch", "cache_seq", "kv_heads", "head_dim")
+    v = shard(cache.v, "batch", "cache_seq", "kv_heads", "head_dim")
     mask = valid_slots(pos, slot, n_slots, window, x.device)[None, None, None, :]
-    out = _sdpa(q, cache.k, cache.v, mask, cfg.attn_logit_softcap)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = _sdpa(q, k, v, mask, cfg.attn_logit_softcap)
+    y = einsum("bshk,hkd->bsd", out, p["wo"])
     return y, KVCache(cache.k, cache.v, pos + 1)

@@ -16,6 +16,7 @@ import torch
 from . import attention as attn_mod
 from .layers import ParamBuilder, mlp_apply, mlp_init, norm_apply, norm_init, sinusoidal_positions
 from .remat import remat
+from .sharding import einsum, lookup, shard
 from .transformer import _layer, _stacked, depth, torch_dtype, unstack
 
 __all__ = ["encdec_init", "encdec_forward", "encdec_encode", "encdec_decode_step", "encdec_init_caches"]
@@ -59,11 +60,11 @@ def _enc_layer(cfg):
     def body(x, p, full):
         h = norm_apply(p, "norm1", x, cfg.norm, cfg.norm_eps)
         # bidirectional: no positions (sinusoidal already added), full mask
-        q = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wq"])
-        k = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wk"])
-        v = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wv"])
+        q = einsum("bsd,dhk->bshk", h, p["attn"]["wq"])
+        k = einsum("bsd,dhk->bshk", h, p["attn"]["wk"])
+        v = einsum("bsd,dhk->bshk", h, p["attn"]["wv"])
         o = attn_mod._sdpa(q, k, v, full, None)
-        x = x + torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"])
+        x = x + einsum("bshk,hkd->bsd", o, p["attn"]["wo"])
         h = norm_apply(p, "norm2", x, cfg.norm, cfg.norm_eps)
         return (x + mlp_apply(p["ffn"], h, cfg.act),)
 
@@ -77,6 +78,7 @@ def encdec_encode(params, cfg, frames):
     B, S, d = frames.shape
     dt = torch_dtype(cfg.dtype)
     x = frames.to(dt) + sinusoidal_positions(S, d, frames.device).to(dt)[None]
+    x = shard(x, "batch", "enc_seq", "embed")
     full = torch.ones((B, 1, S, S), dtype=torch.bool, device=frames.device)
     body = _enc_layer(cfg)
     for p in unstack(params["enc"]):
@@ -86,8 +88,8 @@ def encdec_encode(params, cfg, frames):
 
 def _cross_kv(p_dec, cfg, enc_out):
     """Per-layer cross K/V from the encoder output: a (L, B, T, KV, hd) pair."""
-    k = torch.einsum("btd,ldhk->lbthk", enc_out, p_dec["cross_attn"]["wk"])
-    v = torch.einsum("btd,ldhk->lbthk", enc_out, p_dec["cross_attn"]["wv"])
+    k = einsum("btd,ldhk->lbthk", enc_out, p_dec["cross_attn"]["wk"])
+    v = einsum("btd,ldhk->lbthk", enc_out, p_dec["cross_attn"]["wv"])
     return k, v
 
 
@@ -115,7 +117,8 @@ def encdec_forward(params, cfg, batch, mode: str = "train", window: int = 0):
     enc_out = encdec_encode(params, cfg, batch["frames"])
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = (params["tok_emb"][tokens] + params["dec_pos"][:S][None]).to(torch_dtype(cfg.dtype))
+    x = (lookup(params["tok_emb"], tokens) + params["dec_pos"][:S][None]).to(torch_dtype(cfg.dtype))
+    x = shard(x, "batch", "seq", "embed")
     xk, xv = _cross_kv(params["dec"], cfg, enc_out)
     body = _dec_layer(cfg, mode, window)
     caches = []
@@ -126,7 +129,8 @@ def encdec_forward(params, cfg, batch, mode: str = "train", window: int = 0):
             x, cache = body(x, p, k, v)
         caches.append(cache)
     x = norm_apply(params, "dec_final", x, cfg.norm, cfg.norm_eps)
-    logits = torch.einsum("bsd,vd->bsv", x, params["tok_emb"])
+    logits = einsum("bsd,vd->bsv", x, params["tok_emb"])
+    logits = shard(logits, "batch", "seq", "vocab")
     out_caches = None
     if mode == "prefill":
         self_c = attn_mod.KVCache(torch.stack([c.k for c in caches]), torch.stack([c.v for c in caches]), caches[0].pos)
@@ -145,7 +149,7 @@ def encdec_decode_step(params, cfg, tokens, caches, window: int = 0):
     the self-attention cache is written in place and returned with ``pos + 1``."""
     self_c = caches["self"]
     pos = self_c.pos
-    x = (params["tok_emb"][tokens] + params["dec_pos"][pos][None, None]).to(torch_dtype(cfg.dtype))
+    x = (lookup(params["tok_emb"], tokens) + params["dec_pos"][pos][None, None]).to(torch_dtype(cfg.dtype))
     xk, xv = caches["cross"]
     for i in range(depth(params["dec"])):
         p = _layer(params["dec"], i)
@@ -158,5 +162,5 @@ def encdec_decode_step(params, cfg, tokens, caches, window: int = 0):
         h = norm_apply(p, "norm2", x, cfg.norm, cfg.norm_eps)
         x = x + mlp_apply(p["ffn"], h, cfg.act)
     x = norm_apply(params, "dec_final", x, cfg.norm, cfg.norm_eps)
-    logits = torch.einsum("bsd,vd->bsv", x, params["tok_emb"])
+    logits = einsum("bsd,vd->bsv", x, params["tok_emb"])
     return logits, {"self": attn_mod.KVCache(self_c.k, self_c.v, pos + 1), "cross": caches["cross"]}

@@ -16,6 +16,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .sharding import einsum, shard
+
 __all__ = [
     "ParamBuilder",
     "rmsnorm",
@@ -168,11 +170,12 @@ def plain_act(h: torch.Tensor, act: str) -> torch.Tensor:
 def mlp_apply(p, x: torch.Tensor, act: str) -> torch.Tensor:
     """x: (..., d) -> (..., d).  Gated (SiLU/GeGLU) or plain (GELU/sqReLU)."""
     if act in ("silu", "geglu"):
-        h = torch.einsum("...d,dgf->...gf", x, p["w_in"])
+        h = einsum("...d,dgf->...gf", x, p["w_in"])
         h = gated_act(h[..., 0, :], act) * h[..., 1, :]
     else:
-        h = plain_act(torch.einsum("...d,df->...f", x, p["w_in"]), act)
-    return torch.einsum("...f,fd->...d", h, p["w_out"])
+        h = plain_act(einsum("...d,df->...f", x, p["w_in"]), act)
+    h = shard(h, *((None,) * (h.dim() - 1)), "mlp")
+    return einsum("...f,fd->...d", h, p["w_out"])
 
 
 # ---------------------------------------------------------------- RoPE -----

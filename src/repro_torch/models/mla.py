@@ -26,6 +26,7 @@ import torch
 
 from .attention import NEG_FILL, decode_slot, valid_slots
 from .layers import ParamBuilder, apply_rope, rmsnorm
+from .sharding import einsum, shard, write_slot
 
 __all__ = ["MLACache", "mla_init", "mla_apply", "mla_decode", "init_mla_cache"]
 
@@ -58,11 +59,11 @@ def _scale(cfg) -> float:
 def _latents(p, x, cfg, positions):
     """Compute (q_nope, q_rope, c_kv, k_rope) with rope applied."""
     dn = cfg.qk_nope_head_dim
-    c_q = rmsnorm(torch.einsum("bsd,dr->bsr", x, p["w_dq"]), p["q_norm"], cfg.norm_eps)
-    q = torch.einsum("bsr,rhk->bshk", c_q, p["w_uq"])
+    c_q = rmsnorm(einsum("bsd,dr->bsr", x, p["w_dq"]), p["q_norm"], cfg.norm_eps)
+    q = einsum("bsr,rhk->bshk", c_q, p["w_uq"])
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    c_kv = rmsnorm(torch.einsum("bsd,dr->bsr", x, p["w_dkv"]), p["kv_norm"], cfg.norm_eps)
-    k_rope = torch.einsum("bsd,dk->bsk", x, p["w_kr"])
+    c_kv = rmsnorm(einsum("bsd,dr->bsr", x, p["w_dkv"]), p["kv_norm"], cfg.norm_eps)
+    k_rope = einsum("bsd,dk->bsk", x, p["w_kr"])
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
     return q_nope, q_rope, c_kv, k_rope
@@ -72,22 +73,22 @@ def _mla_attend(p, q_nope, q_rope, c_kv, k_rope, cfg, mask, absorb: bool):
     """Score+combine. q_*: (B,S,H,*), c_kv: (B,T,r), k_rope: (B,T,dr)."""
     if absorb:
         # fold W_uk into q: q_lat (B,S,H,r); scores vs latent cache directly
-        q_lat = torch.einsum("bshn,rhn->bshr", q_nope, p["w_uk"])
-        s_nope = torch.einsum("bshr,btr->bhst", q_lat, c_kv)
+        q_lat = einsum("bshn,rhn->bshr", q_nope, p["w_uk"])
+        s_nope = einsum("bshr,btr->bhst", q_lat, c_kv)
     else:
-        k_nope = torch.einsum("btr,rhn->bthn", c_kv, p["w_uk"])
-        s_nope = torch.einsum("bshn,bthn->bhst", q_nope, k_nope)
-    s_rope = torch.einsum("bshk,btk->bhst", q_rope, k_rope)
+        k_nope = einsum("btr,rhn->bthn", c_kv, p["w_uk"])
+        s_nope = einsum("bshn,bthn->bhst", q_nope, k_nope)
+    s_rope = einsum("bshk,btk->bhst", q_rope, k_rope)
     scores = (s_nope + s_rope).to(torch.float32) * _scale(cfg)
     scores = torch.where(mask, scores, NEG_FILL)
     w = torch.softmax(scores, dim=-1).to(c_kv.dtype)
     if absorb:
-        o_lat = torch.einsum("bhst,btr->bshr", w, c_kv)
-        out = torch.einsum("bshr,rhv->bshv", o_lat, p["w_uv"])
+        o_lat = einsum("bhst,btr->bshr", w, c_kv)
+        out = einsum("bshr,rhv->bshv", o_lat, p["w_uv"])
     else:
-        v = torch.einsum("btr,rhv->bthv", c_kv, p["w_uv"])
-        out = torch.einsum("bhst,bthv->bshv", w, v)
-    return torch.einsum("bshv,hvd->bsd", out, p["wo"])
+        v = einsum("btr,rhv->bthv", c_kv, p["w_uv"])
+        out = einsum("bhst,bthv->bshv", w, v)
+    return einsum("bshv,hvd->bsd", out, p["wo"])
 
 
 def _mla_attend_chunked(p, q_nope, q_rope, c_kv, k_rope, cfg, window: int, chunk_q: int = 512, chunk_k: int = 1024):
@@ -102,7 +103,7 @@ def _mla_attend_chunked(p, q_nope, q_rope, c_kv, k_rope, cfg, window: int, chunk
     nq, nk = S // cq, T // ck
     scale = _scale(cfg)
     dev = q_nope.device
-    q_lat = torch.einsum("bshn,rhn->bshr", q_nope, p["w_uk"])  # (B,S,H,r)
+    q_lat = einsum("bshn,rhn->bshr", q_nope, p["w_uk"])  # (B,S,H,r)
     qlc = q_lat.reshape(B, nq, cq, H, r)
     qrc = q_rope.reshape(B, nq, cq, H, -1)
     ckv = c_kv.reshape(B, nk, ck, r)
@@ -117,7 +118,7 @@ def _mla_attend_chunked(p, q_nope, q_rope, c_kv, k_rope, cfg, window: int, chunk
         acc = torch.zeros((B, H, cq, r), dtype=torch.float32, device=dev)
         for kj in range(nk):
             cb, krb = ckv[:, kj], krc[:, kj]
-            s = (torch.einsum("bqhr,btr->bhqt", ql, cb) + torch.einsum("bqhk,btk->bhqt", qr, krb)).to(
+            s = (einsum("bqhr,btr->bhqt", ql, cb) + einsum("bqhk,btk->bhqt", qr, krb)).to(
                 torch.float32) * scale
             q_pos = qi * cq + ar_q
             k_pos = kj * ck + ar_k
@@ -129,17 +130,18 @@ def _mla_attend_chunked(p, q_nope, q_rope, c_kv, k_rope, cfg, window: int, chunk
             pr = torch.exp(s - m_new[..., None])
             alpha = torch.exp(m - m_new)
             l = l * alpha + pr.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum("bhqt,btr->bhqr", pr.to(cb.dtype), cb).to(torch.float32)
+            acc = acc * alpha[..., None] + einsum("bhqt,btr->bhqr", pr.to(cb.dtype), cb).to(torch.float32)
             m = m_new
         o_lat = (acc / torch.where(l == 0, 1.0, l)[..., None]).to(c_kv.dtype)  # (B,H,cq,r)
-        outs.append(torch.einsum("bhqr,rhv->bqhv", o_lat, p["w_uv"]))  # (B,cq,H,dv)
+        outs.append(einsum("bhqr,rhv->bqhv", o_lat, p["w_uv"]))  # (B,cq,H,dv)
     out = torch.cat(outs, dim=1)
-    return torch.einsum("bshv,hvd->bsd", out, p["wo"])
+    return einsum("bshv,hvd->bsd", out, p["wo"])
 
 
 def mla_apply(p, x, cfg, positions, mode: str = "train", window: int = 0, impl: str = "einsum"):
     B, S, _ = x.shape
     q_nope, q_rope, c_kv, k_rope = _latents(p, x, cfg, positions)
+    c_kv = shard(c_kv, "batch", "seq", None)
     if impl == "chunked":
         y = _mla_attend_chunked(p, q_nope, q_rope, c_kv, k_rope, cfg, window)
     else:
@@ -153,10 +155,8 @@ def mla_apply(p, x, cfg, positions, mode: str = "train", window: int = 0, impl: 
     if mode == "prefill":
         if window > 0:
             keep = min(window, S)
-            ck = torch.zeros((B, window, c_kv.shape[-1]), dtype=c_kv.dtype, device=x.device)
-            kr = torch.zeros((B, window, k_rope.shape[-1]), dtype=k_rope.dtype, device=x.device)
-            ck[:, :keep] = c_kv[:, S - keep:]
-            kr[:, :keep] = k_rope[:, S - keep:]
+            ck, kr = (torch.cat([t[:, S - keep:], torch.zeros((B, window - keep, t.shape[-1]), dtype=t.dtype,
+                                                              device=x.device)], dim=1) for t in (c_kv, k_rope))
             cache = MLACache(ck, kr, S)
         else:
             cache = MLACache(c_kv, k_rope, S)
@@ -181,8 +181,9 @@ def mla_decode(p, x, cfg, cache: MLACache, window: int = 0):
     slot = decode_slot(pos, n_slots, window)
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     q_nope, q_rope, c_kv, k_rope = _latents(p, x, cfg, positions)
-    cache.c_kv[:, slot] = c_kv[:, 0].to(cache.c_kv.dtype)
-    cache.k_rope[:, slot] = k_rope[:, 0].to(cache.k_rope.dtype)
+    write_slot(cache.c_kv, slot, c_kv[:, 0].to(cache.c_kv.dtype))
+    write_slot(cache.k_rope, slot, k_rope[:, 0].to(cache.k_rope.dtype))
+    ck = shard(cache.c_kv, "batch", "cache_seq", None)
     mask = valid_slots(pos, slot, n_slots, window, x.device)[None, None, None, :]
-    y = _mla_attend(p, q_nope, q_rope, cache.c_kv, cache.k_rope, cfg, mask, cfg.mla_absorb)
+    y = _mla_attend(p, q_nope, q_rope, ck, cache.k_rope, cfg, mask, cfg.mla_absorb)
     return y, MLACache(cache.c_kv, cache.k_rope, pos + 1)

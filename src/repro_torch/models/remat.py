@@ -49,6 +49,8 @@ class _Remat(torch.autograd.Function):
     def backward(ctx, *grads):
         saved = ctx.saved_tensors
         diff = [i for i, t in enumerate(saved) if t.is_floating_point()]
+        if _on_mesh(saved):
+            return (None, *_autograd_backward(ctx.flat_body, saved, diff, grads))
 
         def of_floats(*floats):  # the body as a function of its floating inputs
             full = list(saved)
@@ -66,6 +68,31 @@ class _Remat(torch.autograd.Function):
             # paths (a matmul folds its batch axes by it) as without remat
             out[i] = g.detach()
         return (None, *out)
+
+
+def _on_mesh(saved) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(t, DTensor) for t in saved)
+
+
+def _autograd_backward(flat_body, saved, diff, grads):
+    """The backward on a mesh (DTensor inputs, which ``torch.func.vjp`` does
+    not take): the body again under autograd, differentiated with
+    ``torch.autograd.grad`` (the cohort's ``vmap`` never reaches here: it
+    maps plain tensors)."""
+    with torch.enable_grad():
+        inputs = [saved[i].detach().requires_grad_() for i in diff]
+        full = list(saved)
+        for i, t in zip(diff, inputs):
+            full[i] = t
+        outs = flat_body(*full)
+    pairs = [(o, g) for o, g in zip(outs, grads) if g is not None and o.requires_grad]
+    got = torch.autograd.grad([o for o, _ in pairs], inputs, [g for _, g in pairs], allow_unused=True)
+    out = [None] * len(saved)
+    for i, g in zip(diff, got):
+        out[i] = g
+    return out
 
 
 def remat(body: Callable[..., Tuple[torch.Tensor, ...]], *args) -> Tuple[torch.Tensor, ...]:

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import ParamBuilder, rmsnorm
+from .sharding import einsum, on_rows, shard
 
 __all__ = ["SSMCache", "ssm_init", "ssm_apply", "ssm_decode", "init_ssm_cache", "ssd_chunked"]
 
@@ -116,13 +117,13 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None, return_final=Fal
     Li = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (b,nc,Q,Q,H)
     mask = (torch.arange(Q, device=x.device)[:, None] >= torch.arange(Q, device=x.device)[None, :])[None, None, :, :, None]
     L = torch.where(mask, torch.exp(Li), 0.0)
-    scores = torch.einsum("bcihn,bcjhn->bcijh", Ch, Bh)  # (b,nc,Q,Q,H)
+    scores = einsum("bcihn,bcjhn->bcijh", Ch, Bh)  # (b,nc,Q,Q,H)
     att = scores * L * dtc[:, :, None, :, :]  # weight by dt_j
-    y_intra = torch.einsum("bcijh,bcjhp->bcihp", att, xc)
+    y_intra = einsum("bcijh,bcjhp->bcihp", att, xc)
 
     # ---- chunk states ----
     decay_to_end = torch.exp(total[:, :, None, :] - cum)  # (b,nc,Q,H)
-    S_chunk = torch.einsum("bcqh,bcqhn,bcqhp->bchnp", dtc * decay_to_end, Bh, xc)
+    S_chunk = einsum("bcqh,bcqhn,bcqhp->bchnp", dtc * decay_to_end, Bh, xc)
 
     # ---- inter-chunk recurrence ----
     s = initial_state if initial_state is not None else torch.zeros((b, H, N, P), dtype=x.dtype, device=x.device)
@@ -132,39 +133,56 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None, return_final=Fal
         s = s * torch.exp(total[:, c])[:, :, None, None] + S_chunk[:, c]
     prev_states = torch.stack(prev, dim=1)  # (b,nc,H,N,P)
 
-    y_inter = torch.einsum("bcqhn,bchnp,bcqh->bcqhp", Ch, prev_states, torch.exp(cum))
+    y_inter = einsum("bcqhn,bchnp,bcqh->bcqhp", Ch, prev_states, torch.exp(cum))
     y = (y_intra + y_inter).reshape(b, S_pad, H, P)[:, :S]
     if return_final:
         return y, s
     return y
 
 
-def ssm_apply(p, x, cfg, mode: str = "train", impl: str = "einsum"):
-    """x: (B,S,d) -> (B,S,d) [, cache]."""
+_MIXER = ("conv_w", "conv_b", "A_log", "D", "dt_bias", "gate_norm")  # the SSD's own (small) parameters
+
+
+def _mixer(p, h, cfg, mode: str):
+    """in_proj's output ``h`` (B,S,e) -> the gated SSD output (B,S,d_in),
+    and in prefill the conv ring and the final state."""
     d_in, H, P, G, N = _dims(cfg)
-    h = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    B_, S_ = h.shape[:2]
     z, xbc_raw, dt = _split_proj(cfg, h)
     xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
     xs = xbc[..., :d_in]
-    Bm = xbc[..., d_in: d_in + G * N].reshape(*x.shape[:2], G, N)
-    Cm = xbc[..., d_in + G * N:].reshape(*x.shape[:2], G, N)
+    Bm = xbc[..., d_in: d_in + G * N].reshape(B_, S_, G, N)
+    Cm = xbc[..., d_in + G * N:].reshape(B_, S_, G, N)
     dt = F.softplus(dt + p["dt_bias"])  # (B,S,H)
-    A = _decay_A(p, x.dtype)
-    xh = xs.reshape(*x.shape[:2], H, P)
+    A = _decay_A(p, h.dtype)
+    xh = xs.reshape(B_, S_, H, P)
     y, final = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk, return_final=True)
     y = y + p["D"][None, None, :, None] * xh
-    y = y.reshape(*x.shape[:2], d_in)
+    y = y.reshape(B_, S_, d_in)
     y = rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    if mode != "prefill":
+        return y, None, None
+    W = cfg.ssm_conv_width
+    # the raw pre-conv trailing inputs (the reference computes the same
+    # in_proj product again; this is that product's slice)
+    conv_state = xbc_raw[:, -(W - 1):, :]
+    pad = W - 1 - conv_state.shape[1]
+    if pad > 0:
+        conv_state = F.pad(conv_state, (0, 0, pad, 0))
+    return y, conv_state.contiguous(), final
+
+
+def ssm_apply(p, x, cfg, mode: str = "train", impl: str = "einsum"):
+    """x: (B,S,d) -> (B,S,d) [, cache].  On a mesh the mixer between the two
+    projections runs on each rank's batch rows with every feature
+    (``sharding.on_rows``): its slices of in_proj's output at the z / x / B
+    / C / dt boundaries do not follow a feature sharding."""
+    h = einsum("bsd,de->bse", x, p["in_proj"])
+    y, conv_state, final = on_rows(lambda hh, *small: _mixer(dict(zip(_MIXER, small)), hh, cfg, mode),
+                                   shard(h, "batch", "seq", None), *(p[k] for k in _MIXER))
+    out = einsum("bse,ed->bsd", y, p["out_proj"])
     if mode == "prefill":
-        W = cfg.ssm_conv_width
-        # the raw pre-conv trailing inputs (the reference computes the same
-        # in_proj product again; this is that product's slice)
-        conv_state = xbc_raw[:, -(W - 1):, :]
-        pad = W - 1 - conv_state.shape[1]
-        if pad > 0:
-            conv_state = F.pad(conv_state, (0, 0, pad, 0))
-        return out, SSMCache(conv_state.contiguous(), final, x.shape[1])
+        return out, SSMCache(conv_state, final, x.shape[1])
     return out, None
 
 
@@ -178,18 +196,17 @@ def init_ssm_cache(cfg, B: int, dtype=torch.bfloat16, device=None) -> SSMCache:
     )
 
 
-def ssm_decode(p, x, cfg, cache: SSMCache):
-    """One-token recurrent step. x: (B,1,d).  The ring and the state are
-    written into ``cache``'s buffers."""
+def _decode_mixer(p, h, conv, state, cfg):
+    """One token's in_proj output ``h`` (B, e), the conv ring and the state
+    -> (the gated output (B, d_in), the new ring, the new state)."""
     d_in, H, P, G, N = _dims(cfg)
-    h = torch.einsum("bsd,de->bse", x, p["in_proj"])[:, 0]  # (B, e)
     z = h[..., :d_in]
     xbc_new = h[..., d_in: 2 * d_in + 2 * G * N]
     dt = h[..., 2 * d_in + 2 * G * N:]
     # conv over ring of last W inputs
-    inputs = torch.cat([cache.conv, xbc_new[:, None, :]], dim=1)  # (B,W,C)
-    conv = torch.einsum("bwc,wc->bc", inputs, p["conv_w"]) + p["conv_b"]
-    xbc = F.silu(conv)
+    inputs = torch.cat([conv, xbc_new[:, None, :]], dim=1)  # (B,W,C)
+    cv = einsum("bwc,wc->bc", inputs, p["conv_w"]) + p["conv_b"]
+    xbc = F.silu(cv)
     xs = xbc[..., :d_in].reshape(-1, H, P)
     Bm = xbc[..., d_in: d_in + G * N].reshape(-1, G, N)
     Cm = xbc[..., d_in + G * N:].reshape(-1, G, N)
@@ -197,14 +214,25 @@ def ssm_decode(p, x, cfg, cache: SSMCache):
     Bh = torch.repeat_interleave(Bm, rep, dim=1)  # (B,H,N)
     Ch = torch.repeat_interleave(Cm, rep, dim=1)
     dt = F.softplus(dt + p["dt_bias"])  # (B,H)
-    A = _decay_A(p, x.dtype)
+    A = _decay_A(p, h.dtype)
     decay = torch.exp(dt * A)[:, :, None, None]  # (B,H,1,1)
-    upd = torch.einsum("bh,bhn,bhp->bhnp", dt, Bh, xs)
-    state = cache.state * decay + upd
-    y = torch.einsum("bhn,bhnp->bhp", Ch, state) + p["D"][None, :, None] * xs
-    y = y.reshape(x.shape[0], d_in)
-    y = rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    out = torch.einsum("be,ed->bd", y, p["out_proj"])[:, None, :]
-    cache.conv.copy_(inputs[:, 1:])
+    upd = einsum("bh,bhn,bhp->bhnp", dt, Bh, xs)
+    state = state * decay + upd
+    y = einsum("bhn,bhnp->bhp", Ch, state) + p["D"][None, :, None] * xs
+    y = y.reshape(h.shape[0], d_in)
+    return rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps), inputs[:, 1:], state
+
+
+def ssm_decode(p, x, cfg, cache: SSMCache):
+    """One-token recurrent step. x: (B,1,d).  The ring and the state are
+    written into ``cache``'s buffers (on a mesh the mixer runs as in
+    ``ssm_apply``, on each rank's rows)."""
+    h = einsum("bsd,de->bse", x, p["in_proj"])[:, 0]  # (B, e)
+    y, ring, state = on_rows(
+        lambda hh, cv, st, *small: _decode_mixer(dict(zip(_MIXER, small)), hh, cv, st, cfg),
+        shard(h, "batch", None), shard(cache.conv, "batch", None, None), shard(cache.state, "batch", None, None, None),
+        *(p[k] for k in _MIXER))
+    out = einsum("be,ed->bd", y, p["out_proj"])[:, None, :]
+    cache.conv.copy_(ring)
     cache.state.copy_(state)
     return out, SSMCache(cache.conv, cache.state, cache.pos + 1)

@@ -38,6 +38,7 @@ from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import ParamBuilder, mlp_apply, mlp_init, norm_apply, norm_init
 from .remat import remat
+from .sharding import einsum, lookup, shard
 
 __all__ = ["segments_of", "model_init", "forward", "decode_step", "init_caches", "pad_caches", "cache_specs",
            "vlm_positions"]
@@ -159,20 +160,22 @@ def _emb_scale(x) -> float:
 
 def _embed(params, cfg, batch):
     tokens = batch["tokens"]
-    x = params["tok_emb"][tokens]
+    x = lookup(params["tok_emb"], tokens)
     if cfg.family == "vlm":
-        patches = torch.einsum("bpd,de->bpe", batch["patch_embeds"].to(x.dtype), params["patch_proj"])
+        patches = einsum("bpd,de->bpe", batch["patch_embeds"].to(x.dtype), params["patch_proj"])
         x = torch.cat([patches, x], dim=1)
     if cfg.emb_scale:
         x = x * _emb_scale(x)
-    return x.to(torch_dtype(cfg.dtype))
+    return shard(x.to(torch_dtype(cfg.dtype)), "batch", "seq", "act_embed")
 
 
 def _logits(params, cfg, x):
     x = norm_apply(params, "final_norm", x, cfg.norm, cfg.norm_eps, plus_one=cfg.emb_scale)
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, params["tok_emb"])
-    return torch.einsum("bsd,dv->bsv", x, params["out_head"])
+        logits = einsum("bsd,vd->bsv", x, params["tok_emb"])
+    else:
+        logits = einsum("bsd,dv->bsv", x, params["out_head"])
+    return shard(logits, "batch", "seq", "vocab")
 
 
 def _hybrid_sites(cfg) -> int:
@@ -207,11 +210,9 @@ def _advanced(cache):
     return type(cache)(*cache[:-1], cache.pos + 1)
 
 
-def _store(stacked, i, cache):
-    """Write one layer's prefill cache into layer ``i`` of ``stacked``."""
-    for dst, src in zip(stacked[:-1], cache[:-1]):
-        dst[i].copy_(src)
-    return type(stacked)(*stacked[:-1], cache.pos)
+def _stack_caches(caches):
+    """Per-layer prefill caches stacked along a leading ``layers`` axis."""
+    return type(caches[0])(*(torch.stack(leaves) for leaves in zip(*(c[:-1] for c in caches))), caches[0].pos)
 
 
 def _layer_body(cfg, kind, mode, window, impl, site, cache, site_cache):
@@ -223,9 +224,10 @@ def _layer_body(cfg, kind, mode, window, impl, site, cache, site_cache):
 
     def body(x, p, shared, emb0, positions):
         x, c_out, aux = _block_apply(p, x, cfg, kind, positions, mode, window, cache, impl)
+        x = shard(x, "batch", "seq", "act_embed")
         c_site = None
         if site is not None:
-            h = torch.einsum("bsd,de->bse", torch.cat([x, emb0], dim=-1), shared["w_concat"])
+            h = einsum("bsd,de->bse", torch.cat([x, emb0], dim=-1), shared["w_concat"])
             h2, c_site, _ = _block_apply(shared, h, cfg, "attn_mlp", positions, mode, window, site_cache, impl)
             x = x + h2
         return x, aux, c_out, c_site
@@ -245,7 +247,7 @@ def _run_segment(params, cfg, si, kind, x, positions, mode, window, caches, impl
     seg_caches = caches.get(f"seg{si}") if (caches is not None and mode == "decode") else None
     rematted = cfg.remat and mode == "train"
     layers = unstack(seg)
-    outs, aux = [], None
+    outs, site_outs, aux = [], [], None
     for li in range(n):
         site = (li + 1) // every - 1 if every and (li + 1) % every == 0 else None
         c_in = _layer(seg_caches, li) if seg_caches is not None else None
@@ -262,13 +264,15 @@ def _run_segment(params, cfg, si, kind, x, positions, mode, window, caches, impl
         if a is not None:
             aux = a if aux is None else aux + a
         if mode == "prefill" and site is not None:
-            attn_caches = _store(attn_caches, site, c2)
+            site_outs.append(c2)
+    if site_outs:
+        attn_caches = _stack_caches(site_outs)
     if mode == "decode":
         new_caches = _advanced(seg_caches)
         if attn_caches is not None:
             attn_caches = _advanced(attn_caches)
     elif mode == "prefill":
-        new_caches = type(outs[0])(*(torch.stack(leaves) for leaves in zip(*(c[:-1] for c in outs))), outs[0].pos)
+        new_caches = _stack_caches(outs)
     else:
         new_caches = None
     return x, attn_caches, new_caches, aux
@@ -288,14 +292,11 @@ def forward(params, cfg, batch, mode: str = "train", window: int = 0, impl: str 
     # in one order, rematerialised or not
     emb0 = x.view_as(x) if cfg.family == "hybrid" else None
     caches_out: Dict[str, Any] = {}
-    caches = None
-    if mode == "prefill" and cfg.family == "hybrid" and cfg.hybrid_attn_every:
-        caches = {"shared": _shared_caches(cfg, B, S, window, x.dtype, x.device)}
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     attn_caches_final = None
     for si, (kind, n) in enumerate(segments_of(cfg)):
         x, attn_caches_final, new_caches, aux = _run_segment(
-            params, cfg, si, kind, x, positions, mode, window, caches, impl, emb0
+            params, cfg, si, kind, x, positions, mode, window, None, impl, emb0
         )
         if aux is not None:
             aux_total = aux_total + aux
@@ -307,9 +308,9 @@ def forward(params, cfg, batch, mode: str = "train", window: int = 0, impl: str 
     if cfg.mtp and mode == "train":
         # DeepSeek-style multi-token prediction: fuse h_t with emb(token_{t+1})
         # to predict token_{t+2}
-        emb_next = params["tok_emb"][batch["tokens"]][:, 1:]
+        emb_next = lookup(params["tok_emb"], batch["tokens"])[:, 1:]
         h = norm_apply(params, "mtp_norm", x[:, :-1], cfg.norm, cfg.norm_eps, plus_one=cfg.emb_scale)
-        fused = torch.einsum("bsd,de->bse", torch.cat([h, emb_next.to(h.dtype)], -1), params["mtp_proj"])
+        fused = einsum("bsd,de->bse", torch.cat([h, emb_next.to(h.dtype)], -1), params["mtp_proj"])
         return logits, caches_out or None, (aux_total, _logits(params, cfg, fused))
     return logits, caches_out or None, (aux_total, None)
 
@@ -317,7 +318,7 @@ def forward(params, cfg, batch, mode: str = "train", window: int = 0, impl: str 
 def decode_step(params, cfg, tokens, caches, window: int = 0):
     """tokens: (B, 1). caches: dict seg{i} -> stacked cache (+ 'shared'),
     updated in place and returned with ``pos + 1``."""
-    x = params["tok_emb"][tokens]
+    x = lookup(params["tok_emb"], tokens)
     if cfg.emb_scale:
         x = x * _emb_scale(x)
     x = x.to(torch_dtype(cfg.dtype))

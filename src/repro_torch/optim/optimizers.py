@@ -44,8 +44,42 @@ def leafwise(fn, *trees, lead: int = 0):
     so the values are the same.  Leaves have one shape, but a leaf may lack
     leading axes of another (a global model against a ``(k, ...)`` cohort
     stack); the first ``lead`` axes are never sliced (``fn`` broadcasts a
-    per-row factor along them)."""
-    return pytree.tree_map(lambda *leaves: _sliced(fn, leaves, lead), *trees)
+    per-row factor along them).
+
+    DTensor leaves (parameters on a mesh, ``models.sharding``) map over
+    their local shards: each is first laid out as the leaf of most
+    dimensions (a gradient's partial sum reduced, a global leaf's shards
+    aligned with a stack's), and the output is a DTensor of that layout."""
+    return pytree.tree_map(lambda *leaves: _mapped(fn, leaves, lead), *trees)
+
+
+def _mapped(fn, leaves, lead):
+    from torch.distributed.tensor import DTensor
+
+    dts = [t for t in leaves if isinstance(t, DTensor)]
+    if not dts:
+        return _sliced(fn, leaves, lead)
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.models.sharding import contiguous_strides
+
+    ref = max(dts, key=lambda t: t.dim())
+    mesh, nd = ref.device_mesh, ref.dim()
+    target = [Replicate() if p.is_partial() else p for p in ref.placements]
+    locals_ = []
+    for t in leaves:
+        if isinstance(t, DTensor):
+            shift = nd - t.dim()
+            want = [Shard(p.dim - shift) if p.is_shard() else p for p in target]
+            if any(p.is_shard() and p.dim < shift for p in target):
+                raise ValueError(f"a leaf of {t.dim()} dims cannot follow a layout {target} of {nd} dims")
+            if tuple(t.placements) != tuple(want):
+                t = t.redistribute(mesh, want)
+            t = t.to_local()
+        locals_.append(t)
+    out = _sliced(fn, locals_, lead)
+    shape = torch.broadcast_shapes(*(t.shape for t in leaves))
+    return DTensor.from_local(out, mesh, target, run_check=False, shape=shape, stride=contiguous_strides(shape))
 
 
 def _sliced(fn, leaves, lead):

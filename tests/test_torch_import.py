@@ -45,7 +45,8 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.fl.client, repro_torch.fl.aggregation, repro_torch.launch.train, repro_torch.configs, "
         "repro_torch.models.attention, repro_torch.models.mla, repro_torch.models.moe, repro_torch.models.ssm, "
         "repro_torch.models.transformer, repro_torch.models.encdec, repro_torch.models.api, "
-        "repro_torch.launch.serve; "
+        "repro_torch.launch.serve, repro_torch.models.sharding, repro_torch.launch.dryrun, "
+        "repro_torch.launch.metrics, repro_torch.launch.comms; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'msgpack', 'zstandard')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -350,3 +351,25 @@ def test_zoo_training_names_import_without_jax():
     jax_names = {n for n, v in vars(jfl).items() if not n.startswith("_") and not isinstance(v, types.ModuleType)}
     assert jax_names == set(pfl.__all__)
     assert all(hasattr(pfl, n) for n in pfl.__all__)
+
+
+def test_mesh_entry_points_raise_without_cuda(no_cuda):
+    """``make_mesh`` and ``make_production_mesh`` default to CUDA and raise
+    without it, before any process group is asked for."""
+    from repro_torch.launch import make_mesh, make_production_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh((1, 1), ("data", "model"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_production_mesh()
+
+
+def test_mesh_names_are_exported():
+    """The port's ``launch`` exports JAX's mesh names, and ``models``
+    exports ``sharding``, as the JAX package does."""
+    import repro_torch.launch as launch
+    import repro_torch.models as models
+    from repro.launch import mesh as jmesh
+
+    assert set(jmesh.__all__) <= set(launch.__all__)
+    assert models.sharding.__name__ == "repro_torch.models.sharding"
