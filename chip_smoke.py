@@ -143,6 +143,15 @@ Phases, one line each; any failure raises and the script exits non-zero:
    cohorts bit for bit in-process engines', the top-k and block-sum kernels
    against their plain versions on the engines' own inputs, launch counts
    exact, the serving rates and the checkpoint's cost (``serve_path``);
+   then ``[serve-sharded-mesh]``: ``ShardedEngine(D=2, staleness=2,
+   block=4)`` at K = 1e6 and 5e5 on two ranks that share the card, each a
+   process of its own over a gloo group of the card's tensors (NCCL
+   refuses two ranks on one device; the runners step uncaptured): rank 0
+   serves, rank 1 follows; the served horizon across ``kill()`` and
+   restore, and the chaos plan, bit for bit the in-process D = 2 engine's,
+   B5 on both ranks' slabs held against plain and its launches exact
+   (``serve_mesh_path``); after the mesh-zoo phase, ``[examples]``: the
+   five ``examples/torch_*.py`` at their defaults (``examples_path``);
 17. ops: the kernel layer's public ops, the path of the top-k and update
    kernels: ``autotune`` sweeps all four kernel families at K = 1e4, 1e5
    and 1e6 into a fresh cache under ``chiprun_out/autotune/``, then
@@ -538,7 +547,12 @@ def main():
                 log("kernel-tile-time", kernel="e3cs_update", tile=tile, ms=f"{ms8:.4f}",
                     l2_cold_ms=f"{upd_cold_ms[tile]:.4f}", card=repr(smi))
             tile_ms = {"gumbel_topk": {tl: v[0] for tl, v in topk_ms.items()},
-                       "fused_gumbel_topk": {tl: v[1] for tl, v in topk_ms.items()}, "e3cs_update": upd_ms}
+                       "fused_gumbel_topk": {tl: v[1] for tl, v in topk_ms.items()},
+                       # B8's working set (5 input rows and the output, 24 MB)
+                       # stays in the 50 MB L2 across replays on the same
+                       # inputs, which read above its DRAM bound: B8 reports
+                       # the rotation over four copies, each call L2-cold
+                       "e3cs_update": upd_cold_ms}
             vals6, idx6 = ref.gumbel_topk_kernel_ref(scores, k)
             b6 = bound(nbytes(scores, vals6, idx6), K)
             rows["gumbel_topk"] = dict(
@@ -564,7 +578,7 @@ def main():
             b8 = bound(nbytes(*upd, scale, new8, tmax8), 7 * K)
             rows["e3cs_update"] = dict(
                 route="cuda", source="src/repro_torch/kernels/csrc/e3cs_update.cu",
-                replaces="src/repro/kernels/e3cs_tiles.py:139", max_abs_err=err8, ms=upd_ms[8192],
+                replaces="src/repro/kernels/e3cs_tiles.py:139", max_abs_err=err8, ms=upd_cold_ms[8192],
                 plain_ms=events_ms(lambda: ref.e3cs_update_kernel_ref(*upd, scale, tile=8192)),
                 bound_ms=b8[0], bound_by=b8[1], library_ms=None)
             del pert, new8, tmax8, upd_copies
@@ -629,12 +643,16 @@ def main():
         launched.update(serve_path(dev, card=smi))
     finally:
         dist.destroy_process_group()
+    # the sharded service on two ranks sharing the card: B5 on both ranks' slabs
+    for n, c in serve_mesh_path(dev, card=smi).items():
+        launched[n] = launched.get(n, 0) + c
     for n, c in multi_job_path(dev, K_MAIN, k_MAIN, T_MAIN, T_SHORT, card=smi).items():
         launched.setdefault(n, c)
     fl_train_path(dev, card=smi)
     zoo_serve_path(dev, card=smi)
     zoo_train_path(dev, card=smi)
     mesh_zoo_path(dev, card=smi)
+    examples_path(dev, card=smi)
 
     # -- 9. the ops and the autotuner ----------------------------------------------
     ops_counts, ops_tiles = ops_path(dev, K_MAIN, k_MAIN)
@@ -2631,6 +2649,50 @@ def _ms_quantiles(seconds):
     return f"{np.percentile(a, 50):.3f}", f"{np.percentile(a, 99):.3f}"
 
 
+def block_sums_on_jobs(eng, label):
+    """The block-sum kernel (B5) against its plain version on the inputs each
+    job of a ``ShardedEngine`` gives it next: the job's allocation run
+    eagerly on the rank's state (every rank of the engine's group at once),
+    every call of the kernel's wrapper recorded and held at ``BISECT_RTOL``.
+    Returns one log field a job."""
+    import torch
+
+    from repro_torch import kernels as kn
+    from repro_torch.engine import sharded
+    from repro_torch.engine.sharded import N_ITERS
+    from repro_torch.kernels import ref
+
+    rows = {}
+    for uid, job in sorted(eng.jobs.items()):
+        _, _, program = eng._runner(job["spec"])
+        state, calls = job["state"], []
+
+        def recorded(w, caps, tile=None):
+            out = kn.bisect_block_sums(w, caps, tile=tile)
+            calls.append((w, caps.clone(), tile, out.clone()))
+            return out
+
+        logw, mesh = state.e3cs.logw, program.mesh
+        wrapper, sharded.bisect_block_sums = sharded.bisect_block_sums, recorded
+        try:
+            sharded.masked_prob_alloc(torch.exp(logw - mesh.pmax(torch.max(logw))), program.fl.k,
+                                      program.quota_fn(state.t), active=torch.ones_like(logw), mesh=mesh,
+                                      block=program.block)
+        finally:
+            sharded.bisect_block_sums = wrapper
+        errs = []
+        for w, caps, tile, got in calls:
+            want = ref.bisect_block_sums_ref(w, caps, tile=tile)
+            errs.append((float((got - want).abs().max()), float(((got - want).abs() / want.abs()).max())))
+        rel = max(e[1] for e in errs)
+        if len(calls) != -(-N_ITERS // program.block) or not rel <= BISECT_RTOL["float32"]:
+            raise AssertionError(f"{label}: job {uid}: {len(calls)} block sums, max relative error {rel} against "
+                                 f"the plain version (rtol {BISECT_RTOL['float32']})")
+        rows[f"job{uid}_K{job['spec'].K}_slab{logw.shape[0]}"] = dict(
+            calls=len(calls), max_abs_err=max(e[0] for e in errs), max_rel_err=rel)
+    return rows
+
+
 def serve_path(dev, card, seed=SCENARIO_SEED, J=8, K_slots=100_000, k_cap=2000, rounds=30, K_sharded=1_000_000,
                k_sharded=1000, rounds_sharded=50, rounds_chaos=30):
     """Phase 15: the selection service (``repro_torch.serve``) on the card,
@@ -2675,7 +2737,6 @@ def serve_path(dev, card, seed=SCENARIO_SEED, J=8, K_slots=100_000, k_cap=2000, 
     from repro_torch import checkpoint as ckpt
     from repro_torch import kernels as kn
     from repro_torch.engine import MultiJobState
-    from repro_torch.engine import sharded
     from repro_torch.engine.multi_job import plain_batched_step
     from repro_torch.engine.sharded import N_ITERS
     from repro_torch.kernels import ref
@@ -2815,40 +2876,6 @@ def serve_path(dev, card, seed=SCENARIO_SEED, J=8, K_slots=100_000, k_cap=2000, 
     def sharded_feed(i, t):
         return _feed(seed + 10, i, t, specs[i]["K"], 2)
 
-    def block_sums_on_jobs(eng, when):
-        """The block-sum kernel against its plain version on the inputs each
-        job's next round gives it: the job's allocation run eagerly on its
-        state, every call of the kernel's wrapper recorded and held at
-        ``BISECT_RTOL``.  Returns one log field a job."""
-        rows = {}
-        for uid, job in sorted(eng.jobs.items()):
-            _, _, program = eng._runner(job["spec"])
-            state, calls = job["state"], []
-
-            def recorded(w, caps, tile=None):
-                out = kn.bisect_block_sums(w, caps, tile=tile)
-                calls.append((w, caps.clone(), tile, out.clone()))
-                return out
-
-            logw = state.e3cs.logw
-            wrapper, sharded.bisect_block_sums = sharded.bisect_block_sums, recorded
-            try:
-                sharded.masked_prob_alloc(torch.exp(logw - torch.max(logw)), program.fl.k, program.quota_fn(state.t),
-                                          active=torch.ones_like(logw), mesh=program.mesh, block=program.block)
-            finally:
-                sharded.bisect_block_sums = wrapper
-            errs = []
-            for w, caps, tile, got in calls:
-                want = ref.bisect_block_sums_ref(w, caps, tile=tile)
-                errs.append((float((got - want).abs().max()), float(((got - want).abs() / want.abs()).max())))
-            rel = max(e[1] for e in errs)
-            if len(calls) != n_block or not rel <= BISECT_RTOL["float32"]:
-                raise AssertionError(f"serve-sharded {when}: job {uid}: {len(calls)} block sums, max relative error "
-                                     f"{rel} against the plain version (rtol {BISECT_RTOL['float32']})")
-            rows[f"job{uid}_K{job['spec'].K}"] = dict(calls=len(calls), max_abs_err=max(e[0] for e in errs),
-                                                       max_rel_err=rel)
-        return rows
-
     want = reference(specs, sharded_feed, rounds_sharded)
     half = rounds_sharded // 2
     tmp = tempfile.mkdtemp(prefix="serve_ckpt_")
@@ -2879,7 +2906,7 @@ def serve_path(dev, card, seed=SCENARIO_SEED, J=8, K_slots=100_000, k_cap=2000, 
             raise AssertionError(f"serve-sharded: restored step {step_}, not {len(specs) * half}")
         for when, eng in ((f"round {half}", killed), (f"round {rounds_sharded}", engine)):
             log("serve-sharded", check="block_sums_vs_plain", at=when, rtol=BISECT_RTOL["float32"],
-                jobs=json.dumps(block_sums_on_jobs(eng, when)))
+                jobs=json.dumps(block_sums_on_jobs(eng, f"serve-sharded {when}")))
         for i, u in enumerate(uids):
             served = got[u] + more[u] + first[u] + rest[u]
             distinct(f"serve-sharded job {i}", served, specs[i]["K"], specs[i]["k"])
@@ -2977,6 +3004,320 @@ def serve_path(dev, card, seed=SCENARIO_SEED, J=8, K_slots=100_000, k_cap=2000, 
         shutil.rmtree(tmp, ignore_errors=True)
     log("check", serve="all serving checks passed")
     return launched
+
+
+SERVE_MESH = dict(D=2, K=1_000_000, k=1000, rounds=20, rounds_chaos=30, seed=SCENARIO_SEED + 30)
+SERVE_MESH_TIMEOUT = 300  # seconds the ranks of [serve-sharded-mesh] may take
+
+
+def serve_mesh_worker(rank, out_dir, store, device, params):
+    """One rank of ``[serve-sharded-mesh]`` (``chip_smoke.py
+    --serve-mesh-worker RANK DIR STORE DEVICE PARAMS``, started and read by
+    ``serve_mesh_path``): a gloo group of ``D`` ranks over a ``FileStore``,
+    every rank on ``DEVICE`` (``cuda:0``: two ranks share the one card).
+    Rank 0 leads four phases and the other ranks ``follow`` each; after each
+    phase every rank records its kernel launches and sets them to 0.
+
+    * ``reference``: ``ShardedEngine(D, staleness=2, block=4)`` ticked in
+      process, two jobs, ``rounds`` rounds;
+    * ``served``: the same jobs behind a ``SelectionServer``, a client thread
+      a job: half the rounds, a checkpoint, ``kill()``, ``load_server`` and
+      a new server for the rest; then B5 against its plain version on every
+      rank's slab of each job's next allocation;
+    * ``chaos-reference`` and ``chaos``: the JAX package's chaos plan against
+      the served engine for ``rounds_chaos`` rounds, and its fault-free run.
+
+    Rank 0 writes the cohorts' comparisons and the serving figures, every
+    rank its launches, to ``DIR/rank<r>.json``."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels as kn
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.obs import LatencyHistogram
+    from repro_torch.serve import FaultPlan, JobSpec, SelectionServer, ServeClient, ServeError, ShardedEngine
+    from repro_torch.serve import follow, load_server, stop_followers
+
+    p = json.loads(params)
+    D, K, k, seed = p["D"], p["K"], p["k"], p["seed"]
+    dev = torch.device(device)
+    dist.init_process_group("gloo", store=dist.FileStore(store, D), rank=rank, world_size=D)
+    if dev.type == "cuda":
+        from repro_torch.kernels._build import load_library
+
+        load_library()
+    mesh = make_host_mesh(D, device=dev)
+    specs = [dict(K=K, k=k, rounds=p["rounds"], seed=seed), dict(K=K // 2, k=k // 2, rounds=p["rounds"], seed=seed + 1)]
+    out = {"launches": {}}
+
+    def phase(name, lead):
+        """``lead()`` on rank 0, ``follow`` elsewhere; returns (rank 0's
+        result, this rank's last engine)."""
+        kn.reset_launch_counts()
+        if mesh.rank == 0:
+            try:
+                res = lead()
+            finally:
+                stop_followers()
+            eng = res.pop("engine", None)
+        else:
+            res, eng = None, follow(D, device=dev)
+        out["launches"][name] = {n: c for n, c in kn.launch_counts().items() if c}
+        return res, eng
+
+    def feed_of(i, t, salt=0):
+        return _feed(seed + salt, i, t, specs[i]["K"], 2)
+
+    def reference(rounds, salt):
+        eng = ShardedEngine(D=D, staleness=2, block=4, device=dev)
+        uids = [eng.admit(JobSpec(**dict(s, rounds=rounds))) for s in specs]
+        t0 = time.perf_counter()
+        ticks = [eng.tick([(u, feed_of(i, t, salt)) for i, u in enumerate(uids)]) for t in range(rounds)]
+        wall = time.perf_counter() - t0
+        return {"cohorts": [[r[u]["cohort"] for r in ticks] for u in uids], "wall_s": wall,
+                "captured": sorted({run.horizon.captured for run, _, _ in eng._runners.values()})}
+
+    def served():
+        rounds, half = p["rounds"], p["rounds"] // 2
+        tmp = tempfile.mkdtemp(prefix="serve_mesh_")
+        try:
+            srv = SelectionServer(ShardedEngine(D=D, staleness=2, block=4, device=dev), ckpt_dir=tmp)
+            srv.start()
+            with ServeClient.connect(srv.address, timeout=600.0) as c:
+                uids = [c.admit(**s) for s in specs]
+                got, _, _ = _serve_clients(srv, {u: (i, 0, 1) for i, u in enumerate(uids)}, feed_of)
+                more, lat1, wall1 = _serve_clients(srv, {u: (i, 1, half - 1) for i, u in enumerate(uids)}, feed_of)
+                t0 = time.perf_counter()
+                stem = c.checkpoint()
+                ckpt_ms = (time.perf_counter() - t0) * 1e3
+            srv.kill()
+            t0 = time.perf_counter()
+            engine, step = load_server(stem, device=dev)
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            srv2 = SelectionServer(engine, ckpt_dir=tmp)
+            srv2.start()
+            srv2.latency = LatencyHistogram(lo=1e-5, hi=60.0)
+            rest, lat2, wall2 = _serve_clients(srv2, {u: (i, half, rounds - half) for i, u in enumerate(uids)},
+                                               feed_of)
+            srv2.close(checkpoint=False)
+            ckpt_bytes = os.path.getsize(stem + ".ckpt")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        lat = lat1 + lat2
+        return {"cohorts": [got[u] + more[u] + rest[u] for u in uids], "ticks": len(specs) * rounds,
+                "timed_ticks": len(lat), "ticks_per_s": len(lat) / (wall1 + wall2),
+                "request_p50_ms": float(np.percentile(np.asarray(lat) * 1e3, 50)),
+                "request_p99_ms": float(np.percentile(np.asarray(lat) * 1e3, 99)),
+                "dispatch_p50_ms": srv2.latency.quantile(0.5) * 1e3, "checkpoint_ms": ckpt_ms,
+                "checkpoint_bytes": ckpt_bytes, "restore_ms": restore_ms, "restored_step": step,
+                "captured": sorted({run.horizon.captured for run, _, _ in engine._runners.values()}),
+                "engine": engine}
+
+    def chaos():
+        rounds = p["rounds_chaos"]
+        plan = FaultPlan(crash_steps=(25,), corrupt_checkpoints=(3,), drop_responses=(12, 31), slow_steps={5: 0.02})
+        tmp = tempfile.mkdtemp(prefix="serve_mesh_chaos_")
+        try:
+            srv = SelectionServer(ShardedEngine(D=D, staleness=2, block=4, device=dev), ckpt_dir=tmp, ckpt_every=6,
+                                  faults=plan, restart_backoff=0.01)
+            with srv, ServeClient.connect(srv.address, timeout=600.0, retries=6, seed=5) as c:
+                uids = [c.admit(**dict(s, rounds=rounds)) for s in specs]
+                cursors, got = {i: 0 for i in range(2)}, {i: {} for i in range(2)}
+                t0 = time.perf_counter()
+                while any(t < rounds for t in cursors.values()):
+                    for i, u in enumerate(uids):
+                        t = cursors[i]
+                        if t >= rounds:
+                            continue
+                        try:
+                            res = c.tick(u, lags=feed_of(i, t, 20), round=t)
+                        except ServeError as e:
+                            if e.code == "round_desync":
+                                cursors[i] = int(e.response["expected"])
+                                continue
+                            raise
+                        got[i][res["round"]] = res["cohort"]
+                        cursors[i] = res["round"] + 1
+                wall = time.perf_counter() - t0
+                ticks = srv.stats["ticks"]
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        restart = [a for a in srv.alerts if a.rule == "engine_restart"]
+        return {"cohorts": [[got[i].get(t) for t in range(rounds)] for i in range(2)], "fired": plan.fired(),
+                "restored_step": [a.detail["restored_step"] for a in restart], "ticks": ticks,
+                "replayed": srv.stats["replayed"], "recovery_ms": [r * 1e3 for r in srv.recoveries],
+                "horizon_s": wall}
+
+    try:
+        ref_out, _ = phase("reference", lambda: reference(p["rounds"], 0))
+        srv_out, eng = phase("served", served)
+        out["block_sums"] = block_sums_on_jobs(eng, f"serve-sharded-mesh rank {mesh.rank}")
+        del eng
+        cref_out, _ = phase("chaos-reference", lambda: reference(p["rounds_chaos"], 20))
+        chaos_out, _ = phase("chaos", chaos)
+        if mesh.rank == 0:
+            out.update(reference=ref_out, served=srv_out, chaos_reference=cref_out, chaos=chaos_out,
+                       device=str(dev), name=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu")
+    finally:
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+
+
+def serve_mesh_path(dev, card, **over):
+    """Phase 16's ``[serve-sharded-mesh]``: the sharded engine served on ``D``
+    ranks (``SERVE_MESH``, ``over`` for a rehearsal), each a process of its
+    own on this card (``serve_mesh_worker``: a gloo group over the card's
+    tensors, since NCCL refuses two ranks on one device; the runners step
+    uncaptured).  Checks: the served cohorts equal the in-process engine's
+    and, through the JAX package's chaos plan, the fault-free run's, bit for
+    bit; recovery restores step 18; every runner is uncaptured; each rank
+    launches B5 exactly ``ceil(48 / 4)`` times a job-tick and it equals its
+    plain version on every rank's slab.  Returns both ranks' launches in the
+    served and chaos phases."""
+    import shutil
+    import tempfile
+
+    from repro_torch.engine.sharded import N_ITERS
+
+    p = dict(SERVE_MESH, **over)
+    t_phase = time.time()
+    out_dir = os.path.join(CHIPRUN_OUT, "serve_mesh")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    store = os.path.join(tempfile.mkdtemp(prefix="serve_mesh_store_"), "store")
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+    device = "cuda:0" if dev.type == "cuda" else "cpu"
+    procs, logs = [], []
+    try:
+        for r in range(p["D"]):
+            logs.append(open(os.path.join(out_dir, f"rank{r}.log"), "w"))
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--serve-mesh-worker", str(r),
+                                           out_dir, store, device, json.dumps(p)],
+                                          env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.time() + SERVE_MESH_TIMEOUT
+        for proc in procs:
+            proc.wait(timeout=max(1.0, deadline - time.time()))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+        shutil.rmtree(os.path.dirname(store), ignore_errors=True)
+    if any(proc.returncode for proc in procs):
+        tails = [open(os.path.join(out_dir, f"rank{r}.log")).read()[-3000:] for r in range(p["D"])]
+        raise AssertionError(f"serve-sharded-mesh: ranks exited {[proc.returncode for proc in procs]}:\n"
+                             + "\n".join(tails))
+    ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(p["D"])]
+    lead = ranks[0]
+    ref, srv, cref, chaos = lead["reference"], lead["served"], lead["chaos_reference"], lead["chaos"]
+    if srv["cohorts"] != ref["cohorts"]:
+        raise AssertionError("serve-sharded-mesh: the served horizon (across kill and restore) differs from the "
+                             "in-process engine's")
+    if chaos["cohorts"] != cref["cohorts"] or chaos["restored_step"] != [18] \
+            or chaos["fired"] != {"crash": 1, "corrupt": 1, "drop": 2, "slow": 1}:
+        raise AssertionError(f"serve-sharded-mesh chaos: fired {chaos['fired']}, restored {chaos['restored_step']}, "
+                             f"horizon equal {chaos['cohorts'] == cref['cohorts']}")
+    for i, s in enumerate(ref["cohorts"]):
+        K, k = p["K"] // (1 + i), p["k"] // (1 + i)
+        if any(len(c) != k or len(set(c)) != k or not all(0 <= j < K for j in c) for c in s):
+            raise AssertionError(f"serve-sharded-mesh: job {i}: a cohort is not {k} distinct clients of [0, {K})")
+    if ref["captured"] != [False] or srv["captured"] != [False]:
+        raise AssertionError(f"serve-sharded-mesh: runners captured {ref['captured']} / {srv['captured']} on gloo")
+    n_block = -(-N_ITERS // 4)
+    on_card = dev.type == "cuda"
+    want = {"reference": 2 * p["rounds"], "served": srv["ticks"], "chaos-reference": 2 * p["rounds_chaos"],
+            "chaos": chaos["ticks"]}
+    launched = {}
+    for r, rk in enumerate(ranks):
+        for name, ticks in want.items():
+            got = rk["launches"].get(name, {})
+            exp = {"bisect_block_sums": n_block * ticks} if on_card else {}
+            if got != exp:
+                raise AssertionError(f"serve-sharded-mesh rank {r} {name}: launches {got}, expected {exp}")
+            if name in ("served", "chaos"):
+                for n, c in got.items():
+                    launched[n] = launched.get(n, 0) + c
+        log("serve-sharded-mesh", rank=r, check="block_sums_vs_plain", rtol=BISECT_RTOL["float32"],
+            jobs=json.dumps(rk["block_sums"]), launches=json.dumps(rk["launches"]))
+    jobs = "K=%d,k=%d;K=%d,k=%d" % (p["K"], p["k"], p["K"] // 2, p["k"] // 2)
+    log("serve-sharded-mesh", D=p["D"], device=lead["device"], group="gloo", captured=False, jobs=jobs,
+        rounds=p["rounds"], staleness=2, block=4, ticks_per_s=f"{srv['ticks_per_s']:.2f}",
+        request_p50_ms=f"{srv['request_p50_ms']:.3f}", request_p99_ms=f"{srv['request_p99_ms']:.3f}",
+        dispatch_p50_ms=f"{srv['dispatch_p50_ms']:.3f}", in_process_ticks_per_s=f"{2 * p['rounds'] / ref['wall_s']:.2f}",
+        checkpoint_write_ms=f"{srv['checkpoint_ms']:.1f}", checkpoint_bytes=srv["checkpoint_bytes"],
+        restore_ms=f"{srv['restore_ms']:.1f}", restored_step=srv["restored_step"],
+        served_vs_in_process="bit-identical", card=repr(card))
+    log("serve-sharded-mesh", D=p["D"], plan="chaos", rounds=p["rounds_chaos"], fired=json.dumps(chaos["fired"]),
+        restored_step=18, recovery_ms=f"{chaos['recovery_ms'][0]:.1f}", ticks=chaos["ticks"],
+        replayed=chaos["replayed"], horizon_s=f"{chaos['horizon_s']:.3f}", horizon_vs_fault_free="bit-identical",
+        launches_both_ranks=json.dumps(launched), seconds=f"{time.time() - t_phase:.1f}", card=repr(card))
+    return launched
+
+
+EXAMPLES = (("quickstart", []), ("scenarios_demo", []), ("serve_demo", []), ("paper_repro", ["--rounds", "6"]),
+            ("fl_lm", []))
+
+
+def examples_path(dev, card, argv_of=None):
+    """``[examples]``: the port's five examples (``examples/torch_*.py``) at
+    their defaults (``paper_repro`` at ``--rounds 6``) on ``dev``, each
+    through its ``main(argv)``, its printout under
+    ``chiprun_out/examples/``; the wall time, the kernels each launched and
+    a figure of its result.  ``argv_of`` (a rehearsal) maps a name to the
+    arguments it runs with instead."""
+    import contextlib
+    import importlib.util
+
+    import torch
+
+    from repro_torch import kernels as kn
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(CHIPRUN_OUT, "examples")
+    os.makedirs(out_dir, exist_ok=True)
+    dev_arg = ["--device", "cuda" if dev.type == "cuda" else "cpu"]
+    for name, argv in EXAMPLES:
+        argv = (argv_of or {}).get(name, argv) + dev_arg
+        spec = importlib.util.spec_from_file_location(f"torch_{name}", os.path.join(root, "examples",
+                                                                                   f"torch_{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        kn.reset_launch_counts()
+        t0 = time.perf_counter()
+        with open(os.path.join(out_dir, f"{name}.txt"), "w") as f, contextlib.redirect_stdout(f):
+            res = mod.main(argv)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if name == "quickstart":
+            fig = dict(cep=res["cep"])
+        elif name == "scenarios_demo":
+            if not res["packed_same_as_dense"]:
+                raise AssertionError("examples: scenarios_demo's packed replay differs from the dense one")
+            fig = dict(cells=len(res["grid"]), packed_same_as_dense=True)
+        elif name == "serve_demo":
+            fig = dict(restored_step=res["restored_step"], ticks=res["stats"]["ticks"])
+        elif name == "paper_repro":
+            p1 = res["phase1"]
+            if not p1["regret"] <= p1["bound"]:
+                raise AssertionError(f"examples: Theorem 1 regret {p1['regret']} above its bound {p1['bound']}")
+            fig = dict(cep_order=">".join(p1["order"]), regret=f"{p1['regret']:.1f}", bound=f"{p1['bound']:.1f}",
+                       final_acc=json.dumps({n: v["acc"][-1] for n, v in res["phase2"].items()}))
+        else:
+            if not all(math.isfinite(v) for v in res["losses"]):
+                raise AssertionError("examples: fl_lm's local loss is not finite")
+            fig = dict(loss_first=f"{res['losses'][0]:.3f}", loss_last=f"{res['losses'][-1]:.3f}")
+        log("examples", example=f"examples/torch_{name}.py", argv=" ".join(argv), seconds=f"{secs:.2f}",
+            launches=json.dumps({n: c for n, c in kn.launch_counts().items() if c}), **fig, card=repr(card))
+        del mod, res
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
 
 
 def profile_calls(label, fn, card, n=5):
@@ -3269,4 +3610,7 @@ def profile_round(dev, K, k, rounds=5, label="dense", card="", runner=None, **op
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dryrun-worker"]:
         sys.exit(dryrun_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--serve-mesh-worker"]:
+        sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+        sys.exit(serve_mesh_worker(int(sys.argv[2]), *sys.argv[3:7]))
     sys.exit(main())

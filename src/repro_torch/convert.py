@@ -50,8 +50,10 @@ on the way back a bf16 tensor becomes float32 (exactly: numpy has no bf16).
 
 Under a mesh the JAX state is ``K_pad`` wide and each rank of the port holds
 its ``(Ks,)`` slab: ``shard_arrays`` cuts a rank's slab out of the named
-arrays (then ``state_from_jax``), and ``gather_state`` all-gathers the
-ranks' slabs back into ``K_pad``-wide arrays on every rank.  An array is per
+arrays (then ``state_from_jax``), ``gather_state`` all-gathers the ranks'
+slabs back into ``K_pad``-wide arrays on every rank, and ``join_slabs``
+joins slabs a caller has gathered itself (the sharded serving engine's
+checkpoint, on rank 0).  An array is per
 client when its last axis is the population's (``sel_counts``'); the
 scalars, UCB's ``(K,)`` state and a model's other state (a regional
 outage's region row) are the same on every rank and pass as they are.
@@ -73,7 +75,7 @@ from repro_torch.models.mla import MLACache
 from repro_torch.models.ssm import SSMCache
 
 __all__ = ["state_from_jax", "state_to_numpy", "fl_state_from_jax", "cnn_params_from_jax", "cnn_params_to_numpy",
-           "shard_arrays", "gather_state", "slot_state_from_jax", "sharded_job_from_jax", "STATE_FIELDS",
+           "shard_arrays", "join_slabs", "gather_state", "slot_state_from_jax", "sharded_job_from_jax", "STATE_FIELDS",
            "lm_params_from_jax", "lm_params_to_numpy", "caches_from_jax"]
 
 STATE_FIELDS = ("logw", "t", "sel_counts", "loss_cache", "vol_state", "cep", "succ_hist")
@@ -193,6 +195,20 @@ def shard_arrays(arrays: Dict[str, np.ndarray], rank: int, D: int) -> Dict[str, 
     return {name: pytree.tree_map(lambda a: cut(name, a), v) for name, v in arrays.items()}
 
 
+def join_slabs(parts) -> Dict[str, np.ndarray]:
+    """The named ``K_pad``-wide arrays of a mesh state from its ranks' named
+    slabs in rank order (the inverse of ``shard_arrays``): every per-client
+    array joined along its last axis, the replicated ones taken from rank 0."""
+    Ks = np.shape(parts[0]["sel_counts"])[-1]
+
+    def join(name, *slabs):
+        a = np.asarray(slabs[0])
+        per_client = name not in _REPLICATED and a.ndim > 0 and a.shape[-1] == Ks
+        return np.concatenate(slabs, axis=-1) if per_client else a
+
+    return {name: pytree.tree_map(lambda *s: join(name, *s), *(p[name] for p in parts)) for name in parts[0]}
+
+
 def gather_state(state: ServerState, rings: tuple, mesh) -> Dict[str, np.ndarray]:
     """The named ``K_pad``-wide numpy arrays of a mesh state, on every rank:
     ``state_to_numpy`` of the ranks' slabs gathered in rank order."""
@@ -227,8 +243,9 @@ def sharded_job_from_jax(engine, uid: int, job) -> None:
     """Load one job of a JAX ``ShardedEngine`` (its ``arrays()[str(uid)]``:
     ``{"state": ServerState, "key", "rings"}``) into job ``uid`` of
     ``engine``, a port ``ShardedEngine`` built from the JAX engine's
-    ``meta()``: the state and rings through ``state_from_jax`` (the JAX state
-    of a one-device mesh is K wide); the job's round follows the state's."""
+    ``meta()`` at the same D: the state and rings through ``state_from_jax``
+    (the JAX state is ``K_pad`` wide; at D > 1 each rank of the port takes
+    its slab, ``shard_arrays``); the job's round follows the state's."""
     st = job["state"]
     named = {
         "logw": st.e3cs.logw, "t": st.t, "sel_counts": st.sel_counts, "loss_cache": st.loss_cache,
@@ -236,9 +253,8 @@ def sharded_job_from_jax(engine, uid: int, job) -> None:
         "ucb_succ": st.ucb.succ, "ucb_pulls": st.ucb.pulls, "ucb_t": st.ucb.t,
         **dict(zip(("credit", "fb"), job["rings"])),
     }
-    state, rings = state_from_jax(pytree.tree_map(np.asarray, named), device=engine.device)
-    target = engine.jobs[uid]
-    target["state"], target["rings"], target["t"] = state, rings, int(np.asarray(st.t))
+    engine.load_state(uid, pytree.tree_map(np.asarray, named))
+    engine.jobs[uid]["t"] = int(np.asarray(st.t))
 
 
 def _tensor(a, device) -> torch.Tensor:

@@ -83,7 +83,10 @@ CUDA graph of the step, captured at the runner's first call after an eager
 warm-up on the static buffers (which draws from a generator of its own),
 the counterpart of JAX's ``jit`` over ``lax.scan``; on a CPU tensor it is a
 call of the same step on the same buffers.  A capture failure raises: a
-CUDA runner never loops the step eagerly.  The replayed horizon equals the
+CUDA runner never loops the step eagerly, except on a mesh whose
+collectives a graph cannot hold (a gloo group over CUDA tensors, as two
+ranks sharing one card run: ``HostMesh.captures``), which is decided when
+the runner is built and read back as ``run.horizon.captured``.  The replayed horizon equals the
 eager loop of ``build_step`` + ``draw_noise`` bit for bit, generator state
 included.  The kernel wrappers count their launches when the step is
 captured; the runner takes the capture's counts back and adds them on every
@@ -817,9 +820,9 @@ class RoundProgram:
         rows, ``repro_torch.convert`` shards and gathers states.
 
         The returned ``run`` keeps its static buffers and, on CUDA, the graph
-        it captures at its first call (``run.horizon``: ``warmup_s``,
-        ``capture_s``, ``per_replay`` launches); nothing ``run`` returns
-        aliases them.
+        it captures at its first call (``run.horizon``: ``captured``,
+        ``warmup_s``, ``capture_s``, ``per_replay`` launches; a gloo mesh's
+        runner is not captured); nothing ``run`` returns aliases them.
         """
         if outputs not in ("full", "lean"):
             raise ValueError(f"unknown outputs mode {outputs!r} (want 'full' or 'lean')")
@@ -836,7 +839,9 @@ class RoundProgram:
         step = self._step(outputs == "lean", taps, sketch)
         sync = self.staleness is None
         replay = self.override != "none"
-        horizon = _Horizon(self, step, T, n_sketch=len(SKETCH_FIELDS) if sketch is not None else 0)
+        captured = self.device.type == "cuda" and (self.mesh is None or self.mesh.captures)
+        horizon = _Horizon(self, step, T, n_sketch=len(SKETCH_FIELDS) if sketch is not None else 0,
+                           captured=captured)
 
         def run_horizon(carry, key, xs_in):
             if replay and (xs_in is None or len(xs_in) < T):
@@ -947,8 +952,9 @@ class _Horizon:
     outputs out in one copy per per-client output and one for the rest.
     """
 
-    def __init__(self, program: "RoundProgram", step, T: int, n_sketch: int = 0):
+    def __init__(self, program: "RoundProgram", step, T: int, n_sketch: int = 0, captured: bool = False):
         self.program, self.step, self.T, self.n_sketch = program, step, T, n_sketch
+        self.captured = captured  # replay a CUDA graph of the step, or call it on the buffers
         self.graph = None
         self.warmup_s = self.capture_s = None
         self.per_replay = {}  # kernel launches by wrapper that one replay runs
@@ -1015,7 +1021,7 @@ class _Horizon:
             torch.is_tensor(b) and (b.shape != v.shape or b.dtype != v.dtype) for b, v in zip(self._carry, leaves)
         ):
             raise ValueError("a runner's carry keeps the structure, shapes and dtypes of its first call")
-        if self.program.device.type == "cuda" and self.graph is None:
+        if self.captured and self.graph is None:
             self._capture()
         for buf, v in zip(self._carry, leaves):
             if torch.is_tensor(buf):

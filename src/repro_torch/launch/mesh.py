@@ -18,6 +18,10 @@ The caller starts the process group; nothing here opens a socket::
     # D CPU processes (the tests): gloo over a file store, one process per rank
     dist.init_process_group("gloo", store=dist.FileStore(path, D), rank=r, world_size=D)
     mesh = make_host_mesh(D, device="cpu")
+    # D ranks sharing one card (NCCL refuses two ranks on one device): gloo
+    # over the card's tensors; a runner then steps uncaptured (``captures``)
+    dist.init_process_group("gloo", store=dist.FileStore(path, D), rank=r, world_size=D)
+    mesh = make_host_mesh(D, device="cuda:0")
 
 ``make_mesh`` names the axes of a ``torch.distributed`` ``DeviceMesh`` over
 the same group, for the model zoo's sharded paths (``models.sharding``):
@@ -57,6 +61,14 @@ class HostMesh:
         out = v.clone()
         dist.all_reduce(out, op=dist.ReduceOp.MAX)
         return out
+
+    @property
+    def captures(self) -> bool:
+        """Whether a CUDA graph can hold this mesh's collectives: an NCCL
+        group's run on the device; a gloo group's (the tests', or two ranks
+        sharing one card) go through host memory, which a capture cannot
+        record."""
+        return dist.get_backend() != "gloo"
 
     def all_gather(self, v: torch.Tensor) -> torch.Tensor:
         """Every rank's ``v``, flattened and concatenated in rank order:

@@ -35,11 +35,15 @@ JAX splits one carried key.  Reports go through the port's ``Reporter``
 on a one-rank group it starts when D = 1 and none exists (NCCL on the card,
 gloo on the CPU).  ``--serve`` stands up the socket front end
 (``repro_torch.serve``, ``run_server``): a ``SlotEngine``, or with ``--mesh
-1`` a ``ShardedEngine``; ``--serve --smoke [--chaos SEED]`` drives it with
+D`` a ``ShardedEngine``; ``--serve --smoke [--chaos SEED]`` drives it with
 the built-in loopback client::
 
     python -m repro_torch.launch.select_serve --serve --smoke
     python -m repro_torch.launch.select_serve --serve --smoke --async --mesh 1 --chaos 3
+
+At D > 1 every rank of the started group runs the command: rank 0 serves
+(and runs ``--smoke`` and ``--chaos``), the other ranks follow its engine
+(``repro_torch.serve.follow``) until it stops them.
 """
 from __future__ import annotations
 
@@ -469,8 +473,10 @@ def run_server(args, reporter: Reporter, device=None):
     instead of a self-driving loop.
 
     ``--mesh D`` serves K-sharded ``RoundProgram`` jobs (``ShardedEngine`` on
-    the process group); otherwise the multi-tenant ``SlotEngine`` handles up
-    to the bucket ladder's top in jobs.  Under ``--smoke`` a built-in
+    the process group; at D > 1 rank 0 serves, and on every other rank this
+    call follows rank 0's engine and returns None, with ``reporter`` unused);
+    otherwise the multi-tenant ``SlotEngine`` handles up to the bucket
+    ladder's top in jobs.  Under ``--smoke`` a built-in
     loopback client admits ``--jobs`` tenants, drives ``--rounds`` rounds
     each and shuts the server down; without it the server runs until
     interrupted (clients speak ``repro_torch.serve.protocol``, the JAX
@@ -486,8 +492,12 @@ def run_server(args, reporter: Reporter, device=None):
     import tempfile
 
     from repro_torch.serve import FaultPlan, SelectionServer, ServeClient, ServeError, ShardedEngine, SlotEngine
+    from repro_torch.serve import follow, stop_followers
 
     dev = resolve_device(device)
+    if args.mesh is not None and dist.get_rank() != 0:
+        follow(args.mesh, device=dev)
+        return None
     S = args.staleness if args.async_mode else 0
     K_max = args.clients or (512 if args.smoke else 4096)
     if args.mesh is not None:
@@ -549,6 +559,8 @@ def run_server(args, reporter: Reporter, device=None):
         print("interrupt: draining", flush=True)
     finally:
         srv.close()
+        if args.mesh is not None:
+            stop_followers()
         srv.attach_report(reporter)
         if tmp_ckpt is not None:
             shutil.rmtree(tmp_ckpt, ignore_errors=True)
@@ -586,8 +598,9 @@ def main(argv=None):
                          "group when none exists)")
     ap.add_argument("--serve", action="store_true",
                     help="stand up the socket front end (repro_torch.serve) instead of a self-driving loop; "
-                         "combine with --mesh 1 for K-sharded jobs, --async for staleness-ring serving, --smoke "
-                         "for a loopback-driven run")
+                         "combine with --mesh D for K-sharded jobs (at D > 1 on every rank of the started "
+                         "group: rank 0 serves, the others follow), --async for staleness-ring serving, "
+                         "--smoke for a loopback-driven run")
     ap.add_argument("--port", type=int, default=0, help="--serve listen port (0 = ephemeral)")
     ap.add_argument("--ckpt-dir", type=str, default=None, help="--serve: checkpoint directory for elastic restart")
     ap.add_argument("--ckpt-every", type=int, default=0,
@@ -614,6 +627,8 @@ def main(argv=None):
     finally:
         if own_group:
             dist.destroy_process_group()
+    if report is None:  # a follower rank of --serve --mesh D
+        return
     path = rep.save(report)
     with open(path) as f:
         print(f.read())  # the saved report is the command's output
@@ -622,7 +637,8 @@ def main(argv=None):
 def _run(args, dev, K_max):
     """The report of the path the command line picked, and its reporter."""
     if args.serve:
-        rep = Reporter("serve_front_cli", config=vars(args))
+        leads = args.mesh is None or dist.get_rank() == 0
+        rep = Reporter("serve_front_cli", config=vars(args)) if leads else None
         report = run_server(args, rep, device=dev)
     elif args.mesh is not None:
         K = args.clients or (65_536 if args.smoke else 1_000_000)

@@ -10,7 +10,8 @@ at a time, on the card, without giving up the captured steady state:
 * :mod:`repro_torch.serve.engines` — the serving backends: ``SlotEngine`` (J
   tenant jobs as padding-mask slots of one graph replay, bucket-ladder
   growth, no new capture on join/leave) and ``ShardedEngine`` (one K-sharded
-  ``RoundProgram`` per job, sync or async).
+  ``RoundProgram`` per job, sync or async; on D > 1 ranks rank 0 leads and
+  the others ``follow``).
 * :mod:`repro_torch.serve.transport` — ``SelectionServer``: socket front end,
   streaming batcher, bounded-queue backpressure (shed), request deadlines,
   periodic checkpoint, graceful drain.
@@ -28,7 +29,8 @@ the port keeps its frames, ops and error codes).  Nothing here imports
 ``msgpack`` or ``zstandard``.
 """
 from .client import ServeClient, ServeError
-from .engines import CapacityError, JobSpec, NumericsError, ShardedEngine, SlotEngine, engine_from_meta
+from .engines import CapacityError, EngineSuperseded, JobSpec, NumericsError, ShardedEngine, SlotEngine
+from .engines import engine_from_meta, follow, stop_followers
 from .faults import EngineCrash, FaultPlan
 from .state import latest_server_checkpoint, load_server, save_server, validate_stem
 from .transport import SelectionServer
@@ -41,6 +43,9 @@ __all__ = [
     "NumericsError",
     "SlotEngine",
     "ShardedEngine",
+    "EngineSuperseded",
+    "follow",
+    "stop_followers",
     "engine_from_meta",
     "EngineCrash",
     "FaultPlan",

@@ -16,9 +16,11 @@ Two backends, one interface (``admit`` / ``retire`` / ``job_round`` /
 * :class:`ShardedEngine`, the fleet-scale backend: each job is a full
   K-sharded ``RoundProgram`` on the caller's process group, stepped by a
   ``build_runner(outputs="full", carry_key=True, scan_length=1)`` runner (one
-  graph replay a tick), so successive ticks resume the horizon bit for bit.
-  ``staleness=S`` serves the sharded-async composition, rings carried per
-  job.  Jobs of one geometry share one runner.
+  graph replay a tick; uncaptured on a gloo group), so successive ticks
+  resume the horizon bit for bit.  ``staleness=S`` serves the sharded-async
+  composition, rings carried per job.  Jobs of one geometry share one
+  runner.  On D > 1 ranks rank 0 leads (the engine and its server) and the
+  other ranks run ``follow``, which mirrors each command rank 0 sends.
 
 A job's noise depends only on its own seed and round counter, never on its
 slot, its co-tenants, the batch width or a restart: the slot engine draws job
@@ -37,11 +39,14 @@ runs on CUDA unless given ``device="cpu"``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.selection.sampling import gumbel_from_uniform
 from repro_torch.device import resolve_device
@@ -56,6 +61,9 @@ __all__ = [
     "NumericsError",
     "SlotEngine",
     "ShardedEngine",
+    "EngineSuperseded",
+    "follow",
+    "stop_followers",
     "engine_from_meta",
 ]
 
@@ -414,17 +422,99 @@ class SlotEngine:
 # ---------------------------------------------------------------------------
 
 
+class EngineSuperseded(RuntimeError):
+    """A newer ``ShardedEngine`` was built on this D-rank group (a restore):
+    the other ranks mirror it now, so the older engine takes no commands."""
+
+
+class _Channel:
+    """Rank 0's commands to the other ranks of a D-rank group, on a gloo
+    group of its own (``dist.new_group(backend="gloo")``), so that commands
+    and the tick's lag rows cross as host objects whatever the compute group
+    is.
+
+    The leader holds ``lock`` from a command's send until the command's last
+    collective has returned, so no command starts before the one before it
+    has ended on every rank, whichever thread sends them (a killed server's
+    engine thread and the caller restoring a new engine).  ``epoch`` names
+    the engine the followers mirror: building an engine takes the next one,
+    and a command of an older engine raises ``EngineSuperseded`` unsent.
+    Each command carries a sequence number, which the followers check."""
+
+    def __init__(self):
+        self.group = dist.new_group(backend="gloo")
+        self.rank, self.size = dist.get_rank(), dist.get_world_size()
+        self.lock = threading.Lock()
+        self.epoch = 0
+        self.seq = 0
+
+    def send(self, *cmd) -> None:
+        self.seq += 1
+        dist.broadcast_object_list([(self.seq, cmd)], src=0, group=self.group)
+
+    def recv(self) -> tuple:
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        (seq, cmd), self.seq = box[0], self.seq + 1
+        if seq != self.seq:
+            raise RuntimeError(f"rank {self.rank} expected command {self.seq}, got {seq}")
+        return cmd
+
+    def rows(self, flat: Optional[np.ndarray], n: int = 0) -> np.ndarray:
+        """A tick's lag rows end to end: rank 0's ``flat``, ``n`` int32 codes."""
+        buf = torch.from_numpy(flat) if self.rank == 0 else torch.empty(n, dtype=torch.int32)
+        dist.broadcast(buf, src=0, group=self.group)
+        return buf.numpy()
+
+    def gather(self, obj):
+        """Every rank's ``obj`` in rank order on rank 0 (None elsewhere)."""
+        out = [None] * self.size if self.rank == 0 else None
+        dist.gather_object(obj, out, dst=0, group=self.group)
+        return out
+
+    def scatter(self, objs):
+        """Rank r's ``objs[r]`` (rank 0 holds the list)."""
+        box = [None]
+        dist.scatter_object_list(box, objs, src=0, group=self.group)
+        return box[0]
+
+
+# the channel of the current default process group: one per group, made by
+# every rank at the same point (new_group is collective): the leader's first
+# D > 1 engine, a follower's ``follow``, or ``stop_followers``
+_CHANNEL: list = [None, None]
+
+
+def _channel() -> _Channel:
+    if _CHANNEL[0] is not dist.group.WORLD:
+        _CHANNEL[:] = [dist.group.WORLD, _Channel()]
+    return _CHANNEL[1]
+
+
 class ShardedEngine:
     """Each admitted job is one K-sharded ``RoundProgram`` stepped a round a
     tick (see the module docstring) over the caller's process group
-    (``make_host_mesh(D)``: a one-rank NCCL group on the card, gloo in the
-    tests).  ``staleness=S`` serves sharded-async rounds with the ``(S,
-    K/D)`` rings carried per job; ``feedback`` picks the selector policy
-    (``"deadline"`` or ``"late_credit"``).  ``device=None`` is the rank's
-    CUDA device.
+    (``make_host_mesh(D)``).  ``staleness=S`` serves sharded-async rounds with
+    the ``(S, K_pad/D)`` rings carried per job; ``feedback`` picks the
+    selector policy (``"deadline"`` or ``"late_credit"``).  ``device=None`` is
+    the rank's CUDA device.
 
-    The server answers from one process, so the group has one rank: a tick
-    on D > 1 ranks would need every rank to take the same requests.
+    JAX's engine is one process driving D devices; the port runs one process
+    a rank, so at D > 1 rank 0 leads and the other ranks follow
+    (``follow``).  Rank 0 holds the engine, and the server in front of it;
+    every operation that reaches a collective or builds per-rank state
+    (building the engine, ``admit``, ``retire``, ``tick``, ``arrays``,
+    ``load_arrays``, ``load_state``) is first broadcast, with a tick's lag
+    rows, on the group's ``_Channel``, then run on every rank in the same
+    order.  A tick commits on every rank or on none (the finite flag is
+    reduced over the ranks before any rank assigns), and its results are
+    global on rank 0: the cohort gathered from the ranks' slabs, ``on_time``
+    and ``stale`` summed.  ``arrays()`` gathers whole ``K_pad``-wide arrays to
+    rank 0's host, each rank's own generator state stacked ``(D, ...)`` beside
+    the shared one; ``load_arrays`` scatters each rank its slab and its own
+    state.  A checkpoint restores at its own D only.  ``stop_followers``
+    ends the followers' loops.  A one-rank group (NCCL on the card) has no
+    followers and sends nothing.
     """
 
     kind = "sharded"
@@ -440,19 +530,46 @@ class ShardedEngine:
     ):
         from repro_torch.launch.mesh import make_host_mesh
 
-        self.mesh = make_host_mesh(D, device=device)
-        self.D = int(self.mesh.size)
-        if self.D != 1:
-            raise ValueError(f"ShardedEngine serves from one process: a one-rank group, not D={self.D}")
-        self.device = self.mesh.device
-        self.staleness = int(staleness)
-        self.alpha = float(alpha)
-        self.block = int(block)
-        self.feedback = feedback
-        self._runners: dict = {}  # geometry key -> (run, state0, program)
-        self.jobs: Dict[int, dict] = {}
+        mesh = make_host_mesh(D, device=device)
+        if mesh.rank != 0:
+            raise ValueError(f"rank {mesh.rank} of a {mesh.size}-rank group follows rank 0's engine: call "
+                             "repro_torch.serve.engines.follow() there")
+        self._setup(mesh, dict(staleness=staleness, alpha=alpha, block=block, feedback=feedback))
         self._next_uid = 0
         self.faults = None  # chaos hook (repro_torch.serve.faults.FaultPlan) or None
+        if self.D > 1:
+            self._chan = _channel()
+            with self._chan.lock:
+                self._chan.epoch += 1
+                self._epoch = self._chan.epoch
+                self._chan.send("build", self._config())
+
+    def _setup(self, mesh, config: dict) -> None:
+        self.mesh, self.D, self.device = mesh, int(mesh.size), mesh.device
+        self.staleness = int(config["staleness"])
+        self.alpha = float(config["alpha"])
+        self.block = int(config["block"])
+        self.feedback = config["feedback"]
+        self._runners: dict = {}  # geometry key -> (run, state0, program)
+        self.jobs: Dict[int, dict] = {}
+        self._chan: Optional[_Channel] = None
+        self._epoch = None  # the leader's place in its channel's epochs
+
+    def _config(self) -> dict:
+        return dict(staleness=self.staleness, alpha=self.alpha, block=self.block, feedback=self.feedback)
+
+    @contextlib.contextmanager
+    def _command(self, *cmd):
+        """Run the body as ``cmd`` on every rank: at D > 1 send ``cmd`` to the
+        followers first, holding the channel until the body returns."""
+        if self._chan is None:
+            yield
+            return
+        with self._chan.lock:
+            if self._chan.epoch != self._epoch:
+                raise EngineSuperseded("a newer engine leads this group; this one takes no more commands")
+            self._chan.send(*cmd)
+            yield
 
     def _runner(self, spec: JobSpec):
         from repro_torch.configs.base import FLConfig
@@ -473,12 +590,20 @@ class ShardedEngine:
         self._runners[geom] = (run, state0, program)
         return self._runners[geom]
 
+    # -- lifecycle --------------------------------------------------------
+
     def admit(self, spec: JobSpec) -> int:
-        # geometry bounds (k <= K_pad/D for the per-shard top-k) are
-        # enforced by RoundProgram inside _runner
-        run, state0, program = self._runner(spec)
+        # geometry bounds (k <= K_pad/D for the per-shard top-k) are enforced
+        # by RoundProgram inside _runner, before any other rank hears of the job
+        self._runner(spec)
         uid = self._next_uid
+        with self._command("admit", uid, spec.to_json()):
+            self._admit(uid, spec)
         self._next_uid += 1
+        return uid
+
+    def _admit(self, uid: int, spec: JobSpec) -> None:
+        _, state0, program = self._runner(spec)
         self.jobs[uid] = {
             "spec": spec,
             "state": state0,
@@ -486,55 +611,81 @@ class ShardedEngine:
             "rings": program.init_rings() if self.staleness else (),
             "t": 0,
         }
-        return uid
 
     def retire(self, uid: int) -> None:
-        del self.jobs[uid]
+        if uid not in self.jobs:
+            raise KeyError(uid)
+        with self._command("retire", uid):
+            del self.jobs[uid]
 
     def job_round(self, uid: int) -> int:
         """The round the job's NEXT tick will serve (the idempotency cursor
         the transport's retry cache compares request rounds against)."""
         return int(self.jobs[uid]["t"])
 
+    # -- the serving step ---------------------------------------------------
+
     def tick(self, items: List[Tuple[int, np.ndarray]]) -> Dict[int, dict]:
         """Advance each job one round (one runner call a job: the K axis is
         the parallel one; there is no J axis to batch here)."""
         if self.faults is not None:
-            self.faults.on_engine_step()
-        results = {}
+            self.faults.on_engine_step()  # a crash here reaches no other rank
+        rows = []
         for uid, row in items:
+            K = self.jobs[uid]["spec"].K
+            row = np.asarray(row, np.int32).reshape(-1)
+            if row.shape[0] != K:
+                raise ValueError(f"job {uid}: feedback has {row.shape[0]} entries, K={K}")
+            rows.append((uid, row))
+        if not rows:
+            return {}
+        with self._command("tick", [uid for uid, _ in rows]):
+            if self._chan is not None:
+                self._chan.rows(np.concatenate([row for _, row in rows]))
+            return self._tick(rows)
+
+    def _tick(self, rows) -> Dict[int, dict]:
+        """Every rank's side of a tick: the runner on the rank's slab of each
+        job's row, then one ``psum`` of the finite flag, ``on_time`` and
+        ``stale`` and one gather of the cohort."""
+        S, results = self.staleness, {}
+        for uid, row in rows:
             job = self.jobs[uid]
             spec: JobSpec = job["spec"]
             run, _, program = self._runner(spec)
-            row = np.asarray(row, np.int32).reshape(-1)
-            if row.shape[0] != spec.K:
-                raise ValueError(f"job {uid}: feedback has {row.shape[0]} entries, K={spec.K}")
-            xs = program.local_rows(row[None, :] if self.staleness else (row == 0).astype(np.float32)[None, :])
-            if self.staleness:
+            xs = program.local_rows(row[None, :] if S else (row == 0).astype(np.float32)[None, :])
+            if S:
                 state, key, rings, masks, _, _, _, arrived = run(job["state"], job["key"], job["rings"], xs)
-                stale = torch.sum(arrived[0][: spec.K])
+                stale = torch.sum(arrived[0])
             else:
                 state, key, masks, _, _, _ = run(job["state"], job["key"], xs)
                 rings, stale = None, torch.zeros((), dtype=_f32, device=self.device)
-            mask = masks[0][: spec.K]
-            on_time = torch.sum(mask * (xs[0][: spec.K] == 0 if self.staleness else xs[0][: spec.K]))
+            mask = masks[0]
+            on_time = torch.sum(mask * (xs[0] == 0 if S else xs[0]))
             # the NaN/inf guard: the runner hands back new tensors, so the
-            # job's state is intact; refuse the update before assigning
-            finite, on_time, stale = torch.stack(
-                [torch.all(torch.isfinite(state.e3cs.logw)).to(_f32), on_time, stale]).tolist()
-            if not finite:
+            # job's state is intact; a non-finite weight on any rank refuses
+            # the update on every rank before any assigns
+            bad = torch.any(~torch.isfinite(state.e3cs.logw)).to(_f32)
+            bad, on_time, stale = self.mesh.psum(torch.stack([bad, on_time, stale])).tolist()
+            if bad:
                 raise NumericsError(f"job {uid}: selector update produced non-finite log-weights; update refused")
             if rings is not None:
                 job["rings"] = rings
             job["state"], job["key"] = state, key
-            results[uid] = {
-                "round": job["t"],
-                "cohort": torch.nonzero(mask > 0).flatten().tolist(),
-                "on_time": on_time,
-                "stale": stale,
-            }
+            results[uid] = {"round": job["t"], "cohort": self._cohort(mask, spec.k), "on_time": on_time,
+                            "stale": stale}
             job["t"] += 1
         return results
+
+    def _cohort(self, mask: torch.Tensor, k: int) -> List[int]:
+        """The round's cohort, ascending global client ids: each rank's
+        selected slab positions, padded to ``k`` with -1, gathered in rank
+        order."""
+        loc = torch.nonzero(mask > 0).flatten()
+        ids = torch.full((k,), -1, dtype=torch.int64, device=mask.device)
+        ids[: loc.numel()] = loc + self.mesh.rank * mask.shape[0]
+        ids = self.mesh.all_gather(ids)
+        return ids[ids >= 0].tolist()
 
     # -- checkpoint surface ----------------------------------------------
 
@@ -556,16 +707,86 @@ class ShardedEngine:
     def arrays(self) -> dict:
         """Per-job evolving state keyed by uid (string keys, in uid order):
         the full ``ServerState``, the generator state, and the staleness /
-        late-credit rings."""
-        return {
-            str(uid): {"state": j["state"], "key": j["key"], "rings": list(j["rings"])}
+        late-credit rings.  At D > 1 the arrays are whole (``K_pad`` wide, on
+        the host) and the generator state is ``(own, shared)``, ``own`` the
+        ranks' own streams stacked ``(D, ...)``."""
+        if self.D == 1:
+            return {
+                str(uid): {"state": j["state"], "key": j["key"], "rings": list(j["rings"])}
+                for uid, j in sorted(self.jobs.items())
+            }
+        with self._command("arrays"):
+            return self._gather()
+
+    def _gather(self) -> Optional[dict]:
+        from repro_torch.convert import join_slabs, state_from_jax, state_to_numpy
+
+        parts = self._chan.gather({
+            uid: {"named": state_to_numpy(j["state"], j["rings"]), "own": j["key"][0], "shared": j["key"][1]}
             for uid, j in sorted(self.jobs.items())
-        }
+        })
+        if parts is None:  # a follower
+            return None
+        out = {}
+        for uid in sorted(self.jobs):
+            slabs = [p[uid] for p in parts]
+            state, rings = state_from_jax(join_slabs([s["named"] for s in slabs]), device="cpu")
+            key = (torch.stack([s["own"] for s in slabs]), slabs[0]["shared"])
+            out[str(uid)] = {"state": state, "key": key, "rings": list(rings)}
+        return out
 
     def load_arrays(self, arrays) -> None:
-        for uid, job in self.jobs.items():
+        if self.D == 1:
+            for uid, job in self.jobs.items():
+                blob = arrays[str(uid)]
+                job["state"], job["key"], job["rings"] = blob["state"], blob["key"], tuple(blob["rings"])
+            return
+        from repro_torch.convert import state_to_numpy
+
+        named, keys = {}, {}
+        for uid in self.jobs:
             blob = arrays[str(uid)]
-            job["state"], job["key"], job["rings"] = blob["state"], blob["key"], tuple(blob["rings"])
+            named[uid], keys[uid] = state_to_numpy(blob["state"], tuple(blob["rings"])), blob["key"]
+        self._scatter(named, keys)
+
+    def load_state(self, uid: int, named: Dict[str, np.ndarray]) -> None:
+        """Job ``uid``'s state and rings from ``K_pad``-wide numpy arrays under
+        ``repro_torch.convert``'s names (a JAX job's, ``sharded_job_from_jax``);
+        at D > 1 each rank takes its slab.  The generator state stays."""
+        from repro_torch.convert import state_from_jax
+
+        if self.D == 1:
+            job = self.jobs[uid]
+            job["state"], job["rings"] = state_from_jax(named, device=self.device)
+            return
+        if uid not in self.jobs:
+            raise KeyError(uid)
+        self._scatter({uid: named}, {})
+
+    def _scatter(self, named: dict, keys: dict) -> None:
+        """Send each rank its slab of each job's named arrays and, where
+        ``keys`` holds the job's ``(own (D, ...), shared)``, its streams."""
+        from repro_torch.convert import shard_arrays
+
+        per_rank = []
+        for r in range(self.D):
+            mine = {}
+            for uid, arrs in named.items():
+                mine[uid] = {"named": shard_arrays(arrs, r, self.D)}
+                if uid in keys:
+                    mine[uid].update(own=keys[uid][0][r].clone(), shared=keys[uid][1])
+            per_rank.append(mine)
+        with self._command("load"):
+            self._load(self._chan.scatter(per_rank))
+
+    def _load(self, slabs: dict) -> None:
+        from repro_torch.convert import state_from_jax
+
+        for uid, blob in slabs.items():
+            job = self.jobs[uid]
+            job["state"], job["rings"] = state_from_jax(blob["named"], device=self.device)
+            if "own" in blob:
+                job["key"] = (blob["own"], blob["shared"])
 
     @classmethod
     def from_meta(cls, meta: dict, device=None) -> "ShardedEngine":
@@ -579,6 +800,66 @@ class ShardedEngine:
             eng.jobs[row["uid"]]["t"] = row["t"]
         eng._next_uid = meta["next_uid"]
         return eng
+
+    # -- the followers ------------------------------------------------------
+
+    def _follow(self, op: str, *args) -> None:
+        """A follower's side of the leader's command ``op``."""
+        if op == "admit":
+            self._admit(args[0], JobSpec.from_json(args[1]))
+        elif op == "retire":
+            del self.jobs[args[0]]
+        elif op == "tick":
+            Ks = [self.jobs[uid]["spec"].K for uid in args[0]]
+            rows = np.split(self._chan.rows(None, sum(Ks)), np.cumsum(Ks)[:-1])
+            self._tick(list(zip(args[0], rows)))
+        elif op == "arrays":
+            self._gather()
+        elif op == "load":
+            self._load(self._chan.scatter(None))
+        else:
+            raise ValueError(f"unknown engine command {op!r}")
+
+
+def follow(D: Optional[int] = None, device=None) -> Optional[ShardedEngine]:
+    """Rank r > 0's side of a D-rank ``ShardedEngine``: mirror every engine
+    rank 0 builds on the group (each build replaces the last), one command
+    at a time, until rank 0 calls ``stop_followers``; returns the last
+    engine.  A tick refused for a non-finite weight is refused on rank 0
+    too, from the same reduced flag, and the loop goes on.  ``device=None``
+    is the rank's CUDA device."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(D, device=device)
+    if mesh.rank == 0:
+        raise ValueError("rank 0 leads: it builds the ShardedEngine (and serves it); the other ranks follow")
+    chan, eng = _channel(), None
+    while True:
+        op, *args = chan.recv()
+        if op == "stop":
+            return eng
+        if op == "build":
+            eng = None  # the replaced engine's buffers go before the new one's
+            eng = ShardedEngine.__new__(ShardedEngine)
+            eng._setup(mesh, args[0])
+            eng._chan = chan
+            continue
+        try:
+            eng._follow(op, *args)
+        except NumericsError:
+            pass
+
+
+def stop_followers() -> None:
+    """Rank 0: end the followers' ``follow`` loops on the default process
+    group (a group of one rank has none).  Every engine built before is
+    superseded."""
+    if dist.get_world_size() == 1:
+        return
+    chan = _channel()
+    with chan.lock:
+        chan.epoch += 1
+        chan.send("stop")
 
 
 def engine_from_meta(meta: dict, device=None):
