@@ -143,7 +143,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
    cohorts bit for bit in-process engines', the top-k and block-sum kernels
    against their plain versions on the engines' own inputs, launch counts
    exact, the serving rates and the checkpoint's cost (``serve_path``);
-   then ``[serve-sharded-mesh]``: ``ShardedEngine(D=2, staleness=2,
+   then the JAX key stream: the threefry kernel against its plain version
+   (``threefry_kernel_rows``), JAX-key horizons, rates and JAX stems served
+   (``jax_stream_path``), and ``[fl-pow-d-mesh]``: pow-d's FL server at
+   Table I on the one-rank mesh against the unsharded server
+   (``fl_pow_d_mesh_path``); then ``[serve-sharded-mesh]``: ``ShardedEngine(D=2, staleness=2,
    block=4)`` at K = 1e6 and 5e5 on two ranks that share the card, each a
    process of its own over a gloo group of the card's tensors (NCCL
    refuses two ranks on one device; the runners step uncaptured): rank 0
@@ -225,6 +229,23 @@ RATE_Z = 6.0
 # and what an engine's whole life leaves allocated
 SERVE_MEM_MARGIN = 16 << 20
 CHIPRUN_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+GOLDEN_TORCH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden_torch")
+JAX_NOISE_ATOL = 2e-6  # a Gumbel value against JAX's: the last bit of two logs (measured 9.5e-7 at 1e6 draws)
+# The H100's SM clocks a second, summed over its SMs: the data sheet's 67
+# Tflop/s float32 is 132 SMs x 128 lanes x 2 flops x 1.98 GHz.  An SM issues
+# 128 lanes a clock (four schedulers of 32); funnel shifts and LOP3 (xor, or)
+# run only on its ALU pipe, 64 lanes a clock, while an add may also issue on
+# the FMA pipe as IMAD.
+H100_SM_CLOCKS = 132 * 1.98e9
+THREEFRY_LANES = {"issue": 128, "alu": 64}
+# A threefry2x32 hash (csrc/threefry.cu): 32 adds, 20 funnel shifts (the
+# rotates) and 20 xors.  Each epilogue adds a ^ b (not "keys"), and for
+# "uniform" and "gumbel" the mantissa's shift and or, the subtraction, the
+# fused multiply-add and the max; "gumbel" then two logs, at least one
+# instruction each.
+THREEFRY_OPS = {"keys": {"issue": 72, "alu": 40}, "bits": {"issue": 73, "alu": 41},
+                "uniform": {"issue": 78, "alu": 43}, "gumbel": {"issue": 80, "alu": 43}}
+JAX_STREAM_RATE_T = 200  # rounds of the timed twin and Philox horizons
 
 
 def log(phase, **kw):
@@ -641,6 +662,11 @@ def main():
             launched.setdefault(n, c)
         # the serving paths are this slice's main path: their counts go in the kernels line
         launched.update(serve_path(dev, card=smi))
+        rows.update(threefry_kernel_rows(dev, card=smi, bw=bw))
+        stream_counts = jax_stream_path(dev, card=smi)
+        for n, c in stream_counts.items():
+            launched[n] = launched.get(n, 0) + c
+        fl_pow_d_mesh_path(dev, card=smi)
     finally:
         dist.destroy_process_group()
     # the sharded service on two ranks sharing the card: B5 on both ranks' slabs
@@ -1436,6 +1462,8 @@ FL_ACC_MIN = 0.15  # EMNIST after 16 rounds: the threshold of the JAX package's 
 # card against CPU: the FL tests' tolerance on trained parameters (tests/test_torch_fl.py)
 FL_PARAM_RTOL, FL_PARAM_ATOL = 1e-3, 1e-4
 FL_CHECK = dict(K=20, k=4, rounds=1, samples_per_client=40, batch_size=10, local_epochs=(1, 2))
+FL_POW_D_ROUNDS = 3  # rounds of pow-d's server on the mesh and off it
+FL_POW_D_LOSS_RTOL = 1e-5  # a candidate's loss looped against vmapped, on the same parameters
 FP32_CONV_RTOL = 1e-5  # a float32 conv against float64; TF32 misses by ~1e-3
 
 
@@ -3008,6 +3036,353 @@ def serve_path(dev, card, seed=SCENARIO_SEED, J=8, K_slots=100_000, k_cap=2000, 
 
 SERVE_MESH = dict(D=2, K=1_000_000, k=1000, rounds=20, rounds_chaos=30, seed=SCENARIO_SEED + 30)
 SERVE_MESH_TIMEOUT = 300  # seconds the ranks of [serve-sharded-mesh] may take
+
+
+def jax_stream_feedback(j, t, K, S):
+    """``scripts/make_jax_stream_fixture.py``'s feedback rows: job ``j``'s
+    round-``t`` lag codes, an integer hash of (j, t, client)."""
+    h = (np.arange(K, dtype=np.uint64) * np.uint64(2654435761) + np.uint64(40503 * t + 9973 * j + 1)) % np.uint64(1000)
+    h = h.astype(np.int64)
+    if not S:
+        return np.where(h < 700, 0, -1).astype(np.int32)
+    return np.where(h < 550, 0, np.where(h < 700, 1, np.where(h < 800, S, -1))).astype(np.int32)
+
+
+def _cohort_check(label, t, cohort, want, scores, kth):
+    """A cohort equals JAX's, or else every client that differs scores within
+    ``JAX_NOISE_ATOL`` of JAX's k-th score; returns whether it was equal."""
+    if np.array_equal(cohort, want):
+        return True
+    diff = np.setxor1d(cohort, want)
+    off = np.abs(scores[diff] - kth)
+    if not np.all(off <= JAX_NOISE_ATOL):
+        raise AssertionError(f"{label} round {t}: {diff.size} clients differ from JAX's cohort, up to "
+                             f"{float(off.max())} from its k-th score")
+    return False
+
+
+def threefry_kernel_rows(dev, card, bw, K=K_MAIN):
+    """Phase 16, ``[jax-stream-kernel]``: the threefry kernel on the card;
+    returns its rows for the kernels line (see ``jax_stream_path``)."""
+    import torch
+
+    from repro_torch import kernels as kn
+    from repro_torch.core import prng
+    from repro_torch.kernels import ref
+
+    rows = {}
+
+    def timed(fn, reps=TIMED_CALLS):
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+
+    def eager(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    key = prng.PRNGKey(12345, dev).data
+    path, errs = (3, 2**33 + 7), {}
+    for mode, lo, hi in (("bits", 0.0, 1.0), ("sortkey", 0.0, 1.0), ("uniform", 0.0, 1.0), ("uniform", 1e-7, 1.0),
+                         ("gumbel", 0.0, 1.0), ("keys", 0.0, 1.0)):
+        n = 3 if mode == "keys" else K
+        for offset in (0, 2**32 - 2):
+            got = kn.threefry(key, path, offset, n, mode, lo, hi)
+            want = ref.threefry_ref(key, path, offset, n, mode, lo, hi)
+            if mode == "gumbel":
+                e = float((got - want).abs().max())
+                if not e <= JAX_NOISE_ATOL:
+                    raise AssertionError(f"threefry gumbel: max |kernel - plain| = {e}")
+            elif not torch.equal(got, want):
+                raise AssertionError(f"threefry {mode} [{lo}, {hi}) offset {offset}: kernel and plain version differ")
+            else:
+                e = 0.0
+            errs[mode] = max(errs.get(mode, 0.0), e)
+    adv = key.clone()
+    kn.threefry(adv, (), 0, 1, "keys", out=adv.view(1, 2))
+    if not torch.equal(adv, ref.threefry_ref(key, (), 0, 1, "keys").view(2)):
+        raise AssertionError("threefry: the in-place advance of a key differs from its plain version")
+    log("jax-stream-kernel", K=K, modes=",".join(errs), gumbel_max_abs_err=errs["gumbel"], others="equal",
+        in_place_advance="equal")
+    # the epilogues the main path launches (the JAX-key horizons: a key's
+    # in-place advance, volatility rows, Gumbel rows) at its shapes, each a
+    # row of the kernels line; and the bits epilogue at 10^6 (JAX's
+    # random_bits: no horizon launches it), timed only
+    out_u, out_g = (torch.empty(K, dtype=torch.float32, device=dev) for _ in range(2))
+    out_b = torch.empty(K, dtype=torch.int32, device=dev)
+    rand_ms = timed(lambda: torch.rand(K, device=dev, out=out_u))
+    cases = {"keys": (adv, (), 1, adv.view(1, 2), 16), "uniform": (key, path, K, out_u, 8 + 4 * K),
+             "gumbel": (key, path, K, out_g, 8 + 4 * K), "bits": (key, path, K, out_b, 8 + 4 * K)}
+    for mode, (kk, pp, n, out, nbytes) in cases.items():
+        ms = timed(lambda: kn.threefry(kk, pp, 0, n, mode, out=out))
+        plain = eager(lambda: ref.threefry_ref(kk, pp, 0, n, mode))
+        # n hashes and their epilogues, and the key's folds (one hash each)
+        clocks = max((n * THREEFRY_OPS[mode][p] + len(pp) * THREEFRY_OPS["keys"][p]) / lanes
+                     for p, lanes in THREEFRY_LANES.items())
+        t_ops, t_bytes = clocks / H100_SM_CLOCKS * 1e3, nbytes / bw * 1e3
+        b = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        if mode != "bits":
+            rows[f"threefry.{mode}"] = dict(
+                route="cuda", source="src/repro_torch/kernels/csrc/threefry.cu",
+                replaces="src/repro/engine/round_program.py:415 (jax.random: XLA's threefry, no Pallas kernel)",
+                max_abs_err=errs[mode], ms=ms, plain_ms=plain, bound_ms=b[0], bound_by=b[1], library_ms=None)
+        log("jax-stream-kernel-time", mode=mode, n=n, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+            bound_ms=f"{b[0]:.6f}", bound_by=b[1], torch_rand_ms=f"{rand_ms:.4f}",
+            torch_rand="a different stream, not the same function", card=repr(card))
+    return rows
+
+
+def jax_stream_path(dev, card, golden=GOLDEN_TORCH, rate_T=JAX_STREAM_RATE_T):
+    """Phase 16, ``[jax-stream]``: the JAX package's key stream on the card
+    (``repro_torch.core.prng``), held against the fixtures of
+    ``scripts/make_jax_stream_fixture.py``; the process group is up.
+    Returns the launch counts of the twin horizons (the counts set to 0 just
+    before them).
+
+    * ``[jax-stream-kernel]`` (``threefry_kernel_rows``): the threefry
+      kernel against its plain version on the same 10^6 counters under a
+      key folded twice: bits, sort keys,
+      uniforms (also on ``[1e-7, 1)``) and key pairs equal, Gumbel within
+      ``JAX_NOISE_ATOL``; times of the epilogues the horizons launch (a
+      key's in-place advance, uniform and Gumbel rows of 10^6: the kernels
+      line's rows) and of bits at 10^6, the plain
+      version's, the bound (``THREEFRY_OPS`` over ``THREEFRY_LANES``), and
+      ``torch.rand`` at the same shape (a different stream, not the same
+      function: a scale only).
+    * ``[jax-stream-horizon]``: the fused E3CS horizon at the fixture's K =
+      10^6, k = 1000, captured, sync and S = 2, run from ``PRNGKey(0)``:
+      cohorts equal to JAX's (or differing only within ``JAX_NOISE_ATOL`` of
+      the k-th score, after which rounds are not compared), round 0's first
+      Gumbel values within the atol and the key carried out equal; then
+      ``rate_T`` rounds of the twin horizon and of the Philox one, each a
+      runner's second call, for rounds/s.
+    * ``[jax-stream-resume]``: the committed JAX stems (slot and sharded
+      engines, sync and S = 2) restored through ``load_server`` and served
+      over the transport for the ticks the fixture recorded: cohorts,
+      rounds and on-time counts equal to the uninterrupted JAX server's.
+    """
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels as kn
+    from repro_torch.configs import FLConfig
+    from repro_torch.core import prng
+    from repro_torch.core.volatility import CompletionLag, make_volatility, paper_success_rates
+    from repro_torch.engine import RoundProgram
+    from repro_torch.serve import SelectionServer, ServeClient, load_server
+
+    on_card = dev.type == "cuda"
+    fix = np.load(os.path.join(golden, "jax_stream.npz"))
+    cfg = json.loads(str(fix["config"]))
+    K, k, T = cfg["K"], cfg["k"], cfg["T"]
+    counts = {}
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    # -- the twin horizon against JAX's ---------------------------------------
+    rho = paper_success_rates(K)
+
+    def program(S, rounds):
+        vol = make_volatility("bernoulli", rho, device=dev)
+        if S is not None:
+            vol = CompletionLag(vol, max_lag=S)
+        fl = FLConfig(K=K, k=k, rounds=rounds, scheme="e3cs", quota_frac=cfg["quota_frac"], allocator="bisect")
+        return RoundProgram(fl=fl, vol=vol, rho=rho, staleness=S, alpha=cfg["alpha"], fused=True, device=dev)
+
+    g0 = prng.gumbel(prng.split(prng.PRNGKey(cfg["seed"], dev), 3)[1], (K,))[: cfg["gumbel_head"]].cpu().numpy()
+    g_err = float(np.abs(g0 - fix["gumbel_head"]).max())
+    if not g_err <= JAX_NOISE_ATOL:
+        raise AssertionError(f"round 0's Gumbel row differs from JAX's by {g_err}")
+    for S in (None, 2):
+        tag = "sync" if S is None else f"S{S}"
+        pm = program(S, T)
+        run, s0 = pm.build_runner(outputs="full", carry_key=True)
+        extra = () if S is None else (pm.init_rings(),)
+        kn.reset_launch_counts()
+        out = run(s0, prng.PRNGKey(cfg["seed"], dev), *extra)
+        sync()
+        got_counts = {n: c for n, c in kn.launch_counts().items() if c}
+        idle = [m for m in ("keys", "uniform", "gumbel") if not got_counts.get(f"threefry.{m}")]
+        if on_card and idle:
+            raise AssertionError(f"twin horizon {tag}: no threefry launch of {idle} ({got_counts})")
+        for n, c in got_counts.items():
+            counts[n] = counts.get(n, 0) + c
+        key_out = out[1]
+        masks, ps = (out[2], out[4]) if S is None else (out[3], out[5])
+        masks, ps = masks.cpu().numpy(), ps.cpu().numpy()
+        kk, equal = prng.PRNGKey(cfg["seed"], dev), 0
+        for t in range(T):
+            kk, k1, _ = prng.split(kk, 3)
+            kk = prng.Key(prng.key_data(kk).clone())
+            cohort = np.nonzero(masks[t] > 0)[0]
+            scores = np.log(np.maximum(ps[t], 1e-30)) + prng.gumbel(k1, (K,)).cpu().numpy()
+            if not _cohort_check(f"twin horizon {tag}", t, cohort, fix[f"{tag}/cohorts"][t], scores,
+                                 fix[f"{tag}/bounds"][t, 0]):
+                break
+            equal += 1
+        if not np.array_equal(key_out.data.cpu().numpy(), fix[f"{tag}/key"].view(np.int32)):
+            raise AssertionError(f"twin horizon {tag}: the key after {T} rounds differs from JAX's")
+        gaps = fix[f"{tag}/bounds"][:, 0] - fix[f"{tag}/bounds"][:, 1]
+        # rounds/s: the twin and the Philox horizon, each a runner's second call
+        rates = {}
+        for stream in ("jax", "philox"):
+            pr = program(S, rate_T)
+            r, st0 = pr.build_runner(outputs="lean")
+            kf = (lambda: prng.PRNGKey(cfg["seed"], dev)) if stream == "jax" else (lambda: cfg["seed"])
+            r(st0, kf())
+            sync()
+            t0 = time.perf_counter()
+            r(st0, kf())
+            sync()
+            rates[stream] = rate_T / (time.perf_counter() - t0)
+            del r, st0, pr
+        log("jax-stream-horizon", run=tag, K=K, k=k, T=T, captured=run.horizon.captured,
+            cohorts_equal_rounds=f"{equal}/{T}", key_equal=True, gumbel_head_max_abs_err=g_err,
+            jax_kth_gap_min=f"{float(gaps.min()):.3e}", launches=json.dumps(got_counts),
+            twin_rounds_per_s=f"{rates['jax']:.3f}", philox_rounds_per_s=f"{rates['philox']:.3f}",
+            rate_T=rate_T, card=repr(card))
+        del run, s0, out, pm
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # -- the JAX stems restored and served ------------------------------------
+    for kind in ("slots", "sharded"):
+        for S in (0, 2):
+            d = os.path.join(golden, "stems", f"{kind}_S{S}")
+            with open(os.path.join(d, "served.json")) as f:
+                want = json.load(f)
+            stems = sorted(n[:-len(".json")] for n in os.listdir(d) if n.startswith("ckpt_") and n.endswith(".json"))
+            tmp = tempfile.mkdtemp(prefix="jax_stems_", dir=CHIPRUN_OUT if os.path.isdir(CHIPRUN_OUT) else None)
+            t0 = time.perf_counter()
+            eng, step = load_server(os.path.join(d, stems[-1]), device=dev)
+            load_s = time.perf_counter() - t0
+            if step != want["ticks_before"] or eng.stream != "jax":
+                raise AssertionError(f"{kind} S={S}: restored step {step}, stream {eng.stream}")
+            srv = SelectionServer(eng, ckpt_dir=tmp)
+            srv.start()
+            try:
+                with ServeClient.connect(srv.address, timeout=600.0) as c:
+                    for i, served in enumerate(want["served"]):
+                        t = want["ticks_before"] + i
+                        for j, uid in enumerate(want["uids"]):
+                            out = c.tick(uid, round=t, lags=jax_stream_feedback(j, t, want["jobs"][j]["K"], S))
+                            w = served[str(uid)]
+                            if out["round"] != w["round"] or out["cohort"] != w["cohort"] or \
+                                    out["on_time"] != w["on_time"]:
+                                raise AssertionError(f"{kind} S={S} job {uid} round {t}: the port served another "
+                                                     f"cohort than the JAX server")
+            finally:
+                srv.close(checkpoint=False)
+                shutil.rmtree(tmp, ignore_errors=True)
+            log("jax-stream-resume", engine=kind, S=S, K=want["jobs"][0]["K"], jobs=len(want["uids"]),
+                ticks=len(want["served"]), cohorts="equal to the JAX server's", load_s=f"{load_s:.3f}",
+                card=repr(card))
+            del eng, srv
+            if on_card:
+                torch.cuda.empty_cache()
+
+    return counts
+
+
+def fl_pow_d_mesh_path(dev, card, rounds=FL_POW_D_ROUNDS, fl_kw=None):
+    """``[fl-pow-d-mesh]``: pow-d's FL server on a one-rank NCCL mesh
+    (``FLServer(spmd_axes="data", scheme="pow_d")``: each candidate's loss
+    one after another; the process group is up) against the unsharded
+    server (the candidates' losses vmapped), EMNIST at ``FLConfig``'s
+    Table I defaults as ``[fl-train]`` (``fl_kw`` overrides fields for a
+    small rehearsal), from the same initial parameters.
+
+    * ``rounds`` rounds, each of both servers from the unsharded server's
+      state (``run(state, rounds=1)``, so each draws the noise of its
+      seed's first round): selection counts equal, loss caches within
+      ``FL_POW_D_LOSS_RTOL`` (the candidates' losses on the same
+      parameters), parameters within the FL tolerances; a round's ms on
+      the host clock, each server's median.
+    * ``[fl-pow-d-mesh-drift]``: both servers' own ``rounds``-round runs,
+      as a user calls them: how far their parameters and loss caches
+      drift apart (training amplifies the round's last-bit differences),
+      as information; parameters finite."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+    from repro_torch.configs import FLConfig
+    from repro_torch.fl import FLServer
+    from repro_torch.launch import make_mesh
+    from repro_torch.launch.train import build_task
+
+    fl = FLConfig(scheme="pow_d", rounds=rounds, **(fl_kw or {}))
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    mesh = make_mesh((1,), ("data",), device=dev)
+    servers = {}
+    for placed in (False, True):
+        model, store, _ = build_task("emnist", fl, device=dev)  # a store each: its batch order advances a round
+        servers[placed] = FLServer(model, fl, store, spmd_axes="data" if placed else None, device=dev)
+    params0, _ = model.init(torch.Generator(device=dev).manual_seed(fl.seed))
+
+    def init(placed):
+        params = {n: distribute_tensor(t, mesh, [Replicate()]) for n, t in params0.items()} if placed else params0
+        return servers[placed].init_state(params=params)
+
+    def place(state):
+        return state._replace(params={n: distribute_tensor(t, mesh, [Replicate()]) for n, t in state.params.items()})
+
+    def whole(state):
+        return {n: v.full_tensor() if isinstance(v, DTensor) else v for n, v in state.params.items()}
+
+    def gaps(a, b):
+        wa, wb = whole(a), whole(b)
+        return float((a.loss_cache - b.loss_cache).abs().max()), max(float((wa[n] - wb[n]).abs().max()) for n in wa)
+
+    state, ms, worst = init(False), {False: [], True: []}, (0.0, 0.0)
+    for t in range(rounds):
+        got = {}
+        for placed, srv in servers.items():
+            sync()
+            t0 = time.perf_counter()
+            got[placed], _ = srv.run(place(state) if placed else state, rounds=1)
+            sync()
+            ms[placed].append((time.perf_counter() - t0) * 1e3)
+        a, b = got[False], got[True]
+        if not torch.equal(a.sel_counts, b.sel_counts):
+            raise AssertionError(f"pow-d on a one-rank mesh, round {t}: the selection differs")
+        np.testing.assert_allclose(b.loss_cache.cpu().numpy(), a.loss_cache.cpu().numpy(), rtol=FL_POW_D_LOSS_RTOL,
+                                   atol=0, err_msg=f"round {t}: loss cache")
+        wa, wb = whole(a), whole(b)
+        for n in wa:
+            np.testing.assert_allclose(wb[n].cpu().numpy(), wa[n].cpu().numpy(), rtol=FL_PARAM_RTOL,
+                                       atol=FL_PARAM_ATOL, err_msg=f"round {t}: {n}")
+        worst = tuple(max(x, y) for x, y in zip(worst, gaps(a, b)))
+        state = a
+    log("fl-pow-d-mesh", K=fl.K, k=fl.k, pow_d=fl.pow_d, rounds=rounds, samples_per_client=fl.samples_per_client,
+        mesh="(data,)=(1,)", selected=int(state.sel_counts.sum()), sel_counts="equal every round",
+        loss_cache_max_abs_diff=worst[0], loss_rtol=FL_POW_D_LOSS_RTOL, params_max_abs_diff=worst[1],
+        rtol=FL_PARAM_RTOL, atol=FL_PARAM_ATOL, mesh_round_ms_median=f"{np.median(ms[True]):.1f}",
+        plain_round_ms_median=f"{np.median(ms[False]):.1f}", card=repr(card))
+
+    runs = {placed: servers[placed].run(init(placed))[0] for placed in (False, True)}
+    if not all(bool(torch.isfinite(v).all()) for st in runs.values() for v in whole(st).values()):
+        raise AssertionError("pow-d's servers: non-finite parameters after their own runs")
+    loss_gap, param_gap = gaps(runs[False], runs[True])
+    log("fl-pow-d-mesh-drift", rounds=rounds, sel_counts_equal=torch.equal(runs[False].sel_counts,
+                                                                          runs[True].sel_counts),
+        loss_cache_max_abs_diff=loss_gap, params_max_abs_diff=param_gap, card=repr(card))
 
 
 def serve_mesh_worker(rank, out_dir, store, device, params):

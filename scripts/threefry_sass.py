@@ -1,0 +1,82 @@
+"""The instruction mix of the threefry kernel as nvcc compiles it for sm_90a:
+which pipe the adds, rotates and xors of a hash issue on.
+
+    python scripts/threefry_sass.py [--out FILE]
+
+Builds the kernels (``repro_torch.kernels._build.build``; needs ``nvcc``),
+disassembles the library with ``cuobjdump -sass`` and prints, for
+each epilogue's kernel, the count of each opcode (its modifiers kept:
+``IMAD.IADD`` is an add issued on the FMA pipe, ``IADD3`` one on the ALU
+pipe) in two parts: before the block's ``BAR.SYNC`` (thread 0 folds the key,
+one hash a fold) and after it (the grid-stride loop: one hash and the
+epilogue a counter).  Uniform-datapath opcodes (``U*``) run once a warp on a
+pipe of their own.  One JSON object a kernel; with ``--out`` also written to
+``FILE``.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import re
+import subprocess
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
+
+MODES = ("keys", "bits", "sortkey", "uniform", "gumbel")  # the kernel's Mode enum, in order
+_FUNCTION = re.compile(r"Function : (\S+)")
+_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+_MODE = re.compile(r"threefry_kernelILi(\d)E")
+
+
+def sass_counts(text: str) -> dict:
+    """``{mode: {"fold": Counter, "loop": Counter}}`` of the threefry
+    kernels in a ``cuobjdump -sass`` listing."""
+    out, part = {}, None
+    for line in text.splitlines():
+        m = _FUNCTION.search(line)
+        if m:
+            mode = _MODE.search(m.group(1))
+            part = None
+            if mode:
+                counts = out.setdefault(MODES[int(mode.group(1))], {"fold": collections.Counter(),
+                                                                   "loop": collections.Counter()})
+                part = "fold"
+            continue
+        m = _OPCODE.search(line)
+        if part is None or not m:
+            continue
+        op = m.group(1)
+        counts[part][op] += 1
+        if op.startswith("BAR.SYNC") or op == "BAR":
+            part = "loop"
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--out", default=None, help="also write the JSON lines here")
+    args = ap.parse_args(argv)
+    from repro_torch.kernels._build import _nvcc, build
+
+    lib, _ = build()
+    cuobjdump = os.path.join(os.path.dirname(os.path.realpath(_nvcc())), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    lines = []
+    for mode, parts in sass_counts(text).items():
+        lines.append(json.dumps({"kernel": f"threefry.{mode}", "arch": "sm_90a",
+                                 **{p: dict(sorted(c.items())) for p, c in parts.items()}}))
+    if not lines:
+        raise SystemExit(f"no threefry kernel in the SASS of {lib}")
+    print("\n".join(lines))
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

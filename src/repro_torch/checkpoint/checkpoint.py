@@ -12,8 +12,9 @@ A ``.ckpt`` file is three parts:
 Trees are dicts, lists, tuples and NamedTuples of tensors.  ``restore(path,
 like)`` puts each leaf on the device and dtype of the matching leaf of
 ``like``.  Nothing is pickled.  A file the JAX package wrote (msgpack) is
-refused: reading its trees into the port needs the threefry twin (ROADMAP
-A2), since a JAX checkpoint carries JAX PRNG keys.
+refused here: ``jax_format.read`` reads its trees, and
+``repro_torch.serve.load_server`` loads a JAX serving stem onto the JAX key
+stream.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ from typing import Any
 
 import torch
 from torch.utils import _pytree as pytree
+
+from . import jax_format
 
 __all__ = ["save", "restore", "latest_checkpoint", "read_header", "CODEC"]
 
@@ -77,11 +80,9 @@ def _read(path: str):
     with open(path, "rb") as f:
         blob = f.read()
     if not blob.startswith(MAGIC):
-        if blob[:1] and (0x80 <= blob[0] <= 0x8F or blob[0] in (0xDE, 0xDF)):  # a msgpack map
-            raise ValueError(
-                f"{path} was written by the JAX package (msgpack); restoring a JAX checkpoint in the "
-                "port needs the threefry twin of JAX's PRNG keys (ROADMAP A2), which is not ported"
-            )
+        if jax_format.is_jax_file(blob):
+            raise ValueError(f"{path} was written by the JAX package (msgpack): read it with "
+                             "checkpoint.jax_format.read, or a serving stem with serve.load_server")
         raise ValueError(f"{path} is not a repro_torch checkpoint (bad magic line)")
     end = blob.index(b"\n", len(MAGIC))
     return json.loads(blob[len(MAGIC):end]), blob[end + 1:]

@@ -23,11 +23,12 @@ staleness rings as numpy arrays under these names and builds the port's
 
 The serving engines (``repro_torch.serve``) carry a JAX engine's state in
 as well: ``slot_state_from_jax`` loads a JAX ``SlotEngine``'s mid-horizon
-``(logw, t, pending)`` into the port's engine built from the same meta, and
-``sharded_job_from_jax`` a JAX ``ShardedEngine`` job's ``ServerState`` and
-rings (through ``state_from_jax``).  JAX's PRNG keys do not cross: a job
-continues with the port's noise from its seed (ROADMAP A2), so a test hands
-the slot engine JAX's rows through its ``gumbel_row``.
+``(logw, t, pending, base_keys)`` into the port's engine built from the same
+meta, and ``sharded_job_from_jax`` a JAX ``ShardedEngine`` job's
+``ServerState``, rings and key (through ``state_from_jax``).  On an engine of
+``stream="jax"`` (``core.prng``, the JAX key stream) the keys cross too and
+the jobs continue with JAX's noise; on a Philox engine they are left behind
+and a job continues with the port's noise from its seed.
 
 The FL training server's state also holds the model's parameters:
 ``fl_state_from_jax`` is ``state_from_jax`` with ``arrays["params"]``, the
@@ -226,34 +227,47 @@ def gather_state(state: ServerState, rings: tuple, mesh) -> Dict[str, np.ndarray
     return {name: pytree.tree_map(lambda t: host(name, t), v) for name, v in _named(state, rings).items()}
 
 
+def _key_words(a) -> torch.Tensor:
+    """JAX key words (uint32, numpy or JAX) as the port's int32 tensor."""
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.uint32)).view(np.int32).copy())
+
+
 def slot_state_from_jax(engine, arrays) -> None:
     """Load a JAX ``SlotEngine``'s ``arrays()`` (as numpy: ``logw``, ``t``,
-    ``pending``; ``base_keys`` are left behind) into ``engine``, a port
-    ``SlotEngine`` built from the JAX engine's ``meta()``
-    (``serve.engine_from_meta``), so the jobs continue mid-horizon."""
+    ``pending``, ``base_keys``) into ``engine``, a port ``SlotEngine`` built
+    from the JAX engine's ``meta()`` (``serve.engine_from_meta``), so the
+    jobs continue mid-horizon; the base keys cross on an engine of
+    ``stream="jax"`` and are left behind otherwise."""
     engine.load_arrays({
         "logw": torch.from_numpy(np.array(arrays["logw"], np.float32)),
         "t": torch.from_numpy(np.array(arrays["t"], np.int32)),
         "pending": torch.from_numpy(np.array(arrays["pending"], np.float32)),
         "seeds": engine.seeds,
+        "base_keys": _key_words(arrays["base_keys"]) if engine.stream == "jax" else engine.base_keys,
     })
 
 
 def sharded_job_from_jax(engine, uid: int, job) -> None:
     """Load one job of a JAX ``ShardedEngine`` (its ``arrays()[str(uid)]``:
-    ``{"state": ServerState, "key", "rings"}``) into job ``uid`` of
-    ``engine``, a port ``ShardedEngine`` built from the JAX engine's
-    ``meta()`` at the same D: the state and rings through ``state_from_jax``
-    (the JAX state is ``K_pad`` wide; at D > 1 each rank of the port takes
-    its slab, ``shard_arrays``); the job's round follows the state's."""
+    ``{"state": ServerState, "key", "rings"}``, the state a ``ServerState``
+    or, read from a JAX checkpoint file, the list of its fields) into job
+    ``uid`` of ``engine``, a port ``ShardedEngine`` built from the JAX
+    engine's ``meta()`` at the same D: the state and rings through
+    ``state_from_jax`` (the JAX state is ``K_pad`` wide; at D > 1 each rank
+    of the port takes its slab, ``shard_arrays``), and on an engine of
+    ``stream="jax"`` the key; the job's round follows the state's."""
     st = job["state"]
+    if isinstance(st, list):  # ServerState's fields, packed in order
+        st = ServerState(*st)
+        st = st._replace(e3cs=E3CSState(*st.e3cs), ucb=UCBState(*st.ucb))
     named = {
         "logw": st.e3cs.logw, "t": st.t, "sel_counts": st.sel_counts, "loss_cache": st.loss_cache,
         "vol_state": st.vol_state, "cep": st.cep, "succ_hist": st.succ_hist,
         "ucb_succ": st.ucb.succ, "ucb_pulls": st.ucb.pulls, "ucb_t": st.ucb.t,
         **dict(zip(("credit", "fb"), job["rings"])),
     }
-    engine.load_state(uid, pytree.tree_map(np.asarray, named))
+    key = _key_words(job["key"]) if engine.stream == "jax" else None
+    engine.load_state(uid, pytree.tree_map(np.asarray, named), key=key)
     engine.jobs[uid]["t"] = int(np.asarray(st.t))
 
 

@@ -11,7 +11,11 @@ over a ``(J, K_max)`` population of J jobs: ``row_shape``) and lower end
 ``lo``, in the order ``sample`` consumes them (the order ``jax.random.split`` hands the
 JAX model its keys): ``draw`` is ``uniform_rows`` of one ``torch.rand`` row
 each, so a runner that draws the raw rows itself (into the buffers of a
-captured round step) scales them with the same operations.
+captured round step) scales them with the same operations.  ``key_paths()``
+gives, row by row, the folds that lead from the key JAX hands the model's
+``sample`` to the key of that row (``split(key, n)[i]`` is the fold ``i``),
+so a runner on the JAX key stream (``core.prng``) draws the JAX model's
+rows exactly.
 
 Lag protocol (async rounds): ``sample`` returns an int32 ``(K,)`` lag row,
 ``0`` = on time, ``l >= 1`` = ``l`` rounds late, ``DEAD_LAG`` = never.
@@ -195,6 +199,9 @@ class BernoulliVolatility(_Model):
     def draw_rows(self):
         return ((_per_client(self.rho), 0.0),)
 
+    def key_paths(self):
+        return ((),)
+
     def sample(self, us, state):
         return (us[0] < self.rho).to(_f32), state
 
@@ -215,6 +222,9 @@ class MarkovVolatility(_Model):
 
     def draw_rows(self):
         return ((_per_client(self.rho), 0.0),)
+
+    def key_paths(self):
+        return ((0,),)  # r_up = split(key)[0]
 
     def sample(self, us, state):
         up = (us[0] < state).to(_f32)
@@ -244,6 +254,9 @@ class DeadlineVolatility(_Model):
         K = self.epochs.shape[0]
         return ((K, 0.0), (K, 0.0))
 
+    def key_paths(self):
+        return ((0,), (1,))  # r_t, r_n = split(key)
+
     def sample(self, us, state):
         u_t, u_n = us
         noise = -torch.log1p(-u_t) * _scalar(self.jitter, u_t)
@@ -270,6 +283,9 @@ class BinaryLag(_Model):
 
     def draw_rows(self):
         return self.base.draw_rows()
+
+    def key_paths(self):
+        return self.base.key_paths()
 
     def sample(self, us, state):
         x, vs = self.base.sample(us, state)
@@ -309,6 +325,10 @@ class CompletionLag(_Model):
         K = rows[-1][0] if rows else self.base.K  # a model's last row is per client; a replay has none
         return rows + ((K, 0.0), (K, 1e-7))
 
+    def key_paths(self):
+        # r_base, r_late, r_lag = split(key, 3); the base model's own splits below r_base
+        return tuple((0,) + p for p in self.base.key_paths()) + ((1,), (2,))
+
     def sample(self, us, state):
         *u_base, u_late, u_lag = us
         x, vs = self.base.sample(tuple(u_base), state)
@@ -337,6 +357,9 @@ class OnTimeBits(_Model):
 
     def draw_rows(self):
         return self.lag_model.draw_rows()
+
+    def key_paths(self):
+        return self.lag_model.key_paths()
 
     def sample(self, us, state):
         lag, vs = self.lag_model.sample(us, state)

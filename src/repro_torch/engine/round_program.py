@@ -47,8 +47,21 @@ per-client fields are K-indexed (JAX's ``_collect_k_fields``): Bernoulli,
 Markov, deadline, diurnal, flash crowd and regional outage (its region ids),
 and the lag views over them.
 
-A runner's noise comes from two streams (``NoiseStreams``).  The own
-stream draws the rank's ``(Ks,)`` rows (E3CS's Gumbel slab, a model's
+A runner's noise comes from two streams (``NoiseStreams``) when its key is
+an int seed (or what such a runner returned).  Given a ``core.prng.Key``
+instead, it follows the JAX package's key stream (``JaxStream``) seed for
+seed: each round ``key, k1, k2 = split(key, 3)``; the selection draws from
+``k1`` (E3CS's Gumbel row, a systematic sampler's permutation and 0-d
+uniform from ``split(k1)``, a permutation for random and pow-d, a uniform row
+for FedCS) and the volatility model from ``k2`` by its ``key_paths()``; on a
+mesh of D > 1 ranks E3CS's slab and the model's rows come from ``fold_in(k1,
+d)`` and ``fold_in(k2, d)``, every rank drawing the baselines' K-wide noise
+from ``k1``, as JAX's shards do (a regional outage's chain too: per shard).
+The rows are drawn final (Gumbel, scaled uniforms) by the threefry kernel, so
+their transforms do not run in the step; a runner keeps the kind of stream
+of its first call.
+
+Of the two Philox streams, the own stream draws the rank's ``(Ks,)`` rows (E3CS's Gumbel slab, a model's
 per-client rows: those of length K, the rule by which a model's fields
 shard); the shared stream draws the rows every rank must hold alike (the
 baselines' K-wide permutation or uniform row, a regional outage's
@@ -118,6 +131,7 @@ from repro_torch.core.selection import (
     ucb_select,
     ucb_update,
 )
+from repro_torch.core.prng import Key, PRNGKey, gumbel, key_data, permutation, uniform
 from repro_torch.core.selection.e3cs import divide, residual_mass
 from repro_torch.core.volatility import DEAD_LAG, row_shape, uniform_rows
 from repro_torch.device import resolve_device
@@ -126,6 +140,7 @@ from repro_torch.fl.round import RoundNoise, init_server_state, make_select_fn, 
 from repro_torch.kernels import add_launch_counts, launch_counts
 from repro_torch.kernels.ref import LAG_DEAD_CODE, ring_pop_push
 from repro_torch.kernels.round_fused import MAX_S, fused_alloc_select, fused_perturb_select, fused_round_tail
+from repro_torch.kernels.threefry import threefry
 from repro_torch.kernels.unpack_bits import unpack_bits, unpack_crumbs
 from repro_torch.obs.sketches import SKETCH_FIELDS, SketchSpec, lag_bins, region_ids, sketch_carry0, sketch_step
 from repro_torch.obs.taps import ROUND_TAPS
@@ -135,6 +150,7 @@ __all__ = [
     "RoundProgram",
     "RoundNoise",
     "NoiseStreams",
+    "JaxStream",
     "capture_step",
     "ring_pop_push",
     "lag_credit_schedule",
@@ -162,6 +178,23 @@ class NoiseStreams(NamedTuple):
         if self.own is self.shared:
             return self.own.get_state()
         return self.own.get_state(), self.shared.get_state()
+
+
+class JaxStream:
+    """A runner's noise on the JAX package's key stream (``core.prng``): the
+    carried key's two words, a ``(2,)`` int32 tensor on the device that each
+    round advances in place (``split(key, 3)[0]``, one kernel launch, no
+    host sync)."""
+
+    def __init__(self, key: Key, device):
+        self.key = key_data(key).to(device).clone()
+
+    def get_state(self) -> Key:
+        """What a ``carry_key`` runner returns: the advanced key."""
+        return Key(self.key.clone())
+
+    def advance(self) -> None:
+        threefry(self.key, (), 0, 1, "keys", out=self.key.view(1, 2))
 
 
 def lag_credit_schedule(mask, lag, S: int, alpha: float):
@@ -682,11 +715,14 @@ class RoundProgram:
             rings = rings + (torch.zeros(shape, dtype=_f32, device=self.device),)
         return rings
 
-    def generator(self, key) -> NoiseStreams:
-        """The runner's ``NoiseStreams`` on the device, from an int seed or
-        from what a ``carry_key`` runner returned: one generator seeded from
+    def generator(self, key):
+        """The runner's noise on the device: a ``JaxStream`` from a
+        ``core.prng.Key``; else ``NoiseStreams`` from an int seed or from
+        what a ``carry_key`` runner returned: one generator seeded from
         ``seed``, or on a mesh of D > 1 ranks the own stream seeded from
         ``SeedSequence([seed, d])`` and the shared one from ``seed``."""
+        if isinstance(key, Key):
+            return JaxStream(key, self.device)
         if self.mesh is None or self.mesh.size == 1:
             gen = torch.Generator(device=self.device)
             if isinstance(key, torch.Tensor):
@@ -733,12 +769,47 @@ class RoundProgram:
         return [torch.empty(shape, dtype=torch.int64 if kind == "perm" else _f32, device=self.device)
                 for kind, shape in self.draws()]
 
-    def draw_uniforms(self, gen: NoiseStreams, out=None) -> tuple:
+    def _jax_draws(self) -> tuple:
+        """For each of ``draws()``, how the JAX key stream draws it: ``(mode,
+        path, lo)``, the folds from the round's key (``1`` is ``k1``, ``2``
+        ``k2``) and a uniform row's lower end (see the module docstring)."""
+        fl = self.fl
+        fold = (self.mesh.rank,) if self.mesh is not None and self.mesh.size > 1 else ()
+        if fl.scheme == "e3cs":
+            sel = (("gumbel", (1,) + fold, 0.0),) if fl.sampler == "plackett_luce" else (
+                ("perm", (1, 0), 0.0), ("uniform", (1, 1), 0.0))
+        else:
+            sel = {"random": (("perm", (1,), 0.0),), "fedcs": (("uniform", (1,), 0.0),),
+                   "pow_d": (("perm", (1,), 0.0),), "ucb": ()}[fl.scheme]
+        if self.override != "none":
+            return sel
+        vol = self.local_vol
+        rows = zip(vol.key_paths(), vol.draw_rows())
+        return sel + tuple(("uniform", (2,) + fold + path, lo) for path, (_, lo) in rows)
+
+    def _draw_jax(self, gen: JaxStream, out) -> tuple:
+        """One round's noise from the JAX key stream, drawn final into
+        ``out``, then the key advanced."""
+        for (mode, path, lo), (_, shape), buf in zip(self._jax_draws(), self.draws(), out):
+            key = Key(gen.key, path)
+            if mode == "perm":
+                permutation(key, shape[0], out=buf)
+            elif mode == "gumbel":
+                gumbel(key, shape, out=buf)
+            else:
+                uniform(key, shape, minval=lo, out=buf)
+        gen.advance()
+        return tuple(out)
+
+    def draw_uniforms(self, gen, out=None) -> tuple:
         """One round's raw draws (``draws``): ``torch.rand`` rows and 0-d
         uniforms, ``torch.randperm`` permutations, each from its stream of
-        ``gen`` (``generator``).  With ``out`` they are drawn into those
-        buffers."""
+        ``gen`` (``generator``); from a ``JaxStream``, the JAX package's
+        rows, drawn final (``noise_from_uniforms(..., final=True)`` reads
+        them).  With ``out`` they are drawn into those buffers."""
         out = self._draw_buffers() if out is None else out
+        if isinstance(gen, JaxStream):
+            return self._draw_jax(gen, out)
         for (kind, shape), shared, buf in zip(self.draws(), self._shared_draws(), out):
             g = gen.shared if shared else gen.own
             if kind == "perm":
@@ -747,15 +818,20 @@ class RoundProgram:
                 torch.rand(shape, generator=g, out=buf)
         return tuple(out)
 
-    def noise_from_uniforms(self, raw) -> RoundNoise:
+    def noise_from_uniforms(self, raw, final: bool = False) -> RoundNoise:
         """The round's noise from its raw draws: the selection's fields
-        (``select_noise``), then the model's scaling of its rows."""
+        (``select_noise``), then the model's scaling of its rows; with
+        ``final`` (the JAX key stream's rows) the rows as they are."""
         n_sel = len(select_draws(self.fl, self._select_width()))
+        if final:
+            sel = {"g": raw[0]} if self.fl.scheme == "e3cs" and self.fl.sampler == "plackett_luce" else select_noise(
+                self.fl, raw[:n_sel])
+            return RoundNoise(**sel, u=tuple(raw[n_sel:]))
         return RoundNoise(**select_noise(self.fl, raw[:n_sel]), u=uniform_rows(raw[n_sel:], self._model_rows()))
 
-    def draw_noise(self, gen: NoiseStreams) -> RoundNoise:
+    def draw_noise(self, gen) -> RoundNoise:
         """One round's noise, drawn in the fixed order (``draws``)."""
-        return self.noise_from_uniforms(self.draw_uniforms(gen))
+        return self.noise_from_uniforms(self.draw_uniforms(gen), final=isinstance(gen, JaxStream))
 
     def _state0(self):
         if self.mesh is None:
@@ -796,8 +872,9 @@ class RoundProgram:
         * async full: ``... -> (state, masks, lags, ps, sigmas, arrived)``
         * async lean: ``... -> (state, on_time, stale, sigmas)``
 
-        ``key`` is an int seed or a generator state.  ``carry_key=True``
-        threads the generator state (and, async, the rings) through so a
+        ``key`` is an int seed or a generator state, or a ``core.prng.Key``
+        for the JAX package's key stream.  ``carry_key=True`` threads the
+        generator state or the key (and, async, the rings) through so a
         chunked horizon equals a one-shot one: sync ``run(state, key, xs_in)
         -> (state, key, *outs)``, async ``run(state, key, rings, xs_in) ->
         (state, key, rings, *outs)`` (seed rings with ``init_rings``).
@@ -959,6 +1036,7 @@ class _Horizon:
         self.warmup_s = self.capture_s = None
         self.per_replay = {}  # kernel launches by wrapper that one replay runs
         self._spec = None
+        self.jax_stream = None  # whether the runner's noise is the JAX key stream (fixed at its first call)
 
     def _setup(self, leaves, spec, xs_in):
         pm = self.program
@@ -970,7 +1048,7 @@ class _Horizon:
     def _body(self):
         """One step on the static buffers: the new carry is written back into
         them, and the outputs are returned as ``(per-client list, packed)``."""
-        noise = self.program.noise_from_uniforms(self._raw)
+        noise = self.program.noise_from_uniforms(self._raw, final=self.jax_stream)
         carry, out = self.step(pytree.tree_unflatten(self._carry, self._spec), self._x, noise)
         leaves, self._out_spec = pytree.tree_flatten(out)
         held = {b.untyped_storage().data_ptr() for b in self._carry if torch.is_tensor(b)}
@@ -994,7 +1072,7 @@ class _Horizon:
         pm = self.program
 
         def warm_up():
-            pm.draw_uniforms(pm.generator(0), self._raw)
+            pm.draw_uniforms(pm.generator(PRNGKey(0, pm.device) if self.jax_stream else 0), self._raw)
             self._body()
 
         self.graph, self._outs, self.per_replay, self.warmup_s, self.capture_s = capture_step(
@@ -1015,6 +1093,11 @@ class _Horizon:
 
     def __call__(self, carry, gen: NoiseStreams, xs_in):
         leaves, spec = pytree.tree_flatten(carry)
+        jax_stream = isinstance(gen, JaxStream)
+        if self.jax_stream is None:
+            self.jax_stream = jax_stream
+        elif jax_stream != self.jax_stream:
+            raise ValueError("a runner keeps the kind of key of its first call (an int seed or a core.prng.Key)")
         if self._spec is None:
             self._setup(leaves, spec, xs_in)
         elif spec != self._spec or any(

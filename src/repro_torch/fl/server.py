@@ -35,9 +35,16 @@ from repro_torch.configs.base import FLConfig
 from repro_torch.core.volatility import make_volatility, paper_success_rates
 from repro_torch.device import resolve_device
 
-from .round import ServerState, init_server_state, make_async_cohort_round, make_cohort_round
+from .round import ServerState, _DataSplit, init_server_state, make_async_cohort_round, make_cohort_round
 
 __all__ = ["FLServer", "build_volatility"]
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A loss as a plain tensor (a DTensor on a ``model`` axis gathered)."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def build_volatility(fl_cfg: FLConfig, K: int, volatility=None, device=None):
@@ -89,17 +96,17 @@ class FLServer:
     ``spmd_axes`` splits each round's cohort over those mesh axes
     (``make_cohort_round``); the caller then hands ``init_state`` the
     parameters placed on the mesh and runs ``run`` under
-    ``models.sharding.use_rules``.
+    ``models.sharding.use_rules``.  pow-d's candidates then report their
+    losses one after another on every rank, each on the parameters the
+    rank's clients train from (their local tensors, or DTensors on the
+    mesh's other axes), so the loss cache stays the same on every rank.
     """
 
     def __init__(self, model, fl_cfg: FLConfig, store, eval_fn=None, spmd_axes=None, volatility=None, device=None):
         from repro_torch.engine.round_program import RoundProgram  # the engine imports fl.round
 
-        if spmd_axes is not None and fl_cfg.scheme == "pow_d":
-            raise NotImplementedError(
-                "FLServer(spmd_axes=...) with scheme='pow_d': the candidates' loss report maps the model over "
-                "clients with torch.func.vmap, which does not take DTensor parameters (ROADMAP A, mesh)")
         self.model = model
+        self.spmd_axes = spmd_axes
         self.cfg = fl_cfg
         self.store = store
         self.program = RoundProgram.from_config(fl_cfg, volatility=volatility, device=device)
@@ -148,7 +155,13 @@ class FLServer:
         x, y = self._to_device(xb[:, 0], yb[:, 0])
         batch = {"x": x, "y": y}
         with torch.no_grad():
-            losses = vmap(lambda b: self.model.loss(state.params, b)[0])(batch)
+            if self.spmd_axes is None:
+                losses = vmap(lambda b: self.model.loss(state.params, b)[0])(batch)
+            else:  # vmap does not map DTensors: each candidate on the parameters this rank's clients see
+                split = _DataSplit(state.params, self.spmd_axes, self.cfg.k)
+                params = pytree.tree_map(split.local, state.params)
+                losses = torch.stack([_whole(self.model.loss(params, {"x": x[i], "y": y[i]})[0])
+                                      for i in range(x.shape[0])])
         cache = state.loss_cache.clone()
         cache[torch.from_numpy(cand).to(self.device)] = losses
         return state._replace(loss_cache=cache)

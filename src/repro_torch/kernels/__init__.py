@@ -14,6 +14,8 @@ from .e3cs_tiles import e3cs_update_kernel_call, fused_gumbel_topk_kernel_call
 from .gumbel_topk import gumbel_topk_kernel_call
 from .ops import e3cs_update_tiled, fused_gumbel_topk_sample, gumbel_topk_sample
 from .round_fused import fused_alloc_select, fused_perturb_select, fused_round_tail
+from .threefry import LAUNCHES as THREEFRY_LAUNCHES
+from .threefry import threefry
 from .unpack_bits import unpack_bits, unpack_crumbs
 
 __all__ = [
@@ -32,6 +34,7 @@ __all__ = [
     "fused_round_tail",
     "unpack_bits",
     "unpack_crumbs",
+    "threefry",
     "WRAPPERS",
     "launch_counts",
     "reset_launch_counts",
@@ -49,6 +52,8 @@ WRAPPERS = {
     "gumbel_topk": gumbel_topk_kernel_call,
     "fused_gumbel_topk": fused_gumbel_topk_kernel_call,
     "e3cs_update": e3cs_update_kernel_call,
+    # one count a threefry epilogue (kernels.threefry.LAUNCHES)
+    **{f"threefry.{mode}": count for mode, count in THREEFRY_LAUNCHES.items()},
 }
 
 

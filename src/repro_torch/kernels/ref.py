@@ -35,6 +35,8 @@ __all__ = [
     "e3cs_update_kernel_ref",
     "e3cs_update_tiled_ref",
     "scalar_f32",
+    "threefry_ref",
+    "THREEFRY_MODES",
 ]
 
 LAG_DEAD_CODE = 3  # 2-bit crumb sentinel of a client that never completes
@@ -224,3 +226,76 @@ def round_tail_ref(
             rows = torch.where(frozen, torch.zeros_like(rows), rows)
             out["arr_fb"], out["fb"] = ring_pop_push(fb, rows)
     return out
+
+
+# -- threefry2x32 (the JAX key stream's hash; core/prng.py) -------------------
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+THREEFRY_MODES = ("keys", "bits", "sortkey", "uniform", "gumbel")
+
+
+def _threefry2x32(k0, k1, x0, x1):
+    """JAX's threefry2x32 with 20 rounds (``jax._src.prng._threefry2x32_lowering``)
+    on int64 values in ``[0, 2**32)``, every sum taken ``& 0xFFFFFFFF``."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0, x1 = (x0 + ks[0]) & _M32, (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = x0 ^ (((x1 << r) | (x1 >> (32 - r))) & _M32)
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def _as_int32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in ``[0, 2**32)`` as the int32 tensor of the same bits."""
+    return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
+
+
+def _float_bits(bits: torch.Tensor) -> torch.Tensor:
+    """``[0, 1)`` float32 from 32 random bits: the top 23 as the mantissa of
+    a float in ``[1, 2)``, minus 1 (``jax.random.uniform``)."""
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+
+
+def threefry_ref(key: torch.Tensor, path: tuple, offset: int, n: int, mode: str, minval: float = 0.0,
+                 maxval: float = 1.0) -> torch.Tensor:
+    """The plain version of the threefry kernel (``csrc/threefry.cu``).
+
+    ``key`` is a ``(2,)`` int32 tensor holding a key's two uint32 words.  It
+    is first folded by each of ``path`` in turn (``fold_in``: the key hashes
+    the counter ``(d >> 32, d & 0xFFFFFFFF)``); then counter ``offset + i``
+    for ``i < n`` is hashed into the pair ``(a_i, b_i)`` and ``mode`` makes
+    the output: ``"keys"`` the ``(n, 2)`` int32 pairs (``split``),
+    ``"bits"`` the ``(n,)`` int32 bits of ``a ^ b`` (32 random bits,
+    partitionable mode), ``"sortkey"`` those bits minus ``2**31`` (their
+    unsigned order as int32), ``"uniform"`` float32 in ``[minval, maxval)``
+    and ``"gumbel"`` ``-log(-log(u))`` of ``u`` uniform in ``[tiny, 1)``."""
+    if mode not in THREEFRY_MODES:
+        raise ValueError(f"unknown threefry mode {mode!r} (want one of {THREEFRY_MODES})")
+    k = key.to(torch.int64) & _M32
+    k0, k1 = k[0], k[1]
+    for d in path:
+        k0, k1 = _threefry2x32(k0, k1, torch.tensor((int(d) >> 32) & _M32), torch.tensor(int(d) & _M32))
+    c = torch.arange(n, dtype=torch.int64, device=key.device) + int(offset)
+    a, b = _threefry2x32(k0, k1, c >> 32, c & _M32)
+    if mode == "keys":
+        return _as_int32(torch.stack([a, b], dim=-1))
+    bits = a ^ b
+    if mode == "bits":
+        return _as_int32(bits)
+    if mode == "sortkey":
+        return (bits - 2**31).to(torch.int32)
+    if mode == "gumbel":
+        minval, maxval = torch.finfo(torch.float32).tiny, 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    span = torch.tensor(maxval, dtype=torch.float32, device=key.device) - lo
+    # one rounding of f * span + lo, as XLA's fused multiply-add takes it: the
+    # float64 product of two float32 is exact, and so is the sum where both
+    # ends lie within 2**-47 of each other's scale (every span and minval the
+    # port draws with)
+    fma = _float_bits(bits).double() * span.double() + lo.double()
+    u = torch.maximum(lo, fma.to(torch.float32))
+    return -torch.log(-torch.log(u)) if mode == "gumbel" else u

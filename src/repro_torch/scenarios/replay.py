@@ -150,6 +150,9 @@ class ReplayVolatility(_Model):
     def draw_rows(self):
         return ()
 
+    def key_paths(self):
+        return ()
+
     def sample(self, us, state):
         return unpack_bits(_row(self.packed, state), self.K), state + 1
 
@@ -241,6 +244,9 @@ class ReplayLag(_Model):
         return torch.zeros((), dtype=torch.int32, device=self.packed.device)
 
     def draw_rows(self):
+        return ()
+
+    def key_paths(self):
         return ()
 
     def sample(self, us, state):

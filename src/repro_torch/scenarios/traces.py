@@ -60,6 +60,9 @@ class DiurnalVolatility(_Model):
     def draw_rows(self):
         return ((self.rho.shape[0], 0.0),)
 
+    def key_paths(self):
+        return ((),)
+
     def sample(self, us, state):
         return _bernoulli(us[0], self.rate(state)), state + 1
 
@@ -92,6 +95,9 @@ class RegionalOutageVolatility(_Model):
 
     def draw_rows(self):
         return ((self.n_regions, 0.0), (self.rho.shape[0], 0.0))
+
+    def key_paths(self):
+        return ((0,), (1,))  # r_reg, r_cli = split(key)
 
     def sample(self, us, state):
         u_reg, u_cli = us
@@ -129,6 +135,9 @@ class FlashCrowdVolatility(_Model):
     def draw_rows(self):
         K = self.rho.shape[0]
         return ((K, 0.0), (K, 0.0))
+
+    def key_paths(self):
+        return ((0,), (1,))  # r_x, r_leave = split(key)
 
     def sample(self, us, state):
         alive, t = state

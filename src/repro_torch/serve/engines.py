@@ -29,9 +29,19 @@ t])`` (``gumbel_row``), the sharded engine carries each job's generator
 state.  So a job's cohorts are a pure function of (spec, feedback history),
 and three things follow, as in the JAX package: batching invariance,
 elastic restart (``arrays`` / ``load_arrays`` round-trip the whole evolving
-state through ``repro_torch.checkpoint``), and replayability.  The noise
-differs from JAX's (threefry against Philox): the tests hand the slot engine
-JAX's rows through ``gumbel_row``.
+state through ``repro_torch.checkpoint``), and replayability.
+
+The noise is the engine's ``stream``.  An engine built in the port draws from
+Philox (``"philox"``), as above.  ``stream="jax"`` follows the JAX package's
+key stream (``core.prng``) seed for seed: the slot engine draws job round
+``t``'s row as ``gumbel(fold_in(base_key, t), (K_max,))`` with ``base_key =
+PRNGKey(seed)`` carried per slot (``base_keys``, as JAX's engine), and the
+sharded engine carries each job's JAX key through its ``carry_key`` runner.
+``meta()`` records the JAX stream (a Philox engine's meta is the JAX
+engine's, field for field) and ``engine_from_meta`` honours it, so jobs
+admitted after a restore follow it; ``serve.state.load_server`` builds a JAX
+stem's engine on it, so a service checkpointed by the JAX package continues
+on the card with the cohorts the JAX service would have served.
 
 Feedback is the population's completion-lag codes for the round being
 issued: 0 on time, ``1..S`` late, ``DEAD_LAG`` never.  Every entry point
@@ -48,6 +58,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.prng import Key, PRNGKey, fold_in, gumbel
 from repro_torch.core.selection.sampling import gumbel_from_uniform
 from repro_torch.device import resolve_device
 from repro_torch.engine.multi_job import MultiJobConfig, MultiJobState, job_generator, pad_slots, plain_batched_step
@@ -65,9 +76,23 @@ __all__ = [
     "follow",
     "stop_followers",
     "engine_from_meta",
+    "STREAMS",
 ]
 
 _f32 = torch.float32
+STREAMS = ("philox", "jax")  # an engine's noise: the port's own, or the JAX package's key stream
+
+
+def _check_stream(stream: str) -> str:
+    if stream not in STREAMS:
+        raise ValueError(f"unknown noise stream {stream!r} (want one of {STREAMS})")
+    return stream
+
+
+def _stream_meta(stream: str) -> dict:
+    """The noise stream's entry in an engine's ``meta()``: named when it is
+    the JAX key stream, absent for Philox (the meta JAX's engine writes)."""
+    return {"stream": stream} if stream != "philox" else {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,8 +216,8 @@ class SlotEngine:
     bucket and grows (``pad_slots``) when admits exceed it, one capture a
     bucket ever reached.  ``k_cap`` bounds every job's cohort (the padded
     top-k width is static in the step; the exact top-k kernel ranks a row
-    where ``k_cap <= 2048``, a stable sort above).  ``device=None`` means
-    CUDA.
+    where ``k_cap <= 2048``, a stable sort above).  ``stream`` is the noise
+    (module docstring).  ``device=None`` means CUDA.
     """
 
     kind = "slots"
@@ -207,6 +232,7 @@ class SlotEngine:
         n_iters: int = 48,
         tile: int = 8192,
         device=None,
+        stream: str = "philox",
     ):
         if not buckets or list(buckets) != sorted(set(int(b) for b in buckets)):
             raise ValueError(f"buckets must be a strictly increasing ladder, got {buckets!r}")
@@ -227,7 +253,10 @@ class SlotEngine:
         state = MultiJobState(logw=torch.zeros((J, self.K_max), dtype=_f32, device=dev),
                               t=torch.zeros((J,), dtype=torch.int32, device=dev))
         self._set_step(cfg, state, torch.zeros((J, self.staleness, self.K_max), dtype=_f32, device=dev))
+        self.stream = _check_stream(stream)
         self.seeds = torch.zeros((J,), dtype=torch.int64)  # host: the noise is drawn from them on the host
+        # the slots' PRNGKey(seed) words on the JAX stream, (J, 2) int32 on the device
+        self.base_keys = torch.zeros((J, 2), dtype=torch.int32, device=dev)
         self._t = np.zeros((J,), np.int64)  # host mirror of the round counters
         self.jobs: Dict[int, dict] = {}  # uid -> {"slot": int, "spec": JobSpec}
         self._next_uid = 0
@@ -275,6 +304,7 @@ class SlotEngine:
         pending = torch.cat([self.pending, self.pending.new_zeros((pad, *self.pending.shape[1:]))])
         self._set_step(cfg, state, pending)  # the old bucket's graph goes with its step
         self.seeds = torch.cat([self.seeds, self.seeds.new_zeros(pad)])
+        self.base_keys = torch.cat([self.base_keys, self.base_keys.new_zeros((pad, 2))])
         self._t = np.concatenate([self._t, np.zeros(pad, np.int64)])
 
     def _write_cfg(self, cfg: MultiJobConfig) -> None:
@@ -296,6 +326,7 @@ class SlotEngine:
         self.state.t[slot] = 0
         self.pending[slot] = 0.0
         self.seeds[slot] = int(spec.seed)
+        self.base_keys[slot] = PRNGKey(spec.seed, self.device).data
         self._t[slot] = 0
         self.jobs[uid] = {"slot": slot, "spec": spec}
         return uid
@@ -320,6 +351,15 @@ class SlotEngine:
         u = torch.rand(self.K_max, generator=job_generator(seed, t, self.device), device=self.device)
         return gumbel_from_uniform(u)
 
+    def _draw_row(self, slot: int, out: torch.Tensor) -> None:
+        """The slot's job's row of this tick into ``out``: on the JAX stream
+        ``gumbel(fold_in(base_key, t), (K_max,))``, one threefry launch."""
+        t = int(self._t[slot])
+        if self.stream == "jax":
+            gumbel(fold_in(Key(self.base_keys[slot]), t), (self.K_max,), out=out)
+        else:
+            out.copy_(self.gumbel_row(int(self.seeds[slot]), t))
+
     def tick(self, items: List[Tuple[int, np.ndarray]]) -> Dict[int, dict]:
         """One batched dispatch: ``items`` maps job uid -> this round's lag
         codes ``(K_job,)`` (each uid at most once).  Returns per-uid results
@@ -342,7 +382,7 @@ class SlotEngine:
             lag[slot, :K] = row
             rows.append(slot)
         for slot in rows:
-            step.g[slot].copy_(self.gumbel_row(int(self.seeds[slot]), int(self._t[slot])))
+            self._draw_row(slot, step.g[slot])
         step.lag.copy_(torch.from_numpy(lag))
         step.participate.copy_(torch.from_numpy(participate))
         step.run()
@@ -379,6 +419,7 @@ class SlotEngine:
             "buckets": list(self.buckets),
             "n_iters": self.n_iters,
             "tile": self.tile,
+            **_stream_meta(self.stream),
             "n_slots": self.n_slots,
             "next_uid": self._next_uid,
             "jobs": [
@@ -387,16 +428,22 @@ class SlotEngine:
             ],
         }
 
+    def _noise_array(self):
+        """The noise's state: the jobs' seeds, or on the JAX stream the
+        slots' base keys (JAX's ``base_keys``)."""
+        return ("base_keys", self.base_keys) if self.stream == "jax" else ("seeds", self.seeds)
+
     def arrays(self) -> dict:
         """The evolving array state (the checkpoint payload): weights, round
-        counters, the staleness ring and the jobs' seeds (the noise holds no
-        other state)."""
-        return {"logw": self.state.logw, "t": self.state.t, "pending": self.pending, "seeds": self.seeds}
+        counters, the staleness ring and the noise's state (the jobs' seeds,
+        or the slots' JAX base keys)."""
+        name, noise = self._noise_array()
+        return {"logw": self.state.logw, "t": self.state.t, "pending": self.pending, name: noise}
 
     def load_arrays(self, arrays) -> None:
         """Copy the tensors of an ``arrays()`` tree into the engine's buffers."""
         for buf, name in ((self.state.logw, "logw"), (self.state.t, "t"), (self.pending, "pending"),
-                          (self.seeds, "seeds")):
+                          self._noise_array()[::-1]):
             buf.copy_(arrays[name])
         self._t = self.state.t.cpu().numpy().astype(np.int64)
 
@@ -405,6 +452,7 @@ class SlotEngine:
         eng = cls(
             K_max=meta["K_max"], k_cap=meta["k_cap"], staleness=meta["staleness"], alpha=meta["alpha"],
             buckets=meta["buckets"], n_iters=meta["n_iters"], tile=meta["tile"], device=device,
+            stream=meta.get("stream", "philox"),
         )
         while eng.n_slots < meta["n_slots"]:
             eng._grow()
@@ -412,6 +460,7 @@ class SlotEngine:
             spec = JobSpec.from_json(row["spec"])
             eng._write_cfg(slot_admit(eng.cfg, row["slot"], spec.K, spec.k, spec.sigma_frac, spec.eta))
             eng.seeds[row["slot"]] = int(spec.seed)
+            eng.base_keys[row["slot"]] = PRNGKey(spec.seed, eng.device).data
             eng.jobs[row["uid"]] = {"slot": row["slot"], "spec": spec}
         eng._next_uid = meta["next_uid"]
         return eng
@@ -496,8 +545,9 @@ class ShardedEngine:
     tick (see the module docstring) over the caller's process group
     (``make_host_mesh(D)``).  ``staleness=S`` serves sharded-async rounds with
     the ``(S, K_pad/D)`` rings carried per job; ``feedback`` picks the
-    selector policy (``"deadline"`` or ``"late_credit"``).  ``device=None`` is
-    the rank's CUDA device.
+    selector policy (``"deadline"`` or ``"late_credit"``); ``stream`` the
+    noise (module docstring: a job's Philox generator state, or its JAX
+    key).  ``device=None`` is the rank's CUDA device.
 
     JAX's engine is one process driving D devices; the port runs one process
     a rank, so at D > 1 rank 0 leads and the other ranks follow
@@ -527,6 +577,7 @@ class ShardedEngine:
         block: int = 4,
         feedback: str = "deadline",
         device=None,
+        stream: str = "philox",
     ):
         from repro_torch.launch.mesh import make_host_mesh
 
@@ -534,7 +585,8 @@ class ShardedEngine:
         if mesh.rank != 0:
             raise ValueError(f"rank {mesh.rank} of a {mesh.size}-rank group follows rank 0's engine: call "
                              "repro_torch.serve.engines.follow() there")
-        self._setup(mesh, dict(staleness=staleness, alpha=alpha, block=block, feedback=feedback))
+        self._setup(mesh, dict(staleness=staleness, alpha=alpha, block=block, feedback=feedback,
+                               stream=_check_stream(stream)))
         self._next_uid = 0
         self.faults = None  # chaos hook (repro_torch.serve.faults.FaultPlan) or None
         if self.D > 1:
@@ -550,13 +602,15 @@ class ShardedEngine:
         self.alpha = float(config["alpha"])
         self.block = int(config["block"])
         self.feedback = config["feedback"]
+        self.stream = config["stream"]
         self._runners: dict = {}  # geometry key -> (run, state0, program)
         self.jobs: Dict[int, dict] = {}
         self._chan: Optional[_Channel] = None
         self._epoch = None  # the leader's place in its channel's epochs
 
     def _config(self) -> dict:
-        return dict(staleness=self.staleness, alpha=self.alpha, block=self.block, feedback=self.feedback)
+        return dict(staleness=self.staleness, alpha=self.alpha, block=self.block, feedback=self.feedback,
+                    stream=self.stream)
 
     @contextlib.contextmanager
     def _command(self, *cmd):
@@ -607,7 +661,8 @@ class ShardedEngine:
         self.jobs[uid] = {
             "spec": spec,
             "state": state0,
-            "key": program.generator(spec.seed).get_state(),
+            "key": PRNGKey(spec.seed, self.device) if self.stream == "jax"
+            else program.generator(spec.seed).get_state(),
             "rings": program.init_rings() if self.staleness else (),
             "t": 0,
         }
@@ -697,6 +752,7 @@ class ShardedEngine:
             "alpha": self.alpha,
             "block": self.block,
             "feedback": self.feedback,
+            **_stream_meta(self.stream),
             "next_uid": self._next_uid,
             "jobs": [
                 {"uid": uid, "t": j["t"], "spec": j["spec"].to_json()}
@@ -704,15 +760,24 @@ class ShardedEngine:
             ],
         }
 
+    def _key_array(self, key):
+        """A job's noise state as a checkpoint leaf: the JAX key's words, or
+        the generator state."""
+        return key.data if self.stream == "jax" else key
+
+    def _key_of(self, a):
+        return Key(a.to(self.device)) if self.stream == "jax" else a
+
     def arrays(self) -> dict:
         """Per-job evolving state keyed by uid (string keys, in uid order):
-        the full ``ServerState``, the generator state, and the staleness /
-        late-credit rings.  At D > 1 the arrays are whole (``K_pad`` wide, on
-        the host) and the generator state is ``(own, shared)``, ``own`` the
-        ranks' own streams stacked ``(D, ...)``."""
+        the full ``ServerState``, the generator state (or the JAX key's
+        ``(2,)`` words), and the staleness / late-credit rings.  At D > 1 the
+        arrays are whole (``K_pad`` wide, on the host) and the generator
+        state is ``(own, shared)``, ``own`` the ranks' own streams stacked
+        ``(D, ...)``; a JAX key is the same on every rank."""
         if self.D == 1:
             return {
-                str(uid): {"state": j["state"], "key": j["key"], "rings": list(j["rings"])}
+                str(uid): {"state": j["state"], "key": self._key_array(j["key"]), "rings": list(j["rings"])}
                 for uid, j in sorted(self.jobs.items())
             }
         with self._command("arrays"):
@@ -721,8 +786,10 @@ class ShardedEngine:
     def _gather(self) -> Optional[dict]:
         from repro_torch.convert import join_slabs, state_from_jax, state_to_numpy
 
+        jax_key = self.stream == "jax"
         parts = self._chan.gather({
-            uid: {"named": state_to_numpy(j["state"], j["rings"]), "own": j["key"][0], "shared": j["key"][1]}
+            uid: {"named": state_to_numpy(j["state"], j["rings"]),
+                  **({"key": j["key"].data.cpu()} if jax_key else {"own": j["key"][0], "shared": j["key"][1]})}
             for uid, j in sorted(self.jobs.items())
         })
         if parts is None:  # a follower
@@ -731,7 +798,7 @@ class ShardedEngine:
         for uid in sorted(self.jobs):
             slabs = [p[uid] for p in parts]
             state, rings = state_from_jax(join_slabs([s["named"] for s in slabs]), device="cpu")
-            key = (torch.stack([s["own"] for s in slabs]), slabs[0]["shared"])
+            key = slabs[0]["key"] if jax_key else (torch.stack([s["own"] for s in slabs]), slabs[0]["shared"])
             out[str(uid)] = {"state": state, "key": key, "rings": list(rings)}
         return out
 
@@ -739,7 +806,7 @@ class ShardedEngine:
         if self.D == 1:
             for uid, job in self.jobs.items():
                 blob = arrays[str(uid)]
-                job["state"], job["key"], job["rings"] = blob["state"], blob["key"], tuple(blob["rings"])
+                job["state"], job["key"], job["rings"] = blob["state"], self._key_of(blob["key"]), tuple(blob["rings"])
             return
         from repro_torch.convert import state_to_numpy
 
@@ -749,19 +816,25 @@ class ShardedEngine:
             named[uid], keys[uid] = state_to_numpy(blob["state"], tuple(blob["rings"])), blob["key"]
         self._scatter(named, keys)
 
-    def load_state(self, uid: int, named: Dict[str, np.ndarray]) -> None:
+    def load_state(self, uid: int, named: Dict[str, np.ndarray], key: Optional[torch.Tensor] = None) -> None:
         """Job ``uid``'s state and rings from ``K_pad``-wide numpy arrays under
         ``repro_torch.convert``'s names (a JAX job's, ``sharded_job_from_jax``);
-        at D > 1 each rank takes its slab.  The generator state stays."""
+        at D > 1 each rank takes its slab.  ``key``, a JAX key's ``(2,)``
+        int32 words, replaces the job's key on the JAX stream; otherwise the
+        noise state stays."""
         from repro_torch.convert import state_from_jax
 
+        if key is not None and self.stream != "jax":
+            raise ValueError("a JAX key continues only on an engine of stream='jax'")
         if self.D == 1:
             job = self.jobs[uid]
             job["state"], job["rings"] = state_from_jax(named, device=self.device)
+            if key is not None:
+                job["key"] = self._key_of(key)
             return
         if uid not in self.jobs:
             raise KeyError(uid)
-        self._scatter({uid: named}, {})
+        self._scatter({uid: named}, {} if key is None else {uid: key})
 
     def _scatter(self, named: dict, keys: dict) -> None:
         """Send each rank its slab of each job's named arrays and, where
@@ -773,7 +846,9 @@ class ShardedEngine:
             mine = {}
             for uid, arrs in named.items():
                 mine[uid] = {"named": shard_arrays(arrs, r, self.D)}
-                if uid in keys:
+                if uid in keys and self.stream == "jax":
+                    mine[uid]["key"] = keys[uid].cpu()
+                elif uid in keys:
                     mine[uid].update(own=keys[uid][0][r].clone(), shared=keys[uid][1])
             per_rank.append(mine)
         with self._command("load"):
@@ -787,12 +862,14 @@ class ShardedEngine:
             job["state"], job["rings"] = state_from_jax(blob["named"], device=self.device)
             if "own" in blob:
                 job["key"] = (blob["own"], blob["shared"])
+            elif "key" in blob:
+                job["key"] = self._key_of(blob["key"])
 
     @classmethod
     def from_meta(cls, meta: dict, device=None) -> "ShardedEngine":
         eng = cls(
             D=meta["D"], staleness=meta["staleness"], alpha=meta["alpha"], block=meta["block"],
-            feedback=meta["feedback"], device=device,
+            feedback=meta["feedback"], device=device, stream=meta.get("stream", "philox"),
         )
         for row in meta["jobs"]:
             eng._next_uid = row["uid"]  # admit under the job's own uid

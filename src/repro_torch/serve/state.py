@@ -32,10 +32,22 @@ Crash safety is layered:
 
 Restoring reproduces the engine **bit-identically**: every array the step
 function reads is in the payload and every job's noise derives from its own
-seed and round counter (or its carried generator state), so a restored
-server's subsequent cohorts match an uninterrupted run exactly.  A stem the
-JAX package wrote is refused: its payload carries JAX PRNG keys, which the
-port cannot continue without the threefry twin (ROADMAP A2).
+seed and round counter (or its carried generator state or key), so a
+restored server's subsequent cohorts match an uninterrupted run exactly.
+
+A stem the JAX package wrote (a sidecar without ``"writer": "repro_torch"``;
+its format is otherwise this one) loads too: ``load_server`` builds the
+engine from the JAX meta on the JAX key stream (``stream="jax"``) and reads
+the JAX payload (``checkpoint.jax_format``): a slot engine's ``logw``, ``t``,
+``pending`` and ``base_keys`` (``convert.slot_state_from_jax``), a sharded
+engine's jobs' ``state``, ``key`` and ``rings``
+(``convert.sharded_job_from_jax``, which also takes JAX's mesh layout of the
+state's scalars).  So a ``SelectionServer`` whose ``ckpt_dir`` holds JAX
+stems resumes from them and serves the cohorts the JAX service would have
+served; a stem it saves then is the port's, and reloads on the JAX
+stream.  A zstd payload needs the ``zstandard`` package
+(``ValueError`` naming the codec without it): the JAX package writes zlib
+where ``zstandard`` is absent.
 """
 from __future__ import annotations
 
@@ -45,6 +57,7 @@ import os
 from typing import Optional, Tuple
 
 from repro_torch import checkpoint as ckpt
+from repro_torch.checkpoint import jax_format
 
 from .engines import engine_from_meta
 
@@ -162,15 +175,21 @@ def latest_server_checkpoint(directory: str) -> Optional[str]:
 def load_server(stem: str, device=None) -> Tuple[object, int]:
     """Rebuild ``(engine, step)`` on ``device`` (``None``: CUDA) from a
     checkpoint stem: meta sidecar → engine shell (``engine_from_meta``) →
-    array restore with the shell's own fresh arrays as the ``like`` tree."""
+    array restore with the shell's own fresh arrays as the ``like`` tree.
+    A JAX package stem loads on the JAX key stream (module docstring)."""
     with open(stem + ".json") as f:
         meta = json.load(f)
-    if meta.get("writer") != WRITER:
-        raise ValueError(
-            f"{stem} was written by the JAX package; restoring a JAX checkpoint in the port needs the "
-            "threefry twin of JAX's PRNG keys (ROADMAP A2), which is not ported"
-        )
-    engine = engine_from_meta(meta["engine"], device=device)
-    arrays = ckpt.restore(stem + ".ckpt", like=engine.arrays())
-    engine.load_arrays(arrays)
+    if meta.get("writer") == WRITER:
+        engine = engine_from_meta(meta["engine"], device=device)
+        engine.load_arrays(ckpt.restore(stem + ".ckpt", like=engine.arrays()))
+        return engine, int(meta["step"])
+    from repro_torch.convert import sharded_job_from_jax, slot_state_from_jax
+
+    engine = engine_from_meta({**meta["engine"], "stream": "jax"}, device=device)  # JAX's meta names no stream
+    _, arrays = jax_format.read(stem + ".ckpt")
+    if engine.kind == "slots":
+        slot_state_from_jax(engine, arrays)
+    else:
+        for uid in sorted(engine.jobs):
+            sharded_job_from_jax(engine, uid, arrays[str(uid)])
     return engine, int(meta["step"])

@@ -8,8 +8,10 @@ stems built on it (``repro_torch.serve.state``).
 * A truncated or bit-flipped payload fails ``validate_stem`` (the sidecar's
   sha256), and the walk-back skips it.
 * The codec timing command reads every case back as written.
-* A stem the JAX package's ``save_server`` wrote (msgpack) is refused with
-  the error that names ROADMAP A2, by ``load_server`` and by ``restore``.
+* A stem the JAX package's ``save_server`` wrote (msgpack) is refused by
+  ``restore`` with the error that names its readers, and loads through
+  ``load_server`` on the JAX key stream (``test_torch_jax_resume.py`` holds
+  what it serves against JAX's); a file of neither format is refused.
 """
 import os
 
@@ -131,14 +133,21 @@ def test_a_jax_stem_is_refused_with_the_a2_error(tmp_path):
     jeng.tick([(uid, np.zeros(32, np.int32))])
     stem = jsave_server(str(tmp_path), jeng, step=1)
     assert validate_stem(stem)  # the sidecar's digest holds: the stem is intact, only foreign
-    with pytest.raises(ValueError, match="A2"):
-        load_server(stem, device="cpu")
-    with pytest.raises(ValueError, match="A2"):
+    with pytest.raises(ValueError, match="JAX package.*jax_format.read.*load_server"):
         restore(stem + ".ckpt", like={})
     with open(tmp_path / "junk.ckpt", "wb") as f:
         f.write(b"not a checkpoint")
     with pytest.raises(ValueError, match="magic"):
         restore(str(tmp_path / "junk.ckpt"), like={})
+
+
+def test_a_jax_stem_loads_through_load_server_on_the_jax_stream(tmp_path):
+    jeng = JSlotEngine(K_max=32, k_cap=4, buckets=(4,))
+    uid = jeng.admit(JJobSpec(K=32, k=4, seed=1))
+    jeng.tick([(uid, np.zeros(32, np.int32))])
+    stem = jsave_server(str(tmp_path), jeng, step=1)
+    restored, step = load_server(stem, device="cpu")
+    assert step == 1 and restored.stream == "jax" and restored.job_round(uid) == 1
 
 
 def test_the_codec_timing_command_reads_every_case_back(capsys):

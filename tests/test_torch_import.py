@@ -1,7 +1,8 @@
 """The port stands alone: ``import repro_torch`` loads no JAX, no file of the
 port (nor ``chip_smoke.py``) imports ``jax``, ``repro``, ``msgpack`` or
 ``zstandard`` (the serving stack and its checkpoints import on a machine
-without them), its ``FLConfig`` is the JAX package's field for field, and
+without them; ``zstandard`` only where its ImportError is caught, to read a
+JAX zstd checkpoint), its ``FLConfig`` is the JAX package's field for field, and
 its entry points refuse to carry on silently without CUDA."""
 import ast
 import dataclasses
@@ -76,12 +77,29 @@ def test_serving_imports_without_msgpack_or_zstandard():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+OPTIONAL = ("zstandard",)  # may be imported where an ImportError is caught (a JAX zstd checkpoint's reader)
+
+
+def _guarded(tree):
+    """The import nodes inside a ``try`` whose handlers catch ImportError."""
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Try) and any(
+                isinstance(h.type, ast.Name) and h.type.id in ("ImportError", "ModuleNotFoundError")
+                for h in node.handlers):
+            out.update(id(n) for stmt in node.body for n in ast.walk(stmt))
+    return out
+
+
 def _imported_roots(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
+    guarded = _guarded(tree)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
-                yield alias.name.split(".")[0]
+                root = alias.name.split(".")[0]
+                if not (root in OPTIONAL and id(node) in guarded):
+                    yield root
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             yield node.module.split(".")[0]
 

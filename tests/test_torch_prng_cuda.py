@@ -1,0 +1,74 @@
+"""The threefry kernel (``csrc/threefry.cu``) against its plain version on
+the card, and the JAX key stream's runner on the card against the same
+runner on the CPU.  Bits, sort keys, uniforms, key pairs and the in-place
+advance are equal; Gumbel rows within ``NOISE_ATOL`` (``logf`` against
+ATen's ``log``).  A horizon from the same JAX key carries out the same key
+and selects the same cohorts (no round of these has a client within
+``NOISE_ATOL`` of its k-th score).
+
+This file imports no JAX: ``PYTHONPATH=src python -m pytest -q
+tests/test_torch_prng_cuda.py`` on the card.  Without a card every test
+skips.
+"""
+import pytest
+import torch
+
+from repro_torch.configs import FLConfig
+from repro_torch.core import prng
+from repro_torch.core.volatility import CompletionLag, make_volatility, paper_success_rates
+from repro_torch.engine import RoundProgram
+from repro_torch.kernels import launch_counts, threefry
+from repro_torch.kernels.ref import threefry_ref
+
+NOISE_ATOL = 2e-6
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the threefry kernel has no CPU or interpret mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n", [1, 3, 1000, 65537, 1_000_003])
+@pytest.mark.parametrize("mode", ["keys", "bits", "sortkey", "uniform", "gumbel"])
+def test_threefry_kernel_equals_its_plain_version(dev, mode, n):
+    key = prng.PRNGKey(2024, dev).data
+    for path, offset in (((), 0), ((5,), 7), ((1, 2**33 + 1, 3, 4), 2**32 - 3)):
+        got = threefry(key, path, offset, n, mode, 1e-7 if mode == "uniform" else 0.0, 1.0)
+        want = threefry_ref(key, path, offset, n, mode, 1e-7 if mode == "uniform" else 0.0, 1.0)
+        if mode == "gumbel":
+            assert float((got - want).abs().max()) <= NOISE_ATOL
+        else:
+            assert torch.equal(got, want), (mode, n, path)
+
+
+def test_in_place_advance_and_launch_count(dev):
+    key = prng.PRNGKey(9, dev).data
+    want = threefry_ref(key, (), 0, 1, "keys").view(2)
+    before = launch_counts()
+    threefry(key, (), 0, 1, "keys", out=key.view(1, 2))
+    after = launch_counts()
+    assert torch.equal(key, want) and after["threefry.keys"] == before["threefry.keys"] + 1
+    assert all(after[n] == c for n, c in before.items() if n != "threefry.keys")  # a count a mode
+    with pytest.raises(ValueError):
+        threefry(key, (), 0, 2, "bits", out=key)
+
+
+@pytest.mark.parametrize("S", [None, 2], ids=["sync", "S2"])
+def test_a_jax_key_horizon_on_the_card_equals_the_cpu(dev, S):
+    K, k, T = 4096, 64, 6
+    out = {}
+    for d in ("cpu", dev):
+        rho = paper_success_rates(K)
+        vol = make_volatility("bernoulli", rho, device=d)
+        if S is not None:
+            vol = CompletionLag(vol, max_lag=S)
+        fl = FLConfig(K=K, k=k, rounds=T, allocator="bisect")
+        pm = RoundProgram(fl=fl, vol=vol, rho=rho, staleness=S, fused=True, device=d)
+        run, s0 = pm.build_runner(outputs="full", carry_key=True)
+        res = run(s0, prng.PRNGKey(4, d), *(() if S is None else (pm.init_rings(),)))
+        out[str(d)] = (res[1].data.cpu(), res[2 if S is None else 3].cpu())
+    (k_cpu, m_cpu), (k_dev, m_dev) = out["cpu"], out[str(dev)]
+    assert torch.equal(k_cpu, k_dev)
+    assert torch.equal(m_cpu, m_dev)

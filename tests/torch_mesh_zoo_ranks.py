@@ -230,3 +230,38 @@ def join_groups(groups, timeout):
             f"ranks exited {[p.exitcode for p in procs]}:\n" + "\n".join(errs))
         results.append([dict(np.load(os.path.join(out_dir, f"rank{r}.npz"))) for r in range(len(procs))])
     return results
+
+
+def pow_d_server_rank(_host, D, fl_kw, inputs_path):
+    """``FLServer(spmd_axes="data", scheme="pow_d")`` over the EMNIST CNN on
+    a ``(data,) = (D,)`` mesh, its parameters replicated DTensors, given
+    JAX's initial parameters, data and draws (``inputs_path``: a pickle,
+    so that starting a rank sends no megabytes through its pipe).  Returns
+    each round's cohort and the final counts, successes, loss cache and
+    parameters."""
+    import pickle
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.convert import cnn_params_from_jax, cnn_params_to_numpy
+    from repro_torch.data import ClientStore
+    from repro_torch.fl import FLServer
+
+    mesh = make_mesh((D,), ("data",), device="cpu")
+    with open(inputs_path, "rb") as f:
+        inputs = pickle.load(f)
+    fl = FLConfig(**fl_kw)
+    srv = FLServer(build_model(get_config("emnist-cnn")), fl, ClientStore(inputs["data"], inputs["idxs"]),
+                   spmd_axes="data", device="cpu")
+    params = {n: distribute_tensor(t, mesh, [Replicate()]) for n, t in
+              cnn_params_from_jax(inputs["params"], "cpu").items()}
+    cohorts = []
+    select = srv._select
+    srv._select = lambda s, n: (lambda out: (cohorts.append(out[0].numpy()), out)[1])(select(s, n))
+    noise = [(RoundNoise(perm=torch.from_numpy(r["perm"]).long(), u=(torch.from_numpy(r["u"]),)),
+              torch.from_numpy(r["cand"]).long()) for r in inputs["rounds"]]
+    st, _ = srv.run(srv.init_state(params=params), noise=noise)
+    out = {"cohorts": np.stack(cohorts), "sel_counts": st.sel_counts.numpy(), "cep": st.cep.numpy(),
+           "loss_cache": st.loss_cache.numpy()}
+    params = cnn_params_to_numpy({n: whole_t(t) for n, t in st.params.items()})
+    out.update({f"params/{n}": v for n, v in params.items()})
+    return out
