@@ -244,8 +244,24 @@ THREEFRY_LANES = {"issue": 128, "alu": 64}
 # fused multiply-add and the max; "gumbel" then two logs, at least one
 # instruction each.
 THREEFRY_OPS = {"keys": {"issue": 72, "alu": 40}, "bits": {"issue": 73, "alu": 41},
-                "uniform": {"issue": 78, "alu": 43}, "gumbel": {"issue": 80, "alu": 43}}
+                "sortkey": {"issue": 74, "alu": 42}, "uniform": {"issue": 78, "alu": 43},
+                "gumbel": {"issue": 80, "alu": 43}}
 JAX_STREAM_RATE_T = 200  # rounds of the timed twin and Philox horizons
+# "normal" adds to "uniform" XLA's erf_inv: x * x, log1p (one MUFU and about
+# eight FMA-pipe operations), the branch's compare, select, sqrt and
+# subtract, the coefficients' selects and the final two multiplies (about 15
+# float32 operations on the issue pipes), and eight multiply-adds taken as a
+# float64 product and sum (16 float64 operations; the H100 runs 64 float64
+# lanes an SM a clock).  "categorical" is "gumbel" plus the logit's add and
+# the running argmax's compare and select; its bfloat16 form adds four
+# roundings of three integer operations each (ALU).
+THREEFRY_OPS.update({"normal": {"issue": 109, "alu": 43, "fp64": 16},
+                     "categorical_f32": {"issue": 84, "alu": 45},
+                     "categorical_bf16": {"issue": 96, "alu": 57}})
+THREEFRY_LANES["fp64"] = 64
+NORMAL_KERNEL_ATOL = 1e-6  # two float32 ulps at |x| <= 5.42, the largest normal: CUDA's log1pf against ATen's
+DRIVER_SAMPLE = 4096  # positions a leaf the drivers' checks read (the fixture's SAMPLE)
+DRIVER_PARAM_ULPS = 4  # a normal within 3 ulps of JAX's, times a float32 scale (tests/test_torch_prng_dists.py)
 
 
 def log(phase, **kw):
@@ -666,6 +682,14 @@ def main():
         stream_counts = jax_stream_path(dev, card=smi)
         for n, c in stream_counts.items():
             launched[n] = launched.get(n, 0) + c
+        # the int-seed drivers on the JAX key stream: a path of its own, counts read just after it
+        driver_counts, driver_rows = jax_stream_drivers_path(dev, card=smi, bw=bw)
+        missing = [n for n in driver_rows if not driver_counts.get(n)]
+        if missing:
+            raise AssertionError(f"jax-stream-drivers: no launch of {missing} on the drivers' path")
+        rows.update(driver_rows)
+        for n, c in driver_counts.items():
+            launched[n] = launched.get(n, 0) + c
         fl_pow_d_mesh_path(dev, card=smi)
     finally:
         dist.destroy_process_group()
@@ -1013,7 +1037,7 @@ def scenarios_path(dev, K, k, T, mesh, card, seed=SCENARIO_SEED):
 
     from repro_torch import kernels as kn
     from repro_torch.configs import FLConfig
-    from repro_torch.core.volatility import CompletionLag
+    from repro_torch.core.volatility import CompletionLag, make_volatility, paper_success_rates
     from repro_torch.engine import RoundProgram, async_selection_sim, scan_selection_sim, sharded_selection_sim
     from repro_torch.engine.sharded import N_ITERS
     from repro_torch.kernels.ref import unpack_bits_ref
@@ -1055,13 +1079,14 @@ def scenarios_path(dev, K, k, T, mesh, card, seed=SCENARIO_SEED):
     # -- the seven scenarios' traces against their rate hints ------------------------
     for name in SCENARIOS:
         vol, rho = make_scenario(name, K, T, seed, device=dev)
-        packed = timed(f"record_trace-{name}", {}, lambda: record_trace(vol, T, seed=seed, device=dev))
+        packed = timed(f"record_trace-{name}", record_draws(T, len(vol.draw_rows())),
+                       lambda: record_trace(vol, T, seed=seed, device=dev))
         if packed.shape != (T, (K + 7) // 8) or packed.dtype != np.uint8:
             raise AssertionError(f"record_trace {name}: {packed.dtype}{packed.shape}")
         check_rate_hint(name, vol, rho, unpack_bits_ref(torch.from_numpy(packed).to(dev), K), card)
     # recorded from another seed than the replay's selection noise (see run_replay)
     lag_vol, _ = make_scenario("diurnal", K, T, seed, device=dev)
-    lags = timed("record_lag_trace-diurnal", {},
+    lags = timed("record_lag_trace-diurnal", record_draws(T, len(CompletionLag(lag_vol, max_lag=2).draw_rows())),
                  lambda: record_lag_trace(CompletionLag(lag_vol, max_lag=2), T, seed=seed + 1, device=dev))
     if lags.shape != (T, (K + 3) // 4):
         raise AssertionError(f"record_lag_trace: shape {lags.shape}")
@@ -1085,7 +1110,7 @@ def scenarios_path(dev, K, k, T, mesh, card, seed=SCENARIO_SEED):
         if not np.array_equal(out["xs"], bits):
             raise AssertionError(f"run_replay {sel}: its outcomes are not the recorded trace")
         check_sim(f"run_replay {sel}", out, allocated=sel == "e3cs")
-        want = {"unpack_bits": n1} | ({"gumbel_topk": n1} if sel in ("fedcs", "ucb") else {})
+        want = {"unpack_bits": n1} | ({"gumbel_topk": n1} if sel in ("fedcs", "ucb") else {}) | stream_draws(n1, sel)
         if on_card and counts != want:
             raise AssertionError(f"run_replay {sel}: launches {counts}, expected {want}")
         seen.append(sel)
@@ -1094,7 +1119,10 @@ def scenarios_path(dev, K, k, T, mesh, card, seed=SCENARIO_SEED):
 
     harness.scan_selection_sim = recorder
     try:  # its time includes the recorder's checks
-        rows, packed = timed("run_replay-diurnal", {"unpack_bits": len(SELECTORS) * n1, "gumbel_topk": 2 * n1},
+        replay_want = add_counts({"unpack_bits": len(SELECTORS) * n1, "gumbel_topk": 2 * n1},
+                                 record_draws(T, len(make_scenario("diurnal", K, T, seed, device=dev)[0].draw_rows())),
+                                 *(stream_draws(n1, sel) for sel in SELECTORS))
+        rows, packed = timed("run_replay-diurnal", replay_want,
                              lambda: harness.run_replay(SELECTORS, "diurnal", K=K, k=k, T=T, seed=seed, frac=0.5,
                                                         pow_d=POW_D, device=dev), rounds=len(SELECTORS) * T)
     finally:
@@ -1110,14 +1138,14 @@ def scenarios_path(dev, K, k, T, mesh, card, seed=SCENARIO_SEED):
     fused = {"round_select.from_w": n1, "round_tail": n1}
     for name in SCENARIOS:
         vol, rho = make_scenario(name, K, T, seed, device=dev)
-        out = timed(f"scan_selection_sim-e3cs-{name}-fused", fused,
+        out = timed(f"scan_selection_sim-e3cs-{name}-fused", fused | stream_draws(n1, rows=len(vol.draw_rows())),
                     lambda: scan_selection_sim("e3cs", K=K, k=k, T=T, frac=0.5, seed=seed, vol=vol, rho=rho,
                                                allocator="bisect", fused=True, device=dev))
         check_sim(f"scan_selection_sim {name}", out)
         del out
 
     # -- the async round replaying the 2-bit lag trace, and one harness cell ---------
-    aout = timed("async_selection_sim-e3cs-S2-packed_lags", {"unpack_crumbs": n1},
+    aout = timed("async_selection_sim-e3cs-S2-packed_lags", {"unpack_crumbs": n1} | stream_draws(n1),
                  lambda: async_selection_sim("e3cs", K=K, k=k, T=T, frac=0.5, seed=seed, staleness=2,
                                              packed_lag_override=lags, device=dev))
     codes = ((lags[..., None] >> np.arange(0, 8, 2, dtype=np.uint8)) & 3).reshape(T, -1)[:, :K].astype(np.int32)
@@ -1127,7 +1155,9 @@ def scenarios_path(dev, K, k, T, mesh, card, seed=SCENARIO_SEED):
     if not (np.isfinite(logw).all() and float(logw.max()) == 0.0):
         raise AssertionError("async replay: logw not finite or not re-centred to max 0")
     del aout
-    row = timed("evaluate_cell-e3cs-flash_crowd-S2-late_credit", {},
+    crowd_rows = len(make_scenario("flash_crowd", K, T, seed, device=dev)[0].draw_rows())
+    cell_want = add_counts(stream_draws(n1, rows=crowd_rows), stream_draws(2 * n1, rows=crowd_rows + 2))
+    row = timed("evaluate_cell-e3cs-flash_crowd-S2-late_credit", cell_want,
                 lambda: evaluate_cell("e3cs", "flash_crowd", K=K, k=k, T=T, seed=seed, staleness=2,
                                       feedback="late_credit", device=dev), rounds=3 * T)
     if not all(np.isfinite(v) for v in row.values() if isinstance(v, float)):
@@ -1159,13 +1189,46 @@ def scenarios_path(dev, K, k, T, mesh, card, seed=SCENARIO_SEED):
         del out, masks, run
 
     # -- the K-sharded round over Markov volatility ---------------------------------
+    markov_rows = len(make_volatility("markov", paper_success_rates(8), device="cpu").draw_rows())
     out = timed("sharded_selection_sim-e3cs-markov-block4-fused",
-                fused | {"bisect_block_sums": -(-N_ITERS // 4) * n1},
+                fused | {"bisect_block_sums": -(-N_ITERS // 4) * n1} | stream_draws(n1, rows=markov_rows),
                 lambda: sharded_selection_sim("e3cs", mesh, K=K, k=k, T=T, frac=0.5, volatility="markov", seed=seed,
                                               block=4, fused=True, device=dev))
     check_sim("sharded_selection_sim markov", out)
     log("check", scenarios="all scenario-phase checks passed")
     return launched
+
+
+def stream_draws(n, scheme="e3cs", sampler="plackett_luce", rows=0, K=K_MAIN):
+    """The threefry launches of ``n`` rounds' noise on the JAX key stream
+    (``RoundProgram._draw_jax``, a captured runner's first call draws T + 1
+    times: its warm-up and T rounds): each round advances the key (one
+    ``keys``), draws the selection's noise (E3CS's Gumbel row; a uniform row
+    for FedCS and the systematic sampler; ``_permutation_rounds(K)`` sort-key
+    rows a permutation, for random, pow-d and the systematic sampler) and
+    ``rows`` volatility rows (``uniform``)."""
+    from repro_torch.core.prng import _permutation_rounds
+
+    pl = scheme == "e3cs" and sampler == "plackett_luce"
+    perms = 1 if scheme in ("random", "pow_d") or (scheme == "e3cs" and not pl) else 0
+    uniforms = rows + (1 if scheme == "fedcs" or (scheme == "e3cs" and not pl) else 0)
+    c = {"threefry.keys": n, "threefry.gumbel": n if pl else 0, "threefry.uniform": n * uniforms,
+         "threefry.sortkey": n * perms * _permutation_rounds(K)}
+    return {name: v for name, v in c.items() if v}
+
+
+def record_draws(T, rows):
+    """The threefry launches of ``record_trace`` over ``T`` rounds of a model
+    of ``rows`` rows: a uniform launch a row and the key's advance a round."""
+    return {"threefry.keys": T, "threefry.uniform": T * rows}
+
+
+def add_counts(*counts):
+    out = {}
+    for c in counts:
+        for name, v in c.items():
+            out[name] = out.get(name, 0) + v
+    return out
 
 
 def counted_call(label, expect, fn, dev, launched):
@@ -1310,7 +1373,7 @@ def multi_job_path(dev, K, k, T, T_short, card, seed=SCENARIO_SEED, J=8, K_servi
     from repro_torch.kernels import ref
     from repro_torch.launch import select_serve
     from repro_torch.obs import Reporter
-    from repro_torch.scenarios import SCENARIOS, run_grid_multi_job
+    from repro_torch.scenarios import SCENARIOS, make_scenario, run_grid_multi_job
 
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
@@ -1412,7 +1475,13 @@ def multi_job_path(dev, K, k, T, T_short, card, seed=SCENARIO_SEED, J=8, K_servi
             launches_per_replay=json.dumps(captured.per_replay), card=repr(card))
         del captured, eager, got, want
         rep = Reporter(f"chip_select_serve_async_S{S}", config=dict(J=J, K_max=K, rounds=T, staleness=S))
-        report, secs, launches = counted(f"run_service_compiled S={S}", {},
+        # the horizon's keys (one launch), then a draw a tick (the fleet's
+        # lag rows, the key's advance, the jobs' Gumbel rows) for the
+        # capture's warm-up tick and the off-clock and three timed horizons
+        lag_rows = 3 if S else 1  # CompletionLag over Bernoulli: 1 + 2 rows; BinaryLag: the base's
+        ticks = 1 + 4 * T
+        compiled_want = {"threefry.keys": 1 + ticks, "threefry.uniform": lag_rows * ticks, "threefry.rows": ticks}
+        report, secs, launches = counted(f"run_service_compiled S={S}", compiled_want,
                                          lambda: select_serve.run_service_compiled(J=J, K_max=K, rounds=T, seed=seed,
                                                                                    staleness=S, reporter=rep,
                                                                                    device=dev))
@@ -1429,8 +1498,14 @@ def multi_job_path(dev, K, k, T, T_short, card, seed=SCENARIO_SEED, J=8, K_servi
         # the top-k kernel a job a dispatch (k_max <= 2048): the first dispatch
         # warms up, captures and replays (2 J), then one replay a tick
         per_tick = {"gumbel_topk": J} if max(ks_s) <= 2048 else {}
+        # the jobs' keys (one launch), their Gumbel rows a dispatch (one
+        # launch, the warm-up's too), and with a scenario a trace a job
+        service_want = add_counts({n: c * (rounds_service + 2) for n, c in per_tick.items()},
+                                  {"threefry.keys": 1, "threefry.rows": rounds_service + 1},
+                                  *([record_draws(rounds_service, len(make_scenario(scenario, 8, 2, 0, device=dev)[0]
+                                                                      .draw_rows()))] * J if scenario else []))
         report, secs, launches = counted(
-            f"run_service {scenario}", {n: c * (rounds_service + 2) for n, c in per_tick.items()},
+            f"run_service {scenario}", service_want,
             lambda: select_serve.run_service(J=J, K_max=K_service, rounds=rounds_service, seed=seed,
                                              scenario=scenario, reporter=rep, device=dev))
         rep.save(report)
@@ -1445,7 +1520,10 @@ def multi_job_path(dev, K, k, T, T_short, card, seed=SCENARIO_SEED, J=8, K_servi
 
     # -- run_grid_multi_job over the seven registry scenarios --------------------------
     names = list(SCENARIOS)
-    rows, secs, launches = counted("run_grid_multi_job", {"gumbel_topk": len(names) * (T + 1)},
+    grid_rows = sum(len(make_scenario(n, K, T, seed, device=dev)[0].draw_rows()) for n in names)
+    grid_want = {"gumbel_topk": len(names) * (T + 1), "threefry.keys": 1, "threefry.rows": T,
+                 "threefry.uniform": T * grid_rows}
+    rows, secs, launches = counted("run_grid_multi_job", grid_want,
                                    lambda: run_grid_multi_job(names, K=K, k=k, T=T, seed=seed, device=dev))
     for row in rows:
         if not (0 < row["cep"] <= T * k and all(np.isfinite(v) for v in row.values() if isinstance(v, float))):
@@ -1491,6 +1569,8 @@ def fl_train_path(dev, card, runs=FL_RUNS, fl_kw=None, acc_min=FL_ACC_MIN):
     """
     import torch
 
+    from repro_torch.core import prng
+
     from repro_torch.configs import FLConfig
     from repro_torch.fl import FLServer, make_local_update
     from repro_torch.launch.train import build_task
@@ -1527,8 +1607,8 @@ def fl_train_path(dev, card, runs=FL_RUNS, fl_kw=None, acc_min=FL_ACC_MIN):
         model, store, _ = build_task("emnist", fl, device=d)
         srv = FLServer(model, fl, store, device=d)
         if params0 is None:  # drawn once on the CPU, handed to both
-            params0 = model.init(torch.Generator().manual_seed(7))[0]
-            noise = srv._draw(srv.program.generator(11))[0]
+            params0 = model.init(prng.PRNGKey(7, "cpu"))[0]
+            noise = srv._draw(srv.program.generator(prng.PRNGKey(11, d)))[0]
         idxs = []
         select = srv._select
         srv._select = lambda st, nz, select=select: (lambda o: (idxs.append(o[0].cpu()), o)[1])(select(st, nz))
@@ -1555,7 +1635,7 @@ def fl_train_path(dev, card, runs=FL_RUNS, fl_kw=None, acc_min=FL_ACC_MIN):
         t0 = time.perf_counter()
         model, store, eval_fn = build_task(task, fl, device=dev)
         srv = FLServer(model, fl, store, eval_fn, device=dev)
-        state = srv.init_state(fl.seed)
+        state = srv.init_state(prng.PRNGKey(fl.seed, dev))
         setup_s = time.perf_counter() - t0
         gather, copy, events, nbytes = [], [], [], []
         round_batches, to_device, round_fn = store.round_batches, srv._to_device, srv._round
@@ -1684,6 +1764,8 @@ def zoo_serve_path(dev, card, smoke_widths=False):
     import gc
 
     import torch
+
+    from repro_torch.core import prng
     from torch.utils import _pytree as pytree
 
     from repro_torch.configs import ASSIGNED, get_config, smoke_variant
@@ -1757,8 +1839,8 @@ def zoo_serve_path(dev, card, smoke_widths=False):
             if cfg.family == "moe":
                 cfg = dataclasses.replace(cfg, capacity_factor=64.0)
             model = build_model(cfg)
-            p_cpu, _ = model.init(torch.Generator().manual_seed(0))
-            b_cpu = serve.make_batch(cfg, ZOO_CHECK["B"], ZOO_CHECK["S"], torch.Generator().manual_seed(1))
+            p_cpu, _ = model.init(prng.PRNGKey(0, "cpu"))
+            b_cpu = serve.make_batch(cfg, ZOO_CHECK["B"], ZOO_CHECK["S"], prng.PRNGKey(1, "cpu"))
             p_dev = pytree.tree_map(lambda t: t.to(dev), p_cpu)
             b_dev = {k: v.to(dev) for k, v in b_cpu.items()}
             got = run(model, p_dev, b_dev, ZOO_CHECK["steps"])
@@ -1811,7 +1893,7 @@ def zoo_serve_path(dev, card, smoke_widths=False):
         with torch.no_grad(), fp32_matmuls():
             cfg = dataclasses.replace(full_cfg("gemma-2b"), dtype=dtype, param_dtype=dtype)
             model = build_model(cfg)
-            gen = torch.Generator(device=dev).manual_seed(0)
+            gen = prng.PRNGKey(0, dev)
             params, _ = model.init(gen)
             batch = serve.make_batch(cfg, 4, 64, gen)
             logits, caches = model.prefill(params, batch, max_len=65)
@@ -1838,7 +1920,7 @@ def zoo_serve_path(dev, card, smoke_widths=False):
         cfg = full_cfg(arch)
         with torch.no_grad():
             model = build_model(cfg)
-            gen = torch.Generator(device=dev).manual_seed(0)
+            gen = prng.PRNGKey(0, dev)
             sync()
             t0 = time.perf_counter()
             params, _ = model.init(gen)
@@ -1933,6 +2015,8 @@ def zoo_train_path(dev, card, smoke_widths=False):
     import gc
 
     import torch
+
+    from repro_torch.core import prng
     from torch.func import grad_and_value, vmap
     from torch.utils import _pytree as pytree
 
@@ -1994,8 +2078,8 @@ def zoo_train_path(dev, card, smoke_widths=False):
             cfg = dataclasses.replace(smoke_variant(get_config(arch)), remat=True)
             if cfg.family == "moe":
                 cfg = dataclasses.replace(cfg, capacity_factor=64.0)
-            p_cpu, _ = build_model(cfg).init(torch.Generator().manual_seed(0))
-            b_cpu = serve.make_batch(cfg, ZOO_TRAIN_CHECK["B"], ZOO_TRAIN_CHECK["S"], torch.Generator().manual_seed(1))
+            p_cpu, _ = build_model(cfg).init(prng.PRNGKey(0, "cpu"))
+            b_cpu = serve.make_batch(cfg, ZOO_TRAIN_CHECK["B"], ZOO_TRAIN_CHECK["S"], prng.PRNGKey(1, "cpu"))
             b_cpu["labels"] = b_cpu["tokens"]
             out = {}
             for label, d, remat in (("cpu", cpu, True), ("card", dev, True), ("card-no-remat", dev, False)):
@@ -2332,6 +2416,8 @@ def mesh_zoo_path(dev, card, smoke_widths=False):
     import gc
 
     import torch
+
+    from repro_torch.core import prng
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
     from torch.utils import _pytree as pytree
@@ -2406,7 +2492,7 @@ def mesh_zoo_path(dev, card, smoke_widths=False):
 
         # -- serving: prefill and greedy decode --------------------------------
         for S in z["prompts"]:
-            batch = make_batch(cfg, z["B"], S, torch.Generator(device=dev).manual_seed(S))
+            batch = make_batch(cfg, z["B"], S, prng.PRNGKey(S, dev))
             out = {}
             for sharded in (False, True):
                 pre = dryrun.serve_rules(cfg, sizes, "prefill") if sharded else None
@@ -3100,15 +3186,15 @@ def threefry_kernel_rows(dev, card, bw, K=K_MAIN):
     key = prng.PRNGKey(12345, dev).data
     path, errs = (3, 2**33 + 7), {}
     for mode, lo, hi in (("bits", 0.0, 1.0), ("sortkey", 0.0, 1.0), ("uniform", 0.0, 1.0), ("uniform", 1e-7, 1.0),
-                         ("gumbel", 0.0, 1.0), ("keys", 0.0, 1.0)):
+                         ("gumbel", 0.0, 1.0), ("normal", 0.0, 1.0), ("keys", 0.0, 1.0)):
         n = 3 if mode == "keys" else K
         for offset in (0, 2**32 - 2):
             got = kn.threefry(key, path, offset, n, mode, lo, hi)
             want = ref.threefry_ref(key, path, offset, n, mode, lo, hi)
-            if mode == "gumbel":
+            if mode in ("gumbel", "normal"):
                 e = float((got - want).abs().max())
-                if not e <= JAX_NOISE_ATOL:
-                    raise AssertionError(f"threefry gumbel: max |kernel - plain| = {e}")
+                if not e <= (JAX_NOISE_ATOL if mode == "gumbel" else NORMAL_KERNEL_ATOL):
+                    raise AssertionError(f"threefry {mode}: max |kernel - plain| = {e}")
             elif not torch.equal(got, want):
                 raise AssertionError(f"threefry {mode} [{lo}, {hi}) offset {offset}: kernel and plain version differ")
             else:
@@ -3118,30 +3204,27 @@ def threefry_kernel_rows(dev, card, bw, K=K_MAIN):
     kn.threefry(adv, (), 0, 1, "keys", out=adv.view(1, 2))
     if not torch.equal(adv, ref.threefry_ref(key, (), 0, 1, "keys").view(2)):
         raise AssertionError("threefry: the in-place advance of a key differs from its plain version")
-    log("jax-stream-kernel", K=K, modes=",".join(errs), gumbel_max_abs_err=errs["gumbel"], others="equal",
-        in_place_advance="equal")
-    # the epilogues the main path launches (the JAX-key horizons: a key's
-    # in-place advance, volatility rows, Gumbel rows) at its shapes, each a
-    # row of the kernels line; and the bits epilogue at 10^6 (JAX's
-    # random_bits: no horizon launches it), timed only
+    log("jax-stream-kernel", K=K, modes=",".join(errs), gumbel_max_abs_err=errs["gumbel"],
+        normal_max_abs_err=errs["normal"], others="equal", in_place_advance="equal")
+    # the epilogues the horizons and drivers launch at their shapes, each a
+    # row of the kernels line: a key's in-place advance, volatility rows,
+    # Gumbel rows, a permutation's sort keys (random and pow-d on the key
+    # stream) and 32-bit words (randint: the served prompt)
     out_u, out_g = (torch.empty(K, dtype=torch.float32, device=dev) for _ in range(2))
     out_b = torch.empty(K, dtype=torch.int32, device=dev)
     rand_ms = timed(lambda: torch.rand(K, device=dev, out=out_u))
     cases = {"keys": (adv, (), 1, adv.view(1, 2), 16), "uniform": (key, path, K, out_u, 8 + 4 * K),
-             "gumbel": (key, path, K, out_g, 8 + 4 * K), "bits": (key, path, K, out_b, 8 + 4 * K)}
+             "gumbel": (key, path, K, out_g, 8 + 4 * K), "bits": (key, path, K, out_b, 8 + 4 * K),
+             "sortkey": (key, path, K, out_b, 8 + 4 * K)}
     for mode, (kk, pp, n, out, nbytes) in cases.items():
         ms = timed(lambda: kn.threefry(kk, pp, 0, n, mode, out=out))
         plain = eager(lambda: ref.threefry_ref(kk, pp, 0, n, mode))
         # n hashes and their epilogues, and the key's folds (one hash each)
-        clocks = max((n * THREEFRY_OPS[mode][p] + len(pp) * THREEFRY_OPS["keys"][p]) / lanes
-                     for p, lanes in THREEFRY_LANES.items())
-        t_ops, t_bytes = clocks / H100_SM_CLOCKS * 1e3, nbytes / bw * 1e3
-        b = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-        if mode != "bits":
-            rows[f"threefry.{mode}"] = dict(
-                route="cuda", source="src/repro_torch/kernels/csrc/threefry.cu",
-                replaces="src/repro/engine/round_program.py:415 (jax.random: XLA's threefry, no Pallas kernel)",
-                max_abs_err=errs[mode], ms=ms, plain_ms=plain, bound_ms=b[0], bound_by=b[1], library_ms=None)
+        b = _threefry_bound(mode, n, nbytes, bw, folds=len(pp))
+        rows[f"threefry.{mode}"] = dict(
+            route="cuda", source="src/repro_torch/kernels/csrc/threefry.cu",
+            replaces="src/repro/engine/round_program.py:415 (jax.random: XLA's threefry, no Pallas kernel)",
+            max_abs_err=errs[mode], ms=ms, plain_ms=plain, bound_ms=b[0], bound_by=b[1], library_ms=None)
         log("jax-stream-kernel-time", mode=mode, n=n, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
             bound_ms=f"{b[0]:.6f}", bound_by=b[1], torch_rand_ms=f"{rand_ms:.4f}",
             torch_rand="a different stream, not the same function", card=repr(card))
@@ -3301,6 +3384,340 @@ def jax_stream_path(dev, card, golden=GOLDEN_TORCH, rate_T=JAX_STREAM_RATE_T):
     return counts
 
 
+def _positions(n):
+    """``scripts/make_jax_stream_fixture.py``'s ``positions``: the flat
+    positions of a leaf of ``n`` elements a check reads."""
+    if n <= DRIVER_SAMPLE:
+        return np.arange(n, dtype=np.int64)
+    return (np.arange(DRIVER_SAMPLE, dtype=np.int64) * 2654435761 + 12345) % n
+
+
+def _threefry_bound(mode, n, nbytes, bw, folds=0):
+    """The least time of ``n`` hashes and their ``mode`` epilogue and
+    ``folds`` hashes of a key, and of ``nbytes`` through memory: the larger
+    of the two, each pipe's operations over its lanes (``THREEFRY_OPS``,
+    ``THREEFRY_LANES``)."""
+    clocks = max((n * THREEFRY_OPS[mode].get(p, 0) + folds * THREEFRY_OPS["keys"].get(p, 0)) / lanes
+                 for p, lanes in THREEFRY_LANES.items())
+    t_ops, t_bytes = clocks / H100_SM_CLOCKS * 1e3, nbytes / bw * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def jax_stream_drivers_path(dev, card, bw, golden=GOLDEN_TORCH, gemma=True):
+    """Phase 16, ``[jax-stream-drivers]``: the int-seed drivers on the JAX
+    package's keys at full size, held against ``jax_drivers.npz``
+    (``scripts/make_jax_stream_fixture.py drivers``); the process group is
+    up.  Returns ``(counts, rows)``: the drivers' launch counts (set to 0
+    just before each driver call and read just after it, so no check's
+    launches are in them) and the kernels line's rows of
+    ``threefry.normal``, ``threefry.rows`` and ``threefry.categorical``.
+
+    * ``[jax-drivers-fl]``: ``FLServer`` at Table I (EMNIST, K = 100, k =
+      20, E3CS) from ``init_state(PRNGKey(0))`` for the fixture's rounds:
+      initial parameters within ``DRIVER_PARAM_ULPS`` of JAX's at
+      ``DRIVER_SAMPLE`` positions a leaf, every cohort and its success bits
+      equal, the parameters after round 1 within the FL tests' tolerance.
+    * ``[jax-drivers-fleet]``: ``run_service_sharded`` at K = 10^6, k = 1000,
+      S = 0 and 2 (``block=4``, fused) on the one-rank mesh: the report's
+      tap counters equal JAX's; then, as a check outside the counts, the
+      same program's full-output runner from ``PRNGKey(0)`` gives JAX's
+      cohorts (``_cohort_check``; the driver's lean runner returns none).
+    * ``[jax-drivers-compiled]``: ``run_service_compiled`` (J = 8, K_max =
+      100,000): on-time and stale totals equal JAX's.
+    * ``[jax-drivers-replay]``: ``run_replay("e3cs", "markov")`` at K = 10^6,
+      T = 5: the packed trace's sha256 equal, then its cohorts.
+    * ``[jax-drivers-gemma]`` (``gemma``): gemma-2b uncut through
+      ``launch.serve.main --seed 0 --temperature 1`` (prefill ms: the
+      process's first gemma-2b prefill, cold; decode tokens/s; peak memory;
+      beside PR 22's figures, which ``[zoo-serve]`` took warm); the same ``model.init(PRNGKey(0))`` on the
+      ``normal`` kernel equal to JAX's bfloat16 values at sampled positions
+      of ``tok_emb`` and a stacked ``wq`` (within one bfloat16 ulp);
+      ``categorical`` on a decode step's own ``(4, 256000)`` logits equal to
+      its plain version.
+    * ``[jax-drivers-kernel]``: the three new entries of the threefry kernel
+      against their plain versions and timed at their paths' shapes:
+      ``normal`` at a gemma MLP leaf, ``rows`` at the compiled service's
+      ``(8, 100000)`` Gumbel rows, ``categorical`` at ``(4, 256000)`` in
+      bfloat16 (and float32, checked only).
+    """
+    import hashlib
+
+    import torch
+
+    from repro_torch import kernels as kn
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.core import prng
+    from repro_torch.engine import RoundProgram, scan_selection_sim
+    from repro_torch.fl import FLServer
+    from repro_torch.kernels import ref
+    from repro_torch.launch import make_host_mesh, serve
+    from repro_torch.launch.select_serve import run_service_compiled, run_service_sharded
+    from repro_torch.launch.train import build_task
+    from repro_torch.models import build_model
+    from repro_torch.scenarios import harness
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    fix = np.load(os.path.join(golden, "jax_drivers.npz"))
+    cfg = json.loads(str(fix["config"]))
+    t_phase = time.perf_counter()
+    counts = {}
+
+    def driven(fn, *a, **kw):
+        """``fn(*a, **kw)`` with the launch counts set to 0 just before it
+        and added to ``counts`` just after it: the drivers' launches, not
+        the checks' around them."""
+        kn.reset_launch_counts()
+        out = fn(*a, **kw)
+        sync()
+        for n, c in kn.launch_counts().items():
+            if c:
+                counts[n] = counts.get(n, 0) + c
+        return out
+
+    # -- FL at Table I -----------------------------------------------------------------
+    fl = FLConfig(rounds=cfg["fl_rounds"])
+    model, store, _ = build_task("emnist", fl, device=dev)
+    srv = FLServer(model, fl, store, device=dev)
+    cohorts, success, after = [], [], []
+    round_fn = srv._round
+
+    def recording_round(state, idx, *args):
+        x_full, _ = srv.vol.sample(args[-1], state.vol_state)
+        cohorts.append(idx.cpu().numpy())
+        success.append((x_full[idx] > 0).cpu().numpy())
+        res = round_fn(state, idx, *args)
+        if not after:
+            after.append({n: v.detach().clone() for n, v in res[0].params.items()})
+        return res
+
+    def fl_driver():
+        st0 = srv.init_state(prng.PRNGKey(0, dev))
+        init = {n: v.detach().clone() for n, v in st0.params.items()}
+        return init, srv.run(st0)[0]
+
+    srv._round = recording_round
+    t0 = time.perf_counter()
+    init, st = driven(fl_driver)
+    fl_s = time.perf_counter() - t0
+    ulps = 0
+    for n, v in init.items():
+        got = v.reshape(-1)[torch.as_tensor(_positions(v.numel()), device=dev)].cpu().numpy()
+        d = np.abs(got.view(np.int32).astype(np.int64) - fix[f"fl/init/{n}"].view(np.int32)).max()
+        if not d <= DRIVER_PARAM_ULPS:
+            raise AssertionError(f"FL init {n}: {d} ulps from JAX's > {DRIVER_PARAM_ULPS}")
+        ulps = max(ulps, int(d))
+    if not (np.array_equal(np.stack(cohorts), fix["fl/cohorts"])
+            and np.array_equal(np.stack(success), fix["fl/success"]) and float(st.cep) == float(fix["fl/cep"])):
+        raise AssertionError(f"FL at Table I: cohorts or success bits differ from JAX's ({np.stack(cohorts)[0]} vs "
+                             f"{fix['fl/cohorts'][0]})")
+    p_err = 0.0
+    for n, v in after[0].items():
+        got = v.reshape(-1)[torch.as_tensor(_positions(v.numel()), device=dev)].cpu().numpy()
+        np.testing.assert_allclose(got, fix[f"fl/round1/{n}"], rtol=FL_PARAM_RTOL, atol=FL_PARAM_ATOL, err_msg=n)
+        p_err = max(p_err, float(np.abs(got - fix[f"fl/round1/{n}"]).max()))
+    log("jax-drivers-fl", K=fl.K, k=fl.k, rounds=fl.rounds, cohorts_success_cep="equal", init_max_ulps=ulps,
+        round1_params_max_abs_err=f"{p_err:.3g}", seconds=f"{fl_s:.2f}", card=repr(card))
+    del srv, model, store, st, init, after
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- the fleet job ------------------------------------------------------------------
+    fc = cfg["fleet"]
+    mesh = make_host_mesh(1, device=dev)
+    for S in (0, 2):
+        rep = driven(run_service_sharded, K=fc["K"], rounds=fc["rounds"], D=1, k=fc["k"], block=fc["block"], reps=1,
+                     staleness=S, fused=True, device=dev)
+        flc = FLConfig(K=fc["K"], k=fc["k"], rounds=fc["rounds"], scheme="e3cs", quota_frac=0.5, allocator="bisect",
+                       volatility="bernoulli", staleness_rounds=S, staleness_alpha=0.5)
+        pm = RoundProgram.from_config(flc, mesh=mesh, block=fc["block"], fused=True)
+        run, s0 = pm.build_runner(outputs="full")
+        _, masks, _, ps, *_ = run(s0, prng.PRNGKey(0, dev))
+        masks, ps = masks[:, :fc["K"]].cpu().numpy(), ps[:, :fc["K"]].cpu().numpy()
+        kk, equal = prng.PRNGKey(0, dev), 0
+        for t in range(fc["rounds"]):
+            kk, k1, _ = prng.split(kk, 3)
+            kk = prng.Key(prng.key_data(kk).clone())
+            scores = np.log(np.maximum(ps[t], 1e-30)) + prng.gumbel(k1, (fc["K"],)).cpu().numpy()
+            if not _cohort_check(f"fleet S={S}", t, np.nonzero(masks[t] > 0)[0], fix[f"fleet/S{S}/cohorts"][t], scores,
+                                 fix[f"fleet/S{S}/bounds"][t, 0]):
+                break
+            equal += 1
+        want = json.loads(str(fix[f"fleet/S{S}/tap_counters"]))
+        got = {n: float(v) for n, v in rep["tap_counters"].items()}
+        if equal == fc["rounds"] and got != want:
+            raise AssertionError(f"fleet S={S}: tap counters {got} vs JAX's {want}")
+        log("jax-drivers-fleet", S=S, K=fc["K"], k=fc["k"], rounds=fc["rounds"],
+            cohorts_equal_rounds=f"{equal}/{fc['rounds']}", tap_counters="equal" if got == want else "differ",
+            rounds_per_s=rep["rounds_per_s"], card=repr(card))
+        del run, s0, pm
+
+    # -- run_service_compiled ---------------------------------------------------------------
+    cc = cfg["compiled"]
+    for S in (0, 2):
+        rep = driven(run_service_compiled, J=cc["J"], K_max=cc["K_max"], rounds=cc["rounds"], seed=0, staleness=S,
+                     reps=1, device=dev)
+        got = [rep["on_time_total"], rep["stale_credit_total"]]
+        if got != fix[f"compiled/S{S}"].tolist():
+            raise AssertionError(f"run_service_compiled S={S}: on-time and stale totals {got} vs JAX's "
+                                 f"{fix[f'compiled/S{S}'].tolist()}")
+        log("jax-drivers-compiled", S=S, J=cc["J"], K_max=cc["K_max"], ticks=cc["rounds"], on_time_stale=got,
+            ticks_per_s=rep["ticks_per_s"], card=repr(card))
+
+    # -- the replay cell ---------------------------------------------------------------------
+    rc = cfg["replay"]
+    _, packed = driven(harness.run_replay, "e3cs", rc["scenario"], K=rc["K"], k=rc["k"], T=rc["T"], seed=0,
+                       frac=rc["frac"], device=dev)
+    sha = hashlib.sha256(np.ascontiguousarray(packed).tobytes()).hexdigest()
+    if sha != str(fix["replay/sha256"]):
+        raise AssertionError(f"replay cell: the packed trace's sha256 {sha} is not JAX's")
+    _, rho = harness.make_scenario(rc["scenario"], rc["K"], rc["T"], 0, device=dev)
+    out = scan_selection_sim("e3cs", K=rc["K"], k=rc["k"], T=rc["T"], frac=rc["frac"], seed=0, rho=rho,
+                             packed_override=packed, device=dev)
+    kk, equal = prng.PRNGKey(0, dev), 0
+    for t in range(rc["T"]):
+        kk, k1, _ = prng.split(kk, 3)
+        kk = prng.Key(prng.key_data(kk).clone())
+        scores = np.log(np.maximum(out["ps"][t], 1e-30)) + prng.gumbel(k1, (rc["K"],)).cpu().numpy()
+        if not _cohort_check("replay cell", t, np.nonzero(out["masks"][t] > 0)[0], fix["replay/cohorts"][t], scores,
+                             fix["replay/bounds"][t, 0]):
+            break
+        equal += 1
+    log("jax-drivers-replay", scenario=rc["scenario"], K=rc["K"], k=rc["k"], T=rc["T"], sha256="equal",
+        cohorts_equal_rounds=f"{equal}/{rc['T']}", card=repr(card))
+
+    # -- the three new kernel entries at their paths' shapes ---------------------------------------
+    rows = {}
+
+    def timed(fn, reps=TIMED_CALLS):
+        fn()
+        sync()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        sync()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+
+    def eager(fn, reps=3):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    gcfg = get_config("gemma-2b")
+    if on_card:  # the kernel entries against their plain versions, timed (CUDA graphs)
+        key = prng.PRNGKey(12345, dev).data
+        path = (3, 2**33 + 7)
+        n_normal = gcfg.d_model * gcfg.d_ff
+        got = kn.threefry(key, path, 0, n_normal, "normal", ref.NORMAL_LO, 1.0)
+        want = ref.threefry_ref(key, path, 0, n_normal, "normal", ref.NORMAL_LO, 1.0)
+        err_n = float((got - want).abs().max())
+        if not err_n <= NORMAL_KERNEL_ATOL:
+            raise AssertionError(f"threefry normal: max |kernel - plain| = {err_n} > {NORMAL_KERNEL_ATOL}")
+        del want
+        keys = prng.split_data(prng.PRNGKey(0, dev), cc["J"])
+        err_r = float((kn.threefry_rows(keys, (3,), cc["K_max"]) - ref.threefry_rows_ref(keys, (3,), cc["K_max"]))
+                      .abs().max())
+        if not err_r <= NORMAL_KERNEL_ATOL:
+            raise AssertionError(f"threefry rows: max |kernel - plain| = {err_r} > {NORMAL_KERNEL_ATOL}")
+        out_n = torch.empty(n_normal, dtype=torch.float32, device=dev)
+        out_r = torch.empty((cc["J"], cc["K_max"]), dtype=torch.float32, device=dev)
+        ms = timed(lambda: kn.threefry(key, path, 0, n_normal, "normal", ref.NORMAL_LO, 1.0, out=out_n))
+        b = _threefry_bound("normal", n_normal, 8 + 4 * n_normal, bw, folds=len(path))
+        rows["threefry.normal"] = dict(
+            route="cuda", source="src/repro_torch/kernels/csrc/threefry.cu",
+            replaces="src/repro/models/layers.py:53 (jax.random.normal: XLA's threefry and erf_inv, no Pallas kernel)",
+            max_abs_err=err_n, ms=ms, plain_ms=eager(lambda: ref.threefry_ref(key, path, 0, n_normal, "normal",
+                                                                              ref.NORMAL_LO, 1.0), reps=1),
+            bound_ms=b[0], bound_by=b[1], library_ms=None)
+        ms = timed(lambda: kn.threefry_rows(keys, (3,), cc["K_max"], out=out_r))
+        b = _threefry_bound("gumbel", cc["J"] * cc["K_max"], 8 * cc["J"] + 4 * out_r.numel(), bw, folds=cc["J"])
+        rows["threefry.rows"] = dict(
+            route="cuda", source="src/repro_torch/kernels/csrc/threefry.cu",
+            replaces="src/repro/engine/multi_job.py:186 (jax.random.gumbel under a job's key, vmapped: no Pallas kernel)",
+            max_abs_err=err_r, ms=ms, plain_ms=eager(lambda: ref.threefry_rows_ref(keys, (3,), cc["K_max"])),
+            bound_ms=b[0], bound_by=b[1], library_ms=None)
+        log("jax-drivers-kernel", entry="normal", n=n_normal, max_abs_err=err_n, atol=NORMAL_KERNEL_ATOL,
+            ms=f"{rows['threefry.normal']['ms']:.4f}", plain_ms=f"{rows['threefry.normal']['plain_ms']:.4f}",
+            bound_ms=f"{rows['threefry.normal']['bound_ms']:.6f}", bound_by=rows["threefry.normal"]["bound_by"],
+            card=repr(card))
+        log("jax-drivers-kernel", entry="rows", shape=f"{cc['J']}x{cc['K_max']}", gumbel_max_abs_err=err_r,
+            atol=NORMAL_KERNEL_ATOL, ms=f"{rows['threefry.rows']['ms']:.4f}",
+            plain_ms=f"{rows['threefry.rows']['plain_ms']:.4f}",
+            bound_ms=f"{rows['threefry.rows']['bound_ms']:.6f}", bound_by=rows["threefry.rows"]["bound_by"],
+            card=repr(card))
+        del got, out_n, out_r
+
+    # -- gemma-2b uncut ---------------------------------------------------------------------------
+    if gemma:
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        r = driven(serve.main, ["--arch", "gemma-2b", "--seed", "0", "--temperature", "1"]
+                   + ([] if on_card else ["--device", "cpu"]))
+        peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+        gm = build_model(gcfg)
+        rng = prng.PRNGKey(0, dev)
+        params, _ = gm.init(rng)
+        gl = cfg["gemma"]["layer"]
+        checks = (("tok_emb", params["tok_emb"], "gemma/tok_emb"),
+                  ("seg0/attn/wq", params["seg0"]["attn"]["wq"][gl], "gemma/wq"))
+        worst = {}
+        for name, leaf, fkey in checks:
+            flat = leaf.reshape(-1)
+            got = flat[torch.as_tensor(_positions(flat.numel()), device=dev)].view(torch.int16).cpu().numpy()
+            d = np.abs(got.astype(np.int64) - fix[fkey].astype(np.int64))
+            if not d.max() <= 1:
+                raise AssertionError(f"gemma-2b {name}: {int(d.max())} bfloat16 ulps from JAX's")
+            worst[name] = f"{int(d.max())}ulp/{float((d == 0).mean()):.4f}equal"
+        if tuple(params["seg0"]["attn"]["wq"].shape[1:]) != tuple(fix["gemma/wq_shape"]):
+            raise AssertionError("gemma-2b wq: another shape than JAX's")
+        batch = serve.make_batch(gcfg, 4, 64, rng)
+        with torch.no_grad():
+            logits, caches = gm.prefill(params, batch, max_len=66)
+            tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
+            logits_i, _ = gm.decode(params, tok, caches)
+            scaled = (logits_i[:, -1] / 1.0).contiguous()
+        del caches, logits
+        ckey = prng.key_data(prng.fold_in(prng.fold_in(rng, 7), 0))
+        got_c, want_c = kn.threefry_categorical(ckey, (), scaled), ref.categorical_ref(ckey, (), scaled)
+        if not torch.equal(got_c, want_c):
+            raise AssertionError(f"categorical on gemma's decode logits: kernel {got_c.tolist()} vs plain "
+                                 f"{want_c.tolist()}")
+        f32 = torch.randn(scaled.shape, device=dev) * 3
+        if not torch.equal(kn.threefry_categorical(ckey, (5,), f32), ref.categorical_ref(ckey, (5,), f32)):
+            raise AssertionError("categorical on float32 logits: kernel and plain version differ")
+        ms = timed(lambda: kn.threefry_categorical(ckey, (), scaled))
+        b = _threefry_bound("categorical_bf16", scaled.numel(), scaled.numel() * 2 + 8 + 4 * scaled.shape[0], bw)
+        rows["threefry.categorical"] = dict(
+            route="cuda", source="src/repro_torch/kernels/csrc/threefry.cu",
+            replaces="src/repro/launch/serve.py:67 (jax.random.categorical: XLA's threefry and argmax, no Pallas kernel)",
+            max_abs_err=0.0, ms=ms, plain_ms=eager(lambda: ref.categorical_ref(ckey, (), scaled)),
+            bound_ms=b[0], bound_by=b[1], library_ms=None)
+        log("jax-drivers-gemma", arch="gemma-2b", prefill_ms=f"{r['prefill_s'] * 1e3:.3f}",
+            decode_tok_per_s=r["decode_tok_per_s"], peak_gib=f"{peak:.3f}", init_vs_jax=json.dumps(worst),
+            categorical=f"{tuple(scaled.shape)} {scaled.dtype} equal to plain", pr22_decode_tok_per_s="130.45-135.25",
+            pr22_prefill_ms="47.230-73.409", card=repr(card))
+        log("jax-drivers-kernel", entry="categorical", shape=f"{tuple(scaled.shape)}", dtype=str(scaled.dtype),
+            ms=f"{ms:.4f}", plain_ms=f"{rows['threefry.categorical']['plain_ms']:.4f}", bound_ms=f"{b[0]:.6f}",
+            bound_by=b[1], card=repr(card))
+        del params, gm, scaled, logits_i, f32
+        if on_card:
+            torch.cuda.empty_cache()
+    log("jax-drivers", seconds=f"{time.perf_counter() - t_phase:.1f}", launches=json.dumps(counts), card=repr(card))
+    return counts, rows
+
+
 def fl_pow_d_mesh_path(dev, card, rounds=FL_POW_D_ROUNDS, fl_kw=None):
     """``[fl-pow-d-mesh]``: pow-d's FL server on a one-rank NCCL mesh
     (``FLServer(spmd_axes="data", scheme="pow_d")``: each candidate's loss
@@ -3309,16 +3726,23 @@ def fl_pow_d_mesh_path(dev, card, rounds=FL_POW_D_ROUNDS, fl_kw=None):
     Table I defaults as ``[fl-train]`` (``fl_kw`` overrides fields for a
     small rehearsal), from the same initial parameters.
 
-    * ``rounds`` rounds, each of both servers from the unsharded server's
-      state (``run(state, rounds=1)``, so each draws the noise of its
-      seed's first round): selection counts equal, loss caches within
-      ``FL_POW_D_LOSS_RTOL`` (the candidates' losses on the same
-      parameters), parameters within the FL tolerances; a round's ms on
-      the host clock, each server's median.
+    * ``rounds`` rounds under cuDNN's deterministic algorithms, each of both
+      servers from the unsharded server's state on its own draws
+      (``run(state, rounds=1)``: the JAX package's key schedule's first
+      round): selection counts equal; the parameters and the loss cache's
+      entries of the round's cohort (their local losses, written by the
+      round's training) equal; its other entries (losses on the same
+      parameters, looped against vmapped) within ``FL_POW_D_LOSS_RTOL``; a
+      round's ms on the host clock, each server's median.  Under cuDNN's
+      default algorithms two calls of the same local update part from its
+      first step (the convolutions' gradients are summed in another order
+      from call to call) and training widens the gap, so the two servers
+      are only compared there as information
+      (``scripts/pow_d_mesh_parting.py`` measures both modes).
     * ``[fl-pow-d-mesh-drift]``: both servers' own ``rounds``-round runs,
-      as a user calls them: how far their parameters and loss caches
-      drift apart (training amplifies the round's last-bit differences),
-      as information; parameters finite."""
+      as a user calls them (cuDNN's default algorithms): how far their
+      parameters and loss caches drift apart, as information; parameters
+      finite."""
     import torch
     from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
@@ -3350,38 +3774,44 @@ def fl_pow_d_mesh_path(dev, card, rounds=FL_POW_D_ROUNDS, fl_kw=None):
         wa, wb = whole(a), whole(b)
         return float((a.loss_cache - b.loss_cache).abs().max()), max(float((wa[n] - wb[n]).abs().max()) for n in wa)
 
-    state, ms, worst = init(False), {False: [], True: []}, (0.0, 0.0)
-    for t in range(rounds):
-        got = {}
-        for placed, srv in servers.items():
-            sync()
-            t0 = time.perf_counter()
-            got[placed], _ = srv.run(place(state) if placed else state, rounds=1)
-            sync()
-            ms[placed].append((time.perf_counter() - t0) * 1e3)
-        a, b = got[False], got[True]
-        if not torch.equal(a.sel_counts, b.sel_counts):
-            raise AssertionError(f"pow-d on a one-rank mesh, round {t}: the selection differs")
-        np.testing.assert_allclose(b.loss_cache.cpu().numpy(), a.loss_cache.cpu().numpy(), rtol=FL_POW_D_LOSS_RTOL,
-                                   atol=0, err_msg=f"round {t}: loss cache")
-        wa, wb = whole(a), whole(b)
-        for n in wa:
-            np.testing.assert_allclose(wb[n].cpu().numpy(), wa[n].cpu().numpy(), rtol=FL_PARAM_RTOL,
-                                       atol=FL_PARAM_ATOL, err_msg=f"round {t}: {n}")
-        worst = tuple(max(x, y) for x, y in zip(worst, gaps(a, b)))
-        state = a
+    state, ms, cand_rel = init(False), {False: [], True: []}, 0.0
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True):
+        for t in range(rounds):
+            got = {}
+            for placed, srv in servers.items():
+                sync()
+                t0 = time.perf_counter()
+                got[placed], _ = srv.run(place(state) if placed else state, rounds=1)
+                sync()
+                ms[placed].append((time.perf_counter() - t0) * 1e3)
+            a, b = got[False], got[True]
+            if not torch.equal(a.sel_counts, b.sel_counts):
+                raise AssertionError(f"pow-d on a one-rank mesh, round {t}: the selection differs")
+            trained = a.sel_counts != state.sel_counts
+            if not torch.equal(a.loss_cache[trained], b.loss_cache[trained]):
+                raise AssertionError(f"round {t}: the cohort's local losses differ between the mesh and plain servers")
+            wa, wb = whole(a), whole(b)
+            for n in wa:
+                if not torch.equal(wa[n], wb[n]):
+                    raise AssertionError(f"round {t}: parameter {n} differs between the mesh and plain servers")
+            ca, cb = a.loss_cache[~trained].cpu().numpy(), b.loss_cache[~trained].cpu().numpy()
+            np.testing.assert_allclose(cb, ca, rtol=FL_POW_D_LOSS_RTOL, atol=0,
+                                       err_msg=f"round {t}: candidates' losses")
+            cand_rel = max(cand_rel, float((np.abs(cb - ca) / np.maximum(np.abs(ca), 1e-30)).max()))
+            state = a
     log("fl-pow-d-mesh", K=fl.K, k=fl.k, pow_d=fl.pow_d, rounds=rounds, samples_per_client=fl.samples_per_client,
-        mesh="(data,)=(1,)", selected=int(state.sel_counts.sum()), sel_counts="equal every round",
-        loss_cache_max_abs_diff=worst[0], loss_rtol=FL_POW_D_LOSS_RTOL, params_max_abs_diff=worst[1],
-        rtol=FL_PARAM_RTOL, atol=FL_PARAM_ATOL, mesh_round_ms_median=f"{np.median(ms[True]):.1f}",
+        mesh="(data,)=(1,)", draws="the servers' own (JAX key schedule)", cudnn="deterministic",
+        selected=int(state.sel_counts.sum()), sel_counts="equal every round",
+        params_and_cohort_losses="equal every round", candidate_loss_max_rel_diff=f"{cand_rel:.3g}",
+        loss_rtol=FL_POW_D_LOSS_RTOL, mesh_round_ms_median=f"{np.median(ms[True]):.1f}",
         plain_round_ms_median=f"{np.median(ms[False]):.1f}", card=repr(card))
 
     runs = {placed: servers[placed].run(init(placed))[0] for placed in (False, True)}
     if not all(bool(torch.isfinite(v).all()) for st in runs.values() for v in whole(st).values()):
         raise AssertionError("pow-d's servers: non-finite parameters after their own runs")
     loss_gap, param_gap = gaps(runs[False], runs[True])
-    log("fl-pow-d-mesh-drift", rounds=rounds, sel_counts_equal=torch.equal(runs[False].sel_counts,
-                                                                          runs[True].sel_counts),
+    log("fl-pow-d-mesh-drift", rounds=rounds, cudnn="default", sel_counts_equal=torch.equal(runs[False].sel_counts,
+                                                                                          runs[True].sel_counts),
         loss_cache_max_abs_diff=loss_gap, params_max_abs_diff=param_gap, card=repr(card))
 
 

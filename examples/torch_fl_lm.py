@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import FLConfig, get_config, smoke_variant
+from repro_torch.core import prng
 from repro_torch.core.selection import make_quota_schedule
 from repro_torch.core.volatility import BernoulliVolatility, paper_success_rates
 from repro_torch.data import lm_client_batches, make_lm_dataset
@@ -41,19 +42,20 @@ def main(argv=None) -> dict:
     rho = torch.as_tensor(paper_success_rates(fl.K), device=dev)
     vol = BernoulliVolatility(rho)
     select, round_fn = make_cohort_round(model, fl, quota, vol, rho)
-    # the round's noise (the scheme's selection draws, the volatility row)
-    # from one generator on the device, drawn in the engine's fixed order
+    # the reference's keys: PRNGKey(1) carried on the device, split three
+    # ways a round; the selection draws from k1 and the volatility row from
+    # split(fold_in(k2, 1))[0], as the round function draws it
     program = RoundProgram.from_config(fl, device=dev)
-    gen = program.generator(1)
+    gen = program.generator(prng.PRNGKey(1, dev))
 
     stream = make_lm_dataset(cfg.vocab, 200_000, n_chains=args.K, seed=0)
-    params, _ = model.init(torch.Generator(device=dev).manual_seed(0))
+    params, _ = model.init(prng.PRNGKey(0, dev))
     state = init_server_state(params, fl.K, vol.init_state(), dev)
     n_steps = 2
     ones = torch.ones(fl.k, device=dev)
     losses = []
     for t in range(fl.rounds):
-        noise = program.draw_noise(gen)
+        noise = program.draw_noise(gen, vol_path=(2, 1, 0))
         idx, p, capped, sigma = select(state, noise)
         blocks = lm_client_batches(stream, fl.K, idx.cpu().numpy(), n_steps, args.batch, args.seq, seed=t)
         tokens = torch.from_numpy(np.ascontiguousarray(blocks[..., :-1])).to(dev)

@@ -17,6 +17,7 @@ import json
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.fairness import jain_index
 from repro_torch.core.selection import regret, theorem1_bound, theorem1_eta
 from repro_torch.core.sim import selection_sim
@@ -87,7 +88,7 @@ def phase2(rounds=60, device="cuda", K=100, k=20, samples_per_client=60) -> dict
         fl = FLConfig(K=K, k=k, rounds=rounds, samples_per_client=samples_per_client, batch_size=20,
                       local_epochs=(1, 2), seed=0, **kw)
         srv = FLServer(model, fl, store, eval_fn, device=dev)
-        state = srv.init_state(0)
+        state = srv.init_state(prng.PRNGKey(0, dev))
         state, hist = srv.run(state, eval_every=max(2, rounds // 10))
         results[name] = dict(acc=hist["acc"], cep=float(state.cep))
         print(f"  {name:10s} CEP={int(state.cep):4d}  acc@mid={hist['acc'][len(hist['acc']) // 2]:.3f}  "

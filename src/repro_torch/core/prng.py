@@ -17,15 +17,28 @@ kernel on the card, ``kernels.ref.threefry_ref`` on the CPU):
 * ``random_bits(key, shape)`` hashes the flat index ``i`` as ``(i >> 32, i
   & 0xFFFFFFFF)`` into ``(a, b)`` and keeps ``a ^ b``
   (``_threefry_random_bits_partitionable``);
-* ``uniform``, ``gumbel`` (mode ``"low"``), ``bernoulli``, ``exponential``
-  and ``permutation`` (``_shuffle``: sorts by fresh 32-bit keys, stable)
-  are ``jax.random``'s transforms of those bits.
+* ``uniform``, ``gumbel`` (mode ``"low"``), ``bernoulli``, ``exponential``,
+  ``permutation`` (``_shuffle``: sorts by fresh 32-bit keys, stable),
+  ``normal`` (``sqrt(2) * erf_inv(u)``, ``u`` uniform in ``[nextafter(-1,
+  0), 1)``, XLA's float32 ``erf_inv``), ``randint`` (two 32-bit words, the
+  high and low, reduced by the span with JAX's ``2**16 % span`` multiplier)
+  and ``categorical`` (``argmax(gumbel + logits)``, one fused launch) are
+  ``jax.random``'s transforms of those bits;
+* ``split_data`` and ``rows`` serve J keys at once: the ``(J, 2)`` words of
+  ``split(key, J)``, and J rows each under its own key folded by a shared
+  path, in one launch (a fleet's per-job Gumbel rows).
 
-Bits, keys, uniforms and permutations equal JAX's exactly; Gumbel and
-exponential rows equal them up to the last bit of a ``log`` (ATen's and
-XLA's differ by at most one ulp).  The non-partitionable mode (JAX's
-``jax_threefry_partitionable=False``) is not ported: ``PRNGKey`` raises
-``ValueError`` when asked for it.
+Bits, keys, uniforms, permutations and ``randint`` equal JAX's exactly;
+Gumbel and exponential rows equal them up to the last bit of a ``log``
+(ATen's and XLA's differ by at most one ulp), and so ``categorical`` equals
+JAX's given equal logits but where two columns' scores lie within that bit
+of each other (bfloat16 logits take JAX's 8-bit bfloat16 Gumbel, whose 128
+values equal JAX's).  ``normal`` is within 3 ulps of JAX's
+(``tests/test_torch_prng_dists.py`` sweeps every value it can take): the
+polynomial is XLA's, its multiply-adds fused as XLA fuses them on the CPU,
+but ``log1p`` is ATen's (or CUDA's), not XLA's.  The non-partitionable mode
+(JAX's ``jax_threefry_partitionable=False``) is not ported: ``PRNGKey``
+raises ``ValueError`` when asked for it.
 """
 from __future__ import annotations
 
@@ -36,7 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.threefry import MAX_PATH, threefry
+from repro_torch.kernels.threefry import MAX_PATH, threefry, threefry_categorical, threefry_rows
 
 __all__ = [
     "Key",
@@ -50,6 +63,12 @@ __all__ = [
     "bernoulli",
     "exponential",
     "permutation",
+    "normal",
+    "randint",
+    "categorical",
+    "split_data",
+    "rows",
+    "advance_",
 ]
 
 _M32 = 0xFFFFFFFF
@@ -108,6 +127,14 @@ def fold_in(key: Key, d: int) -> Key:
     return _flat(Key(key.data, key.path + (int(d) & _M32,)))
 
 
+def advance_(words: torch.Tensor) -> torch.Tensor:
+    """A carried key's ``(2,)`` int32 words replaced, in place and in one
+    launch, by those of ``split(key)[0]`` (``fold_in(key, 0)``: the key a
+    JAX loop carries on after ``key, sub = split(key)``)."""
+    threefry(words, (), 0, 1, "keys", out=words.view(1, 2))
+    return words
+
+
 def split(key: Key, num: int = 2) -> Tuple[Key, ...]:
     """JAX's ``split(key, num)`` in partitionable mode: key ``i`` is
     ``fold_in(key, i)``."""
@@ -119,10 +146,11 @@ def _n(shape) -> Tuple[tuple, int]:
     return shape, math.prod(shape)
 
 
-def _draw(key: Key, shape, mode: str, minval: float = 0.0, maxval: float = 1.0, out=None) -> torch.Tensor:
+def _draw(key: Key, shape, mode: str, minval: float = 0.0, maxval: float = 1.0, out=None,
+          start: int = 0) -> torch.Tensor:
     shape, n = _n(shape)
     key = _flat(key)
-    res = threefry(key.data, key.path, 0, n, mode, minval, maxval, out=None if out is None else out.view(-1))
+    res = threefry(key.data, key.path, start, n, mode, minval, maxval, out=None if out is None else out.view(-1))
     return res.view(shape)
 
 
@@ -172,3 +200,79 @@ def permutation(key: Key, n: int, out: Optional[torch.Tensor] = None) -> torch.T
         order = torch.sort(_draw(sub, (n,), "sortkey"), stable=True).indices
         x = x[order]
     return x if out is None else out.copy_(x)
+
+
+def normal(key: Key, shape=(), out=None, start: int = 0) -> torch.Tensor:
+    """JAX's float32 ``normal(key, shape)``: ``sqrt(2) * erf_inv(u)`` of
+    ``u`` uniform in ``[nextafter(-1, 0), 1)`` (into ``out`` when given).
+    ``start`` draws the flat elements ``start ..`` of a larger draw under the
+    same key: a block of a tensor too large to draw at once."""
+    return _draw(key, shape, "normal", out=out, start=start)
+
+
+_INT_DTYPES = {torch.int8: 8, torch.int16: 16, torch.int32: 32}
+
+
+def randint(key: Key, shape, minval: int, maxval: int, dtype=torch.int32) -> torch.Tensor:
+    """JAX's ``randint(key, shape, minval, maxval, dtype)`` for int8, int16
+    and int32 (host int bounds): ``k1, k2 = split(key)``, 32 high and 32 low
+    bits, each reduced by the span, joined with the multiplier ``(2**16 %
+    span)**2 % span`` and reduced again, all in uint32 arithmetic; the
+    bounds are clamped to the dtype (a narrower type samples in int32 with
+    its bounds clipped first, then casts)."""
+    if dtype not in _INT_DTYPES:
+        raise ValueError(f"randint takes int8, int16 or int32, got {dtype}")
+    info = torch.iinfo(dtype)
+    minval, maxval = int(minval), int(maxval)
+    if _INT_DTYPES[dtype] < 32:  # sampled in int32, the bounds clipped to the narrow type
+        minval, maxval = min(max(minval, info.min), info.max), min(max(maxval, info.min), info.max + 1)
+    i32 = torch.iinfo(torch.int32)
+    out_of_range = maxval > i32.max
+    lo, hi = min(max(minval, i32.min), i32.max), min(max(maxval, i32.min), i32.max)
+    span = (hi - lo) & _M32
+    if hi <= lo:
+        span = 1
+    elif out_of_range:
+        span = (span + 1) & _M32
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    if span == 0:  # the whole 32-bit range: XLA's x % 0 is x, and the multiplier wraps to 0
+        offset = lower
+    else:
+        mult = (((2**16 % span) ** 2) & _M32) % span  # uint32: 2**32 wraps to 0
+        a = higher % span  # a * mult mod 2**32 in two halves of mult, each product below 2**48
+        prod = ((((a * (mult >> 16)) & _M32) << 16) + a * (mult & 0xFFFF)) & _M32
+        offset = ((prod + lower % span) & _M32) % span
+    v = (lo + offset) & _M32
+    v = torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
+    return v.to(dtype)
+
+
+def categorical(key: Key, logits: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """JAX's ``categorical(key, logits)`` along the last axis, with
+    replacement and the default shape: int32 ``argmax(gumbel(key,
+    logits.shape, logits.dtype) + logits, -1)``, ties to the lowest index,
+    for float32 or bfloat16 logits.  One launch over the rows; the noise is
+    never written."""
+    if axis not in (-1, logits.dim() - 1):
+        raise ValueError("categorical draws along the last axis only")
+    key = _flat(key)
+    V = logits.shape[-1]
+    out = threefry_categorical(key.data, key.path, logits.reshape(-1, V).contiguous())
+    return out.view(logits.shape[:-1])
+
+
+def split_data(key: Key, num: int) -> torch.Tensor:
+    """The words of ``split(key, num)`` as a ``(num, 2)`` int32 tensor on
+    the key's device (one launch): the keys ``rows`` takes."""
+    key = _flat(key)
+    return threefry(key.data, key.path, 0, int(num), "keys")
+
+
+def rows(keys: torch.Tensor, path: Tuple[int, ...], n: int, out=None) -> torch.Tensor:
+    """``(J, n)``: row ``j`` is ``gumbel(Key(keys[j], path), (n,))``
+    (``keys`` a ``(J, 2)`` int32 tensor), all J rows in one launch: JAX's
+    ``vmap(lambda k: gumbel(fold_in(k, t), (n,)))(keys)`` is ``rows(keys,
+    (t,), n)``."""
+    path = tuple(int(d) & _M32 for d in path)
+    return threefry_rows(keys, path, n, out=out)

@@ -5,8 +5,8 @@ the full (T, K) selection masks, success bits and allocations.
 ``selection_sim`` runs the whole-horizon runner (``engine.scan_sim``);
 ``selection_sim_loop`` steps the same round step (``RoundProgram.
 build_step``) one call a round from the host, drawing each round's noise
-with ``draw_noise`` from the same generator, so the two give identical
-trajectories.
+with ``draw_noise`` from the same key stream (``PRNGKey(seed)``, the JAX
+package's), so the two give identical trajectories, and JAX's.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FLConfig
+from repro_torch.core.prng import PRNGKey
 from repro_torch.core.volatility import make_volatility, paper_success_rates
 from repro_torch.device import resolve_device
 
@@ -88,7 +89,7 @@ def selection_sim_loop(
     program = RoundProgram(fl=fl, vol=vol, rho=rho, override="dense" if xs_override is not None else "none",
                            device=dev)
     step, state = program.build_step()
-    gen = program.generator(seed)
+    gen = program.generator(PRNGKey(seed, dev))
     carry = (state,)
     masks, xs, ps, sigmas = [], [], [], []
     for t in range(T):

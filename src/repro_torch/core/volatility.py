@@ -1,11 +1,13 @@
 """Volatile-client models: generators of the success bits ``x_{i,t}`` and of
 completion lags (the port of ``repro.core.volatility``).
 
-A model draws nothing itself.  ``draw(generator)`` returns the tuple of
-uniform rows that one round consumes, and ``sample(us, state)`` turns those
-rows into outcomes.  The split lets a test feed the JAX package's own
+A model draws nothing itself.  ``draw(rng)`` returns the tuple of uniform
+rows that one round consumes (from a ``core.prng.Key``, the rows the JAX
+model's ``sample(key, state)`` draws), and ``sample(us, state)`` turns
+those rows into outcomes.  The split lets a test feed the JAX package's own
 uniforms into ``sample`` and compare outcomes exactly, while the engine
-draws the rows from one explicit ``torch.Generator`` on the device.
+draws the rows on the device from the JAX key stream (or, where a caller
+asks for it, one explicit ``torch.Generator``).
 ``draw_rows()`` gives each row's length ``n`` (or its shape, for a model
 over a ``(J, K_max)`` population of J jobs: ``row_shape``) and lower end
 ``lo``, in the order ``sample`` consumes them (the order ``jax.random.split`` hands the
@@ -169,18 +171,27 @@ def uniform_rows(raw, rows) -> Tuple[torch.Tensor, ...]:
     return tuple(_scale_row(u, lo) for u, (_, lo) in zip(raw, rows))
 
 
-def _draw(model, generator: torch.Generator) -> Tuple[torch.Tensor, ...]:
+def _draw(model, rng) -> Tuple[torch.Tensor, ...]:
+    from repro_torch.core import prng  # the key stream's kernels import this module
+
     rows = model.draw_rows()
-    dev = generator.device
-    raw = [torch.rand(n, generator=generator, device=dev, dtype=_f32) for n, _ in rows]
+    if isinstance(rng, prng.Key):  # the JAX model's rows, drawn final under its sample key
+        return tuple(prng.uniform(prng.Key(rng.data, rng.path + path), row_shape(n), minval=lo)
+                     for path, (n, lo) in zip(model.key_paths(), rows))
+    dev = rng.device
+    raw = [torch.rand(n, generator=rng, device=dev, dtype=_f32) for n, _ in rows]
     return uniform_rows(raw, rows)
 
 
 class _Model:
     """The shared half of the draw protocol."""
 
-    def draw(self, generator: torch.Generator) -> Tuple[torch.Tensor, ...]:
-        return _draw(self, generator)
+    def draw(self, rng) -> Tuple[torch.Tensor, ...]:
+        """One round's rows: from a ``core.prng.Key``, the JAX model's
+        ``sample(key, state)`` draws (``key_paths``); from a
+        ``torch.Generator``, ``uniform_rows`` of one ``torch.rand`` row
+        each."""
+        return _draw(self, rng)
 
     def to(self, device):
         return model_to(self, device)

@@ -21,7 +21,12 @@ the row's own), the top-k is ``sampling.exact_top_k`` (the exact top-k
 kernel a row where ``k_max`` fits it, a stable sort above), so the batched
 step's cohorts equal J independent ``job_step`` calls given the same Gumbel
 rows.  The noise is fed as tensors: a ``(K_max,)`` Gumbel row a job, or the
-``(J, K_max)`` rows of the batch.
+``(J, K_max)`` rows of the batch.  The JAX package's batched step draws job
+``j``'s row as ``gumbel(key_j, (K_max,))``; the port's drivers draw all J
+rows in one launch, ``core.prng.rows(keys, (t,), K_max)`` (the ``(J, 2)``
+words of the jobs' base keys folded by the round ``t``).
+``job_generator`` is the port's Philox stream for a job, kept for callers
+that ask for it.
 
 On a CUDA device ``batched_step`` replays one CUDA graph per ``(J, K_max,
 k_max)`` over static buffers (the counterpart of ``jax.jit``): its first

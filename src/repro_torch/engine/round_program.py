@@ -131,7 +131,7 @@ from repro_torch.core.selection import (
     ucb_select,
     ucb_update,
 )
-from repro_torch.core.prng import Key, PRNGKey, gumbel, key_data, permutation, uniform
+from repro_torch.core.prng import Key, PRNGKey, advance_, gumbel, key_data, permutation, uniform
 from repro_torch.core.selection.e3cs import divide, residual_mass
 from repro_torch.core.volatility import DEAD_LAG, row_shape, uniform_rows
 from repro_torch.device import resolve_device
@@ -140,7 +140,6 @@ from repro_torch.fl.round import RoundNoise, init_server_state, make_select_fn, 
 from repro_torch.kernels import add_launch_counts, launch_counts
 from repro_torch.kernels.ref import LAG_DEAD_CODE, ring_pop_push
 from repro_torch.kernels.round_fused import MAX_S, fused_alloc_select, fused_perturb_select, fused_round_tail
-from repro_torch.kernels.threefry import threefry
 from repro_torch.kernels.unpack_bits import unpack_bits, unpack_crumbs
 from repro_torch.obs.sketches import SKETCH_FIELDS, SketchSpec, lag_bins, region_ids, sketch_carry0, sketch_step
 from repro_torch.obs.taps import ROUND_TAPS
@@ -194,7 +193,7 @@ class JaxStream:
         return Key(self.key.clone())
 
     def advance(self) -> None:
-        threefry(self.key, (), 0, 1, "keys", out=self.key.view(1, 2))
+        advance_(self.key)
 
 
 def lag_credit_schedule(mask, lag, S: int, alpha: float):
@@ -769,10 +768,12 @@ class RoundProgram:
         return [torch.empty(shape, dtype=torch.int64 if kind == "perm" else _f32, device=self.device)
                 for kind, shape in self.draws()]
 
-    def _jax_draws(self) -> tuple:
+    def _jax_draws(self, vol_path: tuple = (2,)) -> tuple:
         """For each of ``draws()``, how the JAX key stream draws it: ``(mode,
-        path, lo)``, the folds from the round's key (``1`` is ``k1``, ``2``
-        ``k2``) and a uniform row's lower end (see the module docstring)."""
+        path, lo)``, the folds from the round's key (``1`` is ``k1``;
+        ``vol_path`` leads to the key the volatility model's ``sample``
+        takes, ``k2`` in a runner) and a uniform row's lower end (see the
+        module docstring)."""
         fl = self.fl
         fold = (self.mesh.rank,) if self.mesh is not None and self.mesh.size > 1 else ()
         if fl.scheme == "e3cs":
@@ -785,12 +786,12 @@ class RoundProgram:
             return sel
         vol = self.local_vol
         rows = zip(vol.key_paths(), vol.draw_rows())
-        return sel + tuple(("uniform", (2,) + fold + path, lo) for path, (_, lo) in rows)
+        return sel + tuple(("uniform", tuple(vol_path) + fold + path, lo) for path, (_, lo) in rows)
 
-    def _draw_jax(self, gen: JaxStream, out) -> tuple:
+    def _draw_jax(self, gen: JaxStream, out, vol_path: tuple = (2,)) -> tuple:
         """One round's noise from the JAX key stream, drawn final into
         ``out``, then the key advanced."""
-        for (mode, path, lo), (_, shape), buf in zip(self._jax_draws(), self.draws(), out):
+        for (mode, path, lo), (_, shape), buf in zip(self._jax_draws(vol_path), self.draws(), out):
             key = Key(gen.key, path)
             if mode == "perm":
                 permutation(key, shape[0], out=buf)
@@ -801,15 +802,16 @@ class RoundProgram:
         gen.advance()
         return tuple(out)
 
-    def draw_uniforms(self, gen, out=None) -> tuple:
+    def draw_uniforms(self, gen, out=None, vol_path: tuple = (2,)) -> tuple:
         """One round's raw draws (``draws``): ``torch.rand`` rows and 0-d
         uniforms, ``torch.randperm`` permutations, each from its stream of
         ``gen`` (``generator``); from a ``JaxStream``, the JAX package's
         rows, drawn final (``noise_from_uniforms(..., final=True)`` reads
-        them).  With ``out`` they are drawn into those buffers."""
+        them), the model's under ``vol_path`` (``_jax_draws``).  With
+        ``out`` they are drawn into those buffers."""
         out = self._draw_buffers() if out is None else out
         if isinstance(gen, JaxStream):
-            return self._draw_jax(gen, out)
+            return self._draw_jax(gen, out, vol_path)
         for (kind, shape), shared, buf in zip(self.draws(), self._shared_draws(), out):
             g = gen.shared if shared else gen.own
             if kind == "perm":
@@ -829,9 +831,9 @@ class RoundProgram:
             return RoundNoise(**sel, u=tuple(raw[n_sel:]))
         return RoundNoise(**select_noise(self.fl, raw[:n_sel]), u=uniform_rows(raw[n_sel:], self._model_rows()))
 
-    def draw_noise(self, gen) -> RoundNoise:
+    def draw_noise(self, gen, vol_path: tuple = (2,)) -> RoundNoise:
         """One round's noise, drawn in the fixed order (``draws``)."""
-        return self.noise_from_uniforms(self.draw_uniforms(gen), final=isinstance(gen, JaxStream))
+        return self.noise_from_uniforms(self.draw_uniforms(gen, vol_path=vol_path), final=isinstance(gen, JaxStream))
 
     def _state0(self):
         if self.mesh is None:

@@ -17,9 +17,8 @@ so a repeated call replays without capturing again.  Runs given a model
 object (``vol`` or ``rho``) build a runner of their own each call, as in
 JAX.
 
-Noise is drawn from one ``torch.Generator`` seeded with ``seed`` (see
-``round_program``); the selections equal the JAX package's given the same
-noise, not the same seed.
+Noise is the JAX package's key stream from ``PRNGKey(seed)`` (``core.prng``,
+see ``round_program``): ``seed`` gives the JAX package's selections.
 """
 from __future__ import annotations
 
@@ -30,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FLConfig
+from repro_torch.core.prng import PRNGKey
 from repro_torch.core.volatility import CompletionLag, make_volatility, paper_success_rates
 from repro_torch.device import resolve_device
 from repro_torch.engine.round_program import RoundProgram, staleness_ring_step
@@ -63,7 +63,8 @@ def build_scan_runner(fl: FLConfig, vol, rho, override: str = "none", outputs: s
                       taps: bool = False, sketch=None, fused: bool = False, device=None):
     """A whole-horizon runner for any volatility model: ``(run, state0)``
     with the ``RoundProgram.build_runner`` signatures (``run(state, key,
-    xs_in)``, ``key`` an int seed or a generator state).  Hold on to ``run``
+    xs_in)``, ``key`` a ``core.prng.Key``, or an int seed or a generator
+    state for the port's Philox stream).  Hold on to ``run``
     to replay its captured step across calls."""
     program = RoundProgram(fl=fl, vol=vol, rho=rho, override=override, staleness=staleness, alpha=alpha,
                            feedback=feedback, mesh=mesh, block=block, fused=fused, device=device)
@@ -148,7 +149,7 @@ def scan_selection_sim(
         xs_in = torch.as_tensor(np.asarray(packed_override, np.uint8), device=dev)
     else:
         xs_in = None
-    _, masks, xs, ps, sigmas, *rest = run(state, seed, xs_in)
+    _, masks, xs, ps, sigmas, *rest = run(state, PRNGKey(seed, dev), xs_in)
     masks = _numpy(masks)
     out = {"masks": masks, "xs": _numpy(xs), "ps": _numpy(ps), "sigmas": _numpy(sigmas), "counts": masks.sum(0)}
     if taps:
@@ -207,10 +208,10 @@ def async_selection_sim(
                                    alpha=alpha, feedback=feedback, taps=taps, fused=fused, device=dev)
     xs_in = None if override == "none" else torch.as_tensor(np.asarray(packed_lag_override, np.uint8), device=dev)
     if outputs == "lean":
-        state, on_time, stale, sigmas, *rest = run(state, seed, xs_in)
+        state, on_time, stale, sigmas, *rest = run(state, PRNGKey(seed, dev), xs_in)
         out = {}
     else:
-        state, masks, lags, ps, sigmas, arrived, *rest = run(state, seed, xs_in)
+        state, masks, lags, ps, sigmas, arrived, *rest = run(state, PRNGKey(seed, dev), xs_in)
         on_time = (masks * (lags == 0)).sum(1)
         stale = arrived.sum(1)
         masks = _numpy(masks)

@@ -308,6 +308,7 @@ def sharded_selection_sim(
 
     from repro_torch.configs.base import FLConfig
     from repro_torch.core.volatility import make_volatility, paper_success_rates
+    from repro_torch.core.prng import PRNGKey
     from repro_torch.engine.round_program import RoundProgram
 
     if xs_override is not None and packed_override is not None:
@@ -328,7 +329,7 @@ def sharded_selection_sim(
     if override != "none":
         trace = xs_override if override == "dense" else packed_override
         xs = program.local_rows(np.asarray(trace, np.float32 if override == "dense" else np.uint8))
-    state, *outs = run(state, seed, xs)
+    state, *outs = run(state, PRNGKey(seed, program.device), xs)
 
     def host(t):
         return t.detach().cpu().numpy()

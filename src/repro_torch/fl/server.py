@@ -14,13 +14,16 @@ pending buffer and are added to the global model when they arrive, decayed
 by ``staleness_alpha**lag`` (``aggregate_async``).  The selector still sees
 deadline-based feedback.
 
-Noise.  The JAX package splits a key four ways a round (the selection's,
-the round's volatility through ``fold_in(., 1)``, pow-d's candidate
-permutation).  ``FLServer.run`` draws the same roles from one
-``torch.Generator`` on the device seeded from ``seed + 1``, each round in a
-fixed order: the selection's draws and the volatility model's rows
-(``RoundProgram.draw_noise``), then pow-d's candidate permutation.  A test
-hands ``run`` the JAX package's own draws instead (``noise=``).
+Noise.  ``FLServer.run`` follows the JAX package's key schedule
+(``core.prng``, one key on the device): ``PRNGKey(seed + 1)``, then
+``key, k_sel, k_round, k_cand = split(key, 4)`` every round.  ``k_sel``
+draws the selection's noise as the scheme's ``select`` draws it,
+``split(fold_in(k_round, 1))[0]`` the volatility model's rows
+(``RoundProgram.draw_noise(vol_path=(2, 1, 0))``), and ``k_cand`` pow-d's
+``permutation(k_cand, K)``.  The second half of ``fold_in(k_round, 1)``
+reaches the reference's local update as its clients' keys, which no model's
+loss reads: nothing is drawn for it.  A test hands ``run`` the JAX
+package's own draws instead (``noise=``).
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from torch.func import vmap
 from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import FLConfig
+from repro_torch.core.prng import Key, PRNGKey, permutation
 from repro_torch.core.volatility import make_volatility, paper_success_rates
 from repro_torch.device import resolve_device
 
@@ -129,11 +133,15 @@ class FLServer:
         spe = max(1, int(max(store.sizes())) // fl_cfg.batch_size)
         self.n_steps = int(max(fl_cfg.local_epochs)) * spe
 
-    def init_state(self, seed: int = 0, params=None) -> ServerState:
+    def init_state(self, rng=0, params=None) -> ServerState:
         """A fresh server state: ``params``, or the model's initial parameters
-        drawn from a generator on the device seeded with ``seed``."""
+        drawn from ``rng``: a ``core.prng.Key`` (the JAX package's
+        ``init_state(key)``, its values), or an int seed of a generator on
+        the device (the port's Philox stream)."""
         if params is None:
-            params, _ = self.model.init(torch.Generator(device=self.device).manual_seed(seed))
+            if not isinstance(rng, Key):
+                rng = torch.Generator(device=self.device).manual_seed(int(rng))
+            params, _ = self.model.init(rng)
         vol_state = self.lag_model.init_state() if self.lag_model is not None else self.vol.init_state()
         return init_server_state(params, self.cfg.K, vol_state, self.device)
 
@@ -142,10 +150,11 @@ class FLServer:
         step mask) as tensors on the device."""
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrays)
 
-    def _draw(self, gen):
-        noise = self.program.draw_noise(gen)
-        cand = torch.randperm(self.cfg.K, generator=gen.own, device=self.device) if self.cfg.scheme == "pow_d" else None
-        return noise, cand
+    def _draw(self, stream):
+        """One round's ``(RoundNoise, cand)`` from the carried key, which is
+        then advanced (``split(key, 4)[0]``)."""
+        cand = permutation(Key(stream.key, (3,)), self.cfg.K) if self.cfg.scheme == "pow_d" else None
+        return self.program.draw_noise(stream, vol_path=(2, 1, 0)), cand
 
     def _report_candidate_losses(self, state: ServerState, perm: torch.Tensor) -> ServerState:
         """pow-d stage: the first d of ``perm`` report their loss on the
@@ -175,8 +184,8 @@ class FLServer:
         cfg = self.cfg
         rounds = rounds or cfg.rounds
         history: Dict[str, List] = {"round": [], "acc": [], "loss": [], "cep": [], "succ_ratio": []}
-        gen = self.program.generator(cfg.seed + 1)
         draws = iter(noise) if noise is not None else None
+        stream = self.program.generator(PRNGKey(cfg.seed + 1, self.device)) if draws is None else None
         dev = self.device
         sizes = self.store.sizes()
         total_q = torch.tensor(float(sizes.sum()), dtype=torch.float32, device=dev)
@@ -187,7 +196,7 @@ class FLServer:
             for delta in pending.pop(t, []):
                 state = state._replace(params=pytree.tree_map(lambda g, d: (g.to(torch.float32) + d).to(g.dtype),
                                                               state.params, delta))
-            sel_noise, cand = next(draws) if draws is not None else self._draw(gen)
+            sel_noise, cand = next(draws) if draws is not None else self._draw(stream)
             if cfg.scheme == "pow_d":
                 state = self._report_candidate_losses(state, cand)
             idx, p, capped, sigma = self._select(state, sel_noise)

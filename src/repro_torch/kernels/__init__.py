@@ -15,7 +15,7 @@ from .gumbel_topk import gumbel_topk_kernel_call
 from .ops import e3cs_update_tiled, fused_gumbel_topk_sample, gumbel_topk_sample
 from .round_fused import fused_alloc_select, fused_perturb_select, fused_round_tail
 from .threefry import LAUNCHES as THREEFRY_LAUNCHES
-from .threefry import threefry
+from .threefry import threefry, threefry_categorical, threefry_rows
 from .unpack_bits import unpack_bits, unpack_crumbs
 
 __all__ = [
@@ -35,6 +35,8 @@ __all__ = [
     "unpack_bits",
     "unpack_crumbs",
     "threefry",
+    "threefry_rows",
+    "threefry_categorical",
     "WRAPPERS",
     "launch_counts",
     "reset_launch_counts",
@@ -52,7 +54,7 @@ WRAPPERS = {
     "gumbel_topk": gumbel_topk_kernel_call,
     "fused_gumbel_topk": fused_gumbel_topk_kernel_call,
     "e3cs_update": e3cs_update_kernel_call,
-    # one count a threefry epilogue (kernels.threefry.LAUNCHES)
+    # one count a threefry epilogue, and the rows and categorical entries (kernels.threefry.LAUNCHES)
     **{f"threefry.{mode}": count for mode, count in THREEFRY_LAUNCHES.items()},
 }
 

@@ -21,7 +21,26 @@
 //             minval in one fused multiply-add (one rounding, as XLA fuses
 //             jax.random.uniform's), then max with minval;
 //   kGumbel   -logf(-logf(u)), u uniform in [FLT_MIN, 1) (jax.random.gumbel,
-//             mode "low").
+//             mode "low");
+//   kNormal   sqrt(2) * erf_inv(u), u uniform in [nextafter(-1, 0), 1)
+//             (jax.random.normal): erf_inv is XLA's float32 one (Giles'
+//             polynomial in w = -log1p(-u * u), two branches), its
+//             multiply-adds fused as the CPU backend fuses them (a float64
+//             product and sum, rounded once to float32).
+// Two more entries:
+//   repro_threefry_rows         J Gumbel rows of n under J keys (a (J, 2)
+//             tensor), each folded by the same path: row j is block row j,
+//             the key folded once a block (a job's Gumbel row,
+//             gumbel(fold_in(key_j, t), (n,)), in one launch for J jobs);
+//   repro_threefry_categorical  jax.random.categorical over (B, V) logits:
+//             argmax_v of gumbel[b * V + v] + logits[b, v], ties to the
+//             lowest v, the noise never written.  A row is a cluster of
+//             kCluster blocks (Hopper's thread block clusters): each block
+//             reduces its columns, then block 0 reads the others' winners from
+//             their shared memory (distributed shared memory).  bfloat16
+//             logits take JAX's bfloat16 Gumbel: 8 random bits (the low byte
+//             of a ^ b), the mantissa their top 7, every operation rounded
+//             to bfloat16.
 // The plain version is threefry_ref in kernels/ref.py (int64 words, every sum
 // taken & 0xffffffff).
 //
@@ -38,15 +57,21 @@
 // THREEFRY_LANES count each epilogue; scripts/threefry_sass.py shows which
 // pipe nvcc gives each add).
 #include <cfloat>
+#include <cmath>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 256;
 constexpr int kMaxPath = 4;
+constexpr int kCluster = 8;       // blocks a categorical row
+constexpr int kCatThreads = 512;  // threads a categorical block
 
-enum Mode : int { kKeys = 0, kBits = 1, kSortKey = 2, kUniform = 3, kGumbel = 4 };
+enum Mode : int { kKeys = 0, kBits = 1, kSortKey = 2, kUniform = 3, kGumbel = 4, kNormal = 5 };
 
 struct Path {
     int n;
@@ -73,18 +98,9 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t&
     }
 }
 
-__device__ __forceinline__ float uniform(uint32_t bits, float minval, float maxval) {
-    const float f = __uint_as_float((bits >> 9) | 0x3f800000u) - 1.0f;
-    return fmaxf(minval, __fmaf_rn(f, maxval - minval, minval));
-}
-
-template <int kMode>
-__global__ void __launch_bounds__(kThreads) threefry_kernel(const uint32_t* key, Path path,
-                                                            uint64_t offset, int64_t n, float minval, float maxval,
-                                                            void* out) {
-    // out may be the key itself for one pair (a carried key advanced in
-    // place): the one block reads it here, before any thread writes
-    __shared__ uint32_t sk[2];
+// The key folded by the path, once a block, into shared memory (thread 0
+// reads the key before any thread of the block writes).
+__device__ __forceinline__ void fold_key(const uint32_t* key, const Path& path, uint32_t* sk) {
     if (threadIdx.x == 0) {
         uint32_t k0 = key[0], k1 = key[1];
         for (int j = 0; j < path.n; ++j) {
@@ -97,35 +113,197 @@ __global__ void __launch_bounds__(kThreads) threefry_kernel(const uint32_t* key,
         sk[1] = k1;
     }
     __syncthreads();
+}
+
+__device__ __forceinline__ float uniform(uint32_t bits, float minval, float maxval) {
+    const float f = __uint_as_float((bits >> 9) | 0x3f800000u) - 1.0f;
+    return fmaxf(minval, __fmaf_rn(f, maxval - minval, minval));
+}
+
+// c + p * w rounded once, as a float64 product (exact) and sum
+__device__ __forceinline__ float fma64(float p, float w, float c) {
+    return static_cast<float>(static_cast<double>(c) + static_cast<double>(p) * static_cast<double>(w));
+}
+
+// XLA's float32 erf_inv (ErfInv32): Giles' single-precision polynomial
+__device__ __forceinline__ float erf_inv(float x) {
+    constexpr float lt[9] = {2.81022636e-08f,  3.43273939e-07f, -3.5233877e-06f, -4.39150654e-06f, 0.00021858087f,
+                             -0.00125372503f, -0.00417768164f, 0.246640727f,    1.50140941f};
+    constexpr float gt[9] = {-0.000200214257f, 0.000100950558f, 0.00134934322f, -0.00367342844f, 0.00573950773f,
+                             -0.0076224613f,   0.00943887047f,  1.00167406f,    2.83297682f};
+    float w = -log1pf(-(x * x));
+    const bool small = w < 5.0f;
+    w = small ? w - 2.5f : sqrtf(w) - 3.0f;
+    float p = small ? lt[0] : gt[0];
+#pragma unroll
+    for (int i = 1; i < 9; ++i) p = fma64(p, w, small ? lt[i] : gt[i]);
+    return p * x;
+}
+
+template <int kMode>
+__device__ __forceinline__ void write(void* out, int64_t i, uint32_t a, uint32_t b, float minval, float maxval) {
+    if constexpr (kMode == kKeys) {
+        reinterpret_cast<uint2*>(out)[i] = make_uint2(a, b);
+    } else if constexpr (kMode == kBits) {
+        static_cast<uint32_t*>(out)[i] = a ^ b;
+    } else if constexpr (kMode == kSortKey) {
+        static_cast<uint32_t*>(out)[i] = (a ^ b) ^ 0x80000000u;
+    } else if constexpr (kMode == kUniform) {
+        static_cast<float*>(out)[i] = uniform(a ^ b, minval, maxval);
+    } else if constexpr (kMode == kGumbel) {
+        static_cast<float*>(out)[i] = -logf(-logf(uniform(a ^ b, FLT_MIN, 1.0f)));
+    } else {
+        static_cast<float*>(out)[i] = 1.41421354f * erf_inv(uniform(a ^ b, -0.99999994f, 1.0f));
+    }
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kThreads) threefry_kernel(const uint32_t* key, Path path,
+                                                            uint64_t offset, int64_t n, float minval, float maxval,
+                                                            void* out) {
+    // out may be the key itself for one pair (a carried key advanced in
+    // place): the one block reads it in fold_key, before any thread writes
+    __shared__ uint32_t sk[2];
+    fold_key(key, path, sk);
     const uint32_t k0 = sk[0], k1 = sk[1];
     const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
     for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n; i += stride) {
         const uint64_t c = offset + static_cast<uint64_t>(i);
         uint32_t a = static_cast<uint32_t>(c >> 32), b = static_cast<uint32_t>(c);
         threefry2x32(k0, k1, a, b);
-        if constexpr (kMode == kKeys) {
-            reinterpret_cast<uint2*>(out)[i] = make_uint2(a, b);
-        } else if constexpr (kMode == kBits) {
-            static_cast<uint32_t*>(out)[i] = a ^ b;
-        } else if constexpr (kMode == kSortKey) {
-            static_cast<uint32_t*>(out)[i] = (a ^ b) ^ 0x80000000u;
-        } else if constexpr (kMode == kUniform) {
-            static_cast<float*>(out)[i] = uniform(a ^ b, minval, maxval);
+        write<kMode>(out, i, a, b, minval, maxval);
+    }
+}
+
+// Row blockIdx.y: the Gumbel draws of counters 0 .. n-1 under
+// keys[blockIdx.y] folded by the path.
+__global__ void __launch_bounds__(kThreads) threefry_rows_kernel(const uint32_t* keys, Path path, int64_t n,
+                                                                 float* out) {
+    __shared__ uint32_t sk[2];
+    const int64_t row = blockIdx.y;
+    fold_key(keys + 2 * row, path, sk);
+    const uint32_t k0 = sk[0], k1 = sk[1];
+    float* base = out + row * n;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n; i += stride) {
+        const uint64_t c = static_cast<uint64_t>(i);
+        uint32_t a = static_cast<uint32_t>(c >> 32), b = static_cast<uint32_t>(c);
+        threefry2x32(k0, k1, a, b);
+        write<kGumbel>(base, i, a, b, 0.0f, 1.0f);
+    }
+}
+
+__device__ __forceinline__ float bf16_round(float x) {  // to bfloat16, nearest even (x finite or inf)
+    uint32_t u = __float_as_uint(x);
+    if ((u & 0x7fffffffu) > 0x7f800000u) return x;  // NaN stays NaN
+    u += 0x7fffu + ((u >> 16) & 1u);
+    return __uint_as_float(u & 0xffff0000u);
+}
+
+// (v, i) beats (w, j): a NaN beats any number (JAX's and torch's argmax
+// take the first NaN), a larger value beats a smaller, equal values go to
+// the lower index
+__device__ __forceinline__ bool beats(float v, int64_t i, float w, int64_t j) {
+    const bool vn = v != v, wn = w != w;
+    if (vn != wn) return vn;
+    if (!vn && v != w) return v > w;
+    return i < j;
+}
+
+template <bool kBf16>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kCatThreads)
+    categorical_kernel(const uint32_t* key, Path path, const void* logits, int64_t V, int32_t* out) {
+    __shared__ uint32_t sk[2];
+    __shared__ float warp_v[kCatThreads / 32];
+    __shared__ int64_t warp_i[kCatThreads / 32];
+    __shared__ float block_v;
+    __shared__ int64_t block_i;
+    cg::cluster_group cluster = cg::this_cluster();
+    fold_key(key, path, sk);
+    const uint32_t k0 = sk[0], k1 = sk[1];
+    const int64_t row = blockIdx.y;
+    const unsigned rank = cluster.block_rank();
+    float best = -INFINITY;
+    int64_t at = V;  // no column yet: any column beats it
+    for (int64_t v = static_cast<int64_t>(rank) * kCatThreads + threadIdx.x; v < V;
+         v += static_cast<int64_t>(kCluster) * kCatThreads) {
+        const uint64_t c = static_cast<uint64_t>(row * V + v);
+        uint32_t a = static_cast<uint32_t>(c >> 32), b = static_cast<uint32_t>(c);
+        threefry2x32(k0, k1, a, b);
+        float s;
+        if constexpr (kBf16) {
+            const uint32_t bits8 = (a ^ b) & 0xffu;
+            const float f = __uint_as_float(((bits8 >> 1) << 16) | 0x3f800000u) - 1.0f;  // exact in bfloat16
+            const float u = fmaxf(FLT_MIN, bf16_round(f + FLT_MIN));
+            const float g = -bf16_round(logf(-bf16_round(logf(u))));
+            const uint16_t lb = static_cast<const uint16_t*>(logits)[row * V + v];
+            s = bf16_round(g + __uint_as_float(static_cast<uint32_t>(lb) << 16));
         } else {
-            static_cast<float*>(out)[i] = -logf(-logf(uniform(a ^ b, FLT_MIN, 1.0f)));
+            s = -logf(-logf(uniform(a ^ b, FLT_MIN, 1.0f))) + static_cast<const float*>(logits)[row * V + v];
+        }
+        if (beats(s, v, best, at)) {
+            best = s;
+            at = v;
         }
     }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_down_sync(0xffffffffu, best, off);
+        const int64_t oi = __shfl_down_sync(0xffffffffu, at, off);
+        if (beats(ov, oi, best, at)) {
+            best = ov;
+            at = oi;
+        }
+    }
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (lane == 0) {
+        warp_v[warp] = best;
+        warp_i[warp] = at;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        for (int w = 1; w < kCatThreads / 32; ++w) {
+            if (beats(warp_v[w], warp_i[w], best, at)) {
+                best = warp_v[w];
+                at = warp_i[w];
+            }
+        }
+        block_v = best;
+        block_i = at;
+    }
+    cluster.sync();  // every block's winner is in its shared memory
+    if (rank == 0 && threadIdx.x == 0) {
+        for (unsigned r = 1; r < kCluster; ++r) {
+            const float rv = *cluster.map_shared_rank(&block_v, r);
+            const int64_t ri = *cluster.map_shared_rank(&block_i, r);
+            if (beats(rv, ri, best, at)) {
+                best = rv;
+                at = ri;
+            }
+        }
+        out[row] = static_cast<int32_t>(at);
+    }
+    cluster.sync();  // no block leaves while block 0 reads its shared memory
+}
+
+int blocks_for(int64_t n, int64_t rows) {
+    int64_t blocks = (n + kThreads - 1) / kThreads;
+    int64_t cap = (132 * 16) / (rows > 0 ? rows : 1);  // 16 blocks of 256 threads an SM, then grid-stride
+    if (cap < 1) cap = 1;
+    if (blocks > cap) blocks = cap;
+    return static_cast<int>(blocks < 1 ? 1 : blocks);
 }
 
 template <int kMode>
 cudaError_t launch(const uint32_t* key, const Path& path, uint64_t offset, int64_t n, float minval, float maxval,
                    void* out, cudaStream_t stream) {
-    int64_t blocks = (n + kThreads - 1) / kThreads;
-    if (blocks > 132 * 16) blocks = 132 * 16;  // 16 blocks of 256 threads an SM, then grid-stride
-    if (blocks < 1) blocks = 1;
-    threefry_kernel<kMode><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(key, path, offset, n, minval,
-                                                                                   maxval, out);
+    threefry_kernel<kMode><<<blocks_for(n, 1), kThreads, 0, stream>>>(key, path, offset, n, minval, maxval, out);
     return cudaGetLastError();
+}
+
+Path make_path(int n_path, int64_t d0, int64_t d1, int64_t d2, int64_t d3) {
+    return Path{n_path, {static_cast<uint64_t>(d0), static_cast<uint64_t>(d1), static_cast<uint64_t>(d2),
+                         static_cast<uint64_t>(d3)}};
 }
 
 }  // namespace
@@ -137,8 +315,7 @@ extern "C" int repro_threefry(const void* key, int n_path, int64_t d0, int64_t d
                               cudaStream_t stream) {
     if (n_path < 0 || n_path > kMaxPath || n < 0) return static_cast<int>(cudaErrorInvalidValue);
     if (n == 0) return 0;
-    Path path{n_path, {static_cast<uint64_t>(d0), static_cast<uint64_t>(d1), static_cast<uint64_t>(d2),
-                       static_cast<uint64_t>(d3)}};
+    const Path path = make_path(n_path, d0, d1, d2, d3);
     const uint32_t* k = static_cast<const uint32_t*>(key);
     const uint64_t off = static_cast<uint64_t>(offset);
     cudaError_t err;
@@ -148,7 +325,41 @@ extern "C" int repro_threefry(const void* key, int n_path, int64_t d0, int64_t d
         case kSortKey: err = launch<kSortKey>(k, path, off, n, minval, maxval, out, stream); break;
         case kUniform: err = launch<kUniform>(k, path, off, n, minval, maxval, out, stream); break;
         case kGumbel: err = launch<kGumbel>(k, path, off, n, minval, maxval, out, stream); break;
+        case kNormal: err = launch<kNormal>(k, path, off, n, minval, maxval, out, stream); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
     return static_cast<int>(err);
+}
+
+// ``rows`` Gumbel rows of ``n`` under the (rows, 2) keys, each folded by
+// d0..d3; ``out`` is (rows, n) float32.
+extern "C" int repro_threefry_rows(const void* keys, int64_t rows, int n_path, int64_t d0, int64_t d1, int64_t d2,
+                                   int64_t d3, int64_t n, void* out, cudaStream_t stream) {
+    if (n_path < 0 || n_path > kMaxPath || n < 0 || rows < 0 || rows > 65535)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (n == 0 || rows == 0) return 0;
+    const dim3 grid(blocks_for(n, rows), static_cast<unsigned>(rows));
+    threefry_rows_kernel<<<grid, kThreads, 0, stream>>>(static_cast<const uint32_t*>(keys),
+                                                        make_path(n_path, d0, d1, d2, d3), n,
+                                                        static_cast<float*>(out));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// ``out[b]`` (int32) = argmax_v gumbel(key folded by d0..d3, (B, V))[b, v]
+// + logits[b, v]; ``bf16`` says the logits are bfloat16 (else float32).
+extern "C" int repro_threefry_categorical(const void* key, int n_path, int64_t d0, int64_t d1, int64_t d2,
+                                          int64_t d3, const void* logits, int64_t B, int64_t V, int bf16,
+                                          void* out, cudaStream_t stream) {
+    if (n_path < 0 || n_path > kMaxPath || B < 0 || B > 65535 || V < 1 || V > INT32_MAX)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (B == 0) return 0;
+    const Path path = make_path(n_path, d0, d1, d2, d3);
+    const uint32_t* k = static_cast<const uint32_t*>(key);
+    const dim3 grid(kCluster, static_cast<unsigned>(B));
+    if (bf16) {
+        categorical_kernel<true><<<grid, kCatThreads, 0, stream>>>(k, path, logits, V, static_cast<int32_t*>(out));
+    } else {
+        categorical_kernel<false><<<grid, kCatThreads, 0, stream>>>(k, path, logits, V, static_cast<int32_t*>(out));
+    }
+    return static_cast<int>(cudaGetLastError());
 }

@@ -36,7 +36,11 @@ __all__ = [
     "e3cs_update_tiled_ref",
     "scalar_f32",
     "threefry_ref",
+    "threefry_rows_ref",
+    "categorical_ref",
+    "erf_inv_ref",
     "THREEFRY_MODES",
+    "NORMAL_LO",
 ]
 
 LAG_DEAD_CODE = 3  # 2-bit crumb sentinel of a client that never completes
@@ -232,32 +236,158 @@ def round_tail_ref(
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-THREEFRY_MODES = ("keys", "bits", "sortkey", "uniform", "gumbel")
+THREEFRY_MODES = ("keys", "bits", "sortkey", "uniform", "gumbel", "normal")
+NORMAL_LO = -0.99999994  # jax.random.normal's lower end, nextafter(-1, 0) in float32
+_SQRT2 = 1.41421354  # sqrt(2) in float32
+# XLA's float32 erf_inv (ErfInv32): Giles' coefficients for w < 5 and w >= 5
+_ERFINV_LT = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06, 0.00021858087, -0.00125372503,
+              -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GT = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773, -0.0076224613,
+              0.00943887047, 1.00167406, 2.83297682)
 
 
 def _threefry2x32(k0, k1, x0, x1):
     """JAX's threefry2x32 with 20 rounds (``jax._src.prng._threefry2x32_lowering``)
-    on int64 values in ``[0, 2**32)``, every sum taken ``& 0xFFFFFFFF``."""
+    on int32 tensors holding the uint32 words' bits: adds wrap as uint32
+    adds do, and a rotate masks the arithmetic right shift to a logical one."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    x0, x1 = (x0 + ks[0]) & _M32, (x1 + ks[1]) & _M32
+    x0, x1 = x0 + ks[0], x1 + ks[1]
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & _M32
-            x1 = x0 ^ (((x1 << r) | (x1 >> (32 - r))) & _M32)
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+            x0 = x0 + x1
+            x1 = ((x1 << r) | ((x1 >> (32 - r)) & ((1 << r) - 1))) ^ x0
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + ks[(i + 2) % 3] + (i + 1)
     return x0, x1
 
 
-def _as_int32(v: torch.Tensor) -> torch.Tensor:
-    """int64 values in ``[0, 2**32)`` as the int32 tensor of the same bits."""
+def _as_int32(v) -> torch.Tensor:
+    """Values in ``[0, 2**32)`` (an int64 tensor) as the int32 tensor of the
+    same bits."""
     return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
 
 
+def _word(d: int, device) -> torch.Tensor:
+    """A 32-bit word as a 0-d int32 tensor of its bits."""
+    d &= _M32
+    return torch.tensor(d - 2**32 if d >= 2**31 else d, dtype=torch.int32, device=device)
+
+
 def _float_bits(bits: torch.Tensor) -> torch.Tensor:
-    """``[0, 1)`` float32 from 32 random bits: the top 23 as the mantissa of
-    a float in ``[1, 2)``, minus 1 (``jax.random.uniform``)."""
-    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    """``[0, 1)`` float32 from 32 random bits (int32): the top 23 as the
+    mantissa of a float in ``[1, 2)``, minus 1 (``jax.random.uniform``)."""
+    return (((bits >> 9) & 0x7FFFFF) | 0x3F800000).view(torch.float32) - 1.0
+
+
+def erf_inv_ref(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv`` as its CPU backend evaluates it: Giles'
+    polynomial in ``w = -log1p(-x * x)`` (``w - 2.5`` below 5, ``sqrt(w) - 3``
+    above), each multiply-add rounded once (a float64 product and sum, both
+    exact but for the sum's one rounding, rounded to float32)."""
+    w = -torch.log1p(-(x * x))
+    small = w < 5.0
+
+    def coef(i):
+        return torch.where(small, torch.tensor(_ERFINV_LT[i], dtype=torch.float32, device=x.device),
+                           torch.tensor(_ERFINV_GT[i], dtype=torch.float32, device=x.device))
+
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).double()
+    p = coef(0)
+    for i in range(1, 9):
+        p = (coef(i).double() + p.double() * w).to(torch.float32)
+    return p * x
+
+
+# Counters the plain version hashes at a time on the CPU: an elementwise op
+# on fewer elements than ATen's grain size (32768) runs on the calling
+# thread, so the ~150 small ops of a hash do not wait on the intra-op thread
+# pool (on a loaded CPU each parallel op costs far more than its arithmetic).
+_CHUNK = 32768
+
+
+def _fold(k0, k1, path):
+    """The key words ``(k0, k1)`` (int32) folded by each of ``path``."""
+    for d in path:
+        k0, k1 = _threefry2x32(k0, k1, _word(int(d) >> 32, k0.device), _word(int(d), k0.device))
+    return k0, k1
+
+
+def _hash(k0, k1, offset: int, n: int):
+    """The pairs ``(a, b)`` (int32) of counters ``offset .. offset + n - 1``
+    under the key ``(k0, k1)`` (int32 words)."""
+    c = torch.arange(n, dtype=torch.int64, device=k0.device) + int(offset)
+    return _threefry2x32(k0, k1, _as_int32(c >> 32), _as_int32(c & _M32))
+
+
+def _chunked(k0, k1, path, offset: int, n: int, draw, width: int = 1, axis: int = 0) -> torch.Tensor:
+    """``draw(a, b)`` over counters ``offset .. offset + n - 1`` under the key
+    folded by ``path``, on the CPU ``_CHUNK // width`` counters at a time
+    (``width`` keys side by side), joined along ``axis``, the counters' axis
+    of ``draw``'s result."""
+    k0, k1 = _fold(k0, k1, path)
+    step = max(1, _CHUNK // width) if k0.device.type == "cpu" else max(n, 1)
+    parts = [draw(*_hash(k0, k1, offset + s, min(step, n - s))) for s in range(0, max(n, 1), step)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=axis)
+
+
+def _epilogue(a, b, mode: str, minval: float, maxval: float, device) -> torch.Tensor:
+    if mode == "keys":
+        return torch.stack([a, b], dim=-1)
+    bits = a ^ b
+    if mode == "bits":
+        return bits
+    if mode == "sortkey":
+        return bits ^ -(2**31)
+    if mode == "gumbel":
+        minval, maxval = torch.finfo(torch.float32).tiny, 1.0
+    elif mode == "normal":
+        minval, maxval = NORMAL_LO, 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=device)
+    span = torch.tensor(maxval, dtype=torch.float32, device=device) - lo
+    # one rounding of f * span + lo, as XLA's fused multiply-add takes it: the
+    # float64 product of two float32 is exact, and so is the sum where both
+    # ends lie within 2**-47 of each other's scale (every span and minval the
+    # port draws with)
+    fma = _float_bits(bits).double() * span.double() + lo.double()
+    u = torch.maximum(lo, fma.to(torch.float32))
+    if mode == "gumbel":
+        return -torch.log(-torch.log(u))
+    if mode == "normal":
+        return torch.tensor(_SQRT2, dtype=torch.float32, device=device) * erf_inv_ref(u)
+    return u
+
+
+def threefry_rows_ref(keys: torch.Tensor, path: tuple, n: int) -> torch.Tensor:
+    """The plain version of the kernel's rows entry: row ``j`` of the
+    ``(J, n)`` result is ``threefry_ref(keys[j], path, 0, n, "gumbel")``
+    (``keys`` a ``(J, 2)`` int32 tensor)."""
+    return _chunked(keys[:, :1], keys[:, 1:], path, 0, n,
+                    lambda a, b: _epilogue(a, b, "gumbel", 0.0, 1.0, keys.device), width=keys.shape[0], axis=1)
+
+
+def categorical_ref(key: torch.Tensor, path: tuple, logits: torch.Tensor) -> torch.Tensor:
+    """The plain version of the kernel's categorical entry, JAX's
+    ``categorical(key, logits)`` over the last axis of ``(B, V)`` logits:
+    ``argmax(gumbel(key, (B, V), logits.dtype) + logits, -1)`` as int32, ties
+    (and NaNs) to the lowest index.  Float32 logits take the ``"gumbel"``
+    epilogue's noise; bfloat16 logits JAX's bfloat16 Gumbel: the low 8 bits
+    of ``a ^ b``, their top 7 as the mantissa, each operation rounded to
+    bfloat16 (``_uniform`` draws 8 bits for a type of 7 mantissa bits)."""
+    B, V = logits.shape
+    if logits.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"categorical takes float32 or bfloat16 logits, got {logits.dtype}")
+    tiny = torch.tensor(torch.finfo(torch.bfloat16).tiny, dtype=torch.bfloat16, device=key.device)
+
+    def gumbel_bf16(a, b):
+        bits8 = (a ^ b) & 0xFF
+        f = ((bits8 >> 1) | 0x3F80).to(torch.int16).view(torch.bfloat16) - 1.0
+        u = torch.maximum(tiny, f * (1.0 - tiny) + tiny)
+        return -torch.log(-torch.log(u))
+
+    draw = gumbel_bf16 if logits.dtype == torch.bfloat16 else (
+        lambda a, b: _epilogue(a, b, "gumbel", 0.0, 1.0, key.device))
+    g = _chunked(key[0], key[1], path, 0, B * V, draw)
+    return torch.argmax(g.view(B, V) + logits, dim=-1).to(torch.int32)
 
 
 def threefry_ref(key: torch.Tensor, path: tuple, offset: int, n: int, mode: str, minval: float = 0.0,
@@ -271,31 +401,10 @@ def threefry_ref(key: torch.Tensor, path: tuple, offset: int, n: int, mode: str,
     the output: ``"keys"`` the ``(n, 2)`` int32 pairs (``split``),
     ``"bits"`` the ``(n,)`` int32 bits of ``a ^ b`` (32 random bits,
     partitionable mode), ``"sortkey"`` those bits minus ``2**31`` (their
-    unsigned order as int32), ``"uniform"`` float32 in ``[minval, maxval)``
-    and ``"gumbel"`` ``-log(-log(u))`` of ``u`` uniform in ``[tiny, 1)``."""
+    unsigned order as int32), ``"uniform"`` float32 in ``[minval, maxval)``,
+    ``"gumbel"`` ``-log(-log(u))`` of ``u`` uniform in ``[tiny, 1)`` and
+    ``"normal"`` ``sqrt(2) * erf_inv(u)`` of ``u`` uniform in ``[NORMAL_LO,
+    1)`` (``jax.random.normal``; ``erf_inv_ref``)."""
     if mode not in THREEFRY_MODES:
         raise ValueError(f"unknown threefry mode {mode!r} (want one of {THREEFRY_MODES})")
-    k = key.to(torch.int64) & _M32
-    k0, k1 = k[0], k[1]
-    for d in path:
-        k0, k1 = _threefry2x32(k0, k1, torch.tensor((int(d) >> 32) & _M32), torch.tensor(int(d) & _M32))
-    c = torch.arange(n, dtype=torch.int64, device=key.device) + int(offset)
-    a, b = _threefry2x32(k0, k1, c >> 32, c & _M32)
-    if mode == "keys":
-        return _as_int32(torch.stack([a, b], dim=-1))
-    bits = a ^ b
-    if mode == "bits":
-        return _as_int32(bits)
-    if mode == "sortkey":
-        return (bits - 2**31).to(torch.int32)
-    if mode == "gumbel":
-        minval, maxval = torch.finfo(torch.float32).tiny, 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    span = torch.tensor(maxval, dtype=torch.float32, device=key.device) - lo
-    # one rounding of f * span + lo, as XLA's fused multiply-add takes it: the
-    # float64 product of two float32 is exact, and so is the sum where both
-    # ends lie within 2**-47 of each other's scale (every span and minval the
-    # port draws with)
-    fma = _float_bits(bits).double() * span.double() + lo.double()
-    u = torch.maximum(lo, fma.to(torch.float32))
-    return -torch.log(-torch.log(u)) if mode == "gumbel" else u
+    return _chunked(key[0], key[1], path, offset, n, lambda a, b: _epilogue(a, b, mode, minval, maxval, key.device))

@@ -1,12 +1,17 @@
 """The threefry kernel's wrapper (``csrc/threefry.cu``): JAX's threefry2x32
 hash over a run of counters, under a key folded by up to four integers, with
 an epilogue by mode (``kernels.ref.threefry_ref`` says what each writes).
-``core.prng`` builds the JAX key stream on it.
+``core.prng`` builds the JAX key stream on it.  ``threefry_rows`` hashes J
+Gumbel rows under J keys in one launch, and ``threefry_categorical`` draws JAX's
+``categorical`` over ``(B, V)`` logits in one launch, the noise never
+written.
 
-On a CUDA tensor it launches the kernel or raises; on a CPU tensor it takes
-the plain version, ``threefry_ref``.  Its launches are counted by mode
-(``LAUNCHES``; ``kernels.launch_counts`` reports ``threefry.<mode>``): each
-epilogue is a kernel of its own.
+On a CUDA tensor each launches the kernel or raises; on a CPU tensor it
+takes the plain version (``threefry_ref``, ``threefry_rows_ref``,
+``categorical_ref``).  Launches are counted by mode, and the rows and
+categorical entries each by their own name (``LAUNCHES``;
+``kernels.launch_counts`` reports ``threefry.<mode>``, ``threefry.rows`` and
+``threefry.categorical``): each is a kernel of its own.
 """
 from __future__ import annotations
 
@@ -15,14 +20,21 @@ from types import SimpleNamespace
 import torch
 
 from ._build import check, launch, ptr, route
-from .ref import THREEFRY_MODES, threefry_ref
+from .ref import THREEFRY_MODES, categorical_ref, threefry_ref, threefry_rows_ref
 
-__all__ = ["threefry", "MAX_PATH", "LAUNCHES"]
+__all__ = ["threefry", "threefry_rows", "threefry_categorical", "MAX_PATH", "LAUNCHES"]
 
 MAX_PATH = 4  # folds a launch takes (the kernel's Path)
 _DTYPE = {"keys": torch.int32, "bits": torch.int32, "sortkey": torch.int32, "uniform": torch.float32,
-          "gumbel": torch.float32}
-LAUNCHES = {mode: SimpleNamespace(launches=0) for mode in THREEFRY_MODES}  # a count a mode
+          "gumbel": torch.float32, "normal": torch.float32}
+# a count a mode, and one for each of the rows and categorical entries
+LAUNCHES = {mode: SimpleNamespace(launches=0) for mode in THREEFRY_MODES + ("rows", "categorical")}
+
+
+def _folds(path: tuple) -> list:
+    if len(path) > MAX_PATH:
+        raise ValueError(f"a launch folds at most {MAX_PATH} integers, got {len(path)}")
+    return [len(path)] + [int(v) for v in path] + [0] * (MAX_PATH - len(path))
 
 
 def threefry(key: torch.Tensor, path: tuple, offset: int, n: int, mode: str, minval: float = 0.0,
@@ -35,8 +47,7 @@ def threefry(key: torch.Tensor, path: tuple, offset: int, n: int, mode: str, min
     itself (one block reads the key before any thread writes)."""
     if mode not in THREEFRY_MODES:
         raise ValueError(f"unknown threefry mode {mode!r} (want one of {THREEFRY_MODES})")
-    if len(path) > MAX_PATH:
-        raise ValueError(f"a launch folds at most {MAX_PATH} integers, got {len(path)}")
+    folds = _folds(path)
     shape = (n, 2) if mode == "keys" else (n,)
     if not route(key):
         res = threefry_ref(key, path, offset, n, mode, minval, maxval)
@@ -52,8 +63,49 @@ def threefry(key: torch.Tensor, path: tuple, offset: int, n: int, mode: str, min
         raise ValueError("threefry keys: out must be 8-byte aligned (one uint2 store a pair)")
     if out.data_ptr() == key.data_ptr() and not (mode == "keys" and n == 1):
         raise ValueError("threefry: out may be the key itself only for one key pair")
-    d = [int(v) for v in path] + [0] * (MAX_PATH - len(path))
-    launch("repro_threefry", key.device, ptr(key), len(path), *d, int(offset), int(n), THREEFRY_MODES.index(mode),
+    launch("repro_threefry", key.device, ptr(key), *folds, int(offset), int(n), THREEFRY_MODES.index(mode),
            float(minval), float(maxval), ptr(out))
     LAUNCHES[mode].launches += 1
+    return out
+
+
+def threefry_rows(keys: torch.Tensor, path: tuple, n: int, out: torch.Tensor = None) -> torch.Tensor:
+    """``(J, n)`` float32: row ``j`` is ``threefry(keys[j], path, 0, n,
+    "gumbel")`` (``keys`` a ``(J, 2)`` int32 tensor of key words on the
+    device), all J rows in one launch; into ``out`` when given."""
+    folds = _folds(path)
+    if keys.dim() != 2 or keys.shape[1] != 2:
+        raise ValueError(f"threefry rows: want (J, 2) keys, got {tuple(keys.shape)}")
+    J = keys.shape[0]
+    if not route(keys):
+        res = threefry_rows_ref(keys, path, n)
+        return res if out is None else out.copy_(res)
+    check(keys, "threefry rows keys", torch.int32, (J, 2), keys.device)
+    if out is None:
+        out = torch.empty((J, n), dtype=torch.float32, device=keys.device)
+    else:
+        check(out, "threefry rows out", torch.float32, (J, n), keys.device)
+    launch("repro_threefry_rows", keys.device, ptr(keys), J, *folds, int(n), ptr(out))
+    LAUNCHES["rows"].launches += 1
+    return out
+
+
+def threefry_categorical(key: torch.Tensor, path: tuple, logits: torch.Tensor) -> torch.Tensor:
+    """JAX's ``categorical(key, logits)`` over the last axis of ``(B, V)``
+    float32 or bfloat16 logits, ``key`` folded by ``path``: the ``(B,)``
+    int32 argmax of Gumbel noise plus logits, ties to the lowest index, in
+    one launch (``categorical_ref`` is its plain version)."""
+    folds = _folds(path)
+    if logits.dim() != 2 or logits.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"categorical: want (B, V) float32 or bfloat16 logits, got {logits.dtype} "
+                         f"{tuple(logits.shape)}")
+    if not route(key):
+        return categorical_ref(key, path, logits)
+    check(key, "categorical key", torch.int32, (2,), key.device)
+    B, V = logits.shape
+    check(logits, "categorical logits", logits.dtype, (B, V), key.device)
+    out = torch.empty(B, dtype=torch.int32, device=key.device)
+    launch("repro_threefry_categorical", key.device, ptr(key), *folds, ptr(logits), int(B), int(V),
+           int(logits.dtype == torch.bfloat16), ptr(out))
+    LAUNCHES["categorical"].launches += 1
     return out

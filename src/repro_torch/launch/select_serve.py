@@ -19,10 +19,12 @@ request queue -> batched engine step -> per-job cohort responses.
   the caller's process group, its whole horizon one runner of
   ``RoundProgram`` with the round taps and the client-axis sketches on.
 
-Each job's selection noise comes from its own generator
-(``engine.multi_job.job_generator(seed, j)``), so a job's stream does not
-depend on J; a fleet's volatility rows come from one fleet generator, as
-JAX splits one carried key.  Reports go through the port's ``Reporter``
+The noise is the JAX package's (``core.prng``): job ``j``'s round-``t``
+Gumbel row is ``gumbel(fold_in(split(PRNGKey(seed), J)[j], t), (K_max,))``,
+all J rows in one launch (``prng.rows``), and ``run_service_compiled``'s
+fleet lag rows come from a carried ``PRNGKey(seed + 1)``, split every tick;
+``run_service_sharded`` runs its horizon from ``PRNGKey(seed)``.  The same
+``seed`` gives the JAX package's cohorts.  Reports go through the port's ``Reporter``
 (``results/bench/torch/``).  The command line takes JAX's flags and
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path)::
 
@@ -57,11 +59,11 @@ import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
-from repro_torch.core.selection.sampling import gumbel_from_uniform
+from repro_torch.core import prng
 from repro_torch.core.volatility import BernoulliVolatility, BinaryLag, CompletionLag, paper_success_rates
-from repro_torch.core.volatility import row_shape, uniform_rows
+from repro_torch.core.volatility import row_shape
 from repro_torch.device import resolve_device
-from repro_torch.engine.multi_job import job_generator, make_multi_job, multi_job_init, pack_jobs, plain_batched_step
+from repro_torch.engine.multi_job import make_multi_job, multi_job_init, pack_jobs, plain_batched_step
 from repro_torch.engine.round_program import capture_step, staleness_ring_step
 from repro_torch.kernels import add_launch_counts
 from repro_torch.obs import ROUND_TAPS, Reporter, SketchSpec, SpanTimer
@@ -117,7 +119,7 @@ def run_service(
     _, batched_step = make_multi_job(k_max, n_iters=n_iters, tile=tile)
     state = multi_job_init(cfg)
     rhos = _fleet_rhos(Ks, K_max)
-    gens = [job_generator(seed, j, dev) for j in range(J)]
+    base_keys = prng.split_data(prng.PRNGKey(seed, dev), J)
 
     queue: collections.deque = collections.deque()  # (enqueue time, job id, feedback bits)
     spans = SpanTimer(lo=1e-6, hi=60.0)
@@ -144,14 +146,10 @@ def run_service(
         def feedback(t, j):
             return np.pad(unpack_trace(traces[j][t], Ks[j]), (0, K_max - Ks[j]))
 
-    def gumbel_rows(generators):
-        return gumbel_from_uniform(torch.stack([torch.rand(K_max, generator=g, device=dev) for g in generators]))
-
-    # one dispatch off the clock (on the card, the capture), its noise from a
-    # generator of its own so the jobs' streams are untouched
-    warm = torch.Generator(device=dev).manual_seed(0)
+    # one dispatch off the clock (on the card, the capture), under the keys
+    # of round ``rounds``, as in the JAX package; its state is dropped
     xs0 = torch.from_numpy(np.stack([feedback(0, j) for j in range(J)])).to(dev)
-    batched_step(cfg, state, gumbel_rows([warm] * J), xs0)
+    batched_step(cfg, state, prng.rows(base_keys, (rounds,), K_max), xs0)
     _sync(dev)
 
     t_start = time.perf_counter()
@@ -163,7 +161,7 @@ def run_service(
         batch = [queue.popleft() for _ in range(min(J, len(queue)))]
         with spans.span("feedback"):
             xs = torch.from_numpy(np.stack([b[2] for b in batch])).to(dev)
-            gs = gumbel_rows(gens)
+            gs = prng.rows(base_keys, (t,), K_max)
         with spans.span("dispatch", annotate=True):
             state, out = batched_step(cfg, state, gs, xs)
             _sync(dev)
@@ -204,17 +202,19 @@ def run_service(
 class _ServiceHorizon:
     """``run_service_compiled``'s ticks over static buffers.
 
-    A tick: the fleet's lag rows are drawn from the fleet generator and each
-    job's uniform row from its own (outside the graph, into static
-    buffers); then the lag model's ``sample``, the batched step on the
-    on-time bits, and the ``(J, S, K_max)`` staleness ring, writing the new
-    state, ring and the tick's per-job ``on_time`` and ``stale`` credit back
-    into the buffers.  On a CUDA device the first ``run`` warms the tick up
-    (a generator of its own) and captures it as a CUDA graph; every tick
-    after replays it (``run(eager=True)`` loops the tick eagerly instead, for
-    the check that both give the same bits).  ``reset`` starts a fresh
-    horizon: zero state and ring, the model's initial state, the generators
-    seeded again.
+    A tick ``t``: the fleet's lag rows are drawn under ``fold_in(key, 1)``
+    of the carried fleet key, which is then advanced (``key, k_vol =
+    split(key)``), and every job's Gumbel row under ``fold_in(base_key_j,
+    t)`` in one launch (outside the graph, into static buffers); then the
+    lag model's ``sample``, the batched step on the on-time bits, and the
+    ``(J, S, K_max)`` staleness ring, writing the new state, ring and the
+    tick's per-job ``on_time`` and ``stale`` credit back into the buffers.
+    On a CUDA device the first ``run`` warms the tick up and captures it as
+    a CUDA graph; every tick after replays it (``run(eager=True)`` loops the
+    tick eagerly instead, for the check that both give the same bits).
+    ``reset`` starts a fresh horizon: zero state and ring, the model's
+    initial state, the fleet key back at ``PRNGKey(seed + 1)`` and ``t`` at
+    0; a ``run`` after another resumes the horizon.
     """
 
     def __init__(self, cfg, k_max: int, lag_model, S: int, alpha: float, seed: int, n_iters: int, tile: int):
@@ -228,6 +228,8 @@ class _ServiceHorizon:
         self.vs = pytree.tree_map(lambda v: v.clone(), lag_model.init_state())
         self.raw_vol = [torch.empty(row_shape(n), dtype=torch.float32, device=self.dev) for n, _ in self.rows]
         self.raw_g = torch.empty((J, K_max), dtype=torch.float32, device=self.dev)
+        self.base_keys = prng.split_data(prng.PRNGKey(seed, self.dev), J)
+        self.key = torch.empty(2, dtype=torch.int32, device=self.dev)
         self.on_time = torch.zeros(J, dtype=torch.float32, device=self.dev)
         self.stale = torch.zeros(J, dtype=torch.float32, device=self.dev)
         self.graph, self.per_replay, self.warmup_s, self.capture_s = None, {}, None, None
@@ -238,19 +240,19 @@ class _ServiceHorizon:
             buf.zero_()
         for buf, v in zip(pytree.tree_leaves(self.vs), pytree.tree_leaves(self.lag_model.init_state())):
             buf.copy_(v)
-        self.fleet_gen = torch.Generator(device=self.dev).manual_seed(self.seed + 1)
-        self.job_gens = [job_generator(self.seed, j, self.dev) for j in range(self.raw_g.shape[0])]
+        self.key.copy_(prng.key_data(prng.PRNGKey(self.seed + 1, self.dev)))
+        self.tick = 0  # the next tick's t: a later run resumes the horizon where the last one stopped
 
-    def _draw(self, fleet, jobs) -> None:
-        for buf in self.raw_vol:
-            torch.rand(buf.shape, generator=fleet, out=buf)
-        for j, g in enumerate(jobs):
-            torch.rand(self.raw_g.shape[1], generator=g, out=self.raw_g[j])
+    def _draw(self, t: int) -> None:
+        for buf, path, (_, lo) in zip(self.raw_vol, self.lag_model.key_paths(), self.rows):
+            prng.uniform(prng.Key(self.key, (1,) + path), buf.shape, minval=lo, out=buf)
+        prng.advance_(self.key)
+        prng.rows(self.base_keys, (t,), self.raw_g.shape[1], out=self.raw_g)
 
     def _tick(self) -> None:
-        lag, vs = self.lag_model.sample(uniform_rows(self.raw_vol, self.rows), self.vs)
+        lag, vs = self.lag_model.sample(tuple(self.raw_vol), self.vs)
         x = (lag == 0).to(torch.float32)
-        state, out = self.batched(self.cfg, self.state, gumbel_from_uniform(self.raw_g), x)
+        state, out = self.batched(self.cfg, self.state, self.raw_g, x)
         mask = out["mask"]
         arriving, pending = staleness_ring_step(self.pending, mask, lag, self.S, self.alpha)
         self.stale.copy_(torch.sum(arriving, dim=1))
@@ -262,8 +264,7 @@ class _ServiceHorizon:
 
     def _capture(self) -> None:
         def warm_up():
-            warm = torch.Generator(device=self.dev).manual_seed(0)
-            self._draw(warm, [warm] * self.raw_g.shape[0])
+            self._draw(0)
             self._tick()
 
         self.graph, _, self.per_replay, self.warmup_s, self.capture_s = capture_step(self.dev, warm_up, self._tick)
@@ -279,7 +280,8 @@ class _ServiceHorizon:
         on_time = torch.empty((rounds, J), dtype=torch.float32, device=self.dev)
         stale = torch.empty((rounds, J), dtype=torch.float32, device=self.dev)
         for t in range(rounds):
-            self._draw(self.fleet_gen, self.job_gens)
+            self._draw(self.tick)
+            self.tick += 1
             if self.graph is not None and not eager:
                 self.graph.replay()
                 add_launch_counts(self.per_replay)
@@ -423,12 +425,12 @@ def run_service_sharded(
         if mesh.device.type == "cuda":
             torch.cuda.synchronize(mesh.device)
 
-    run(state0, seed)  # off the clock: on the card, the capture
+    run(state0, prng.PRNGKey(seed, mesh.device))  # off the clock: on the card, the capture
     sync()
     elapsed = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        out = run(state0, seed)
+        out = run(state0, prng.PRNGKey(seed, mesh.device))
         sync()
         elapsed.append(time.perf_counter() - t0)
     best = min(elapsed)

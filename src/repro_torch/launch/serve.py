@@ -10,12 +10,18 @@ prints the reference's JSON keys: ``arch``, ``prefill_s``,
 ``decode_tok_per_s``, ``generated_shape``, ``sample_tokens``.  Each timed
 span ends in a device synchronise on the card.
 
+The noise is the reference's, seed for seed (``core.prng``): parameters
+from ``PRNGKey(seed)``, the prompt ``randint(fold_in(rng, 1), (B, S), 0,
+vocab)``, patch embeddings ``normal(fold_in(rng, 2))`` and encoder frames
+``normal(fold_in(rng, 3))`` (``make_batch``).
+
 ``generate`` is the loop: the prefill sizes its caches for the ``gen``
 decode steps (the reference pads 64 slots and drops writes past them), the
-first token is the prefill's greedy choice,
-then each decode step picks ``argmax(logits / T + g)`` (the reference's
-``jax.random.categorical``) with ``g`` a Gumbel row drawn from
-``generator``, or taken from ``gumbel`` when given; ``T = 0`` is greedy.
+first token is the prefill's greedy choice, then decode step ``i`` samples
+``categorical(key_i, logits / T)`` with ``key_i = fold_in(key_{i-1}, i)``
+from ``key_{-1} = fold_in(rng, 7)`` (one fused launch a step, the
+``(B, vocab)`` noise never written), or picks ``argmax(logits / T + g)``
+with ``g = gumbel[i]`` when given; ``T = 0`` is greedy.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs import get_config, smoke_variant
+from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.models.transformer import vlm_positions
@@ -40,18 +47,19 @@ class Generation(NamedTuple):
     decode_s: float
 
 
-def make_batch(cfg, B: int, S: int, generator: torch.Generator):
-    """A prompt batch on the generator's device: ``S`` random tokens a row,
-    and the family's stub inputs (patch embeddings and M-RoPE positions,
-    encoder frames)."""
-    dev = generator.device
-    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=generator, device=dev, dtype=torch.int32)}
+def make_batch(cfg, B: int, S: int, rng: prng.Key):
+    """A prompt batch on the key's device, the reference's: ``S`` tokens a
+    row from ``randint(fold_in(rng, 1))``, and the family's stub inputs
+    (patch embeddings from ``normal(fold_in(rng, 2))`` and M-RoPE positions,
+    encoder frames from ``normal(fold_in(rng, 3))``)."""
+    dev = rng.device
+    batch = {"tokens": prng.randint(prng.fold_in(rng, 1), (B, S), 0, cfg.vocab, torch.int32)}
     if cfg.family == "vlm":
         P = cfg.n_patches
-        batch["patch_embeds"] = torch.randn((B, P, cfg.d_patch), generator=generator, device=dev)
+        batch["patch_embeds"] = prng.normal(prng.fold_in(rng, 2), (B, P, cfg.d_patch))
         batch["positions"] = vlm_positions(cfg, B, S + P, dev)
     if cfg.family == "encdec":
-        batch["frames"] = torch.randn((B, cfg.enc_len, cfg.d_model), generator=generator, device=dev)
+        batch["frames"] = prng.normal(prng.fold_in(rng, 3), (B, cfg.enc_len, cfg.d_model))
     return batch
 
 
@@ -60,10 +68,11 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def generate(model, params, batch, gen: int, temperature: float, *, generator: Optional[torch.Generator] = None,
+def generate(model, params, batch, gen: int, temperature: float, *, rng: Optional[prng.Key] = None,
              gumbel=None) -> Generation:
     """Prefill ``batch``, then ``gen`` decode steps.  ``gumbel[i]`` (B, vocab),
-    when given, is step ``i``'s noise; else it is drawn from ``generator``."""
+    when given, is step ``i``'s noise; else step ``i`` samples
+    ``categorical`` under the chained key from ``fold_in(rng, 7)``."""
     tokens = batch["tokens"]
     dev = tokens.device
     with torch.no_grad():
@@ -76,15 +85,17 @@ def generate(model, params, batch, gen: int, temperature: float, *, generator: O
         prefill_s = time.perf_counter() - t0
         outs = [tok]
         t0 = time.perf_counter()
+        key = prng.fold_in(rng, 7) if gumbel is None and temperature > 0 else None
         for i in range(gen):
             logits_i, caches = model.decode(params, tok, caches)
             if temperature > 0:
                 scaled = logits_i[:, -1] / temperature
                 if gumbel is not None:
                     g = torch.as_tensor(gumbel[i], device=dev)
+                    tok = torch.argmax(scaled + g.to(scaled.dtype), -1)[:, None].to(torch.int32)
                 else:
-                    g = -torch.empty(scaled.shape, device=dev).exponential_(generator=generator).log()
-                tok = torch.argmax(scaled + g.to(scaled.dtype), -1)[:, None].to(torch.int32)
+                    key = prng.Key(prng.key_data(prng.fold_in(key, i)))  # hashed now: the chain stays one fold long
+                    tok = prng.categorical(key, scaled)[:, None]
             else:
                 tok = torch.argmax(logits_i[:, -1:], -1).to(torch.int32)
             outs.append(tok)
@@ -111,10 +122,10 @@ def main(argv=None):
     if args.smoke:
         cfg = smoke_variant(cfg)
     model = build_model(cfg, window=args.window)
-    generator = torch.Generator(device=device).manual_seed(args.seed)
-    params, _ = model.init(generator)
-    batch = make_batch(cfg, args.batch, args.prompt_len, generator)
-    out = generate(model, params, batch, args.gen, args.temperature, generator=generator)
+    rng = prng.PRNGKey(args.seed, device)
+    params, _ = model.init(rng)
+    batch = make_batch(cfg, args.batch, args.prompt_len, rng)
+    out = generate(model, params, batch, args.gen, args.temperature, rng=rng)
     gen = out.tokens.cpu()
     result = {
         "arch": cfg.name,

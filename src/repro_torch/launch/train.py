@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.checkpoint import save
 from repro_torch.configs import FLConfig, get_config
+from repro_torch.core.prng import PRNGKey
 from repro_torch.data import ClientStore, make_image_dataset, partition_iid, partition_primary_label
 from repro_torch.device import resolve_device
 from repro_torch.fl import FLServer
@@ -101,7 +102,7 @@ def main(argv=None):
     )
     model, store, eval_fn = build_task(args.task, fl, device=args.device)
     srv = FLServer(model, fl, store, eval_fn, device=args.device)
-    state = srv.init_state(fl.seed)
+    state = srv.init_state(PRNGKey(fl.seed, srv.device))
     t0 = time.time()
     state, hist = srv.run(state, eval_every=args.eval_every)
     out = {

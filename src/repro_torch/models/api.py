@@ -3,10 +3,11 @@ families.
 
 ``build_model(cfg, window=0, impl="einsum")`` returns a ``Model`` with plain
 functions:
-    init(generator, device=None) -> (params, specs)   drawn from the generator
-                                                      onto its device (or onto
-                                                      ``device``; ``"meta"``
-                                                      allocates nothing)
+    init(rng, device=None) -> (params, specs)   drawn from ``rng``, a
+                                                ``core.prng.Key`` (the
+                                                reference's values), onto its
+                                                device (or onto ``device``;
+                                                ``"meta"`` allocates nothing)
     loss(params, batch, rng=None) -> (loss, metrics)
     forward(params, batch) -> logits
     prefill(params, batch, max_len=None) -> (logits, caches)
@@ -117,8 +118,8 @@ def build_model(cfg: ModelConfig, window: int = 0, impl: str = "einsum") -> Mode
 
 
 def _build_lm(cfg, window, impl):
-    def init(generator, device=None):
-        return tr.model_init(generator, cfg, device)
+    def init(rng, device=None):
+        return tr.model_init(rng, cfg, device)
 
     def loss(params, batch, rng=None):
         logits, _, (aux, mtp_logits) = tr.forward(params, cfg, batch, "train", window, impl)
@@ -156,8 +157,8 @@ def _build_lm(cfg, window, impl):
 
 
 def _build_encdec(cfg, window):
-    def init(generator, device=None):
-        return encdec_mod.encdec_init(generator, cfg, device)
+    def init(rng, device=None):
+        return encdec_mod.encdec_init(rng, cfg, device)
 
     def loss(params, batch, rng=None):
         logits, _, _ = encdec_mod.encdec_forward(params, cfg, batch, "train", window)
@@ -187,8 +188,8 @@ def _build_encdec(cfg, window):
 def _build_cnn(cfg):
     module = cnn_mod.PaperCNN(cfg)
 
-    def init(generator):
-        return cnn_mod.cnn_init(generator, cfg)
+    def init(rng):
+        return cnn_mod.cnn_init(rng, cfg)
 
     def forward(params, batch):
         with cnn_mod.fp32_convs():

@@ -64,14 +64,19 @@ def cnn_param_shapes(cfg) -> dict:
     }
 
 
-def cnn_init(generator: torch.Generator, cfg):
+def cnn_init(rng, cfg):
     """``(params, specs)``: weights normal at ``1/sqrt(fan_in)``, biases
-    zero, drawn from ``generator`` on its device."""
-    pb = ParamBuilder(generator, torch.float32)
+    zero, drawn from ``rng`` (a ``core.prng.Key``: the reference's values)
+    on its device.  A conv kernel is drawn in the reference's HWIO layout,
+    then laid out OIHW."""
+    pb = ParamBuilder(rng, torch.float32)
     for name, (shape, fan_in) in cnn_param_shapes(cfg).items():
         axes = (None,) * len(shape)
         if fan_in is None:
             pb.p(name, shape, axes, init="zeros")
+        elif len(shape) == 4:
+            o, i, h, w = shape
+            pb.params[name] = pb.p(name, (h, w, i, o), axes, fan_in=fan_in).permute(3, 2, 0, 1).contiguous()
         else:
             pb.p(name, shape, axes, fan_in=fan_in)
     return pb.params, pb.specs

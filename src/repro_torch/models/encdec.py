@@ -40,16 +40,18 @@ def _dec_block_init(pb: ParamBuilder, cfg):
     mlp_init(pb.child("ffn"), cfg.d_model, cfg.d_ff, cfg.act)
 
 
-def encdec_init(generator, cfg, device=None):
-    """``(params, specs)`` drawn from ``generator`` onto ``device`` (the
-    generator's unless given; ``"meta"`` allocates nothing)."""
-    pb = ParamBuilder(generator, torch_dtype(cfg.param_dtype), device)
+def encdec_init(rng, cfg, device=None):
+    """``(params, specs)`` drawn from ``rng`` (a ``core.prng.Key``: the
+    reference's values, the encoder's stack under ``fold_in(rng, 1)`` and
+    the decoder's under ``fold_in(rng, 2)``) onto ``device`` (the key's
+    unless given; ``"meta"`` allocates nothing)."""
+    pb = ParamBuilder(rng, torch_dtype(cfg.param_dtype), device)
     pb.p("tok_emb", (cfg.vocab, cfg.d_model), ("vocab", "embed"), init="embed")
     pb.p("dec_pos", (_MAX_DEC_POS, cfg.d_model), (None, "embed"), init="embed")
     norm_init(pb, "enc_final", cfg.d_model, cfg.norm)
     norm_init(pb, "dec_final", cfg.d_model, cfg.norm)
-    _enc_block_init(pb.child("enc", stack=cfg.n_enc_layers), cfg)
-    _dec_block_init(pb.child("dec", stack=cfg.n_layers), cfg)
+    _enc_block_init(pb.child("enc", stack=cfg.n_enc_layers, fold=1), cfg)
+    _dec_block_init(pb.child("dec", stack=cfg.n_layers, fold=2), cfg)
     return pb.params, pb.specs
 
 

@@ -16,6 +16,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import prng
+from repro_torch.core.prng import Key
+
 from .sharding import einsum, shard
 
 __all__ = [
@@ -37,31 +40,68 @@ __all__ = [
 class ParamBuilder:
     """Creates parameters and records their logical sharding axes.
 
-    ``pb = ParamBuilder(generator, dtype)`` then
+    ``pb = ParamBuilder(rng, dtype)`` then
     ``w = pb.p("wq", (d, H, hd), ("embed", "q_heads", "head_dim"), fan_in=d)``.
-    ``pb.params`` / ``pb.specs`` hold mirrored dicts.  Random inits draw, in
-    the order the parameters are made, from ``generator`` (the JAX package
-    folds a counter into its key instead: the draws differ, their law does
-    not) onto ``device``, the generator's unless given.  On the ``meta``
-    device nothing is drawn: the tree has its shapes and dtypes and no memory.
+    ``pb.params`` / ``pb.specs`` hold mirrored dicts, on ``device`` (the
+    ``rng``'s unless given).  On the ``meta`` device nothing is drawn: the
+    tree has its shapes and dtypes and no memory.
+
+    ``rng`` is a ``core.prng.Key``: the JAX package's draws.  Each random
+    parameter, and each child, takes the builder's next count ``n`` and the
+    key ``fold_in(rng, n)``; a parameter is ``prng.normal(key, shape)``
+    cast to ``dtype`` and then scaled in ``dtype``, as the reference's
+    builder does it.  ``child(name, fold=f)`` takes ``fold_in(rng, f)``
+    instead and leaves the count alone (the reference's segment and
+    encoder/decoder keys).  A ``torch.Generator`` draws ``torch.randn`` in
+    the order the parameters are made instead (the port's Philox stream;
+    a caller asks for it by passing one).
 
     ``stack=n`` makes every parameter a stack of ``n`` layers, ``(n, *shape)``
     with ``"layers"`` first in its axes, as the reference's ``vmap``-ed init
-    does.  A stack, and the leading ``experts`` axis of an MoE weight, is
-    drawn one block at a time in float32 and written into the preallocated
-    tensor in ``dtype``: no whole stack is ever held in float32.
+    does: layer ``i`` draws under ``fold_in(rng, i)`` first (the reference's
+    ``split(rng, n)[i]``), then the counts.  A stack, and the leading
+    ``experts`` axis of an MoE weight, is drawn one block at a time in
+    float32 (a block of JAX's one draw: ``prng.normal(..., start=)``) and
+    written into the preallocated tensor in ``dtype``: no whole stack is
+    ever held in float32.
     """
 
-    def __init__(self, generator: Optional[torch.Generator], dtype=torch.float32, device=None, stack: int = 0):
-        self.generator = generator
-        self.device = torch.device(device) if device is not None else generator.device
+    def __init__(self, rng, dtype=torch.float32, device=None, stack: int = 0, path: Tuple[int, ...] = ()):
+        self.rng = rng
+        self.device = torch.device(device) if device is not None else rng.device
         self.dtype = dtype
         self.stack = stack
+        self.path = tuple(path)  # the folds after a stack's layer index, on a Key
         self.params: Dict = {}
         self.specs: Dict = {}
+        self._n = 0
+
+    def _jax(self) -> bool:
+        return isinstance(self.rng, Key)
+
+    def _next(self) -> Tuple[int, ...]:
+        self._n += 1
+        return self.path + (self._n,)
+
+    def _key(self, path: Tuple[int, ...], layer: Optional[int] = None) -> Key:
+        key = self.rng
+        for d in ((layer,) if layer is not None else ()) + path:
+            key = prng.fold_in(key, d)
+        return key
+
+    def _fill(self, dst: torch.Tensor, key, std: float, experts: bool) -> None:
+        """``dst`` (one layer) from ``key``, an expert at a time when
+        ``experts``: JAX's ``normal(key, shape).astype(dtype) * std``."""
+        scale = torch.tensor(std, dtype=self.dtype, device=self.device)
+        if not experts:
+            dst.copy_(prng.normal(key, tuple(dst.shape)).to(self.dtype) * scale)
+            return
+        block = math.prod(dst.shape[1:])
+        for e in range(dst.shape[0]):
+            dst[e] = prng.normal(key, tuple(dst.shape[1:]), start=e * block).to(self.dtype) * scale
 
     def _normal(self, shape) -> torch.Tensor:
-        return torch.randn(shape, generator=self.generator, dtype=torch.float32, device=self.device).to(self.dtype)
+        return torch.randn(shape, generator=self.rng, dtype=torch.float32, device=self.device).to(self.dtype)
 
     def p(self, name, shape, axes, init="normal", fan_in=None, scale=None):
         assert len(shape) == len(axes), (name, shape, axes)
@@ -76,8 +116,14 @@ class ParamBuilder:
             else:
                 std = scale or 0.02
             v = torch.empty(full, dtype=self.dtype, device=self.device)
-            if self.device.type != "meta":
-                lead = (1 if self.stack else 0) + (1 if axes and axes[0] == "experts" else 0)
+            experts = bool(axes) and axes[0] == "experts"
+            if self._jax():
+                path = self._next()
+                if self.device.type != "meta":
+                    for layer in range(self.stack) if self.stack else (None,):
+                        self._fill(v if layer is None else v[layer], self._key(path, layer), std, experts)
+            elif self.device.type != "meta":
+                lead = (1 if self.stack else 0) + (1 if experts else 0)
                 for idx in itertools.product(*(range(n) for n in full[:lead])):
                     v[idx] = self._normal(full[lead:]) * std
         else:
@@ -86,10 +132,25 @@ class ParamBuilder:
         self.specs[name] = (("layers",) if self.stack else ()) + tuple(axes)
         return v
 
-    def child(self, name, stack: Optional[int] = None) -> "ParamBuilder":
-        pb = ParamBuilder(self.generator, self.dtype, self.device, self.stack if stack is None else stack)
-        self.params[name] = pb.params
-        self.specs[name] = pb.specs
+    def child(self, name, stack: Optional[int] = None, fold: Optional[int] = None) -> "ParamBuilder":
+        """A builder of parameters nested under ``name`` (kept apart when
+        ``name`` is None): its key is the next count's, or ``fold_in(rng,
+        fold)`` with ``fold``; ``stack`` starts a stack (``fold`` given, this
+        builder unstacked: the reference's ``split(fold_in(rng, fold), n)``)."""
+        stack = self.stack if stack is None else stack
+        if not self._jax():
+            pb = ParamBuilder(self.rng, self.dtype, self.device, stack)
+        elif fold is None:
+            if stack != self.stack:
+                raise ValueError("a stack starts from a fold of its own (child(..., fold=))")
+            pb = ParamBuilder(self.rng, self.dtype, self.device, stack, self._next())
+        elif self.stack:
+            raise ValueError("a stacked builder's children take its counts, not folds")
+        else:
+            pb = ParamBuilder(self._key(self.path + (int(fold),)), self.dtype, self.device, stack)
+        if name is not None:
+            self.params[name] = pb.params
+            self.specs[name] = pb.specs
         return pb
 
 

@@ -15,7 +15,7 @@ are recomputed in the backward; under no gradient it is the plain layer, so
 the serving path (prefill, decode, a ``forward`` without grad) is untouched.
 
 Entry points:
-  * ``model_init(generator, cfg, device)``        -> (params, specs)
+  * ``model_init(rng, cfg, device)``              -> (params, specs)
   * ``forward(params, cfg, batch, mode)``         -> logits, caches, (aux, mtp_logits)
   * ``decode_step(params, cfg, tokens, caches)``  -> logits, caches
   * ``init_caches(cfg, B, S_cache, window)``      -> cache dict
@@ -88,10 +88,11 @@ def _block_init(pb: ParamBuilder, cfg, kind: str):
         mlp_init(pb.child("ffn"), cfg.d_model, d_ff, cfg.act)
 
 
-def _stack_init(pb: ParamBuilder, name: str, cfg, kind: str, n: int):
+def _stack_init(pb: ParamBuilder, name: str, cfg, kind: str, n: int, fold: int):
     """Segment ``name``: ``n`` blocks of ``kind``, each parameter stacked
-    along a leading ``layers`` axis and drawn a layer at a time."""
-    _block_init(pb.child(name, stack=n), cfg, kind)
+    along a leading ``layers`` axis and drawn a layer at a time, under
+    ``fold_in(rng, fold)``."""
+    _block_init(pb.child(name, stack=n, fold=fold), cfg, kind)
 
 
 # ---------------------------------------------------------------- blocks ---
@@ -130,11 +131,12 @@ def _block_apply(p, x, cfg, kind: str, positions, mode: str, window: int, cache,
 # ---------------------------------------------------------------- model ----
 
 
-def model_init(generator, cfg, device=None):
+def model_init(rng, cfg, device=None):
     """``(params, specs)``: the reference's tree (names, nesting, shapes,
-    dtypes and logical axes), drawn from ``generator`` onto ``device`` (the
-    generator's unless given; ``"meta"`` allocates nothing)."""
-    pb = ParamBuilder(generator, torch_dtype(cfg.param_dtype), device)
+    dtypes and logical axes), drawn from ``rng`` (a ``core.prng.Key``: the
+    reference's values; see ``layers.ParamBuilder``) onto ``device`` (the
+    key's unless given; ``"meta"`` allocates nothing)."""
+    pb = ParamBuilder(rng, torch_dtype(cfg.param_dtype), device)
     pb.p("tok_emb", (cfg.vocab, cfg.d_model), ("vocab", "embed"), init="embed")
     if not cfg.tie_embeddings:
         pb.p("out_head", (cfg.d_model, cfg.vocab), ("embed", "vocab"), fan_in=cfg.d_model)
@@ -145,11 +147,14 @@ def model_init(generator, cfg, device=None):
         pb.p("mtp_proj", (2 * cfg.d_model, cfg.d_model), (None, "embed"), fan_in=2 * cfg.d_model)
         norm_init(pb, "mtp_norm", cfg.d_model, cfg.norm)
     for si, (kind, n) in enumerate(segments_of(cfg)):
-        _stack_init(pb, f"seg{si}", cfg, kind, n)
+        _stack_init(pb, f"seg{si}", cfg, kind, n, fold=1000 + si)
     if cfg.family == "hybrid":
-        spb = pb.child("shared_attn")
+        spb = pb.child("shared_attn", fold=777)
         _block_init(spb, cfg, "attn_mlp")
-        spb.p("w_concat", (2 * cfg.d_model, cfg.d_model), (None, "embed"), fan_in=2 * cfg.d_model)
+        wpb = pb.child(None, fold=778)
+        wpb.p("w_concat", (2 * cfg.d_model, cfg.d_model), (None, "embed"), fan_in=2 * cfg.d_model)
+        spb.params.update(wpb.params)
+        spb.specs.update(wpb.specs)
     return pb.params, pb.specs
 
 

@@ -1,9 +1,11 @@
 """Selector x scenario evaluation grid (the port of
 ``repro.scenarios.harness``).
 
-``run_grid`` runs every (selector, scenario) cell through the whole-horizon
-runner (``engine.scan_sim``, the scenario's model carried in the captured
-round step); with ``staleness=S`` each cell also runs the async round on the
+Every entry point runs on the JAX package's key stream (``core.prng``): the
+same ``seed`` gives the JAX package's rows.  ``run_grid`` runs every
+(selector, scenario) cell through the whole-horizon runner
+(``engine.scan_sim``, the scenario's model carried in the captured round
+step); with ``staleness=S`` each cell also runs the async round on the
 same scenario wrapped in ``CompletionLag`` and reports the staleness-aware
 CEP.  ``run_grid_multi_job`` maps the scenario axis onto the batched
 multi-tenant engine (``engine.multi_job``): one E3CS row a scenario, one
@@ -18,11 +20,11 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.fairness import cep, gini, jain_index, selection_entropy, success_ratio, top_share
-from repro_torch.core.selection.sampling import gumbel_from_uniform
 from repro_torch.core.volatility import CompletionLag
 from repro_torch.device import resolve_device
-from repro_torch.engine.multi_job import job_generator, make_multi_job, multi_job_init, pack_jobs
+from repro_torch.engine.multi_job import make_multi_job, multi_job_init, pack_jobs
 from repro_torch.engine.scan_sim import async_selection_sim, scan_selection_sim
 
 from .registry import make_scenario
@@ -126,11 +128,13 @@ def run_grid(
 def run_grid_multi_job(scenarios: Sequence[str], K: int = 100, k: int = 20, T: int = 300, seed: int = 0,
                        sigma_frac: float = 0.5, eta: float = 0.5, device=None) -> List[Dict[str, float]]:
     """E3CS against every scenario in one batched engine: job j is scenario
-    j.  Each round every scenario's model draws its ``(K,)`` success bits
-    from its own stream (``SeedSequence([seed + 1, j])``; the models' states
-    differ, so they step one by one), the rows are stacked, and one batched
-    step advances all J selectors, each job's Gumbel row from its own
-    stream (``SeedSequence([seed, j])``)."""
+    j.  Each round ``t`` every scenario's model draws its ``(K,)`` success
+    bits under ``fold_in(vol_keys[j], t)`` (the models' states differ, so
+    they step one by one), the rows are stacked, and one batched step
+    advances all J selectors, job ``j``'s Gumbel row under
+    ``fold_in(base_keys[j], t)`` (one launch for the J rows); ``base_keys``
+    and ``vol_keys`` are ``split(PRNGKey(seed), J)`` and ``split(PRNGKey(seed
+    + 1), J)``, as in the JAX package."""
     dev = resolve_device(device)
     J = len(scenarios)
     cfg, k_max = pack_jobs([K] * J, [k] * J, [sigma_frac] * J, [eta] * J, device=dev)
@@ -138,18 +142,17 @@ def run_grid_multi_job(scenarios: Sequence[str], K: int = 100, k: int = 20, T: i
     state = multi_job_init(cfg)
     vols = [make_scenario(sc, K, T, seed, device=dev)[0] for sc in scenarios]
     vol_states = [v.init_state() for v in vols]
-    vol_gens = [job_generator(seed + 1, j, dev) for j in range(J)]
-    sel_gens = [job_generator(seed, j, dev) for j in range(J)]
+    base_keys = prng.split_data(prng.PRNGKey(seed, dev), J)
+    vol_keys = prng.split(prng.PRNGKey(seed + 1, dev), J)
     ceps = torch.zeros(J, dtype=torch.float32, device=dev)
     counts = torch.zeros((J, K), dtype=torch.float32, device=dev)
-    for _ in range(T):
+    for t in range(T):
         xs_rows = []
         for j, vol in enumerate(vols):
-            x, vol_states[j] = vol.sample(vol.draw(vol_gens[j]), vol_states[j])
+            x, vol_states[j] = vol.sample(vol.draw(prng.fold_in(vol_keys[j], t)), vol_states[j])
             xs_rows.append(x)
         xs = torch.stack(xs_rows)
-        gs = gumbel_from_uniform(torch.stack([torch.rand(K, generator=g, device=dev) for g in sel_gens]))
-        state, out = batched(cfg, state, gs, xs)
+        state, out = batched(cfg, state, prng.rows(base_keys, (t,), K), xs)
         ceps += (out["mask"] * xs).sum(1)
         counts += out["mask"]
     rows = []
@@ -172,21 +175,22 @@ def run_replay(
     seed: int = 0, frac: float = 0.5, chunk: int = 256, pow_d: int = 40,
     device=None,
 ):
-    """Record the scenario once (bit-packed, from a generator stream apart
-    from the selectors'), then run each selector on the frozen trace: every
-    selector sees identical bits.  ``selector`` is one
+    """Record the scenario once (bit-packed), then run each selector on the
+    frozen trace: every selector sees identical bits.  ``selector`` is one
     scheme name (returns ``(row, packed)``) or a sequence of them (returns
-    ``(rows, packed)``); ``pow_d`` is power-of-choice's candidate-set size."""
+    ``(rows, packed)``); ``pow_d`` is power-of-choice's candidate-set size.
+
+    Both the recording and the selectors run from ``PRNGKey(seed)``, as in
+    the JAX package, and so share its keys: round ``t``'s recorded rows
+    come from ``fold_in(key_t, 1)``, and so does an E3CS selector's Gumbel
+    row (``split(key, 3)[1]``), where ``key_t`` is the key both carry
+    after ``t`` rounds (``fold_in(., 0)`` a round in both).  The reference
+    correlates the two this way, and the port copies it."""
     single = isinstance(selector, str)
     selectors = (selector,) if single else tuple(selector)
     dev = resolve_device(device)
     vol, rho = make_scenario(scenario, K, T, seed, device=dev)
-    # the recording draws from a stream of its own: recorded with ``seed``,
-    # its model rows would be the selection rows the replay then draws from
-    # ``seed`` (each round's first row), so a selector's noise would be the
-    # trace's (the JAX package's keys correlate the same way, see ROADMAP §C)
-    record_seed = int(np.random.SeedSequence([seed, 1]).generate_state(1)[0])
-    packed = record_trace(vol, T, seed=record_seed, chunk=min(chunk, T), device=dev)
+    packed = record_trace(vol, T, seed=seed, chunk=min(chunk, T), device=dev)
     rows = []
     for sel in selectors:
         out = scan_selection_sim(sel, K=K, k=k, T=T, frac=frac, seed=seed, rho=rho, packed_override=packed,

@@ -11,7 +11,8 @@ writes ``<path>.npy`` and a ``<path>.meta.json`` sidecar ``{"kind":
 
 ``record_trace`` and ``record_lag_trace`` roll a model forward on the device
 in chunks of rounds, packing each round's row there, so a chunk's packed
-rows are all that cross to the host.  ``ReplayVolatility`` and ``ReplayLag``
+rows are all that cross to the host; a round's rows come from the JAX
+package's keys (``core.prng``), so ``seed`` records the JAX package's trace.  ``ReplayVolatility`` and ``ReplayLag``
 replay a trace through the draw protocol: the state is the round index, and
 each round's row decodes through the kernel wrappers ``unpack_bits`` and
 ``unpack_crumbs``.  ``replay_packed_stream`` streams a saved trace from disk
@@ -25,6 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.core.prng import Key, PRNGKey, advance_, key_data
 from repro_torch.core.volatility import DEAD_LAG, _Model
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ref import LAG_DEAD_CODE
@@ -103,19 +105,22 @@ def _chunked_marginal(packed: np.ndarray, K: int, expand, T: int | None = None, 
 
 
 def _record(model, T: int, seed: int, chunk: int, device, pack) -> np.ndarray:
-    """Roll ``model`` forward ``T`` rounds on ``device`` (its rows from one
-    generator seeded with ``seed``), pack each round with ``pack`` and copy
-    the packed rows to the host a chunk at a time."""
+    """Roll ``model`` forward ``T`` rounds on ``device`` on the JAX package's
+    keys (``key, k2 = split(key)`` a round from ``PRNGKey(seed)``, the
+    model's rows from ``k2``; the key carried on the device), pack each
+    round with ``pack`` and copy the packed rows to the host a chunk at a
+    time."""
     dev = resolve_device(device)
     model = model.to(dev)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    key = key_data(PRNGKey(seed, dev)).clone()
     vs = model.init_state()
     chunks, done = [], 0
     while done < T:
         n = min(chunk, T - done)
         rows = []
         for _ in range(n):
-            out, vs = model.sample(model.draw(gen), vs)
+            out, vs = model.sample(model.draw(Key(key, (1,))), vs)
+            advance_(key)
             rows.append(pack(out))
         chunks.append(torch.stack(rows).cpu().numpy())
         done += n
@@ -307,8 +312,9 @@ def replay_packed_stream(
 
     A ``"bits"`` trace replays through the synchronous round, a ``"lags"``
     trace through the async round (``staleness`` defaults to 2, the most a
-    2-bit trace holds).  The state, the generator state and (async) the
-    rings carry across chunks, so a chunked replay equals a one-shot one.
+    2-bit trace holds).  The noise is the JAX package's from
+    ``PRNGKey(seed)``; the state, the key and (async) the rings carry across
+    chunks, so a chunked replay equals a one-shot one.
     Returns the lean outputs as numpy (per-round scalars and final counts;
     async adds ``on_time``, ``stale`` and ``cep``; ``rho`` when it was
     computed (``fedcs``) or supplied); ``taps=True`` adds ``"taps"``
@@ -348,7 +354,7 @@ def replay_packed_stream(
         if T % chunk
         else None
     )
-    key = seed
+    key = PRNGKey(seed, dev)
     carried = ((program.init_rings(),) if is_lags else ()) + ((ROUND_TAPS.init_counters(dev),) if taps else ())
     cols, rows = [], []
     for lo in range(0, T, chunk):

@@ -20,6 +20,7 @@ from repro.models import build_model as jbuild_model
 from repro.models.transformer import vlm_positions as jvlm_positions
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.convert import lm_params_from_jax
+from repro_torch.core import prng
 from repro_torch.launch import serve
 from repro_torch.models import build_model
 
@@ -95,8 +96,8 @@ def test_main_prints_jax_keys(capsys, monkeypatch):
 
 
 def test_main_is_seeded():
-    """Sampling draws from the seed's generator: the same seed generates the
-    same tokens, another seed others."""
+    """Sampling draws from the seed's keys: the same seed generates the same
+    tokens, another seed others."""
     args = ["--arch", "gemma-2b", "--smoke", "--batch", str(B), "--prompt-len", str(S), "--gen", str(GEN),
             "--device", "cpu"]
     a, b = serve.main(args), serve.main(args)
@@ -107,9 +108,9 @@ def test_main_is_seeded():
 @pytest.mark.parametrize("arch", ["qwen2-vl-72b", "whisper-base", "stablelm-1.6b"])
 def test_make_batch_inputs(arch):
     """The prompt batch holds the family's stub inputs at JAX's shapes and
-    dtypes, on the generator's device."""
+    dtypes, on the key's device."""
     cfg = smoke_variant(get_config(arch))
-    batch = serve.make_batch(cfg, B, S, torch.Generator().manual_seed(0))
+    batch = serve.make_batch(cfg, B, S, prng.PRNGKey(0, "cpu"))
     assert batch["tokens"].shape == (B, S) and batch["tokens"].dtype == torch.int32
     assert int(batch["tokens"].max()) < cfg.vocab
     if cfg.family == "vlm":
@@ -126,7 +127,7 @@ def test_generate_sizes_the_cache_for_its_steps():
     caches are sized for them, so nothing decodes past its cache."""
     cfg = smoke_variant(get_config("llama3-405b"))
     model = build_model(cfg)
-    gen = torch.Generator().manual_seed(0)
-    params, _ = model.init(gen)
-    out = serve.generate(model, params, serve.make_batch(cfg, 1, 4, gen), 70, 0.0)
+    key = prng.PRNGKey(0, "cpu")
+    params, _ = model.init(key)
+    out = serve.generate(model, params, serve.make_batch(cfg, 1, 4, key), 70, 0.0)
     assert out.tokens.shape == (1, 71)

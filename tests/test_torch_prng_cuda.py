@@ -2,7 +2,11 @@
 the card, and the JAX key stream's runner on the card against the same
 runner on the CPU.  Bits, sort keys, uniforms, key pairs and the in-place
 advance are equal; Gumbel rows within ``NOISE_ATOL`` (``logf`` against
-ATen's ``log``).  A horizon from the same JAX key carries out the same key
+ATen's ``log``), normal rows within ``NORMAL_ATOL`` (CUDA's ``log1pf``
+against ATen's ``log1p``, two float32 ulps at the largest normal).  The
+rows entry (J Gumbel rows under J keys) is held to ``threefry_rows_ref`` the
+same way, and the fused ``categorical`` to ``categorical_ref`` exactly, float32
+and bfloat16, with exact ties, ``-inf`` rows and NaNs.  A horizon from the same JAX key carries out the same key
 and selects the same cohorts (no round of these has a client within
 ``NOISE_ATOL`` of its k-th score).
 
@@ -17,10 +21,11 @@ from repro_torch.configs import FLConfig
 from repro_torch.core import prng
 from repro_torch.core.volatility import CompletionLag, make_volatility, paper_success_rates
 from repro_torch.engine import RoundProgram
-from repro_torch.kernels import launch_counts, threefry
-from repro_torch.kernels.ref import threefry_ref
+from repro_torch.kernels import launch_counts, threefry, threefry_categorical, threefry_rows
+from repro_torch.kernels.ref import NORMAL_LO, categorical_ref, threefry_ref, threefry_rows_ref
 
 NOISE_ATOL = 2e-6
+NORMAL_ATOL = 1e-6
 
 
 @pytest.fixture(scope="module")
@@ -31,16 +36,50 @@ def dev():
 
 
 @pytest.mark.parametrize("n", [1, 3, 1000, 65537, 1_000_003])
-@pytest.mark.parametrize("mode", ["keys", "bits", "sortkey", "uniform", "gumbel"])
+@pytest.mark.parametrize("mode", ["keys", "bits", "sortkey", "uniform", "gumbel", "normal"])
 def test_threefry_kernel_equals_its_plain_version(dev, mode, n):
     key = prng.PRNGKey(2024, dev).data
     for path, offset in (((), 0), ((5,), 7), ((1, 2**33 + 1, 3, 4), 2**32 - 3)):
         got = threefry(key, path, offset, n, mode, 1e-7 if mode == "uniform" else 0.0, 1.0)
         want = threefry_ref(key, path, offset, n, mode, 1e-7 if mode == "uniform" else 0.0, 1.0)
-        if mode == "gumbel":
-            assert float((got - want).abs().max()) <= NOISE_ATOL
+        if mode in ("gumbel", "normal"):
+            assert float((got - want).abs().max()) <= (NOISE_ATOL if mode == "gumbel" else NORMAL_ATOL)
         else:
             assert torch.equal(got, want), (mode, n, path)
+
+
+@pytest.mark.parametrize("J,n", [(1, 1), (3, 1000), (8, 100_000), (5, 65_537)])
+def test_threefry_rows_equal_their_plain_version(dev, J, n):
+    keys = prng.split_data(prng.PRNGKey(77, dev), J)
+    for path in ((3,), (1, 2**33 + 1, 3, 4)):
+        got = threefry_rows(keys, path, n)
+        want = threefry_rows_ref(keys, path, n)
+        assert got.shape == (J, n)
+        assert float((got - want).abs().max()) <= NOISE_ATOL
+        for j in range(J):  # row j is the single-key draw under keys[j]
+            one = threefry(keys[j].contiguous(), path, 0, n, "gumbel")
+            assert torch.equal(got[j], one)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,V", [(1, 7), (3, 5000), (4, 256_000), (2, 4096 + 1)])
+def test_categorical_kernel_equals_its_plain_version(dev, dtype, B, V):
+    key = prng.PRNGKey(5, dev).data
+    gen = torch.Generator(device=dev).manual_seed(B * V)
+    logits = (torch.randn((B, V), generator=gen, device=dev) * 4).to(dtype)
+    cases = [logits, torch.zeros_like(logits), torch.full_like(logits, float("-inf"))]
+    spiky = logits.clone()
+    spiky[:, [0, V - 1]] = 1e4
+    cases.append(spiky)
+    nan = logits.clone()
+    nan[:, V // 2] = float("nan")
+    cases.append(nan)
+    before = launch_counts()["threefry.categorical"]
+    for x in cases:
+        for path in ((), (7,), (1, 2, 3, 2**40 + 9)):
+            got, want = threefry_categorical(key, path, x), categorical_ref(key, path, x)
+            assert got.dtype == torch.int32 and torch.equal(got, want), (dtype, B, V, path)
+    assert launch_counts()["threefry.categorical"] == before + 3 * len(cases)
 
 
 def test_in_place_advance_and_launch_count(dev):
@@ -51,6 +90,8 @@ def test_in_place_advance_and_launch_count(dev):
     after = launch_counts()
     assert torch.equal(key, want) and after["threefry.keys"] == before["threefry.keys"] + 1
     assert all(after[n] == c for n, c in before.items() if n != "threefry.keys")  # a count a mode
+    threefry_rows(prng.split_data(prng.PRNGKey(1, dev), 2), (0,), 10)
+    assert launch_counts()["threefry.rows"] == after["threefry.rows"] + 1
     with pytest.raises(ValueError):
         threefry(key, (), 0, 2, "bits", out=key)
 

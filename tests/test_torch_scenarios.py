@@ -21,6 +21,7 @@ import torch
 import repro.scenarios as J
 from repro.scenarios import replay as jreplay
 import repro_torch.scenarios as P
+from repro_torch.core import prng
 from repro_torch.core.volatility import CompletionLag, make_volatility, paper_success_rates
 from repro_torch.scenarios import replay as preplay
 
@@ -130,14 +131,16 @@ def test_packing_is_byte_equal_to_jax(Kp):
 @pytest.mark.parametrize("name", ["diurnal", "regional_outage", "flash_crowd", "markov"])
 def test_record_trace_is_the_models_rounds_packed(name):
     """``record_trace`` in chunks equals one chunk, and each row is the
-    model's round, drawn from the generator seeded with ``seed``, packed."""
+    model's round, drawn on the JAX package's keys from ``PRNGKey(seed)``
+    (``key, k2 = split(key)`` a round, the rows from ``k2``), packed."""
     _, (vol, _) = _models(name)
     packed = P.record_trace(vol, T, seed=4, chunk=7, device="cpu")
     assert packed.shape == (T, P.packed_width(K)) and packed.dtype == np.uint8
     np.testing.assert_array_equal(packed, P.record_trace(vol, T, seed=4, chunk=T, device="cpu"))
-    gen, s = torch.Generator().manual_seed(4), vol.init_state()
+    key, s = prng.PRNGKey(4, "cpu"), vol.init_state()
     for t in range(T):
-        x, s = vol.sample(vol.draw(gen), s)
+        key, k2 = prng.split(key)
+        x, s = vol.sample(vol.draw(k2), s)
         np.testing.assert_array_equal(P.unpack_trace(packed[t], K), x.numpy())
 
 
