@@ -145,7 +145,12 @@ Phases, one line each; any failure raises and the script exits non-zero:
    exact, the serving rates and the checkpoint's cost (``serve_path``);
    then the JAX key stream: the threefry kernel against its plain version
    (``threefry_kernel_rows``), JAX-key horizons, rates and JAX stems served
-   (``jax_stream_path``), and ``[fl-pow-d-mesh]``: pow-d's FL server at
+   (``jax_stream_path``), the int-seed entry points on JAX's keys
+   (``jax_stream_drivers_path``), JAX's original threefry mode
+   (``[jax-stream-original]``, ``jax_stream_original_path``: the committed
+   goldens through captured runners, the compiled service and gemma-2b's
+   sampled serving in that mode, each entry's original layout against its
+   plain version), and ``[fl-pow-d-mesh]``: pow-d's FL server at
    Table I on the one-rank mesh against the unsharded server
    (``fl_pow_d_mesh_path``); then ``[serve-sharded-mesh]``: ``ShardedEngine(D=2, staleness=2,
    block=4)`` at K = 1e6 and 5e5 on two ranks that share the card, each a
@@ -230,6 +235,8 @@ RATE_Z = 6.0
 SERVE_MEM_MARGIN = 16 << 20
 CHIPRUN_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 GOLDEN_TORCH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden_torch")
+TESTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+GOLDENS_NPZ = os.path.join(TESTS_DIR, "golden", "round_program_goldens.npz")  # written in JAX's original mode
 JAX_NOISE_ATOL = 2e-6  # a Gumbel value against JAX's: the last bit of two logs (measured 9.5e-7 at 1e6 draws)
 # The H100's SM clocks a second, summed over its SMs: the data sheet's 67
 # Tflop/s float32 is 132 SMs x 128 lanes x 2 flops x 1.98 GHz.  An SM issues
@@ -259,6 +266,9 @@ THREEFRY_OPS.update({"normal": {"issue": 109, "alu": 43, "fp64": 16},
                      "categorical_f32": {"issue": 84, "alu": 45},
                      "categorical_bf16": {"issue": 96, "alu": 57}})
 THREEFRY_LANES["fp64"] = 64
+# the a ^ b each partitionable epilogue above starts with: the original
+# layout's value is a word of its own (no xor), and one hash gives two words
+THREEFRY_XOR = {"issue": 1, "alu": 1}
 NORMAL_KERNEL_ATOL = 1e-6  # two float32 ulps at |x| <= 5.42, the largest normal: CUDA's log1pf against ATen's
 DRIVER_SAMPLE = 4096  # positions a leaf the drivers' checks read (the fixture's SAMPLE)
 DRIVER_PARAM_ULPS = 4  # a normal within 3 ulps of JAX's, times a float32 scale (tests/test_torch_prng_dists.py)
@@ -689,6 +699,11 @@ def main():
             raise AssertionError(f"jax-stream-drivers: no launch of {missing} on the drivers' path")
         rows.update(driver_rows)
         for n, c in driver_counts.items():
+            launched[n] = launched.get(n, 0) + c
+        # JAX's original threefry mode: a path of its own, counts read just after it
+        original_counts, original_rows = jax_stream_original_path(dev, card=smi, bw=bw)
+        rows.update(original_rows)
+        for n, c in original_counts.items():
             launched[n] = launched.get(n, 0) + c
         fl_pow_d_mesh_path(dev, card=smi)
     finally:
@@ -3147,6 +3162,42 @@ def _cohort_check(label, t, cohort, want, scores, kth):
     return False
 
 
+def graph_call_ms(fn, reps=TIMED_CALLS):
+    """Per-call device time of ``reps`` calls captured in one CUDA graph
+    (no host gaps), CUDA events around one replay after a warm one."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def eager_call_ms(fn, reps=3):
+    """Per-call time of ``reps`` eager calls on the host clock, the device
+    synchronised around them (a plain version's many launches)."""
+    import torch
+
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
 def threefry_kernel_rows(dev, card, bw, K=K_MAIN):
     """Phase 16, ``[jax-stream-kernel]``: the threefry kernel on the card;
     returns its rows for the kernels line (see ``jax_stream_path``)."""
@@ -3157,32 +3208,6 @@ def threefry_kernel_rows(dev, card, bw, K=K_MAIN):
     from repro_torch.kernels import ref
 
     rows = {}
-
-    def timed(fn, reps=TIMED_CALLS):
-        fn()
-        torch.cuda.synchronize()
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(reps):
-                fn()
-        g.replay()
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        g.replay()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / reps
-
-    def eager(fn, reps=5):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / reps * 1e3
-
     key = prng.PRNGKey(12345, dev).data
     path, errs = (3, 2**33 + 7), {}
     for mode, lo, hi in (("bits", 0.0, 1.0), ("sortkey", 0.0, 1.0), ("uniform", 0.0, 1.0), ("uniform", 1e-7, 1.0),
@@ -3212,13 +3237,13 @@ def threefry_kernel_rows(dev, card, bw, K=K_MAIN):
     # stream) and 32-bit words (randint: the served prompt)
     out_u, out_g = (torch.empty(K, dtype=torch.float32, device=dev) for _ in range(2))
     out_b = torch.empty(K, dtype=torch.int32, device=dev)
-    rand_ms = timed(lambda: torch.rand(K, device=dev, out=out_u))
+    rand_ms = graph_call_ms(lambda: torch.rand(K, device=dev, out=out_u))
     cases = {"keys": (adv, (), 1, adv.view(1, 2), 16), "uniform": (key, path, K, out_u, 8 + 4 * K),
              "gumbel": (key, path, K, out_g, 8 + 4 * K), "bits": (key, path, K, out_b, 8 + 4 * K),
              "sortkey": (key, path, K, out_b, 8 + 4 * K)}
     for mode, (kk, pp, n, out, nbytes) in cases.items():
-        ms = timed(lambda: kn.threefry(kk, pp, 0, n, mode, out=out))
-        plain = eager(lambda: ref.threefry_ref(kk, pp, 0, n, mode))
+        ms = graph_call_ms(lambda: kn.threefry(kk, pp, 0, n, mode, out=out))
+        plain = eager_call_ms(lambda: ref.threefry_ref(kk, pp, 0, n, mode), reps=5)
         # n hashes and their epilogues, and the key's folds (one hash each)
         b = _threefry_bound(mode, n, nbytes, bw, folds=len(pp))
         rows[f"threefry.{mode}"] = dict(
@@ -3589,31 +3614,6 @@ def jax_stream_drivers_path(dev, card, bw, golden=GOLDEN_TORCH, gemma=True):
     # -- the three new kernel entries at their paths' shapes ---------------------------------------
     rows = {}
 
-    def timed(fn, reps=TIMED_CALLS):
-        fn()
-        sync()
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(reps):
-                fn()
-        g.replay()
-        sync()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        g.replay()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / reps
-
-    def eager(fn, reps=3):
-        fn()
-        sync()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        sync()
-        return (time.perf_counter() - t0) / reps * 1e3
-
     gcfg = get_config("gemma-2b")
     if on_card:  # the kernel entries against their plain versions, timed (CUDA graphs)
         key = prng.PRNGKey(12345, dev).data
@@ -3625,27 +3625,27 @@ def jax_stream_drivers_path(dev, card, bw, golden=GOLDEN_TORCH, gemma=True):
         if not err_n <= NORMAL_KERNEL_ATOL:
             raise AssertionError(f"threefry normal: max |kernel - plain| = {err_n} > {NORMAL_KERNEL_ATOL}")
         del want
-        keys = prng.split_data(prng.PRNGKey(0, dev), cc["J"])
+        keys = prng.split_data(prng.PRNGKey(0, dev), cc["J"]).data
         err_r = float((kn.threefry_rows(keys, (3,), cc["K_max"]) - ref.threefry_rows_ref(keys, (3,), cc["K_max"]))
                       .abs().max())
         if not err_r <= NORMAL_KERNEL_ATOL:
             raise AssertionError(f"threefry rows: max |kernel - plain| = {err_r} > {NORMAL_KERNEL_ATOL}")
         out_n = torch.empty(n_normal, dtype=torch.float32, device=dev)
         out_r = torch.empty((cc["J"], cc["K_max"]), dtype=torch.float32, device=dev)
-        ms = timed(lambda: kn.threefry(key, path, 0, n_normal, "normal", ref.NORMAL_LO, 1.0, out=out_n))
+        ms = graph_call_ms(lambda: kn.threefry(key, path, 0, n_normal, "normal", ref.NORMAL_LO, 1.0, out=out_n))
         b = _threefry_bound("normal", n_normal, 8 + 4 * n_normal, bw, folds=len(path))
         rows["threefry.normal"] = dict(
             route="cuda", source="src/repro_torch/kernels/csrc/threefry.cu",
             replaces="src/repro/models/layers.py:53 (jax.random.normal: XLA's threefry and erf_inv, no Pallas kernel)",
-            max_abs_err=err_n, ms=ms, plain_ms=eager(lambda: ref.threefry_ref(key, path, 0, n_normal, "normal",
+            max_abs_err=err_n, ms=ms, plain_ms=eager_call_ms(lambda: ref.threefry_ref(key, path, 0, n_normal, "normal",
                                                                               ref.NORMAL_LO, 1.0), reps=1),
             bound_ms=b[0], bound_by=b[1], library_ms=None)
-        ms = timed(lambda: kn.threefry_rows(keys, (3,), cc["K_max"], out=out_r))
+        ms = graph_call_ms(lambda: kn.threefry_rows(keys, (3,), cc["K_max"], out=out_r))
         b = _threefry_bound("gumbel", cc["J"] * cc["K_max"], 8 * cc["J"] + 4 * out_r.numel(), bw, folds=cc["J"])
         rows["threefry.rows"] = dict(
             route="cuda", source="src/repro_torch/kernels/csrc/threefry.cu",
             replaces="src/repro/engine/multi_job.py:186 (jax.random.gumbel under a job's key, vmapped: no Pallas kernel)",
-            max_abs_err=err_r, ms=ms, plain_ms=eager(lambda: ref.threefry_rows_ref(keys, (3,), cc["K_max"])),
+            max_abs_err=err_r, ms=ms, plain_ms=eager_call_ms(lambda: ref.threefry_rows_ref(keys, (3,), cc["K_max"])),
             bound_ms=b[0], bound_by=b[1], library_ms=None)
         log("jax-drivers-kernel", entry="normal", n=n_normal, max_abs_err=err_n, atol=NORMAL_KERNEL_ATOL,
             ms=f"{rows['threefry.normal']['ms']:.4f}", plain_ms=f"{rows['threefry.normal']['plain_ms']:.4f}",
@@ -3697,12 +3697,12 @@ def jax_stream_drivers_path(dev, card, bw, golden=GOLDEN_TORCH, gemma=True):
         f32 = torch.randn(scaled.shape, device=dev) * 3
         if not torch.equal(kn.threefry_categorical(ckey, (5,), f32), ref.categorical_ref(ckey, (5,), f32)):
             raise AssertionError("categorical on float32 logits: kernel and plain version differ")
-        ms = timed(lambda: kn.threefry_categorical(ckey, (), scaled))
+        ms = graph_call_ms(lambda: kn.threefry_categorical(ckey, (), scaled))
         b = _threefry_bound("categorical_bf16", scaled.numel(), scaled.numel() * 2 + 8 + 4 * scaled.shape[0], bw)
         rows["threefry.categorical"] = dict(
             route="cuda", source="src/repro_torch/kernels/csrc/threefry.cu",
             replaces="src/repro/launch/serve.py:67 (jax.random.categorical: XLA's threefry and argmax, no Pallas kernel)",
-            max_abs_err=0.0, ms=ms, plain_ms=eager(lambda: ref.categorical_ref(ckey, (), scaled)),
+            max_abs_err=0.0, ms=ms, plain_ms=eager_call_ms(lambda: ref.categorical_ref(ckey, (), scaled)),
             bound_ms=b[0], bound_by=b[1], library_ms=None)
         log("jax-drivers-gemma", arch="gemma-2b", prefill_ms=f"{r['prefill_s'] * 1e3:.3f}",
             decode_tok_per_s=r["decode_tok_per_s"], peak_gib=f"{peak:.3f}", init_vs_jax=json.dumps(worst),
@@ -3715,6 +3715,212 @@ def jax_stream_drivers_path(dev, card, bw, golden=GOLDEN_TORCH, gemma=True):
         if on_card:
             torch.cuda.empty_cache()
     log("jax-drivers", seconds=f"{time.perf_counter() - t_phase:.1f}", launches=json.dumps(counts), card=repr(card))
+    return counts, rows
+
+
+def _threefry_bound_original(mode, values, hashes, nbytes, bw, folds=0):
+    """``_threefry_bound`` in the original layout: ``hashes`` hashes (one
+    gives two words), ``values`` epilogues without the partitionable
+    ``a ^ b`` (none for ``"keys"``), ``folds`` hashes of a key."""
+    hash_ops = THREEFRY_OPS["keys"]
+
+    def epilogue(p):
+        return 0 if mode == "keys" else THREEFRY_OPS[mode].get(p, 0) - hash_ops.get(p, 0) - THREEFRY_XOR.get(p, 0)
+
+    clocks = max(((hashes + folds) * hash_ops.get(p, 0) + values * epilogue(p)) / lanes
+                 for p, lanes in THREEFRY_LANES.items())
+    t_ops, t_bytes = clocks / H100_SM_CLOCKS * 1e3, nbytes / bw * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+ORIGINAL_MODES = (("bits", 0.0, 1.0), ("sortkey", 0.0, 1.0), ("uniform", 0.0, 1.0), ("uniform", 1e-7, 1.0),
+                  ("gumbel", 0.0, 1.0), ("normal", 0.0, 1.0), ("keys", 0.0, 1.0))
+ORIGINAL_COMPILED = dict(J=8, K_max=100_000, rounds=5, seed=0, staleness=2, reps=1)
+ORIGINAL_GEMMA = ["--arch", "gemma-2b", "--seed", "0", "--temperature", "1", "--gen", "8"]
+
+
+def jax_stream_original_path(dev, card, bw, K=K_MAIN, gemma=True):
+    """Phase 16, ``[jax-stream-original]``: JAX's original threefry mode
+    (``jax_threefry_partitionable=False``) on the card, every draw under
+    ``prng.threefry_partitionable(False)``.  Returns ``(counts, rows)``: the
+    launch counts of the path (set to 0 just before it and read just after
+    it) and the kernels line's rows of the eight ``threefry.original.*``
+    entries.
+
+    * ``[jax-stream-original]``: the path.  The repo's goldens
+      (``tests/golden/round_program_goldens.npz``, written by the JAX package
+      in that mode): every D = 1 cell of ``tests/golden/gen_goldens.py``,
+      sync and async, through the port's captured runners
+      (``tests/torch_goldens_ranks.port_cell``), all 43 arrays bit for bit;
+      ``run_service_compiled`` (``ORIGINAL_COMPILED``: the rows entry) with
+      its on-time and stale totals equal to the same call's on the CPU
+      (the plain versions); gemma-2b uncut through ``launch.serve.main``
+      (``normal`` at init, ``bits`` for the prompt, ``categorical`` a decode
+      step), its tokens in the vocabulary.
+    * ``[jax-stream-original-kernel]``: each entry's original layout against
+      its plain version at ``K`` and ``K + 1`` values (an odd draw pads its
+      last pair), whole and in blocks (one across the draw's halves, its
+      last value): equal, Gumbel within ``JAX_NOISE_ATOL`` and normal within
+      ``NORMAL_KERNEL_ATOL``; a carried key's round (``JaxStream``: the
+      round's ``split(key, num)`` and the key's advance to its first key),
+      num = 2 to 4; ``split_data``; the rows entry at (8, 100000) and (8,
+      100001); ``categorical`` over float32 and bfloat16 logits at (4,
+      256000) and (3, 100001), equal; a gemma-2b MLP leaf's ``normal``
+      (``d_model * d_ff`` values), whole and in three blocks of its one
+      draw, within ``NORMAL_KERNEL_ATOL``.
+    * ``[jax-stream-original-time]``: each entry timed (CUDA graphs) at the
+      path's shapes (a round's split of 3 keys, rows of ``K``, the service's
+      (8, 100000) rows, gemma-2b's (4, 256000) bfloat16 decode logits)
+      against ``_threefry_bound_original``.
+    """
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels as kn
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.core import prng
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.engine.round_program import JaxStream
+    from repro_torch.launch.select_serve import run_service_compiled
+
+    sys.path.insert(0, TESTS_DIR)
+    import torch_goldens_ranks as golden_cells
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    goldens = np.load(GOLDENS_NPZ)
+
+    # -- the path, in the original mode ------------------------------------------------
+    got, served = {}, None
+    kn.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp, prng.threefry_partitionable(False):
+        for cell, _ in golden_cells.CELLS:
+            if cell != "d8":  # D = 8 is eight ranks: tests/test_torch_goldens.py
+                got.update(golden_cells.port_cell(cell, tmp, device=dev))
+        compiled = run_service_compiled(**ORIGINAL_COMPILED, device=dev)
+        if gemma:
+            served = serve.main(ORIGINAL_GEMMA + ([] if on_card else ["--device", "cpu", "--smoke"]))
+    sync()
+    counts = {n: c for n, c in kn.launch_counts().items() if c}
+    path_s = time.perf_counter() - t_phase
+    differ = [n for n, v in got.items() if not (v.shape == goldens[n].shape and np.array_equal(v, goldens[n]))]
+    if differ or len(got) != 43:
+        raise AssertionError(f"jax-stream-original: {len(differ)} of {len(got)} golden arrays differ: {differ}")
+    with prng.threefry_partitionable(False):
+        plain = run_service_compiled(**ORIGINAL_COMPILED, device="cpu")
+    totals = [compiled["on_time_total"], compiled["stale_credit_total"]]
+    if totals != [plain["on_time_total"], plain["stale_credit_total"]]:
+        raise AssertionError(f"run_service_compiled, original mode: totals {totals} on {dev}, "
+                             f"{[plain['on_time_total'], plain['stale_credit_total']]} on the CPU")
+    if served is not None:
+        gcfg = get_config("gemma-2b")
+        vocab = (smoke_variant(gcfg) if not on_card else gcfg).vocab
+        toks = np.asarray(served["sample_tokens"])
+        if served["generated_shape"] != [4, 9] or toks.min() < 0 or toks.max() >= vocab:
+            raise AssertionError(f"gemma-2b, original mode: generated {served}")
+    log("jax-stream-original", goldens=f"{len(got) - len(differ)}/{len(got)} equal", cells=len(golden_cells.CELLS) - 1,
+        compiled_on_time_stale=totals, compiled_vs_cpu="equal",
+        gemma_tokens=None if served is None else served["sample_tokens"][:6],
+        decode_tok_per_s=None if served is None else served["decode_tok_per_s"], seconds=f"{path_s:.1f}",
+        launches=json.dumps(counts), card=repr(card))
+
+    # -- each entry's original layout against its plain version ------------------------
+    key = prng.PRNGKey(12345, dev).data
+    path, errs = (3, 2**33 + 7), {}
+
+    def held(what, got_, want, atol=0.0):
+        e = float((got_.float() - want.float()).abs().max()) if got_.numel() else 0.0
+        if not (e <= atol if atol else torch.equal(got_, want)):
+            raise AssertionError(f"original layout, {what}: kernel and plain version differ (max |d| = {e})")
+        errs[what.split()[0]] = max(errs.get(what.split()[0], 0.0), e)
+
+    for n in (K, K + 1):
+        for mode, lo, hi in ORIGINAL_MODES:
+            atol = JAX_NOISE_ATOL if mode == "gumbel" else NORMAL_KERNEL_ATOL if mode == "normal" else 0.0
+            for offset, cnt in ((0, n), (n // 4, n // 2), (n - 1, 1)):
+                held(f"{mode} [{lo}, {hi}) values {offset}+{cnt} of {n}",
+                     kn.threefry(key, path, offset, cnt, mode, lo, hi, total=n),
+                     ref.threefry_ref(key, path, offset, cnt, mode, lo, hi, total=n), atol)
+    for num in (2, 3, 4):  # a carried key's round: split(key, num), then the key takes the first of them
+        stream = JaxStream(prng.Key(key, partitionable=False), dev, num)
+        want = ref.threefry_ref(key, (), 0, num, "keys", total=num)
+        held(f"keys round split num={num}", torch.stack([k.data for k in stream.round_keys()]), want)
+        stream.advance()
+        held(f"keys advance num={num}", stream.key, want[0])
+    for J in (3, 1000, 1001):
+        held(f"keys split_data J={J}", prng.split_data(prng.Key(key, path, partitionable=False), J).data,
+             ref.threefry_ref(key, path, 0, J, "keys", total=J))
+    keys8 = prng.split_data(prng.PRNGKey(4, dev, partitionable=False), 8).data
+    for n in (100_000, 100_001):
+        held(f"rows (8, {n})", kn.threefry_rows(keys8, (3,), n, original=True),
+             ref.threefry_rows_ref(keys8, (3,), n, original=True), JAX_NOISE_ATOL)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for B, V in ((4, 256_000), (3, 100_001)):
+        logits = torch.randn((B, V), generator=gen, device=dev) * 3
+        for dt in (torch.float32, torch.bfloat16):
+            lg = logits.to(dt)
+            held(f"categorical {dt} ({B}, {V})", kn.threefry_categorical(key, (5,), lg, original=True),
+                 ref.categorical_ref(key, (5,), lg, original=True))
+    # a gemma-2b MLP leaf (d_model x d_ff values), whole and in blocks of its one draw (one across its halves)
+    gcfg = get_config("gemma-2b")
+    gcfg = gcfg if on_card else smoke_variant(gcfg)
+    n_leaf = gcfg.d_model * gcfg.d_ff
+    leaf_key = prng.fold_in(prng.fold_in(prng.PRNGKey(0, dev, partitionable=False), 2), 5)
+    leaf = ref.threefry_ref(leaf_key.data, leaf_key.path, 0, n_leaf, "normal", ref.NORMAL_LO, 1.0, total=n_leaf)
+    held(f"normal gemma-2b leaf ({gcfg.d_model}, {gcfg.d_ff})",
+         prng.normal(leaf_key, (gcfg.d_model, gcfg.d_ff)).view(-1), leaf, NORMAL_KERNEL_ATOL)
+    for lo, hi in ((0, n_leaf // 4), (n_leaf // 4, 3 * n_leaf // 4), (3 * n_leaf // 4, n_leaf)):
+        held(f"normal gemma-2b leaf values {lo}..{hi}", prng.normal(leaf_key, (hi - lo,), start=lo, total=n_leaf),
+             leaf[lo:hi], NORMAL_KERNEL_ATOL)
+    del leaf
+    log("jax-stream-original-kernel", K=K, gemma_leaf=n_leaf, entries=",".join(errs), gumbel_max_abs_err=errs["gumbel"],
+        normal_max_abs_err=errs["normal"], rows_max_abs_err=errs["rows"], others="equal", card=repr(card))
+    if not on_card:
+        return counts, {}
+
+    # -- timed at the path's shapes ------------------------------------------------------
+    rows = {}
+    out_f = torch.empty(K, dtype=torch.float32, device=dev)
+    out_b = torch.empty(K, dtype=torch.int32, device=dev)
+    out_k = torch.empty((3, 2), dtype=torch.int32, device=dev)
+    out_r = torch.empty((8, 100_000), dtype=torch.float32, device=dev)
+    gemma_logits = (torch.randn((4, 256_000), generator=gen, device=dev) * 3).to(torch.bfloat16)
+    B, V = gemma_logits.shape
+    cases = {  # entry: (kernel call, plain call, values, hashes, bytes, folds, shape)
+        "keys": (lambda: kn.threefry(key, (), 0, 3, "keys", out=out_k, total=3),
+                 lambda: ref.threefry_ref(key, (), 0, 3, "keys", total=3), 3, 3, 8 + 24, 0, "split(key, 3)"),
+        **{mode: (lambda mode=mode, out=out: kn.threefry(key, path, 0, K, mode, out=out, total=K),
+                  lambda mode=mode: ref.threefry_ref(key, path, 0, K, mode, total=K), K, (K + 1) // 2, 8 + 4 * K,
+                  len(path), f"({K},)")
+           for mode, out in (("bits", out_b), ("sortkey", out_b), ("uniform", out_f), ("gumbel", out_f),
+                             ("normal", out_f))},
+        "rows": (lambda: kn.threefry_rows(keys8, (3,), 100_000, out=out_r, original=True),
+                 lambda: ref.threefry_rows_ref(keys8, (3,), 100_000, original=True), 8 * 100_000, 8 * 50_000,
+                 8 * 8 + 4 * out_r.numel(), 8, "(8, 100000)"),
+        "categorical": (lambda: kn.threefry_categorical(key, (), gemma_logits, original=True),
+                        lambda: ref.categorical_ref(key, (), gemma_logits, original=True), B * V,
+                        (-(-B * V // 4) + 1) // 2, 2 * B * V + 8 + 4 * B, 0, f"({B}, {V}) bfloat16"),
+    }
+    for entry, (call, plain_call, values, hashes, nbytes, folds, shape) in cases.items():
+        ms, plain_ms = graph_call_ms(call), eager_call_ms(plain_call)
+        mode = {"rows": "gumbel", "categorical": "categorical_bf16"}.get(entry, entry)
+        b = _threefry_bound_original(mode, values, hashes, nbytes, bw, folds)
+        rows[f"threefry.original.{entry}"] = dict(
+            route="cuda", source="src/repro_torch/kernels/csrc/threefry.cu",
+            replaces="src/repro/engine/round_program.py:415 (jax.random under jax_threefry_partitionable=False: "
+                     "XLA's threefry, no Pallas kernel)",
+            max_abs_err=errs[entry], ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+            bound_by=b[1], library_ms=None)
+        log("jax-stream-original-time", entry=entry, shape=shape, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{b[0]:.6f}", bound_by=b[1], of_bound=f"{b[0] / ms:.3f}", launches=counts.get(
+                f"threefry.original.{entry}", 0), card=repr(card))
+    missing = [n for n in rows if not counts.get(n)]
+    if missing:
+        raise AssertionError(f"jax-stream-original: no launch of {missing} on the path")
+    log("jax-stream-original-phase", seconds=f"{time.perf_counter() - t_phase:.1f}", card=repr(card))
     return counts, rows
 
 

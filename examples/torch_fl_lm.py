@@ -55,7 +55,7 @@ def main(argv=None) -> dict:
     ones = torch.ones(fl.k, device=dev)
     losses = []
     for t in range(fl.rounds):
-        noise = program.draw_noise(gen, vol_path=(2, 1, 0))
+        noise = program.draw_noise(gen, vol_path=(2, 1, (0, 2)))
         idx, p, capped, sigma = select(state, noise)
         blocks = lm_client_batches(stream, fl.K, idx.cpu().numpy(), n_steps, args.batch, args.seq, seed=t)
         tokens = torch.from_numpy(np.ascontiguousarray(blocks[..., :-1])).to(dev)

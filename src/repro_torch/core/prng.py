@@ -1,6 +1,6 @@
 """The JAX package's key stream in the port: a twin of jax 0.9's threefry PRNG
-(``jax._src.prng`` and ``jax._src.random``) in its partitionable mode, jax
-0.9's default, so the same seed gives the port the same noise.
+(``jax._src.prng`` and ``jax._src.random``) in both of its modes, so the same
+seed gives the port the same noise.
 
 A key is two uint32 words, held as a ``(2,)`` int32 tensor on a device
 (``Key``), so a runner carries and advances it on the device.  Everything is
@@ -9,14 +9,27 @@ kernel on the card, ``kernels.ref.threefry_ref`` on the CPU):
 
 * ``PRNGKey(seed)`` is ``(0, seed mod 2**32)`` (``threefry_seed``, the seed
   taken as JAX's int32 of it);
-* ``fold_in(key, d)`` hashes the counter ``(0, d)``, and in partitionable
-  mode ``split(key, n)[i]`` hashes ``(0, i)``
-  (``_threefry_split_foldlike``): the same key as ``fold_in(key, i)``, so a
+* ``fold_in(key, d)`` hashes the counter ``(0, d)`` in either mode;
+* a ``Key`` carries its mode, JAX's ``jax_threefry_partitionable``, and every
+  key derived from it keeps it.  ``PRNGKey`` takes the port's current
+  default: partitionable, jax 0.9's default, or what the innermost
+  ``threefry_partitionable(flag)`` block says (the port's copy of JAX's
+  config flag, so the entry points taking an int seed follow it as JAX's
+  follow JAX's);
+* partitionable mode: ``split(key, n)[i]`` hashes ``(0, i)``
+  (``_threefry_split_foldlike``), the same key as ``fold_in(key, i)``, so a
   ``Key`` keeps its folds as a ``path`` and the kernel applies them once a
-  block, where the key is used;
-* ``random_bits(key, shape)`` hashes the flat index ``i`` as ``(i >> 32, i
-  & 0xFFFFFFFF)`` into ``(a, b)`` and keeps ``a ^ b``
-  (``_threefry_random_bits_partitionable``);
+  block, where the key is used; ``random_bits(key, shape)`` hashes the flat
+  index ``i`` as ``(i >> 32, i & 0xFFFFFFFF)`` into ``(a, b)`` and keeps
+  ``a ^ b`` (``_threefry_random_bits_partitionable``);
+* original mode (``jax_threefry_partitionable=False``): a draw of ``m``
+  words hashes the counter pairs ``(j, j + h)``, ``h = ceil(m / 2)``, word
+  ``j`` the first output and word ``j + h`` the second, an odd draw's
+  padded counter's output dropped (``threefry_2x32``); ``random_bits`` is
+  the draw of ``n`` words and ``split(key, n)`` the draw of ``2n`` words,
+  key ``i`` words ``2i`` and ``2i + 1`` (``_threefry_split_original``), so a
+  split is materialised, its ``n`` keys in one launch; 8-bit draws (the
+  bfloat16 Gumbel) take four values out of each word;
 * ``uniform``, ``gumbel`` (mode ``"low"``), ``bernoulli``, ``exponential``,
   ``permutation`` (``_shuffle``: sorts by fresh 32-bit keys, stable),
   ``normal`` (``sqrt(2) * erf_inv(u)``, ``u`` uniform in ``[nextafter(-1,
@@ -24,9 +37,11 @@ kernel on the card, ``kernels.ref.threefry_ref`` on the CPU):
   high and low, reduced by the span with JAX's ``2**16 % span`` multiplier)
   and ``categorical`` (``argmax(gumbel + logits)``, one fused launch) are
   ``jax.random``'s transforms of those bits;
-* ``split_data`` and ``rows`` serve J keys at once: the ``(J, 2)`` words of
-  ``split(key, J)``, and J rows each under its own key folded by a shared
-  path, in one launch (a fleet's per-job Gumbel rows).
+* ``split_data`` and ``rows`` serve J keys at once: ``split(key, J)`` as
+  ``Keys`` (the ``(J, 2)`` words and their mode), and J rows each under its
+  own key folded by a shared path, in one launch (a fleet's per-job Gumbel
+  rows); ``derive`` walks a path of folds and splits (a model's
+  ``key_paths``).
 
 Bits, keys, uniforms, permutations and ``randint`` equal JAX's exactly;
 Gumbel and exponential rows equal them up to the last bit of a ``log``
@@ -36,14 +51,15 @@ of each other (bfloat16 logits take JAX's 8-bit bfloat16 Gumbel, whose 128
 values equal JAX's).  ``normal`` is within 3 ulps of JAX's
 (``tests/test_torch_prng_dists.py`` sweeps every value it can take): the
 polynomial is XLA's, its multiply-adds fused as XLA fuses them on the CPU,
-but ``log1p`` is ATen's (or CUDA's), not XLA's.  The non-partitionable mode
-(JAX's ``jax_threefry_partitionable=False``) is not ported: ``PRNGKey``
-raises ``ValueError`` when asked for it.
+but ``log1p`` is ATen's (or CUDA's), not XLA's.  One original-mode draw of
+more than ``2**32 - 1`` words, which JAX splits into blocks under split
+keys, is not ported (``ValueError``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,7 +69,11 @@ from repro_torch.kernels.threefry import MAX_PATH, threefry, threefry_categorica
 
 __all__ = [
     "Key",
+    "Keys",
     "PRNGKey",
+    "threefry_partitionable",
+    "default_partitionable",
+    "derive",
     "key_data",
     "fold_in",
     "split",
@@ -72,40 +92,60 @@ __all__ = [
 ]
 
 _M32 = 0xFFFFFFFF
+_DEFAULT = [True]  # the mode a key takes when none is given (threefry_partitionable)
+
+
+def default_partitionable() -> bool:
+    """The mode a key takes when none is given: ``True`` (jax 0.9's
+    default) but inside ``threefry_partitionable(False)``."""
+    return _DEFAULT[-1]
+
+
+@contextlib.contextmanager
+def threefry_partitionable(flag: bool):
+    """Within the block, keys made without a mode (``PRNGKey(seed)``, a
+    ``Key`` of raw words) take ``flag``: the port's ``jax.threefry_partitionable``.
+    A key keeps the mode it was made with after the block."""
+    _DEFAULT.append(bool(flag))
+    try:
+        yield
+    finally:
+        _DEFAULT.pop()
 
 
 class Key:
     """A JAX threefry key on a device: ``data``, a ``(2,)`` int32 tensor of
     its two uint32 words, folded by each integer of ``path`` in turn (not
-    yet hashed).  ``key_data`` hashes the path in."""
+    yet hashed), in the mode ``partitionable`` (``None``: the current
+    default).  ``key_data`` hashes the path in."""
 
-    __slots__ = ("data", "path")
+    __slots__ = ("data", "path", "partitionable")
 
-    def __init__(self, data: torch.Tensor, path: Tuple[int, ...] = ()):
+    def __init__(self, data: torch.Tensor, path: Tuple[int, ...] = (), partitionable: Optional[bool] = None):
         if data.dtype != torch.int32 or tuple(data.shape) != (2,):
             raise ValueError(f"a key's data is a (2,) int32 tensor, got {data.dtype} {tuple(data.shape)}")
         self.data, self.path = data, tuple(int(d) for d in path)
+        self.partitionable = default_partitionable() if partitionable is None else bool(partitionable)
 
     @property
     def device(self) -> torch.device:
         return self.data.device
 
     def __repr__(self) -> str:
-        return f"Key({self.data.tolist()}, path={self.path})"
+        return f"Key({self.data.tolist()}, path={self.path}, partitionable={self.partitionable})"
 
 
 def _words(seed: int) -> Tuple[int, int]:
     return 0, int(np.int64(seed).astype(np.int32)) & _M32
 
 
-def PRNGKey(seed: int, device=None, partitionable: bool = True) -> Key:
+def PRNGKey(seed: int, device=None, partitionable: Optional[bool] = None) -> Key:
     """JAX's ``PRNGKey(seed)`` on ``device`` (``None``: CUDA): the words
     ``(0, seed)``, the seed taken as JAX takes a Python int under 32-bit
-    types (its low 32 bits)."""
-    if not partitionable:
-        raise ValueError("the non-partitionable threefry mode (jax_threefry_partitionable=False) is not ported")
+    types (its low 32 bits), in the mode ``partitionable`` (``None``: the
+    current default, ``threefry_partitionable``)."""
     w = [v - 2**32 if v >= 2**31 else v for v in _words(seed)]
-    return Key(torch.tensor(w, dtype=torch.int32, device=resolve_device(device)))
+    return Key(torch.tensor(w, dtype=torch.int32, device=resolve_device(device)), partitionable=partitionable)
 
 
 def key_data(key: Key) -> torch.Tensor:
@@ -118,27 +158,42 @@ def key_data(key: Key) -> torch.Tensor:
 
 def _flat(key: Key) -> Key:
     """``key`` with a path the kernel takes in one launch."""
-    return key if len(key.path) <= MAX_PATH else Key(key_data(Key(key.data, key.path[:MAX_PATH])),
-                                                     key.path[MAX_PATH:])
+    if len(key.path) <= MAX_PATH:
+        return key
+    return Key(key_data(Key(key.data, key.path[:MAX_PATH])), key.path[MAX_PATH:], key.partitionable)
 
 
 def fold_in(key: Key, d: int) -> Key:
-    """JAX's ``fold_in(key, d)`` (``d`` a host int, taken as uint32)."""
-    return _flat(Key(key.data, key.path + (int(d) & _M32,)))
+    """JAX's ``fold_in(key, d)`` (``d`` a host int, taken as uint32): the
+    same hash in both modes."""
+    return _flat(Key(key.data, key.path + (int(d) & _M32,), key.partitionable))
 
 
 def advance_(words: torch.Tensor) -> torch.Tensor:
-    """A carried key's ``(2,)`` int32 words replaced, in place and in one
-    launch, by those of ``split(key)[0]`` (``fold_in(key, 0)``: the key a
-    JAX loop carries on after ``key, sub = split(key)``)."""
+    """A carried partitionable key's ``(2,)`` int32 words replaced, in place
+    and in one launch, by those of ``split(key)[0]`` (``fold_in(key, 0)``:
+    the key a JAX loop carries on after ``key, sub = split(key)``).  In the
+    original mode a carried key takes its round's split instead
+    (``round_program.JaxStream``)."""
     threefry(words, (), 0, 1, "keys", out=words.view(1, 2))
     return words
 
 
 def split(key: Key, num: int = 2) -> Tuple[Key, ...]:
-    """JAX's ``split(key, num)`` in partitionable mode: key ``i`` is
-    ``fold_in(key, i)``."""
-    return tuple(fold_in(key, i) for i in range(int(num)))
+    """JAX's ``split(key, num)`` in the key's mode: partitionable, key ``i``
+    is ``fold_in(key, i)`` (no launch); original, the ``num`` keys of one
+    launch (``split_data``)."""
+    if key.partitionable:
+        return tuple(fold_in(key, i) for i in range(int(num)))
+    return tuple(Key(w, partitionable=False) for w in split_data(key, num).data.unbind(0))
+
+
+def derive(key: Key, path) -> Key:
+    """The key at the end of ``path`` from ``key``: an int ``d`` is
+    ``fold_in(key, d)``, a pair ``(i, n)`` is ``split(key, n)[i]``."""
+    for step in path:
+        key = split(key, step[1])[step[0]] if isinstance(step, tuple) else fold_in(key, step)
+    return key
 
 
 def _n(shape) -> Tuple[tuple, int]:
@@ -147,10 +202,17 @@ def _n(shape) -> Tuple[tuple, int]:
 
 
 def _draw(key: Key, shape, mode: str, minval: float = 0.0, maxval: float = 1.0, out=None,
-          start: int = 0) -> torch.Tensor:
+          start: int = 0, total: Optional[int] = None) -> torch.Tensor:
     shape, n = _n(shape)
     key = _flat(key)
-    res = threefry(key.data, key.path, start, n, mode, minval, maxval, out=None if out is None else out.view(-1))
+    if key.partitionable:
+        total = 0
+    elif total is None:
+        if start:
+            raise ValueError("a block of an original-mode draw needs the draw's total")
+        total = n
+    res = threefry(key.data, key.path, start, n, mode, minval, maxval, out=None if out is None else out.view(-1),
+                   total=total)
     return res.view(shape)
 
 
@@ -202,12 +264,13 @@ def permutation(key: Key, n: int, out: Optional[torch.Tensor] = None) -> torch.T
     return x if out is None else out.copy_(x)
 
 
-def normal(key: Key, shape=(), out=None, start: int = 0) -> torch.Tensor:
+def normal(key: Key, shape=(), out=None, start: int = 0, total: Optional[int] = None) -> torch.Tensor:
     """JAX's float32 ``normal(key, shape)``: ``sqrt(2) * erf_inv(u)`` of
     ``u`` uniform in ``[nextafter(-1, 0), 1)`` (into ``out`` when given).
     ``start`` draws the flat elements ``start ..`` of a larger draw under the
-    same key: a block of a tensor too large to draw at once."""
-    return _draw(key, shape, "normal", out=out, start=start)
+    same key, of ``total`` elements in all (the original mode's layout
+    depends on it): a block of a tensor too large to draw at once."""
+    return _draw(key, shape, "normal", out=out, start=start, total=total)
 
 
 _INT_DTYPES = {torch.int8: 8, torch.int16: 16, torch.int32: 32}
@@ -258,21 +321,32 @@ def categorical(key: Key, logits: torch.Tensor, axis: int = -1) -> torch.Tensor:
         raise ValueError("categorical draws along the last axis only")
     key = _flat(key)
     V = logits.shape[-1]
-    out = threefry_categorical(key.data, key.path, logits.reshape(-1, V).contiguous())
+    out = threefry_categorical(key.data, key.path, logits.reshape(-1, V).contiguous(), original=not key.partitionable)
     return out.view(logits.shape[:-1])
 
 
-def split_data(key: Key, num: int) -> torch.Tensor:
-    """The words of ``split(key, num)`` as a ``(num, 2)`` int32 tensor on
-    the key's device (one launch): the keys ``rows`` takes."""
+class Keys(NamedTuple):
+    """J keys in one mode: ``data``, their words as a ``(J, 2)`` int32
+    tensor on a device, and ``partitionable``, the mode of the key they
+    were split from (``split_data``; ``rows`` takes them)."""
+
+    data: torch.Tensor
+    partitionable: bool
+
+
+def split_data(key: Key, num: int) -> Keys:
+    """``split(key, num)`` as ``Keys`` in the key's mode: their words as a
+    ``(num, 2)`` int32 tensor on the key's device, made in one launch."""
     key = _flat(key)
-    return threefry(key.data, key.path, 0, int(num), "keys")
+    num = int(num)
+    return Keys(threefry(key.data, key.path, 0, num, "keys", total=0 if key.partitionable else num),
+                key.partitionable)
 
 
-def rows(keys: torch.Tensor, path: Tuple[int, ...], n: int, out=None) -> torch.Tensor:
-    """``(J, n)``: row ``j`` is ``gumbel(Key(keys[j], path), (n,))``
-    (``keys`` a ``(J, 2)`` int32 tensor), all J rows in one launch: JAX's
+def rows(keys: Keys, path: Tuple[int, ...], n: int, out=None) -> torch.Tensor:
+    """``(J, n)``: row ``j`` is ``gumbel(Key(keys.data[j], path,
+    keys.partitionable), (n,))``, all J rows in one launch: JAX's
     ``vmap(lambda k: gumbel(fold_in(k, t), (n,)))(keys)`` is ``rows(keys,
     (t,), n)``."""
     path = tuple(int(d) & _M32 for d in path)
-    return threefry_rows(keys, path, n, out=out)
+    return threefry_rows(keys.data, path, n, out=out, original=not keys.partitionable)

@@ -14,10 +14,10 @@ over a ``(J, K_max)`` population of J jobs: ``row_shape``) and lower end
 JAX model its keys): ``draw`` is ``uniform_rows`` of one ``torch.rand`` row
 each, so a runner that draws the raw rows itself (into the buffers of a
 captured round step) scales them with the same operations.  ``key_paths()``
-gives, row by row, the folds that lead from the key JAX hands the model's
-``sample`` to the key of that row (``split(key, n)[i]`` is the fold ``i``),
-so a runner on the JAX key stream (``core.prng``) draws the JAX model's
-rows exactly.
+gives, row by row, the splits that lead from the key JAX hands the model's
+``sample`` to the key of that row (``(i, n)`` is ``split(key, n)[i]``, a
+step of ``core.prng.derive``), so a runner on the JAX key stream
+(``core.prng``) draws the JAX model's rows exactly, in either mode.
 
 Lag protocol (async rounds): ``sample`` returns an int32 ``(K,)`` lag row,
 ``0`` = on time, ``l >= 1`` = ``l`` rounds late, ``DEAD_LAG`` = never.
@@ -176,7 +176,7 @@ def _draw(model, rng) -> Tuple[torch.Tensor, ...]:
 
     rows = model.draw_rows()
     if isinstance(rng, prng.Key):  # the JAX model's rows, drawn final under its sample key
-        return tuple(prng.uniform(prng.Key(rng.data, rng.path + path), row_shape(n), minval=lo)
+        return tuple(prng.uniform(prng.derive(rng, path), row_shape(n), minval=lo)
                      for path, (n, lo) in zip(model.key_paths(), rows))
     dev = rng.device
     raw = [torch.rand(n, generator=rng, device=dev, dtype=_f32) for n, _ in rows]
@@ -235,7 +235,7 @@ class MarkovVolatility(_Model):
         return ((_per_client(self.rho), 0.0),)
 
     def key_paths(self):
-        return ((0,),)  # r_up = split(key)[0]
+        return (((0, 2),),)  # r_up = split(key)[0]
 
     def sample(self, us, state):
         up = (us[0] < state).to(_f32)
@@ -266,7 +266,7 @@ class DeadlineVolatility(_Model):
         return ((K, 0.0), (K, 0.0))
 
     def key_paths(self):
-        return ((0,), (1,))  # r_t, r_n = split(key)
+        return (((0, 2),), ((1, 2),))  # r_t, r_n = split(key)
 
     def sample(self, us, state):
         u_t, u_n = us
@@ -338,7 +338,7 @@ class CompletionLag(_Model):
 
     def key_paths(self):
         # r_base, r_late, r_lag = split(key, 3); the base model's own splits below r_base
-        return tuple((0,) + p for p in self.base.key_paths()) + ((1,), (2,))
+        return tuple(((0, 3),) + p for p in self.base.key_paths()) + (((1, 3),), ((2, 3),))
 
     def sample(self, us, state):
         *u_base, u_late, u_lag = us

@@ -50,16 +50,17 @@ and the lag views over them.
 A runner's noise comes from two streams (``NoiseStreams``) when its key is
 an int seed (or what such a runner returned).  Given a ``core.prng.Key``
 instead, it follows the JAX package's key stream (``JaxStream``) seed for
-seed: each round ``key, k1, k2 = split(key, 3)``; the selection draws from
-``k1`` (E3CS's Gumbel row, a systematic sampler's permutation and 0-d
-uniform from ``split(k1)``, a permutation for random and pow-d, a uniform row
-for FedCS) and the volatility model from ``k2`` by its ``key_paths()``; on a
-mesh of D > 1 ranks E3CS's slab and the model's rows come from ``fold_in(k1,
-d)`` and ``fold_in(k2, d)``, every rank drawing the baselines' K-wide noise
-from ``k1``, as JAX's shards do (a regional outage's chain too: per shard).
-The rows are drawn final (Gumbel, scaled uniforms) by the threefry kernel, so
-their transforms do not run in the step; a runner keeps the kind of stream
-of its first call.
+seed, in the key's mode: each round ``key, k1, k2 = split(key, 3)``; the
+selection draws from ``k1`` (E3CS's Gumbel row, a systematic sampler's
+permutation and 0-d uniform from ``split(k1)``, a permutation for random and
+pow-d, a uniform row for FedCS) and the volatility model from ``k2`` by its
+``key_paths()``; on a mesh of D > 1 ranks E3CS's slab and the model's rows
+come from ``fold_in(k1, d)`` and ``fold_in(k2, d)``, every rank drawing the
+baselines' K-wide noise from ``k1``, as JAX's shards do (a regional
+outage's chain too: per shard).  The rows are drawn final (Gumbel, scaled
+uniforms) by the threefry kernel, so their transforms do not run in the
+step; a runner keeps the kind of stream of its first call, and a JAX
+stream's mode (partitionable or original).
 
 Of the two Philox streams, the own stream draws the rank's ``(Ks,)`` rows (E3CS's Gumbel slab, a model's
 per-client rows: those of length K, the rule by which a model's fields
@@ -131,7 +132,7 @@ from repro_torch.core.selection import (
     ucb_select,
     ucb_update,
 )
-from repro_torch.core.prng import Key, PRNGKey, advance_, gumbel, key_data, permutation, uniform
+from repro_torch.core.prng import Key, PRNGKey, advance_, derive, gumbel, key_data, permutation, split, uniform
 from repro_torch.core.selection.e3cs import divide, residual_mass
 from repro_torch.core.volatility import DEAD_LAG, row_shape, uniform_rows
 from repro_torch.device import resolve_device
@@ -181,19 +182,33 @@ class NoiseStreams(NamedTuple):
 
 class JaxStream:
     """A runner's noise on the JAX package's key stream (``core.prng``): the
-    carried key's two words, a ``(2,)`` int32 tensor on the device that each
-    round advances in place (``split(key, 3)[0]``, one kernel launch, no
-    host sync)."""
+    carried key's two words, a ``(2,)`` int32 tensor on the device, in the
+    key's mode.  A round's keys are ``split(key, num)`` (``round_keys``);
+    then the key advances to the first of them, in place and with no host
+    sync: one kernel launch in partitionable mode, in the original mode a
+    copy of the round's split, itself one launch."""
 
-    def __init__(self, key: Key, device):
+    def __init__(self, key: Key, device, num: int = 3):
         self.key = key_data(key).to(device).clone()
+        self.partitionable, self.num = key.partitionable, int(num)
+        self._round = None
 
     def get_state(self) -> Key:
         """What a ``carry_key`` runner returns: the advanced key."""
-        return Key(self.key.clone())
+        return Key(self.key.clone(), partitionable=self.partitionable)
+
+    def round_keys(self) -> tuple:
+        """This round's ``split(key, num)``, made once a round."""
+        if self._round is None:
+            self._round = split(Key(self.key, partitionable=self.partitionable), self.num)
+        return self._round
 
     def advance(self) -> None:
-        advance_(self.key)
+        if self.partitionable:
+            advance_(self.key)
+        else:
+            self.key.copy_(self.round_keys()[0].data)
+        self._round = None
 
 
 def lag_credit_schedule(mask, lag, S: int, alpha: float):
@@ -714,14 +729,15 @@ class RoundProgram:
             rings = rings + (torch.zeros(shape, dtype=_f32, device=self.device),)
         return rings
 
-    def generator(self, key):
+    def generator(self, key, num: int = 3):
         """The runner's noise on the device: a ``JaxStream`` from a
-        ``core.prng.Key``; else ``NoiseStreams`` from an int seed or from
-        what a ``carry_key`` runner returned: one generator seeded from
-        ``seed``, or on a mesh of D > 1 ranks the own stream seeded from
-        ``SeedSequence([seed, d])`` and the shared one from ``seed``."""
+        ``core.prng.Key`` (``num`` keys split a round); else
+        ``NoiseStreams`` from an int seed or from what a ``carry_key``
+        runner returned: one generator seeded from ``seed``, or on a mesh of
+        D > 1 ranks the own stream seeded from ``SeedSequence([seed, d])``
+        and the shared one from ``seed``."""
         if isinstance(key, Key):
-            return JaxStream(key, self.device)
+            return JaxStream(key, self.device, num)
         if self.mesh is None or self.mesh.size == 1:
             gen = torch.Generator(device=self.device)
             if isinstance(key, torch.Tensor):
@@ -770,15 +786,16 @@ class RoundProgram:
 
     def _jax_draws(self, vol_path: tuple = (2,)) -> tuple:
         """For each of ``draws()``, how the JAX key stream draws it: ``(mode,
-        path, lo)``, the folds from the round's key (``1`` is ``k1``;
-        ``vol_path`` leads to the key the volatility model's ``sample``
-        takes, ``k2`` in a runner) and a uniform row's lower end (see the
-        module docstring)."""
+        path, lo)``, the path from the round's split (its first step the
+        index of a round key, ``1`` for ``k1``; then ``core.prng.derive``'s
+        steps, an int a fold and ``(i, n)`` a split; ``vol_path`` leads to
+        the key the volatility model's ``sample`` takes, ``k2`` in a runner)
+        and a uniform row's lower end (see the module docstring)."""
         fl = self.fl
         fold = (self.mesh.rank,) if self.mesh is not None and self.mesh.size > 1 else ()
         if fl.scheme == "e3cs":
             sel = (("gumbel", (1,) + fold, 0.0),) if fl.sampler == "plackett_luce" else (
-                ("perm", (1, 0), 0.0), ("uniform", (1, 1), 0.0))
+                ("perm", (1, (0, 2)), 0.0), ("uniform", (1, (1, 2)), 0.0))
         else:
             sel = {"random": (("perm", (1,), 0.0),), "fedcs": (("uniform", (1,), 0.0),),
                    "pow_d": (("perm", (1,), 0.0),), "ucb": ()}[fl.scheme]
@@ -792,7 +809,7 @@ class RoundProgram:
         """One round's noise from the JAX key stream, drawn final into
         ``out``, then the key advanced."""
         for (mode, path, lo), (_, shape), buf in zip(self._jax_draws(vol_path), self.draws(), out):
-            key = Key(gen.key, path)
+            key = derive(gen.round_keys()[path[0]], path[1:])
             if mode == "perm":
                 permutation(key, shape[0], out=buf)
             elif mode == "gumbel":
@@ -1038,7 +1055,8 @@ class _Horizon:
         self.warmup_s = self.capture_s = None
         self.per_replay = {}  # kernel launches by wrapper that one replay runs
         self._spec = None
-        self.jax_stream = None  # whether the runner's noise is the JAX key stream (fixed at its first call)
+        # whether the runner's noise is the JAX key stream, and in which mode (fixed at its first call)
+        self.jax_stream = self.partitionable = None
 
     def _setup(self, leaves, spec, xs_in):
         pm = self.program
@@ -1074,7 +1092,8 @@ class _Horizon:
         pm = self.program
 
         def warm_up():
-            pm.draw_uniforms(pm.generator(PRNGKey(0, pm.device) if self.jax_stream else 0), self._raw)
+            key = PRNGKey(0, pm.device, partitionable=self.partitionable) if self.jax_stream else 0
+            pm.draw_uniforms(pm.generator(key), self._raw)
             self._body()
 
         self.graph, self._outs, self.per_replay, self.warmup_s, self.capture_s = capture_step(
@@ -1096,10 +1115,13 @@ class _Horizon:
     def __call__(self, carry, gen: NoiseStreams, xs_in):
         leaves, spec = pytree.tree_flatten(carry)
         jax_stream = isinstance(gen, JaxStream)
+        partitionable = gen.partitionable if jax_stream else None
         if self.jax_stream is None:
-            self.jax_stream = jax_stream
+            self.jax_stream, self.partitionable = jax_stream, partitionable
         elif jax_stream != self.jax_stream:
             raise ValueError("a runner keeps the kind of key of its first call (an int seed or a core.prng.Key)")
+        elif partitionable != self.partitionable:
+            raise ValueError("a runner keeps the threefry mode of its first call's key (partitionable or original)")
         if self._spec is None:
             self._setup(leaves, spec, xs_in)
         elif spec != self._spec or any(

@@ -12,13 +12,15 @@ CUDA graph of the round step a round on the card (the counterpart of JAX's
 
 As JAX caches its compiled runner per static configuration
 (``lru_cache``), ``scan_selection_sim`` caches its built runners (static
-buffers and, on the card, the captured graph) per configuration and device,
-so a repeated call replays without capturing again.  Runs given a model
+buffers and, on the card, the captured graph) per configuration, device and
+threefry mode (a runner keeps the mode of its first key), so a repeated call
+replays without capturing again.  Runs given a model
 object (``vol`` or ``rho``) build a runner of their own each call, as in
 JAX.
 
 Noise is the JAX package's key stream from ``PRNGKey(seed)`` (``core.prng``,
-see ``round_program``): ``seed`` gives the JAX package's selections.
+see ``round_program``), in the mode ``core.prng.threefry_partitionable``
+sets: ``seed`` gives the JAX package's selections under the same mode.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FLConfig
-from repro_torch.core.prng import PRNGKey
+from repro_torch.core.prng import PRNGKey, default_partitionable
 from repro_torch.core.volatility import CompletionLag, make_volatility, paper_success_rates
 from repro_torch.device import resolve_device
 from repro_torch.engine.round_program import RoundProgram, staleness_ring_step
@@ -74,8 +76,9 @@ def build_scan_runner(fl: FLConfig, vol, rho, override: str = "none", outputs: s
 
 @functools.lru_cache(maxsize=64)
 def _cached_runner(fl: FLConfig, volatility: str, stickiness: float, seed: int, override: str, taps: bool,
-                   fused: bool, device: torch.device):
-    """The runner of one static configuration, built once a process."""
+                   fused: bool, device: torch.device, partitionable: bool):
+    """The runner of one static configuration, built once a process for
+    each threefry mode of its keys."""
     rho = paper_success_rates(fl.K)
     vol = make_volatility(volatility, rho, stickiness=stickiness, seed=seed, device=device)
     return build_scan_runner(fl, vol, rho, override=override, taps=taps, fused=fused, device=device)
@@ -142,7 +145,8 @@ def scan_selection_sim(
             vol = make_volatility(volatility, rho, stickiness=stickiness, seed=seed, device=dev)
         run, state = build_scan_runner(fl, vol, rho, override=override, taps=taps, fused=fused, device=dev)
     else:
-        run, state = _cached_runner(fl, volatility, stickiness, seed, override, taps, fused, dev)
+        run, state = _cached_runner(fl, volatility, stickiness, seed, override, taps, fused, dev,
+                                    default_partitionable())
     if override == "dense":
         xs_in = torch.as_tensor(np.asarray(xs_override, np.float32), device=dev)
     elif override == "packed":

@@ -15,15 +15,15 @@ by ``staleness_alpha**lag`` (``aggregate_async``).  The selector still sees
 deadline-based feedback.
 
 Noise.  ``FLServer.run`` follows the JAX package's key schedule
-(``core.prng``, one key on the device): ``PRNGKey(seed + 1)``, then
-``key, k_sel, k_round, k_cand = split(key, 4)`` every round.  ``k_sel``
-draws the selection's noise as the scheme's ``select`` draws it,
-``split(fold_in(k_round, 1))[0]`` the volatility model's rows
-(``RoundProgram.draw_noise(vol_path=(2, 1, 0))``), and ``k_cand`` pow-d's
-``permutation(k_cand, K)``.  The second half of ``fold_in(k_round, 1)``
-reaches the reference's local update as its clients' keys, which no model's
-loss reads: nothing is drawn for it.  A test hands ``run`` the JAX
-package's own draws instead (``noise=``).
+(``core.prng``, one key on the device, in the threefry mode of
+``PRNGKey``'s default): ``PRNGKey(seed + 1)``, then ``key, k_sel, k_round,
+k_cand = split(key, 4)`` every round.  ``k_sel`` draws the selection's noise
+as the scheme's ``select`` draws it, ``split(fold_in(k_round, 1))[0]`` the
+volatility model's rows (``RoundProgram.draw_noise(vol_path=(2, 1, (0,
+2)))``), and ``k_cand`` pow-d's ``permutation(k_cand, K)``.  The second
+half of ``fold_in(k_round, 1)`` reaches the reference's local update as its
+clients' keys, which no model's loss reads: nothing is drawn for it.  A
+test hands ``run`` the JAX package's own draws instead (``noise=``).
 """
 from __future__ import annotations
 
@@ -153,8 +153,8 @@ class FLServer:
     def _draw(self, stream):
         """One round's ``(RoundNoise, cand)`` from the carried key, which is
         then advanced (``split(key, 4)[0]``)."""
-        cand = permutation(Key(stream.key, (3,)), self.cfg.K) if self.cfg.scheme == "pow_d" else None
-        return self.program.draw_noise(stream, vol_path=(2, 1, 0)), cand
+        cand = permutation(stream.round_keys()[3], self.cfg.K) if self.cfg.scheme == "pow_d" else None
+        return self.program.draw_noise(stream, vol_path=(2, 1, (0, 2))), cand
 
     def _report_candidate_losses(self, state: ServerState, perm: torch.Tensor) -> ServerState:
         """pow-d stage: the first d of ``perm`` report their loss on the
@@ -185,7 +185,7 @@ class FLServer:
         rounds = rounds or cfg.rounds
         history: Dict[str, List] = {"round": [], "acc": [], "loss": [], "cep": [], "succ_ratio": []}
         draws = iter(noise) if noise is not None else None
-        stream = self.program.generator(PRNGKey(cfg.seed + 1, self.device)) if draws is None else None
+        stream = self.program.generator(PRNGKey(cfg.seed + 1, self.device), num=4) if draws is None else None
         dev = self.device
         sizes = self.store.sizes()
         total_q = torch.tensor(float(sizes.sum()), dtype=torch.float32, device=dev)

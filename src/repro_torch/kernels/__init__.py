@@ -54,7 +54,8 @@ WRAPPERS = {
     "gumbel_topk": gumbel_topk_kernel_call,
     "fused_gumbel_topk": fused_gumbel_topk_kernel_call,
     "e3cs_update": e3cs_update_kernel_call,
-    # one count a threefry epilogue, and the rows and categorical entries (kernels.threefry.LAUNCHES)
+    # one count a threefry epilogue and the rows and categorical entries, again for the original layout
+    # (kernels.threefry.LAUNCHES)
     **{f"threefry.{mode}": count for mode, count in THREEFRY_LAUNCHES.items()},
 }
 

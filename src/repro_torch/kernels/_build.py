@@ -45,9 +45,9 @@ _SIGNATURES = {
     "repro_gumbel_topk": [_P, _I64, _I, _I, _I, _I, _I, _I64, _P, _P, _P, _P],
     "repro_fused_gumbel_topk": [_P, _P, _I64, _I, _I, _I, _I, _I, _I64, _P, _P, _P, _P],
     "repro_e3cs_update": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P],
-    "repro_threefry": [_P, _I, _I64, _I64, _I64, _I64, _I64, _I64, _I, _F, _F, _P, _P],
-    "repro_threefry_rows": [_P, _I64, _I, _I64, _I64, _I64, _I64, _I64, _P, _P],
-    "repro_threefry_categorical": [_P, _I, _I64, _I64, _I64, _I64, _P, _I64, _I64, _I, _P, _P],
+    "repro_threefry": [_P, _I, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I, _F, _F, _P, _P],
+    "repro_threefry_rows": [_P, _I64, _I, _I64, _I64, _I64, _I64, _I64, _I, _P, _P],
+    "repro_threefry_categorical": [_P, _I, _I64, _I64, _I64, _I64, _P, _I64, _I64, _I, _I, _P, _P],
 }
 
 

@@ -41,8 +41,20 @@
 //             logits take JAX's bfloat16 Gumbel: 8 random bits (the low byte
 //             of a ^ b), the mantissa their top 7, every operation rounded
 //             to bfloat16.
-// The plain version is threefry_ref in kernels/ref.py (int64 words, every sum
-// taken & 0xffffffff).
+// The original layout (JAX's jax_threefry_partitionable=False), a second
+// counter layout of each entry: a draw of m 32-bit words hashes the counter
+// pairs (j, j + h), h = ceil(m / 2), j < h (the second counter 0 where j + h
+// = m, the odd draw's padding), word j the pair's first output and word j + h
+// its second, and a value's 32 bits are its word (no xor).  Thread j hashes
+// pair j and writes both words through the mode's epilogue, those of them
+// that lie in the launch's words (a launch may write a block of a larger
+// draw: normal's large leaves); split(key, n) is the draw of 2n words, key i
+// words 2i and 2i + 1 (kKeys writes single words).  The rows entry takes
+// each row as a draw of its own; categorical hashes each value's pair and
+// keeps its word (bfloat16: value i is byte i % 4 of word i / 4 of a draw of
+// ceil(B * V / 4) words).
+// The plain version is threefry_ref in kernels/ref.py (int32 words, every sum
+// wrapping as uint32 sums do).
 //
 // Bound on the H100: a hash is 20 rounds of add, rotate (one funnel shift)
 // and xor plus 5 key injections of two adds and the two first adds: 32 adds,
@@ -157,6 +169,58 @@ __device__ __forceinline__ void write(void* out, int64_t i, uint32_t a, uint32_t
     }
 }
 
+// A value's output from its word in the original layout (kKeys: the word).
+template <int kMode>
+__device__ __forceinline__ void write_word(void* out, int64_t i, uint32_t y, float minval, float maxval) {
+    if constexpr (kMode == kKeys) {
+        static_cast<uint32_t*>(out)[i] = y;
+    } else {
+        write<kMode>(out, i, y, 0u, minval, maxval);
+    }
+}
+
+// The original layout's pair j of a draw of m words (h = ceil(m / 2)):
+// (y0, y1) = threefry2x32 of (j, j + h), the second counter 0 past the end.
+__device__ __forceinline__ void orig_pair(uint32_t k0, uint32_t k1, uint64_t j, uint64_t h, uint64_t m, uint32_t& y0,
+                                          uint32_t& y1) {
+    y0 = static_cast<uint32_t>(j);
+    y1 = j + h < m ? static_cast<uint32_t>(j + h) : 0u;
+    threefry2x32(k0, k1, y0, y1);
+}
+
+// Word w of a draw of m words in the original layout (one hash of its pair).
+__device__ __forceinline__ uint32_t orig_word(uint32_t k0, uint32_t k1, uint64_t w, uint64_t m) {
+    const uint64_t h = (m + 1) / 2;
+    uint32_t y0, y1;
+    orig_pair(k0, k1, w < h ? w : w - h, h, m, y0, y1);
+    return w < h ? y0 : y1;
+}
+
+// One launch's words [w_lo, w_hi) of an original-layout draw of m words:
+// the pairs [p_lo, p_hi) hold them.
+struct Orig {
+    uint64_t m, h, w_lo, w_hi, p_lo, p_hi;
+};
+
+template <int kMode>
+__global__ void __launch_bounds__(kThreads) threefry_orig_kernel(const uint32_t* key, Path path, Orig o, float minval,
+                                                                 float maxval, void* out) {
+    __shared__ uint32_t sk[2];
+    fold_key(key, path, sk);
+    const uint32_t k0 = sk[0], k1 = sk[1];
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+    const int64_t n_pairs = static_cast<int64_t>(o.p_hi - o.p_lo);
+    for (int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; t < n_pairs; t += stride) {
+        const uint64_t j = o.p_lo + static_cast<uint64_t>(t), w1 = j + o.h;
+        const bool in0 = j >= o.w_lo && j < o.w_hi, in1 = w1 < o.m && w1 >= o.w_lo && w1 < o.w_hi;
+        if (!in0 && !in1) continue;
+        uint32_t y0, y1;
+        orig_pair(k0, k1, j, o.h, o.m, y0, y1);
+        if (in0) write_word<kMode>(out, static_cast<int64_t>(j - o.w_lo), y0, minval, maxval);
+        if (in1) write_word<kMode>(out, static_cast<int64_t>(w1 - o.w_lo), y1, minval, maxval);
+    }
+}
+
 template <int kMode>
 __global__ void __launch_bounds__(kThreads) threefry_kernel(const uint32_t* key, Path path,
                                                             uint64_t offset, int64_t n, float minval, float maxval,
@@ -176,7 +240,9 @@ __global__ void __launch_bounds__(kThreads) threefry_kernel(const uint32_t* key,
 }
 
 // Row blockIdx.y: the Gumbel draws of counters 0 .. n-1 under
-// keys[blockIdx.y] folded by the path.
+// keys[blockIdx.y] folded by the path; kOrig: the row's draw of n in the
+// original layout, thread j writing values j and j + h.
+template <bool kOrig>
 __global__ void __launch_bounds__(kThreads) threefry_rows_kernel(const uint32_t* keys, Path path, int64_t n,
                                                                  float* out) {
     __shared__ uint32_t sk[2];
@@ -185,11 +251,19 @@ __global__ void __launch_bounds__(kThreads) threefry_rows_kernel(const uint32_t*
     const uint32_t k0 = sk[0], k1 = sk[1];
     float* base = out + row * n;
     const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-    for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n; i += stride) {
-        const uint64_t c = static_cast<uint64_t>(i);
-        uint32_t a = static_cast<uint32_t>(c >> 32), b = static_cast<uint32_t>(c);
-        threefry2x32(k0, k1, a, b);
-        write<kGumbel>(base, i, a, b, 0.0f, 1.0f);
+    const int64_t h = kOrig ? (n + 1) / 2 : n;
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < h; i += stride) {
+        if constexpr (kOrig) {
+            uint32_t y0, y1;
+            orig_pair(k0, k1, static_cast<uint64_t>(i), h, n, y0, y1);
+            write<kGumbel>(base, i, y0, 0u, 0.0f, 1.0f);
+            if (i + h < n) write<kGumbel>(base, i + h, y1, 0u, 0.0f, 1.0f);
+        } else {
+            const uint64_t c = static_cast<uint64_t>(i);
+            uint32_t a = static_cast<uint32_t>(c >> 32), b = static_cast<uint32_t>(c);
+            threefry2x32(k0, k1, a, b);
+            write<kGumbel>(base, i, a, b, 0.0f, 1.0f);
+        }
     }
 }
 
@@ -210,7 +284,7 @@ __device__ __forceinline__ bool beats(float v, int64_t i, float w, int64_t j) {
     return i < j;
 }
 
-template <bool kBf16>
+template <bool kBf16, bool kOrig>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kCatThreads)
     categorical_kernel(const uint32_t* key, Path path, const void* logits, int64_t V, int32_t* out) {
     __shared__ uint32_t sk[2];
@@ -228,8 +302,15 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kCatThreads)
     for (int64_t v = static_cast<int64_t>(rank) * kCatThreads + threadIdx.x; v < V;
          v += static_cast<int64_t>(kCluster) * kCatThreads) {
         const uint64_t c = static_cast<uint64_t>(row * V + v);
-        uint32_t a = static_cast<uint32_t>(c >> 32), b = static_cast<uint32_t>(c);
-        threefry2x32(k0, k1, a, b);
+        uint32_t a, b = 0u;  // the value's bits are a ^ b
+        if constexpr (kOrig) {
+            const uint64_t n = static_cast<uint64_t>(gridDim.y) * static_cast<uint64_t>(V);
+            a = kBf16 ? orig_word(k0, k1, c / 4, (n + 3) / 4) >> (8 * (c % 4)) : orig_word(k0, k1, c, n);
+        } else {
+            a = static_cast<uint32_t>(c >> 32);
+            b = static_cast<uint32_t>(c);
+            threefry2x32(k0, k1, a, b);
+        }
         float s;
         if constexpr (kBf16) {
             const uint32_t bits8 = (a ^ b) & 0xffu;
@@ -295,9 +376,28 @@ int blocks_for(int64_t n, int64_t rows) {
 }
 
 template <int kMode>
-cudaError_t launch(const uint32_t* key, const Path& path, uint64_t offset, int64_t n, float minval, float maxval,
-                   void* out, cudaStream_t stream) {
-    threefry_kernel<kMode><<<blocks_for(n, 1), kThreads, 0, stream>>>(key, path, offset, n, minval, maxval, out);
+cudaError_t launch(const uint32_t* key, const Path& path, uint64_t offset, int64_t n, int64_t total, float minval,
+                   float maxval, void* out, cudaStream_t stream) {
+    if (total == 0) {
+        threefry_kernel<kMode><<<blocks_for(n, 1), kThreads, 0, stream>>>(key, path, offset, n, minval, maxval, out);
+        return cudaGetLastError();
+    }
+    // the original layout: the words [w_lo, w_hi) of a draw of m (a key is two)
+    const uint64_t per = kMode == kKeys ? 2 : 1;
+    Orig o;
+    o.m = per * static_cast<uint64_t>(total);
+    o.h = (o.m + 1) / 2;
+    o.w_lo = per * offset;
+    o.w_hi = o.w_lo + per * static_cast<uint64_t>(n);
+    // the pairs of the words below h, and of those from h on
+    const uint64_t a_hi = o.w_hi < o.h ? o.w_hi : o.h, b_lo = (o.w_lo > o.h ? o.w_lo : o.h) - o.h;
+    const bool a = o.w_lo < a_hi, b = o.w_hi > o.h;
+    o.p_lo = a ? o.w_lo : b_lo;
+    o.p_hi = b ? o.w_hi - o.h : a_hi;
+    if (a && b && b_lo < o.p_lo) o.p_lo = b_lo;
+    if (a && b && a_hi > o.p_hi) o.p_hi = a_hi;
+    const int64_t pairs = static_cast<int64_t>(o.p_hi - o.p_lo);
+    threefry_orig_kernel<kMode><<<blocks_for(pairs, 1), kThreads, 0, stream>>>(key, path, o, minval, maxval, out);
     return cudaGetLastError();
 }
 
@@ -308,58 +408,76 @@ Path make_path(int n_path, int64_t d0, int64_t d1, int64_t d2, int64_t d3) {
 
 }  // namespace
 
-// The folds of ``key`` are d0..d3 (the first n_path of them).  Returns a
-// cudaError_t (0: launched).
+// The folds of ``key`` are d0..d3 (the first n_path of them).  ``total``
+// 0: the partitionable layout, counters offset .. offset + n - 1; else the
+// original layout, values offset .. offset + n - 1 of a draw of ``total``
+// (keys for kKeys), at most 2**32 - 1 words.  Returns a cudaError_t (0:
+// launched).
 extern "C" int repro_threefry(const void* key, int n_path, int64_t d0, int64_t d1, int64_t d2, int64_t d3,
-                              int64_t offset, int64_t n, int mode, float minval, float maxval, void* out,
-                              cudaStream_t stream) {
-    if (n_path < 0 || n_path > kMaxPath || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+                              int64_t offset, int64_t n, int64_t total, int mode, float minval, float maxval,
+                              void* out, cudaStream_t stream) {
+    if (n_path < 0 || n_path > kMaxPath || n < 0 || total < 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (total > 0 && (offset < 0 || offset + n > total || (mode == kKeys ? 2 : 1) * total > INT64_C(0xffffffff)))
+        return static_cast<int>(cudaErrorInvalidValue);
     if (n == 0) return 0;
     const Path path = make_path(n_path, d0, d1, d2, d3);
     const uint32_t* k = static_cast<const uint32_t*>(key);
     const uint64_t off = static_cast<uint64_t>(offset);
     cudaError_t err;
     switch (mode) {
-        case kKeys: err = launch<kKeys>(k, path, off, n, minval, maxval, out, stream); break;
-        case kBits: err = launch<kBits>(k, path, off, n, minval, maxval, out, stream); break;
-        case kSortKey: err = launch<kSortKey>(k, path, off, n, minval, maxval, out, stream); break;
-        case kUniform: err = launch<kUniform>(k, path, off, n, minval, maxval, out, stream); break;
-        case kGumbel: err = launch<kGumbel>(k, path, off, n, minval, maxval, out, stream); break;
-        case kNormal: err = launch<kNormal>(k, path, off, n, minval, maxval, out, stream); break;
+        case kKeys: err = launch<kKeys>(k, path, off, n, total, minval, maxval, out, stream); break;
+        case kBits: err = launch<kBits>(k, path, off, n, total, minval, maxval, out, stream); break;
+        case kSortKey: err = launch<kSortKey>(k, path, off, n, total, minval, maxval, out, stream); break;
+        case kUniform: err = launch<kUniform>(k, path, off, n, total, minval, maxval, out, stream); break;
+        case kGumbel: err = launch<kGumbel>(k, path, off, n, total, minval, maxval, out, stream); break;
+        case kNormal: err = launch<kNormal>(k, path, off, n, total, minval, maxval, out, stream); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
     return static_cast<int>(err);
 }
 
 // ``rows`` Gumbel rows of ``n`` under the (rows, 2) keys, each folded by
-// d0..d3; ``out`` is (rows, n) float32.
+// d0..d3; ``out`` is (rows, n) float32; ``original``: each row's draw in the
+// original layout.
 extern "C" int repro_threefry_rows(const void* keys, int64_t rows, int n_path, int64_t d0, int64_t d1, int64_t d2,
-                                   int64_t d3, int64_t n, void* out, cudaStream_t stream) {
-    if (n_path < 0 || n_path > kMaxPath || n < 0 || rows < 0 || rows > 65535)
+                                   int64_t d3, int64_t n, int original, void* out, cudaStream_t stream) {
+    if (n_path < 0 || n_path > kMaxPath || n < 0 || rows < 0 || rows > 65535 || (original && n > INT64_C(0xffffffff)))
         return static_cast<int>(cudaErrorInvalidValue);
     if (n == 0 || rows == 0) return 0;
-    const dim3 grid(blocks_for(n, rows), static_cast<unsigned>(rows));
-    threefry_rows_kernel<<<grid, kThreads, 0, stream>>>(static_cast<const uint32_t*>(keys),
-                                                        make_path(n_path, d0, d1, d2, d3), n,
-                                                        static_cast<float*>(out));
+    const Path path = make_path(n_path, d0, d1, d2, d3);
+    const uint32_t* k = static_cast<const uint32_t*>(keys);
+    if (original) {
+        const dim3 grid(blocks_for((n + 1) / 2, rows), static_cast<unsigned>(rows));
+        threefry_rows_kernel<true><<<grid, kThreads, 0, stream>>>(k, path, n, static_cast<float*>(out));
+    } else {
+        const dim3 grid(blocks_for(n, rows), static_cast<unsigned>(rows));
+        threefry_rows_kernel<false><<<grid, kThreads, 0, stream>>>(k, path, n, static_cast<float*>(out));
+    }
     return static_cast<int>(cudaGetLastError());
 }
 
 // ``out[b]`` (int32) = argmax_v gumbel(key folded by d0..d3, (B, V))[b, v]
-// + logits[b, v]; ``bf16`` says the logits are bfloat16 (else float32).
+// + logits[b, v]; ``bf16`` says the logits are bfloat16 (else float32);
+// ``original``: the noise in the original layout.
 extern "C" int repro_threefry_categorical(const void* key, int n_path, int64_t d0, int64_t d1, int64_t d2,
                                           int64_t d3, const void* logits, int64_t B, int64_t V, int bf16,
-                                          void* out, cudaStream_t stream) {
-    if (n_path < 0 || n_path > kMaxPath || B < 0 || B > 65535 || V < 1 || V > INT32_MAX)
+                                          int original, void* out, cudaStream_t stream) {
+    if (n_path < 0 || n_path > kMaxPath || B < 0 || B > 65535 || V < 1 || V > INT32_MAX ||
+        (original && (bf16 ? (B * V + 3) / 4 : B * V) > INT64_C(0xffffffff)))
         return static_cast<int>(cudaErrorInvalidValue);
     if (B == 0) return 0;
     const Path path = make_path(n_path, d0, d1, d2, d3);
     const uint32_t* k = static_cast<const uint32_t*>(key);
     const dim3 grid(kCluster, static_cast<unsigned>(B));
-    if (bf16) {
-        categorical_kernel<true><<<grid, kCatThreads, 0, stream>>>(k, path, logits, V, static_cast<int32_t*>(out));
+    int32_t* o = static_cast<int32_t*>(out);
+    if (bf16 && original) {
+        categorical_kernel<true, true><<<grid, kCatThreads, 0, stream>>>(k, path, logits, V, o);
+    } else if (bf16) {
+        categorical_kernel<true, false><<<grid, kCatThreads, 0, stream>>>(k, path, logits, V, o);
+    } else if (original) {
+        categorical_kernel<false, true><<<grid, kCatThreads, 0, stream>>>(k, path, logits, V, o);
     } else {
-        categorical_kernel<false><<<grid, kCatThreads, 0, stream>>>(k, path, logits, V, static_cast<int32_t*>(out));
+        categorical_kernel<false, false><<<grid, kCatThreads, 0, stream>>>(k, path, logits, V, o);
     }
     return static_cast<int>(cudaGetLastError());
 }

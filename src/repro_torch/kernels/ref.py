@@ -330,10 +330,53 @@ def _chunked(k0, k1, path, offset: int, n: int, draw, width: int = 1, axis: int 
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=axis)
 
 
+def _pairs(k0, k1, j0: int, cnt: int, h: int, m: int):
+    """The original layout's outputs ``(y0, y1)`` (int32) of its counter
+    pairs ``j0 .. j0 + cnt - 1`` in a draw of ``m`` words: pair ``j`` hashes
+    ``(j, j + h)``, the second counter 0 where ``j + h`` is past the end."""
+    j = torch.arange(cnt, dtype=torch.int64, device=k0.device) + int(j0)
+    x1 = torch.where(j + h < m, j + h, torch.zeros_like(j))
+    return _threefry2x32(k0, k1, _as_int32(j), _as_int32(x1))
+
+
+def _original(k0, k1, path, w_lo: int, w_hi: int, m: int, draw, width: int = 1, axis: int = 0) -> torch.Tensor:
+    """``draw(words)`` over the words ``w_lo .. w_hi - 1`` of a draw of ``m``
+    words in the original layout (``threefry_ref``) under the key folded by
+    ``path``, on the CPU ``_CHUNK // width`` pairs at a time (``width`` keys
+    side by side), joined along ``axis``.  Each pair is hashed once: word
+    ``j`` and word ``j + h`` come from the same hash."""
+    if not 0 <= w_lo <= w_hi <= m:
+        raise ValueError(f"words {w_lo} .. {w_hi} are not in a draw of {m}")
+    if m > _M32:
+        raise ValueError(f"a draw of {m} words: JAX splits more than 2**32 - 1 into blocks, which is not ported")
+    k0, k1 = _fold(k0, k1, path)
+    h = (m + 1) // 2
+    spans = ((w_lo, min(w_hi, h)), (max(w_lo, h) - h, w_hi - h))  # the words of each half, as pairs
+    live = [s for s in spans if s[1] > s[0]]
+    if not live:
+        return draw(_pairs(k0, k1, 0, 0, h, m)[0])
+    p_lo, p_hi = min(s[0] for s in live), max(s[1] for s in live)
+    step = max(1, _CHUNK // width) if k0.device.type == "cpu" else p_hi - p_lo
+    heads, tails = [], []
+    for s in range(p_lo, p_hi, step):
+        e = min(s + step, p_hi)
+        y = _pairs(k0, k1, s, e - s, h, m)
+        for (lo, hi), y_half, parts in zip(spans, y, (heads, tails)):
+            a, b = max(s, lo), min(e, hi)
+            if b > a:
+                parts.append(draw(y_half.narrow(-1, a - s, b - a)))
+    parts = heads + tails
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=axis)
+
+
 def _epilogue(a, b, mode: str, minval: float, maxval: float, device) -> torch.Tensor:
     if mode == "keys":
         return torch.stack([a, b], dim=-1)
-    bits = a ^ b
+    return _finish(a ^ b, mode, minval, maxval, device)
+
+
+def _finish(bits, mode: str, minval: float, maxval: float, device) -> torch.Tensor:
+    """A mode's output from 32 random bits a value (int32)."""
     if mode == "bits":
         return bits
     if mode == "sortkey":
@@ -357,41 +400,59 @@ def _epilogue(a, b, mode: str, minval: float, maxval: float, device) -> torch.Te
     return u
 
 
-def threefry_rows_ref(keys: torch.Tensor, path: tuple, n: int) -> torch.Tensor:
+def threefry_rows_ref(keys: torch.Tensor, path: tuple, n: int, original: bool = False) -> torch.Tensor:
     """The plain version of the kernel's rows entry: row ``j`` of the
     ``(J, n)`` result is ``threefry_ref(keys[j], path, 0, n, "gumbel")``
-    (``keys`` a ``(J, 2)`` int32 tensor)."""
+    (``keys`` a ``(J, 2)`` int32 tensor), or with ``original`` the same
+    row in the original layout (``total=n``: each row a draw of its own)."""
+    if original:
+        return _original(keys[:, :1], keys[:, 1:], path, 0, n, n,
+                         lambda y: _finish(y, "gumbel", 0.0, 1.0, keys.device), width=keys.shape[0], axis=1)
     return _chunked(keys[:, :1], keys[:, 1:], path, 0, n,
                     lambda a, b: _epilogue(a, b, "gumbel", 0.0, 1.0, keys.device), width=keys.shape[0], axis=1)
 
 
-def categorical_ref(key: torch.Tensor, path: tuple, logits: torch.Tensor) -> torch.Tensor:
+def _gumbel_bf16(bits8: torch.Tensor) -> torch.Tensor:
+    """JAX's bfloat16 Gumbel from 8 random bits a value (int32 in ``[0,
+    256)``): their top 7 as the mantissa, each operation rounded to
+    bfloat16."""
+    tiny = torch.tensor(torch.finfo(torch.bfloat16).tiny, dtype=torch.bfloat16, device=bits8.device)
+    f = ((bits8 >> 1) | 0x3F80).to(torch.int16).view(torch.bfloat16) - 1.0
+    u = torch.maximum(tiny, f * (1.0 - tiny) + tiny)
+    return -torch.log(-torch.log(u))
+
+
+def categorical_ref(key: torch.Tensor, path: tuple, logits: torch.Tensor, original: bool = False) -> torch.Tensor:
     """The plain version of the kernel's categorical entry, JAX's
     ``categorical(key, logits)`` over the last axis of ``(B, V)`` logits:
     ``argmax(gumbel(key, (B, V), logits.dtype) + logits, -1)`` as int32, ties
     (and NaNs) to the lowest index.  Float32 logits take the ``"gumbel"``
-    epilogue's noise; bfloat16 logits JAX's bfloat16 Gumbel: the low 8 bits
-    of ``a ^ b``, their top 7 as the mantissa, each operation rounded to
-    bfloat16 (``_uniform`` draws 8 bits for a type of 7 mantissa bits)."""
+    epilogue's noise; bfloat16 logits JAX's bfloat16 Gumbel: 8 random bits
+    a value (``_uniform`` draws 8 bits for a type of 7 mantissa bits), their
+    top 7 as the mantissa, each operation rounded to bfloat16.  The 8 bits
+    are the low byte of ``a ^ b``; with ``original`` (the original layout)
+    the values are one draw of ``B * V`` words, or of ``ceil(B * V / 4)``
+    words for bfloat16, value ``i`` byte ``i % 4`` of word ``i // 4``."""
     B, V = logits.shape
     if logits.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"categorical takes float32 or bfloat16 logits, got {logits.dtype}")
-    tiny = torch.tensor(torch.finfo(torch.bfloat16).tiny, dtype=torch.bfloat16, device=key.device)
-
-    def gumbel_bf16(a, b):
-        bits8 = (a ^ b) & 0xFF
-        f = ((bits8 >> 1) | 0x3F80).to(torch.int16).view(torch.bfloat16) - 1.0
-        u = torch.maximum(tiny, f * (1.0 - tiny) + tiny)
-        return -torch.log(-torch.log(u))
-
-    draw = gumbel_bf16 if logits.dtype == torch.bfloat16 else (
-        lambda a, b: _epilogue(a, b, "gumbel", 0.0, 1.0, key.device))
-    g = _chunked(key[0], key[1], path, 0, B * V, draw)
+    n = B * V
+    if not original:
+        draw = (lambda a, b: _gumbel_bf16((a ^ b) & 0xFF)) if logits.dtype == torch.bfloat16 else (
+            lambda a, b: _epilogue(a, b, "gumbel", 0.0, 1.0, key.device))
+        g = _chunked(key[0], key[1], path, 0, n, draw)
+    elif logits.dtype == torch.bfloat16:
+        m = -(-n // 4)
+        words = _original(key[0], key[1], path, 0, m, m, lambda y: y)
+        shifts = torch.arange(0, 32, 8, dtype=torch.int32, device=key.device)
+        g = _gumbel_bf16(((words[:, None] >> shifts) & 0xFF).reshape(-1)[:n])
+    else:
+        g = _original(key[0], key[1], path, 0, n, n, lambda y: _finish(y, "gumbel", 0.0, 1.0, key.device))
     return torch.argmax(g.view(B, V) + logits, dim=-1).to(torch.int32)
 
 
 def threefry_ref(key: torch.Tensor, path: tuple, offset: int, n: int, mode: str, minval: float = 0.0,
-                 maxval: float = 1.0) -> torch.Tensor:
+                 maxval: float = 1.0, total: int = 0) -> torch.Tensor:
     """The plain version of the threefry kernel (``csrc/threefry.cu``).
 
     ``key`` is a ``(2,)`` int32 tensor holding a key's two uint32 words.  It
@@ -404,7 +465,22 @@ def threefry_ref(key: torch.Tensor, path: tuple, offset: int, n: int, mode: str,
     unsigned order as int32), ``"uniform"`` float32 in ``[minval, maxval)``,
     ``"gumbel"`` ``-log(-log(u))`` of ``u`` uniform in ``[tiny, 1)`` and
     ``"normal"`` ``sqrt(2) * erf_inv(u)`` of ``u`` uniform in ``[NORMAL_LO,
-    1)`` (``jax.random.normal``; ``erf_inv_ref``)."""
+    1)`` (``jax.random.normal``; ``erf_inv_ref``).
+
+    ``total > 0`` takes the original layout (JAX's
+    ``jax_threefry_partitionable=False``): the values ``offset .. offset + n
+    - 1`` of one draw of ``total`` values, a draw of ``m`` words (``total``,
+    or ``2 * total`` for ``"keys"``: ``split(key, total)``) hashing the
+    counter pairs ``(j, j + h)``, ``h = ceil(m / 2)``, for ``j < h`` (the
+    second counter 0 past the end), word ``j`` the pair's first output and
+    word ``j + h`` its second; each word is a value's 32 bits (no xor), and
+    key ``i`` is words ``2i`` and ``2i + 1``."""
     if mode not in THREEFRY_MODES:
         raise ValueError(f"unknown threefry mode {mode!r} (want one of {THREEFRY_MODES})")
-    return _chunked(key[0], key[1], path, offset, n, lambda a, b: _epilogue(a, b, mode, minval, maxval, key.device))
+    if not total:
+        return _chunked(key[0], key[1], path, offset, n,
+                        lambda a, b: _epilogue(a, b, mode, minval, maxval, key.device))
+    if mode == "keys":
+        return _original(key[0], key[1], path, 2 * offset, 2 * (offset + n), 2 * total, lambda y: y).view(n, 2)
+    return _original(key[0], key[1], path, offset, offset + n, total,
+                     lambda y: _finish(y, mode, minval, maxval, key.device))

@@ -64,7 +64,7 @@ from repro_torch.core.volatility import BernoulliVolatility, BinaryLag, Completi
 from repro_torch.core.volatility import row_shape
 from repro_torch.device import resolve_device
 from repro_torch.engine.multi_job import make_multi_job, multi_job_init, pack_jobs, plain_batched_step
-from repro_torch.engine.round_program import capture_step, staleness_ring_step
+from repro_torch.engine.round_program import JaxStream, capture_step, staleness_ring_step
 from repro_torch.kernels import add_launch_counts
 from repro_torch.obs import ROUND_TAPS, Reporter, SketchSpec, SpanTimer
 
@@ -202,10 +202,11 @@ def run_service(
 class _ServiceHorizon:
     """``run_service_compiled``'s ticks over static buffers.
 
-    A tick ``t``: the fleet's lag rows are drawn under ``fold_in(key, 1)``
-    of the carried fleet key, which is then advanced (``key, k_vol =
+    A tick ``t``: the fleet's lag rows are drawn under ``k_vol`` of the
+    carried fleet key, which is then advanced (``key, k_vol =
     split(key)``), and every job's Gumbel row under ``fold_in(base_key_j,
-    t)`` in one launch (outside the graph, into static buffers); then the
+    t)`` in one launch (outside the graph, into static buffers), the keys
+    in the threefry mode of the horizon's making; then the
     lag model's ``sample``, the batched step on the on-time bits, and the
     ``(J, S, K_max)`` staleness ring, writing the new state, ring and the
     tick's per-job ``on_time`` and ``stale`` credit back into the buffers.
@@ -228,8 +229,7 @@ class _ServiceHorizon:
         self.vs = pytree.tree_map(lambda v: v.clone(), lag_model.init_state())
         self.raw_vol = [torch.empty(row_shape(n), dtype=torch.float32, device=self.dev) for n, _ in self.rows]
         self.raw_g = torch.empty((J, K_max), dtype=torch.float32, device=self.dev)
-        self.base_keys = prng.split_data(prng.PRNGKey(seed, self.dev), J)
-        self.key = torch.empty(2, dtype=torch.int32, device=self.dev)
+        self.base_keys = prng.split_data(prng.PRNGKey(seed, self.dev), J)  # the horizon's mode: the default's
         self.on_time = torch.zeros(J, dtype=torch.float32, device=self.dev)
         self.stale = torch.zeros(J, dtype=torch.float32, device=self.dev)
         self.graph, self.per_replay, self.warmup_s, self.capture_s = None, {}, None, None
@@ -240,13 +240,14 @@ class _ServiceHorizon:
             buf.zero_()
         for buf, v in zip(pytree.tree_leaves(self.vs), pytree.tree_leaves(self.lag_model.init_state())):
             buf.copy_(v)
-        self.key.copy_(prng.key_data(prng.PRNGKey(self.seed + 1, self.dev)))
+        self.fleet = JaxStream(prng.PRNGKey(self.seed + 1, self.dev, self.base_keys.partitionable), self.dev, num=2)
         self.tick = 0  # the next tick's t: a later run resumes the horizon where the last one stopped
 
     def _draw(self, t: int) -> None:
+        k_vol = self.fleet.round_keys()[1]
         for buf, path, (_, lo) in zip(self.raw_vol, self.lag_model.key_paths(), self.rows):
-            prng.uniform(prng.Key(self.key, (1,) + path), buf.shape, minval=lo, out=buf)
-        prng.advance_(self.key)
+            prng.uniform(prng.derive(k_vol, path), buf.shape, minval=lo, out=buf)
+        self.fleet.advance()
         prng.rows(self.base_keys, (t,), self.raw_g.shape[1], out=self.raw_g)
 
     def _tick(self) -> None:

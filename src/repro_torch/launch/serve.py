@@ -94,7 +94,8 @@ def generate(model, params, batch, gen: int, temperature: float, *, rng: Optiona
                     g = torch.as_tensor(gumbel[i], device=dev)
                     tok = torch.argmax(scaled + g.to(scaled.dtype), -1)[:, None].to(torch.int32)
                 else:
-                    key = prng.Key(prng.key_data(prng.fold_in(key, i)))  # hashed now: the chain stays one fold long
+                    # hashed now: the chain stays one fold long
+                    key = prng.Key(prng.key_data(prng.fold_in(key, i)), partitionable=key.partitionable)
                     tok = prng.categorical(key, scaled)[:, None]
             else:
                 tok = torch.argmax(logits_i[:, -1:], -1).to(torch.int32)

@@ -58,12 +58,13 @@ class ParamBuilder:
 
     ``stack=n`` makes every parameter a stack of ``n`` layers, ``(n, *shape)``
     with ``"layers"`` first in its axes, as the reference's ``vmap``-ed init
-    does: layer ``i`` draws under ``fold_in(rng, i)`` first (the reference's
-    ``split(rng, n)[i]``), then the counts.  A stack, and the leading
-    ``experts`` axis of an MoE weight, is drawn one block at a time in
-    float32 (a block of JAX's one draw: ``prng.normal(..., start=)``) and
-    written into the preallocated tensor in ``dtype``: no whole stack is
-    ever held in float32.
+    does: layer ``i`` draws under the reference's ``split(rng, n)[i]`` first
+    (in partitionable mode ``fold_in(rng, i)``; in the original mode the n
+    keys of one split, made once per instance), then the counts.  A stack, and
+    the leading ``experts`` axis of an MoE weight, is drawn one block at a
+    time in float32 (a block of JAX's one draw: ``prng.normal(..., start=,
+    total=)``) and written into the preallocated tensor in ``dtype``: no
+    whole stack is ever held in float32.
     """
 
     def __init__(self, rng, dtype=torch.float32, device=None, stack: int = 0, path: Tuple[int, ...] = ()):
@@ -75,6 +76,7 @@ class ParamBuilder:
         self.params: Dict = {}
         self.specs: Dict = {}
         self._n = 0
+        self._layers = None  # split(rng, stack), made at the first layer's key
 
     def _jax(self) -> bool:
         return isinstance(self.rng, Key)
@@ -85,7 +87,11 @@ class ParamBuilder:
 
     def _key(self, path: Tuple[int, ...], layer: Optional[int] = None) -> Key:
         key = self.rng
-        for d in ((layer,) if layer is not None else ()) + path:
+        if layer is not None:
+            if self._layers is None:
+                self._layers = prng.split(self.rng, self.stack)
+            key = self._layers[layer]
+        for d in path:
             key = prng.fold_in(key, d)
         return key
 
@@ -98,7 +104,7 @@ class ParamBuilder:
             return
         block = math.prod(dst.shape[1:])
         for e in range(dst.shape[0]):
-            dst[e] = prng.normal(key, tuple(dst.shape[1:]), start=e * block).to(self.dtype) * scale
+            dst[e] = prng.normal(key, tuple(dst.shape[1:]), start=e * block, total=dst.numel()).to(self.dtype) * scale
 
     def _normal(self, shape) -> torch.Tensor:
         return torch.randn(shape, generator=self.rng, dtype=torch.float32, device=self.device).to(self.dtype)

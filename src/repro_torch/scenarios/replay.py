@@ -26,7 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.core.prng import Key, PRNGKey, advance_, key_data
+from repro_torch.core.prng import Key, PRNGKey, key_data, split
 from repro_torch.core.volatility import DEAD_LAG, _Model
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ref import LAG_DEAD_CODE
@@ -112,15 +112,16 @@ def _record(model, T: int, seed: int, chunk: int, device, pack) -> np.ndarray:
     time."""
     dev = resolve_device(device)
     model = model.to(dev)
-    key = key_data(PRNGKey(seed, dev)).clone()
+    key = PRNGKey(seed, dev)
     vs = model.init_state()
     chunks, done = [], 0
     while done < T:
         n = min(chunk, T - done)
         rows = []
         for _ in range(n):
-            out, vs = model.sample(model.draw(Key(key, (1,))), vs)
-            advance_(key)
+            key, k2 = split(key)
+            out, vs = model.sample(model.draw(k2), vs)
+            key = Key(key_data(key), partitionable=key.partitionable)  # carried with its path hashed in
             rows.append(pack(out))
         chunks.append(torch.stack(rows).cpu().numpy())
         done += n

@@ -97,7 +97,7 @@ class RegionalOutageVolatility(_Model):
         return ((self.n_regions, 0.0), (self.rho.shape[0], 0.0))
 
     def key_paths(self):
-        return ((0,), (1,))  # r_reg, r_cli = split(key)
+        return (((0, 2),), ((1, 2),))  # r_reg, r_cli = split(key)
 
     def sample(self, us, state):
         u_reg, u_cli = us
@@ -137,7 +137,7 @@ class FlashCrowdVolatility(_Model):
         return ((K, 0.0), (K, 0.0))
 
     def key_paths(self):
-        return ((0,), (1,))  # r_x, r_leave = split(key)
+        return (((0, 2),), ((1, 2),))  # r_x, r_leave = split(key)
 
     def sample(self, us, state):
         alive, t = state

@@ -36,12 +36,18 @@ Philox (``"philox"``), as above.  ``stream="jax"`` follows the JAX package's
 key stream (``core.prng``) seed for seed: the slot engine draws job round
 ``t``'s row as ``gumbel(fold_in(base_key, t), (K_max,))`` with ``base_key =
 PRNGKey(seed)`` carried per slot (``base_keys``, as JAX's engine), and the
-sharded engine carries each job's JAX key through its ``carry_key`` runner.
-``meta()`` records the JAX stream (a Philox engine's meta is the JAX
-engine's, field for field) and ``engine_from_meta`` honours it, so jobs
-admitted after a restore follow it; ``serve.state.load_server`` builds a JAX
-stem's engine on it, so a service checkpointed by the JAX package continues
-on the card with the cohorts the JAX service would have served.
+sharded engine carries each job's JAX key through its ``carry_key`` runner,
+each in the threefry mode that was the default when the engine was built
+(``core.prng.threefry_partitionable``; a sharded engine's followers take
+the leader's).
+``meta()`` records the JAX stream and its mode (a Philox engine's meta is
+the JAX engine's, field for field) and ``engine_from_meta`` rebuilds the
+engine in them, so restored jobs, and jobs admitted after a restore,
+follow the stream (a meta naming no mode, a JAX stem's, takes the current
+default, as JAX's engine follows its config); ``serve.state.load_server``
+builds a JAX stem's engine on it, so a service checkpointed by the JAX
+package continues on the card with the cohorts the JAX service would have
+served.
 
 Feedback is the population's completion-lag codes for the round being
 issued: 0 on time, ``1..S`` late, ``DEAD_LAG`` never.  Every entry point
@@ -58,7 +64,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.prng import Key, PRNGKey, fold_in, gumbel
+from repro_torch.core.prng import Key, PRNGKey, default_partitionable, fold_in, gumbel, threefry_partitionable
 from repro_torch.core.selection.sampling import gumbel_from_uniform
 from repro_torch.device import resolve_device
 from repro_torch.engine.multi_job import MultiJobConfig, MultiJobState, job_generator, pad_slots, plain_batched_step
@@ -89,10 +95,18 @@ def _check_stream(stream: str) -> str:
     return stream
 
 
-def _stream_meta(stream: str) -> dict:
-    """The noise stream's entry in an engine's ``meta()``: named when it is
-    the JAX key stream, absent for Philox (the meta JAX's engine writes)."""
-    return {"stream": stream} if stream != "philox" else {}
+def _stream_meta(stream: str, partitionable: bool) -> dict:
+    """The noise stream's entry in an engine's ``meta()``: named, with its
+    threefry mode, when it is the JAX key stream, absent for Philox (the
+    meta JAX's engine writes)."""
+    return {"stream": stream, "threefry_partitionable": partitionable} if stream != "philox" else {}
+
+
+def _meta_mode(meta: dict):
+    """The threefry mode an engine is rebuilt in: its meta's, or where the
+    meta names none (a JAX package stem) the current default, as JAX's
+    engine follows its config."""
+    return threefry_partitionable(meta.get("threefry_partitionable", default_partitionable()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -254,6 +268,7 @@ class SlotEngine:
                               t=torch.zeros((J,), dtype=torch.int32, device=dev))
         self._set_step(cfg, state, torch.zeros((J, self.staleness, self.K_max), dtype=_f32, device=dev))
         self.stream = _check_stream(stream)
+        self.partitionable = default_partitionable()  # the JAX stream's threefry mode
         self.seeds = torch.zeros((J,), dtype=torch.int64)  # host: the noise is drawn from them on the host
         # the slots' PRNGKey(seed) words on the JAX stream, (J, 2) int32 on the device
         self.base_keys = torch.zeros((J, 2), dtype=torch.int32, device=dev)
@@ -356,7 +371,7 @@ class SlotEngine:
         ``gumbel(fold_in(base_key, t), (K_max,))``, one threefry launch."""
         t = int(self._t[slot])
         if self.stream == "jax":
-            gumbel(fold_in(Key(self.base_keys[slot]), t), (self.K_max,), out=out)
+            gumbel(fold_in(Key(self.base_keys[slot], partitionable=self.partitionable), t), (self.K_max,), out=out)
         else:
             out.copy_(self.gumbel_row(int(self.seeds[slot]), t))
 
@@ -419,7 +434,7 @@ class SlotEngine:
             "buckets": list(self.buckets),
             "n_iters": self.n_iters,
             "tile": self.tile,
-            **_stream_meta(self.stream),
+            **_stream_meta(self.stream, self.partitionable),
             "n_slots": self.n_slots,
             "next_uid": self._next_uid,
             "jobs": [
@@ -449,11 +464,12 @@ class SlotEngine:
 
     @classmethod
     def from_meta(cls, meta: dict, device=None) -> "SlotEngine":
-        eng = cls(
-            K_max=meta["K_max"], k_cap=meta["k_cap"], staleness=meta["staleness"], alpha=meta["alpha"],
-            buckets=meta["buckets"], n_iters=meta["n_iters"], tile=meta["tile"], device=device,
-            stream=meta.get("stream", "philox"),
-        )
+        with _meta_mode(meta):
+            eng = cls(
+                K_max=meta["K_max"], k_cap=meta["k_cap"], staleness=meta["staleness"], alpha=meta["alpha"],
+                buckets=meta["buckets"], n_iters=meta["n_iters"], tile=meta["tile"], device=device,
+                stream=meta.get("stream", "philox"),
+            )
         while eng.n_slots < meta["n_slots"]:
             eng._grow()
         for row in meta["jobs"]:
@@ -586,7 +602,7 @@ class ShardedEngine:
             raise ValueError(f"rank {mesh.rank} of a {mesh.size}-rank group follows rank 0's engine: call "
                              "repro_torch.serve.engines.follow() there")
         self._setup(mesh, dict(staleness=staleness, alpha=alpha, block=block, feedback=feedback,
-                               stream=_check_stream(stream)))
+                               stream=_check_stream(stream), partitionable=default_partitionable()))
         self._next_uid = 0
         self.faults = None  # chaos hook (repro_torch.serve.faults.FaultPlan) or None
         if self.D > 1:
@@ -603,6 +619,7 @@ class ShardedEngine:
         self.block = int(config["block"])
         self.feedback = config["feedback"]
         self.stream = config["stream"]
+        self.partitionable = config["partitionable"]  # the JAX stream's threefry mode
         self._runners: dict = {}  # geometry key -> (run, state0, program)
         self.jobs: Dict[int, dict] = {}
         self._chan: Optional[_Channel] = None
@@ -610,7 +627,7 @@ class ShardedEngine:
 
     def _config(self) -> dict:
         return dict(staleness=self.staleness, alpha=self.alpha, block=self.block, feedback=self.feedback,
-                    stream=self.stream)
+                    stream=self.stream, partitionable=self.partitionable)
 
     @contextlib.contextmanager
     def _command(self, *cmd):
@@ -661,7 +678,7 @@ class ShardedEngine:
         self.jobs[uid] = {
             "spec": spec,
             "state": state0,
-            "key": PRNGKey(spec.seed, self.device) if self.stream == "jax"
+            "key": PRNGKey(spec.seed, self.device, self.partitionable) if self.stream == "jax"
             else program.generator(spec.seed).get_state(),
             "rings": program.init_rings() if self.staleness else (),
             "t": 0,
@@ -752,7 +769,7 @@ class ShardedEngine:
             "alpha": self.alpha,
             "block": self.block,
             "feedback": self.feedback,
-            **_stream_meta(self.stream),
+            **_stream_meta(self.stream, self.partitionable),
             "next_uid": self._next_uid,
             "jobs": [
                 {"uid": uid, "t": j["t"], "spec": j["spec"].to_json()}
@@ -766,7 +783,7 @@ class ShardedEngine:
         return key.data if self.stream == "jax" else key
 
     def _key_of(self, a):
-        return Key(a.to(self.device)) if self.stream == "jax" else a
+        return Key(a.to(self.device), partitionable=self.partitionable) if self.stream == "jax" else a
 
     def arrays(self) -> dict:
         """Per-job evolving state keyed by uid (string keys, in uid order):
@@ -867,10 +884,11 @@ class ShardedEngine:
 
     @classmethod
     def from_meta(cls, meta: dict, device=None) -> "ShardedEngine":
-        eng = cls(
-            D=meta["D"], staleness=meta["staleness"], alpha=meta["alpha"], block=meta["block"],
-            feedback=meta["feedback"], device=device, stream=meta.get("stream", "philox"),
-        )
+        with _meta_mode(meta):
+            eng = cls(
+                D=meta["D"], staleness=meta["staleness"], alpha=meta["alpha"], block=meta["block"],
+                feedback=meta["feedback"], device=device, stream=meta.get("stream", "philox"),
+            )
         for row in meta["jobs"]:
             eng._next_uid = row["uid"]  # admit under the job's own uid
             eng.admit(JobSpec.from_json(row["spec"]))

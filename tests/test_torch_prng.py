@@ -54,11 +54,6 @@ def test_prng_key(seed):
     np.testing.assert_array_equal(prng.PRNGKey(seed, "cpu").data.numpy(), _words(jax.random.PRNGKey(seed)))
 
 
-def test_non_partitionable_mode_raises():
-    with pytest.raises(ValueError, match="non-partitionable"):
-        prng.PRNGKey(0, "cpu", partitionable=False)
-
-
 @pytest.mark.parametrize("n", [1, 2, 3, 5])
 def test_split(n):
     jk, pk = jax.random.PRNGKey(7), prng.PRNGKey(7, "cpu")

@@ -8,7 +8,10 @@ rows entry (J Gumbel rows under J keys) is held to ``threefry_rows_ref`` the
 same way, and the fused ``categorical`` to ``categorical_ref`` exactly, float32
 and bfloat16, with exact ties, ``-inf`` rows and NaNs.  A horizon from the same JAX key carries out the same key
 and selects the same cohorts (no round of these has a client within
-``NOISE_ATOL`` of its k-th score).
+``NOISE_ATOL`` of its k-th score).  JAX's original (non-partitionable)
+layout of every entry is held to its plain version the same ways, whole
+draws and blocks of them, odd and even, and a horizon in that mode on the
+card to the CPU's.
 
 This file imports no JAX: ``PYTHONPATH=src python -m pytest -q
 tests/test_torch_prng_cuda.py`` on the card.  Without a card every test
@@ -21,6 +24,7 @@ from repro_torch.configs import FLConfig
 from repro_torch.core import prng
 from repro_torch.core.volatility import CompletionLag, make_volatility, paper_success_rates
 from repro_torch.engine import RoundProgram
+from repro_torch.engine.round_program import JaxStream
 from repro_torch.kernels import launch_counts, threefry, threefry_categorical, threefry_rows
 from repro_torch.kernels.ref import NORMAL_LO, categorical_ref, threefry_ref, threefry_rows_ref
 
@@ -50,7 +54,7 @@ def test_threefry_kernel_equals_its_plain_version(dev, mode, n):
 
 @pytest.mark.parametrize("J,n", [(1, 1), (3, 1000), (8, 100_000), (5, 65_537)])
 def test_threefry_rows_equal_their_plain_version(dev, J, n):
-    keys = prng.split_data(prng.PRNGKey(77, dev), J)
+    keys = prng.split_data(prng.PRNGKey(77, dev), J).data
     for path in ((3,), (1, 2**33 + 1, 3, 4)):
         got = threefry_rows(keys, path, n)
         want = threefry_rows_ref(keys, path, n)
@@ -90,7 +94,7 @@ def test_in_place_advance_and_launch_count(dev):
     after = launch_counts()
     assert torch.equal(key, want) and after["threefry.keys"] == before["threefry.keys"] + 1
     assert all(after[n] == c for n, c in before.items() if n != "threefry.keys")  # a count a mode
-    threefry_rows(prng.split_data(prng.PRNGKey(1, dev), 2), (0,), 10)
+    threefry_rows(prng.split_data(prng.PRNGKey(1, dev), 2).data, (0,), 10)
     assert launch_counts()["threefry.rows"] == after["threefry.rows"] + 1
     with pytest.raises(ValueError):
         threefry(key, (), 0, 2, "bits", out=key)
@@ -109,6 +113,86 @@ def test_a_jax_key_horizon_on_the_card_equals_the_cpu(dev, S):
         pm = RoundProgram(fl=fl, vol=vol, rho=rho, staleness=S, fused=True, device=d)
         run, s0 = pm.build_runner(outputs="full", carry_key=True)
         res = run(s0, prng.PRNGKey(4, d), *(() if S is None else (pm.init_rings(),)))
+        out[str(d)] = (res[1].data.cpu(), res[2 if S is None else 3].cpu())
+    (k_cpu, m_cpu), (k_dev, m_dev) = out["cpu"], out[str(dev)]
+    assert torch.equal(k_cpu, k_dev)
+    assert torch.equal(m_cpu, m_dev)
+
+
+# -- the original layout (jax_threefry_partitionable=False) -------------------
+
+@pytest.mark.parametrize("n", [1, 2, 3, 1000, 65537, 1_000_003])
+@pytest.mark.parametrize("mode", ["keys", "bits", "sortkey", "uniform", "gumbel", "normal"])
+def test_original_layout_equals_its_plain_version(dev, mode, n):
+    key = prng.PRNGKey(2024, dev).data
+    lo = 1e-7 if mode == "uniform" else 0.0
+    for path in ((), (5,), (1, 2**33 + 1, 3, 4)):
+        for offset, cnt in ((0, n), (n // 4, (n + 1) // 2), (n - 1, 1), (n // 2, n - n // 2)):
+            got = threefry(key, path, offset, cnt, mode, lo, 1.0, total=n)
+            want = threefry_ref(key, path, offset, cnt, mode, lo, 1.0, total=n)
+            if mode in ("gumbel", "normal"):
+                assert float((got - want).abs().max()) <= (NOISE_ATOL if mode == "gumbel" else NORMAL_ATOL)
+            else:
+                assert torch.equal(got, want), (mode, n, path, offset, cnt)
+
+
+@pytest.mark.parametrize("J,n", [(1, 1), (3, 999), (8, 100_000), (5, 65_537)])
+def test_original_rows_equal_their_plain_version(dev, J, n):
+    keys = prng.split_data(prng.PRNGKey(77, dev, partitionable=False), J).data
+    for path in ((3,), (1, 2**33 + 1, 3, 4)):
+        got = threefry_rows(keys, path, n, original=True)
+        assert float((got - threefry_rows_ref(keys, path, n, original=True)).abs().max()) <= NOISE_ATOL
+        for j in range(J):  # row j is the single-key draw of n under keys[j]
+            assert torch.equal(got[j], threefry(keys[j].contiguous(), path, 0, n, "gumbel", total=n))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,V", [(1, 1), (1, 7), (3, 5001), (4, 256_000)])
+def test_original_categorical_equals_its_plain_version(dev, dtype, B, V):
+    key = prng.PRNGKey(5, dev).data
+    gen = torch.Generator(device=dev).manual_seed(B * V)
+    logits = (torch.randn((B, V), generator=gen, device=dev) * 4).to(dtype)
+    before = launch_counts()["threefry.original.categorical"]
+    for x in (logits, torch.zeros_like(logits)):
+        for path in ((), (1, 2, 3, 2**40 + 9)):
+            got = threefry_categorical(key, path, x, original=True)
+            assert torch.equal(got, categorical_ref(key, path, x, original=True)), (dtype, B, V, path)
+    assert launch_counts()["threefry.original.categorical"] == before + 4
+
+
+def test_original_stream_advance_and_launch_counts(dev):
+    """A carried original-mode key (``JaxStream``): a round's ``split(key,
+    num)`` in one launch, then the key advances to its first key (a copy)."""
+    for num in (2, 3, 4):
+        stream = JaxStream(prng.PRNGKey(9, dev, partitionable=False), dev, num)
+        for _ in range(2):
+            want = threefry_ref(stream.key, (), 0, num, "keys", total=num)
+            before = launch_counts()
+            keys = torch.stack([k.data for k in stream.round_keys()])
+            stream.advance()
+            after = launch_counts()
+            assert torch.equal(keys, want) and torch.equal(stream.key, want[0])
+            assert after["threefry.original.keys"] == before["threefry.original.keys"] + 1
+            assert all(after[n] == c for n, c in before.items() if n != "threefry.original.keys")
+    key = prng.PRNGKey(9, dev).data
+    with pytest.raises(ValueError, match="partitionable layout"):  # the original layout never writes its key
+        threefry(key, (), 0, 1, "keys", out=key.view(1, 2), total=2)
+
+
+@pytest.mark.parametrize("S", [None, 2], ids=["sync", "S2"])
+def test_an_original_mode_horizon_on_the_card_equals_the_cpu(dev, S):
+    K, k, T = 4096, 64, 6
+    out = {}
+    for d in ("cpu", dev):
+        rho = paper_success_rates(K)
+        vol = make_volatility("bernoulli", rho, device=d)
+        if S is not None:
+            vol = CompletionLag(vol, max_lag=S)
+        pm = RoundProgram(fl=FLConfig(K=K, k=k, rounds=T, allocator="bisect"), vol=vol, rho=rho, staleness=S,
+                          fused=True, device=d)
+        run, s0 = pm.build_runner(outputs="full", carry_key=True)
+        res = run(s0, prng.PRNGKey(4, d, partitionable=False), *(() if S is None else (pm.init_rings(),)))
+        assert not res[1].partitionable
         out[str(d)] = (res[1].data.cpu(), res[2 if S is None else 3].cpu())
     (k_cpu, m_cpu), (k_dev, m_dev) = out["cpu"], out[str(dev)]
     assert torch.equal(k_cpu, k_dev)

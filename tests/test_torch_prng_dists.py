@@ -114,7 +114,7 @@ def test_rows_equal_jax_per_job_draws():
     J, n, t = 6, 1000, 11
     keys = prng.split_data(prng.PRNGKey(4, DEV), J)
     jkeys = jax.random.split(jax.random.PRNGKey(4), J)
-    np.testing.assert_array_equal(keys.numpy(), np.asarray(jax.random.key_data(jkeys)).view(np.int32))
+    np.testing.assert_array_equal(keys.data.numpy(), np.asarray(jax.random.key_data(jkeys)).view(np.int32))
     g = prng.rows(keys, (t,), n)
     jg = np.asarray(jax.vmap(lambda k: jax.random.gumbel(jax.random.fold_in(k, t), (n,)))(jkeys))
     assert g.shape == (J, n) and np.abs(g.numpy() - jg).max() <= 2e-6
