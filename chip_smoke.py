@@ -3210,27 +3210,31 @@ def threefry_kernel_rows(dev, card, bw, K=K_MAIN):
     rows = {}
     key = prng.PRNGKey(12345, dev).data
     path, errs = (3, 2**33 + 7), {}
-    for mode, lo, hi in (("bits", 0.0, 1.0), ("sortkey", 0.0, 1.0), ("uniform", 0.0, 1.0), ("uniform", 1e-7, 1.0),
-                         ("gumbel", 0.0, 1.0), ("normal", 0.0, 1.0), ("keys", 0.0, 1.0)):
-        n = 3 if mode == "keys" else K
-        for offset in (0, 2**32 - 2):
-            got = kn.threefry(key, path, offset, n, mode, lo, hi)
-            want = ref.threefry_ref(key, path, offset, n, mode, lo, hi)
-            if mode in ("gumbel", "normal"):
-                e = float((got - want).abs().max())
-                if not e <= (JAX_NOISE_ATOL if mode == "gumbel" else NORMAL_KERNEL_ATOL):
-                    raise AssertionError(f"threefry {mode}: max |kernel - plain| = {e}")
-            elif not torch.equal(got, want):
-                raise AssertionError(f"threefry {mode} [{lo}, {hi}) offset {offset}: kernel and plain version differ")
-            else:
-                e = 0.0
-            errs[mode] = max(errs.get(mode, 0.0), e)
+    # 10^6 counters at two offsets, then odd sizes, offsets and blocks in both
+    # layouts: the draw kernels' edges (a thread's group of counters cut
+    # short, a group whose low words wrap, a block of a draw across its
+    # halves, an odd draw's padded pair)
+    for mode, lo, hi in THREEFRY_MODES_CHECKED:
+        cases = [(offset, 3 if mode == "keys" else K, 0) for offset in (0, 2**32 - 2)]
+        for n in (1, 3, 255, K + 1):
+            cases += [(offset, n, 0) for offset in (0, 5, 2**32 - 2)]
+            cases += [(0, n, n), (0, n, 2 * n + 1), (n + 1, n, 2 * n + 1), (n // 2, n, 2 * n + 1)]
+        for offset, m, total in cases:
+            got = kn.threefry(key, path, offset, m, mode, lo, hi, total=total)
+            errs[mode] = max(errs.get(mode, 0.0), _held_threefry(
+                f"threefry {mode} [{lo}, {hi}) n={m} offset={offset} total={total}", got,
+                ref.threefry_ref(key, path, offset, m, mode, lo, hi, total=total), mode))
     adv = key.clone()
-    kn.threefry(adv, (), 0, 1, "keys", out=adv.view(1, 2))
-    if not torch.equal(adv, ref.threefry_ref(key, (), 0, 1, "keys").view(2)):
-        raise AssertionError("threefry: the in-place advance of a key differs from its plain version")
+    want = key.clone()
+    for _ in range(3):  # a carried key advanced in place, three times
+        kn.threefry(adv, (), 0, 1, "keys", out=adv.view(1, 2))
+        want = ref.threefry_ref(want, (), 0, 1, "keys").view(2)
+        if not torch.equal(adv, want):
+            raise AssertionError("threefry: the in-place advance of a key differs from its plain version")
+    blocked = threefry_blocked_draw(dev, key, path)
     log("jax-stream-kernel", K=K, modes=",".join(errs), gumbel_max_abs_err=errs["gumbel"],
-        normal_max_abs_err=errs["normal"], others="equal", in_place_advance="equal")
+        normal_max_abs_err=errs["normal"], others="equal", in_place_advance="equal", sizes="1,3,255,K+1",
+        layouts="partitionable,original", blocked_draw=blocked)
     # the epilogues the horizons and drivers launch at their shapes, each a
     # row of the kernels line: a key's in-place advance, volatility rows,
     # Gumbel rows, a permutation's sort keys (random and pow-d on the key
@@ -3250,10 +3254,77 @@ def threefry_kernel_rows(dev, card, bw, K=K_MAIN):
             route="cuda", source="src/repro_torch/kernels/csrc/threefry.cu",
             replaces="src/repro/engine/round_program.py:415 (jax.random: XLA's threefry, no Pallas kernel)",
             max_abs_err=errs[mode], ms=ms, plain_ms=plain, bound_ms=b[0], bound_by=b[1], library_ms=None)
-        log("jax-stream-kernel-time", mode=mode, n=n, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
-            bound_ms=f"{b[0]:.6f}", bound_by=b[1], torch_rand_ms=f"{rand_ms:.4f}",
+        log("jax-stream-kernel-time", mode=mode, layout="partitionable", n=n, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+            bound_ms=f"{b[0]:.6f}", bound_by=b[1], of_bound=f"{b[0] / ms:.3f}", torch_rand_ms=f"{rand_ms:.4f}",
             torch_rand="a different stream, not the same function", card=repr(card))
+    # the two draw kernels in both layouts at 10^6 and a gemma-2b MLP leaf
+    # (normal): the times PERF.md's threefry table gives (the kernels line's
+    # rows of normal and of the original layout come from their own phases)
+    leaf = torch.empty(GEMMA_LEAF, dtype=torch.float32, device=dev)
+    for layout in ("partitionable", "original"):
+        for mode, n in [(m, K) for m in ("bits", "sortkey", "uniform", "gumbel", "normal")] + [("normal", GEMMA_LEAF)]:
+            if layout == "partitionable" and n == K and mode != "normal":
+                continue  # timed above
+            out = (out_b if mode in ("bits", "sortkey") else out_u if n == K else leaf)
+            total = n if layout == "original" else 0
+            ms = graph_call_ms(lambda: kn.threefry(key, path, 0, n, mode, out=out, total=total))
+            plain = eager_call_ms(lambda: ref.threefry_ref(key, path, 0, n, mode, total=total), reps=1)
+            b = (_threefry_bound(mode, n, 8 + 4 * n, bw, folds=len(path)) if layout == "partitionable" else
+                 _threefry_bound_original(mode, n, (n + 1) // 2, 8 + 4 * n, bw, folds=len(path)))
+            log("jax-stream-kernel-time", mode=mode, layout=layout, n=n, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+                bound_ms=f"{b[0]:.6f}", bound_by=b[1], of_bound=f"{b[0] / ms:.3f}", card=repr(card))
+    del leaf
     return rows
+
+
+# the entries and [minval, maxval) threefry_kernel_rows holds to plain at odd sizes
+THREEFRY_MODES_CHECKED = (("bits", 0.0, 1.0), ("sortkey", 0.0, 1.0), ("uniform", 0.0, 1.0), ("uniform", 1e-7, 1.0),
+                          ("gumbel", 0.0, 1.0), ("normal", 0.0, 1.0), ("keys", 0.0, 1.0))
+GEMMA_LEAF = 2048 * 16384  # gemma-2b's d_model x d_ff: normal's largest draw at init
+BLOCKED_TOTAL = 2**32 + 5  # an original-layout draw past 2**32 - 1 words: JAX's blocks under split keys
+BLOCKED_CHUNK = 2**28  # words a launch of the blocked draw's check
+
+
+def _held_threefry(what, got, want, mode="bits"):
+    """|kernel - plain| of a threefry entry: Gumbel within JAX_NOISE_ATOL,
+    normal within NORMAL_KERNEL_ATOL, the others equal; returns it."""
+    import torch
+
+    atol = {"gumbel": JAX_NOISE_ATOL, "normal": NORMAL_KERNEL_ATOL}.get(mode)
+    if torch.equal(got, want):
+        return 0.0
+    e = float((got.float() - want.float()).abs().max()) if got.shape == want.shape else float("inf")
+    if atol is None or not e <= atol:
+        raise AssertionError(f"{what}: kernel and plain version differ (max |d| = {e})")
+    return e
+
+
+def threefry_blocked_draw(dev, key, path, total=BLOCKED_TOTAL, chunk=BLOCKED_CHUNK):
+    """An original-layout draw of ``total`` bits words on the card (more than
+    2**32 - 1: JAX's blocks under split keys) in launches of ``chunk`` words,
+    each launch's words around its ends held to plain, and the words around
+    the draw's structure: the padded last pair of its full block (word 2**31
+    - 1), the block boundary (word 2**32 - 1) and the rem block.  Returns a
+    summary for the log line."""
+    import torch
+
+    from repro_torch import kernels as kn
+    from repro_torch.kernels import ref
+
+    out = torch.empty(chunk, dtype=torch.int32, device=dev)
+    edges = [2**31 - 1, 2**32 - 1, total - 6]
+    held = 0
+    for lo in range(0, total, chunk):
+        n = min(chunk, total - lo)
+        kn.threefry(key, path, lo, n, "bits", out=out[:n], total=total)
+        marks = [lo, lo + n] + [e for e in edges if lo <= e < lo + n]
+        for mark in marks:
+            a, b = max(lo, mark - 6), min(lo + n, mark + 6)
+            if b > a:
+                _held_threefry(f"blocked draw of {total}: words {a} .. {b}", out[a - lo:b - lo],
+                               ref.threefry_ref(key, path, a, b - a, "bits", total=total))
+                held += b - a
+    return f"{total}words/{-(-total // chunk)}launches/{held}held"
 
 
 def jax_stream_path(dev, card, golden=GOLDEN_TORCH, rate_T=JAX_STREAM_RATE_T):
@@ -3267,12 +3338,22 @@ def jax_stream_path(dev, card, golden=GOLDEN_TORCH, rate_T=JAX_STREAM_RATE_T):
       kernel against its plain version on the same 10^6 counters under a
       key folded twice: bits, sort keys,
       uniforms (also on ``[1e-7, 1)``) and key pairs equal, Gumbel within
-      ``JAX_NOISE_ATOL``; times of the epilogues the horizons launch (a
-      key's in-place advance, uniform and Gumbel rows of 10^6: the kernels
-      line's rows) and of bits at 10^6, the plain
-      version's, the bound (``THREEFRY_OPS`` over ``THREEFRY_LANES``), and
-      ``torch.rand`` at the same shape (a different stream, not the same
-      function: a scale only).
+      ``JAX_NOISE_ATOL``, normal within ``NORMAL_KERNEL_ATOL``; both layouts
+      at sizes 1, 3, 255 and 10^6 + 1, at offsets (one whose group of
+      counters wraps its low word) and in blocks of an original draw (its
+      tail, one across its halves); a key advanced in place three times;
+      an original ``bits`` draw of ``BLOCKED_TOTAL`` words (JAX's blocks
+      under split keys) in launches of ``BLOCKED_CHUNK``, the words around
+      each launch's ends, the padded pair, the block boundary and the rem
+      block held to plain (``threefry_blocked_draw``).
+    * ``[jax-stream-kernel-time]``: times of the epilogues the horizons
+      launch (a key's in-place advance, uniform and Gumbel rows of 10^6:
+      the kernels line's rows) and of bits and sort keys at 10^6, then of
+      both draw kernels in both layouts at 10^6 and at a gemma-2b MLP leaf
+      (``normal``), each with the plain version's, the bound
+      (``THREEFRY_OPS`` over ``THREEFRY_LANES``) and its share, and
+      ``torch.rand`` at 10^6 (a different stream, not the same function: a
+      scale only).
     * ``[jax-stream-horizon]``: the fused E3CS horizon at the fixture's K =
       10^6, k = 1000, captured, sync and S = 2, run from ``PRNGKey(0)``:
       cohorts equal to JAX's (or differing only within ``JAX_NOISE_ATOL`` of

@@ -5,11 +5,11 @@ which pipe the adds, rotates and xors of a hash issue on.
 
 Builds the kernels (``repro_torch.kernels._build.build``; needs ``nvcc``),
 disassembles the library with ``cuobjdump -sass`` and prints, for
-each epilogue's kernel, the count of each opcode (its modifiers kept:
-``IMAD.IADD`` is an add issued on the FMA pipe, ``IADD3`` one on the ALU
-pipe) in two parts: before the block's ``BAR.SYNC`` (thread 0 folds the key,
-one hash a fold) and after it (the grid-stride loop: one hash and the
-epilogue a counter).  Uniform-datapath opcodes (``U*``) run once a warp on a
+each draw kernel (both layouts; ``.vec``: the 16-byte stores' instance), the
+count of each opcode (its modifiers kept: ``IMAD.IADD`` is an add issued on
+the FMA pipe, ``IADD3`` one on the ALU pipe) in two parts: before the
+block's ``BAR.SYNC`` (the key's folds) and after it (the grid-stride loop:
+a group of counters, their hashes and epilogues).  Uniform-datapath opcodes (``U*``) run once a warp on a
 pipe of their own.  One JSON object a kernel; with ``--out`` also written to
 ``FILE``.
 """
@@ -25,10 +25,10 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
 
-MODES = ("keys", "bits", "sortkey", "uniform", "gumbel")  # the kernel's Mode enum, in order
+MODES = ("keys", "bits", "sortkey", "uniform", "gumbel", "normal")  # the kernel's Mode enum, in order
 _FUNCTION = re.compile(r"Function : (\S+)")
 _OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
-_MODE = re.compile(r"threefry_kernelILi(\d)E")
+_MODE = re.compile(r"threefry_(orig_)?kernelILi(\d)E(?:Lb(\d)E)?")
 
 
 def sass_counts(text: str) -> dict:
@@ -41,8 +41,9 @@ def sass_counts(text: str) -> dict:
             mode = _MODE.search(m.group(1))
             part = None
             if mode:
-                counts = out.setdefault(MODES[int(mode.group(1))], {"fold": collections.Counter(),
-                                                                   "loop": collections.Counter()})
+                name = ("original." if mode.group(1) else "") + MODES[int(mode.group(2))]
+                name += {"1": ".vec", "0": ".scalar"}.get(mode.group(3), "")  # 16-byte stores or not
+                counts = out.setdefault(name, {"fold": collections.Counter(), "loop": collections.Counter()})
                 part = "fold"
             continue
         m = _OPCODE.search(line)

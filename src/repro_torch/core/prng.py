@@ -51,9 +51,11 @@ of each other (bfloat16 logits take JAX's 8-bit bfloat16 Gumbel, whose 128
 values equal JAX's).  ``normal`` is within 3 ulps of JAX's
 (``tests/test_torch_prng_dists.py`` sweeps every value it can take): the
 polynomial is XLA's, its multiply-adds fused as XLA fuses them on the CPU,
-but ``log1p`` is ATen's (or CUDA's), not XLA's.  One original-mode draw of
-more than ``2**32 - 1`` words, which JAX splits into blocks under split
-keys, is not ported (``ValueError``).
+but ``log1p`` is ATen's (or CUDA's), not XLA's.  An original-mode draw of
+``2**32 - 1`` words or more is JAX's blocked draw: the key split into
+``nblocks + 1`` keys, each full block of ``2**32 - 1`` words under its own
+(``kernels.ref._original``); a block of such a draw (``normal``'s
+``start`` and ``total``) draws only its words.
 """
 from __future__ import annotations
 

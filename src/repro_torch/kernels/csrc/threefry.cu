@@ -8,9 +8,9 @@
 // One call: the key (two uint32 words in device memory, so a carried key is
 // advanced on the device with no host sync) is folded by up to four host
 // integers (fold_in: the key hashes the counter (d >> 32, d & 0xffffffff)),
-// once a block, into shared memory; then thread i hashes counter offset + i,
-// split into (hi, lo) words, into the pair (a, b), and the mode's epilogue
-// writes the output:
+// once a block, into shared memory; then counter offset + i (kPer of them a
+// thread), split into (hi, lo) words, is hashed into the pair (a, b), and
+// the mode's epilogue writes the output:
 //   kKeys     (n, 2) uint32 pairs (a, b): split(key, n) is offset 0, and a
 //             fold_in is one pair at offset d;
 //   kBits     a ^ b, the 32 bits of jax.random.bits (partitionable mode);
@@ -52,7 +52,15 @@
 // words 2i and 2i + 1 (kKeys writes single words).  The rows entry takes
 // each row as a draw of its own; categorical hashes each value's pair and
 // keeps its word (bfloat16: value i is byte i % 4 of word i / 4 of a draw of
-// ceil(B * V / 4) words).
+// ceil(B * V / 4) words).  A draw of kBlock = 2**32 - 1 words or more is
+// JAX's blocked draw (_threefry_random_bits_original): with nblocks, rem =
+// divmod(m, kBlock), the key is split into nblocks + 1 keys (the original
+// layout's split: a draw of 2 (nblocks + 1) words), block b < nblocks is the
+// draw of kBlock words under key b (an odd count: its last pair is padded)
+// and the last block the draw of rem words under the last key, the blocks
+// concatenated; a launch's words may span blocks (the draw kernel's
+// blockIdx.y is the block), and the rows and categorical entries refuse
+// such a draw (a row or a logits array of 16 GB or more).
 // The plain version is threefry_ref in kernels/ref.py (int32 words, every sum
 // wrapping as uint32 sums do).
 //
@@ -68,6 +76,39 @@
 // 3.35 TB/s: operations bound it (chip_smoke.py's THREEFRY_OPS and
 // THREEFRY_LANES count each epilogue; scripts/threefry_sass.py shows which
 // pipe nvcc gives each add).
+//
+// The draw kernels (threefry_kernel, threefry_orig_kernel) as redesigned from
+// a profile on the H100 (scripts/threefry_times.py --probes; PERF.md, section
+// 6).  A draw of 1e6 values spent its time in four parts: a kernel
+// node's own cost (1.3 us), the stores of a grid of twice the threads an SM
+// holds, one 4-byte store a thread an iteration (1.9 us above the node), the
+// prologue (thread 0 of each of 2112 blocks hashing the key's folds in
+// series while the block waits at a barrier: 0.9 us for two folds) and the
+// loop's instructions (127 a counter where the hash needs 72: 64-bit index
+// arithmetic, loop control, the path read from local memory).  So:
+//   * a thread takes kPer = 4 counters (pairs in the original layout), their
+//     hashes unrolled side by side on 32-bit counters (one 64-bit add a
+//     group; a group whose low words would wrap takes a loop of its own),
+//     and writes each run of four values as one 16-byte store where the
+//     output is aligned (4-byte stores took twice the time);
+//   * the key is folded once a block: warp 0 reads and folds it (every lane
+//     the same hashes, the path's folds unrolled from kernel parameters, no
+//     local memory), the block waits once;
+//   * each is a programmatic dependent launch: its grid may launch while the
+//     kernel before it on the stream ends, and every thread waits on
+//     griddepcontrol.wait (that grid done, its writes visible) before it
+//     reads or writes memory, so stream order holds (a key advanced in place
+//     by the launch before is read after it is written);
+//   * normal's erf_inv branches on w < 5 and reads each side's coefficients
+//     from constant memory as float64, each multiply-add one float64 fused
+//     multiply-add: the product of two float32 is exact in float64, so the
+//     result is the same double as the product then the sum, without the
+//     conversion of a selected float32 coefficient (conversions run 16 a
+//     clock an SM) or the float64 multiply.
+// The counters a thread (8 and 16 were slower in the original layout), the
+// programmatic launch and the 16-byte stores were chosen by timing variants of
+// this file on the H100 (PERF.md, section 6).  The rows and categorical
+// kernels keep the first design but for their key, folded by draw_key too.
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
@@ -80,6 +121,8 @@ namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int kMaxPath = 4;
+constexpr int kPer = 4;  // counters (pairs in the original layout) a thread of a draw kernel
+constexpr uint64_t kBlock = UINT64_C(0xffffffff);  // the most words of one original-layout draw
 constexpr int kCluster = 8;       // blocks a categorical row
 constexpr int kCatThreads = 512;  // threads a categorical block
 
@@ -110,72 +153,67 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t&
     }
 }
 
-// The key folded by the path, once a block, into shared memory (thread 0
-// reads the key before any thread of the block writes).
-__device__ __forceinline__ void fold_key(const uint32_t* key, const Path& path, uint32_t* sk) {
-    if (threadIdx.x == 0) {
-        uint32_t k0 = key[0], k1 = key[1];
-        for (int j = 0; j < path.n; ++j) {
-            uint32_t a = static_cast<uint32_t>(path.d[j] >> 32), b = static_cast<uint32_t>(path.d[j]);
-            threefry2x32(k0, k1, a, b);
-            k0 = a;
-            k1 = b;
-        }
-        sk[0] = k0;
-        sk[1] = k1;
-    }
-    __syncthreads();
-}
-
 __device__ __forceinline__ float uniform(uint32_t bits, float minval, float maxval) {
     const float f = __uint_as_float((bits >> 9) | 0x3f800000u) - 1.0f;
     return fmaxf(minval, __fmaf_rn(f, maxval - minval, minval));
 }
 
-// c + p * w rounded once, as a float64 product (exact) and sum
-__device__ __forceinline__ float fma64(float p, float w, float c) {
-    return static_cast<float>(static_cast<double>(c) + static_cast<double>(p) * static_cast<double>(w));
+// XLA's float32 erf_inv coefficients (ErfInv32: Giles' for w < 5, then for w
+// >= 5), widened to float64 exactly: in constant memory, so that each
+// multiply-add reads its coefficient as an operand (no conversion, no move)
+__constant__ double kErfInvCoef[2][9] = {
+    {2.81022636e-08f, 3.43273939e-07f, -3.5233877e-06f, -4.39150654e-06f, 0.00021858087f, -0.00125372503f,
+     -0.00417768164f, 0.246640727f, 1.50140941f},
+    {-0.000200214257f, 0.000100950558f, 0.00134934322f, -0.00367342844f, 0.00573950773f, -0.0076224613f,
+     0.00943887047f, 1.00167406f, 2.83297682f}};
+
+// Giles' polynomial in w with coefficients kErfInvCoef[kBranch], each
+// multiply-add c + p * w rounded once to float32 from a float64 fused
+// multiply-add (the float64 product of two float32 is exact, so it is the
+// same double as the product then the sum)
+template <int kBranch>
+__device__ __forceinline__ float giles(float w) {
+    const double wd = static_cast<double>(w);
+    double p = kErfInvCoef[kBranch][0];
+    float pf = 0.0f;
+#pragma unroll
+    for (int i = 1; i < 9; ++i) {
+        pf = static_cast<float>(__fma_rn(p, wd, kErfInvCoef[kBranch][i]));
+        p = static_cast<double>(pf);
+    }
+    return pf;
 }
 
-// XLA's float32 erf_inv (ErfInv32): Giles' single-precision polynomial
+// XLA's float32 erf_inv (ErfInv32): Giles' single-precision polynomial in w
+// = -log1p(-x * x), w - 2.5 below 5 and sqrt(w) - 3 above (a branch, so that
+// each side's coefficients are constants)
 __device__ __forceinline__ float erf_inv(float x) {
-    constexpr float lt[9] = {2.81022636e-08f,  3.43273939e-07f, -3.5233877e-06f, -4.39150654e-06f, 0.00021858087f,
-                             -0.00125372503f, -0.00417768164f, 0.246640727f,    1.50140941f};
-    constexpr float gt[9] = {-0.000200214257f, 0.000100950558f, 0.00134934322f, -0.00367342844f, 0.00573950773f,
-                             -0.0076224613f,   0.00943887047f,  1.00167406f,    2.83297682f};
-    float w = -log1pf(-(x * x));
-    const bool small = w < 5.0f;
-    w = small ? w - 2.5f : sqrtf(w) - 3.0f;
-    float p = small ? lt[0] : gt[0];
-#pragma unroll
-    for (int i = 1; i < 9; ++i) p = fma64(p, w, small ? lt[i] : gt[i]);
-    return p * x;
+    const float w = -log1pf(-(x * x));
+    return (w < 5.0f ? giles<0>(w - 2.5f) : giles<1>(sqrtf(w) - 3.0f)) * x;
+}
+
+// A value's 32 output bits from its 32 random bits (keys and bits: the bits).
+template <int kMode>
+__device__ __forceinline__ uint32_t value(uint32_t bits, float minval, float maxval) {
+    if constexpr (kMode == kKeys || kMode == kBits) {
+        return bits;
+    } else if constexpr (kMode == kSortKey) {
+        return bits ^ 0x80000000u;
+    } else if constexpr (kMode == kUniform) {
+        return __float_as_uint(uniform(bits, minval, maxval));
+    } else if constexpr (kMode == kGumbel) {
+        return __float_as_uint(-logf(-logf(uniform(bits, FLT_MIN, 1.0f))));
+    } else {
+        return __float_as_uint(1.41421354f * erf_inv(uniform(bits, -0.99999994f, 1.0f)));
+    }
 }
 
 template <int kMode>
 __device__ __forceinline__ void write(void* out, int64_t i, uint32_t a, uint32_t b, float minval, float maxval) {
     if constexpr (kMode == kKeys) {
         reinterpret_cast<uint2*>(out)[i] = make_uint2(a, b);
-    } else if constexpr (kMode == kBits) {
-        static_cast<uint32_t*>(out)[i] = a ^ b;
-    } else if constexpr (kMode == kSortKey) {
-        static_cast<uint32_t*>(out)[i] = (a ^ b) ^ 0x80000000u;
-    } else if constexpr (kMode == kUniform) {
-        static_cast<float*>(out)[i] = uniform(a ^ b, minval, maxval);
-    } else if constexpr (kMode == kGumbel) {
-        static_cast<float*>(out)[i] = -logf(-logf(uniform(a ^ b, FLT_MIN, 1.0f)));
     } else {
-        static_cast<float*>(out)[i] = 1.41421354f * erf_inv(uniform(a ^ b, -0.99999994f, 1.0f));
-    }
-}
-
-// A value's output from its word in the original layout (kKeys: the word).
-template <int kMode>
-__device__ __forceinline__ void write_word(void* out, int64_t i, uint32_t y, float minval, float maxval) {
-    if constexpr (kMode == kKeys) {
-        static_cast<uint32_t*>(out)[i] = y;
-    } else {
-        write<kMode>(out, i, y, 0u, minval, maxval);
+        static_cast<uint32_t*>(out)[i] = value<kMode>(a ^ b, minval, maxval);
     }
 }
 
@@ -196,46 +234,188 @@ __device__ __forceinline__ uint32_t orig_word(uint32_t k0, uint32_t k1, uint64_t
     return w < h ? y0 : y1;
 }
 
-// One launch's words [w_lo, w_hi) of an original-layout draw of m words:
-// the pairs [p_lo, p_hi) hold them.
-struct Orig {
-    uint64_t m, h, w_lo, w_hi, p_lo, p_hi;
+// A kernel's key: the launch's key folded by the path, once a block.
+// Warp 0 reads the key and folds it (every lane the same hashes, so no lane
+// diverges; the folds unrolled over the path's parameters), the block waits
+// once.  With ``split`` (a blocked original-layout draw) the folded key is
+// then split into split.n keys and the block takes key split.b: words 2b and
+// 2b + 1 of the original layout's draw of 2n words.
+struct Split {
+    uint64_t n, b;  // n = 0: no split
 };
 
-template <int kMode>
-__global__ void __launch_bounds__(kThreads) threefry_orig_kernel(const uint32_t* key, Path path, Orig o, float minval,
-                                                                 float maxval, void* out) {
+__device__ __forceinline__ void draw_key(const uint32_t* key, const Path& path, Split split, uint32_t& k0,
+                                         uint32_t& k1) {
     __shared__ uint32_t sk[2];
-    fold_key(key, path, sk);
-    const uint32_t k0 = sk[0], k1 = sk[1];
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-    const int64_t n_pairs = static_cast<int64_t>(o.p_hi - o.p_lo);
-    for (int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; t < n_pairs; t += stride) {
-        const uint64_t j = o.p_lo + static_cast<uint64_t>(t), w1 = j + o.h;
-        const bool in0 = j >= o.w_lo && j < o.w_hi, in1 = w1 < o.m && w1 >= o.w_lo && w1 < o.w_hi;
-        if (!in0 && !in1) continue;
-        uint32_t y0, y1;
-        orig_pair(k0, k1, j, o.h, o.m, y0, y1);
-        if (in0) write_word<kMode>(out, static_cast<int64_t>(j - o.w_lo), y0, minval, maxval);
-        if (in1) write_word<kMode>(out, static_cast<int64_t>(w1 - o.w_lo), y1, minval, maxval);
+    if (threadIdx.x < 32) {
+        uint32_t a0 = key[0], a1 = key[1];
+#pragma unroll
+        for (int j = 0; j < kMaxPath; ++j) {
+            if (j < path.n) {
+                uint32_t a = static_cast<uint32_t>(path.d[j] >> 32), b = static_cast<uint32_t>(path.d[j]);
+                threefry2x32(a0, a1, a, b);
+                a0 = a;
+                a1 = b;
+            }
+        }
+        if (split.n) {
+            const uint32_t f0 = a0, f1 = a1;
+            a0 = orig_word(f0, f1, 2 * split.b, 2 * split.n);
+            a1 = orig_word(f0, f1, 2 * split.b + 1, 2 * split.n);
+        }
+        if (threadIdx.x == 0) {
+            sk[0] = a0;
+            sk[1] = a1;
+        }
+    }
+    __syncthreads();
+    k0 = sk[0];
+    k1 = sk[1];
+}
+
+// The output's kPer values from index i of n (kVec: at a 16-byte aligned
+// address, as four-value vectors): whole groups store without a check.
+template <bool kVec>
+__device__ __forceinline__ void store_group(void* out, int64_t i, int64_t n, const uint32_t (&v)[kPer]) {
+    uint32_t* o = static_cast<uint32_t*>(out) + i;
+    if (i + kPer <= n) {
+        if constexpr (kVec) {
+#pragma unroll
+            for (int j = 0; j < kPer; j += 4) *reinterpret_cast<uint4*>(o + j) = make_uint4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+        } else {
+#pragma unroll
+            for (int j = 0; j < kPer; ++j) o[j] = v[j];
+        }
+    } else {
+#pragma unroll
+        for (int j = 0; j < kPer; ++j)
+            if (i + j < n) o[j] = v[j];
     }
 }
 
-template <int kMode>
-__global__ void __launch_bounds__(kThreads) threefry_kernel(const uint32_t* key, Path path,
-                                                            uint64_t offset, int64_t n, float minval, float maxval,
-                                                            void* out) {
+// The partitionable layout: counters offset .. offset + n - 1, thread group g
+// hashing counters offset + kPer g .. (kVec: out 16-byte aligned).
+template <int kMode, bool kVec>
+__global__ void __launch_bounds__(kThreads) threefry_kernel(const uint32_t* key, Path path, uint64_t offset,
+                                                            int64_t n, float minval, float maxval, void* out) {
+    asm volatile("griddepcontrol.wait;" ::: "memory");
     // out may be the key itself for one pair (a carried key advanced in
-    // place): the one block reads it in fold_key, before any thread writes
-    __shared__ uint32_t sk[2];
-    fold_key(key, path, sk);
-    const uint32_t k0 = sk[0], k1 = sk[1];
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-    for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n; i += stride) {
+    // place): warp 0 reads it in draw_key, before the barrier, and the one
+    // write comes after it
+    uint32_t k0, k1;
+    draw_key(key, path, Split{0, 0}, k0, k1);
+    const int64_t groups = (n + kPer - 1) / kPer, stride = static_cast<int64_t>(gridDim.x) * kThreads;
+    for (int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; g < groups; g += stride) {
+        const int64_t i = g * kPer;
         const uint64_t c = offset + static_cast<uint64_t>(i);
-        uint32_t a = static_cast<uint32_t>(c >> 32), b = static_cast<uint32_t>(c);
-        threefry2x32(k0, k1, a, b);
-        write<kMode>(out, i, a, b, minval, maxval);
+        const uint32_t lo = static_cast<uint32_t>(c), hi = static_cast<uint32_t>(c >> 32);
+        uint32_t a[kPer], b[kPer];
+        if (lo <= 0xffffffffu - (kPer - 1)) {  // the group's low words do not wrap
+#pragma unroll
+            for (int j = 0; j < kPer; ++j) {
+                a[j] = hi;
+                b[j] = lo + j;
+                threefry2x32(k0, k1, a[j], b[j]);
+            }
+        } else {
+#pragma unroll 1
+            for (int j = 0; j < kPer; ++j) {
+                a[j] = static_cast<uint32_t>((c + j) >> 32);
+                b[j] = static_cast<uint32_t>(c + j);
+                threefry2x32(k0, k1, a[j], b[j]);
+            }
+        }
+        if constexpr (kMode == kKeys) {
+#pragma unroll
+            for (int j = 0; j < kPer; ++j)
+                if (i + j < n) write<kKeys>(out, i + j, a[j], b[j], minval, maxval);
+        } else {
+            uint32_t v[kPer];
+#pragma unroll
+            for (int j = 0; j < kPer; ++j) v[j] = value<kMode>(a[j] ^ b[j], minval, maxval);
+            store_group<kVec>(out, i, n, v);
+        }
+    }
+}
+
+// One launch of the original layout: the words [w_lo, w_hi) of a draw of
+// total words (2 a key for kKeys), out[0] being word w_lo; blocks of kBlock
+// words under split keys where total >= kBlock (nblocks full ones), the
+// launch's draw block b_lo + blockIdx.y.
+struct Orig {
+    uint64_t total, w_lo, w_hi, nblocks, b_lo;
+};
+
+// Thread group g of a draw block takes its pairs p_lo + kPer g ..: pair j
+// hashes (j, j + h) and writes word j (half A) and word j + h (half B), each
+// where it lies in the launch's words (kVec: both halves' stores at 16-byte
+// aligned addresses).
+template <int kMode, bool kVec>
+__global__ void __launch_bounds__(kThreads) threefry_orig_kernel(const uint32_t* key, Path path, Orig o, float minval,
+                                                                 float maxval, void* out) {
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+    const uint64_t b = o.b_lo + blockIdx.y, base = b * kBlock;  // the draw block and its first word
+    uint32_t k0, k1;
+    draw_key(key, path, Split{o.nblocks ? o.nblocks + 1 : 0, b}, k0, k1);
+    const uint64_t m = o.nblocks == 0 ? o.total : b < o.nblocks ? kBlock : o.total - o.nblocks * kBlock;
+    const uint64_t h = (m + 1) / 2;
+    // the block's words of the launch, local to the draw block: [lo, hi)
+    const uint64_t lo = (o.w_lo > base ? o.w_lo : base) - base, hi = (o.w_hi < base + m ? o.w_hi : base + m) - base;
+    if (hi <= lo) return;
+    // half A: words [lo, min(hi, h)) are pairs [lo, min(hi, h)); half B: words
+    // [max(lo, h), hi) are pairs [max(lo, h) - h, hi - h)
+    const uint64_t a_lo = lo, a_hi = hi < h ? hi : h, b_lo = (lo > h ? lo : h) - h, b_hi = hi > h ? hi - h : 0;
+    // the pairs to hash: both halves' ranges as one where they overlap, else
+    // each apart (a range of words across the halves hashes only its pairs)
+    uint64_t r0_lo = a_lo, r0_hi = a_hi, r1_lo = b_lo, r1_hi = b_hi;
+    if (a_hi <= a_lo) r0_lo = r0_hi = 0;
+    if (b_hi <= b_lo) r1_lo = r1_hi = 0;
+    if (r0_hi > r0_lo && r1_hi > r1_lo && r1_lo <= r0_hi && r0_lo <= r1_hi) {
+        r0_lo = r0_lo < r1_lo ? r0_lo : r1_lo;
+        r0_hi = r0_hi > r1_hi ? r0_hi : r1_hi;
+        r1_lo = r1_hi = 0;
+    }
+    const int64_t g0 = static_cast<int64_t>((r0_hi - r0_lo + kPer - 1) / kPer);
+    const int64_t groups = g0 + static_cast<int64_t>((r1_hi - r1_lo + kPer - 1) / kPer);
+    // out index of local word w: w + shift (base - w_lo, as two's complement)
+    const int64_t shift = static_cast<int64_t>(base - o.w_lo);
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+    for (int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; g < groups; g += stride) {
+        const uint32_t j0 = static_cast<uint32_t>(g < g0 ? r0_lo + static_cast<uint64_t>(g) * kPer
+                                                         : r1_lo + static_cast<uint64_t>(g - g0) * kPer);  // < 2**31
+        uint32_t y0[kPer], y1[kPer];
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+            y0[j] = j0 + j;
+            y1[j] = j0 + j + h < m ? static_cast<uint32_t>(j0 + j + h) : 0u;
+            threefry2x32(k0, k1, y0[j], y1[j]);
+        }
+        uint32_t v[kPer];
+        // half A: words j0 .. j0 + kPer - 1 where they lie in [a_lo, a_hi)
+        if (j0 + kPer > a_lo && j0 < a_hi) {
+#pragma unroll
+            for (int j = 0; j < kPer; ++j) v[j] = value<kMode>(y0[j], minval, maxval);
+            if (j0 >= a_lo && j0 + kPer <= a_hi) {
+                store_group<kVec>(out, static_cast<int64_t>(j0) + shift, INT64_MAX, v);
+            } else {
+#pragma unroll
+                for (int j = 0; j < kPer; ++j)
+                    if (j0 + j >= a_lo && j0 + j < a_hi) static_cast<uint32_t*>(out)[j0 + j + shift] = v[j];
+            }
+        }
+        // half B: words j0 + h .. where pairs j0 .. lie in [b_lo, b_hi)
+        if (j0 + kPer > b_lo && j0 < b_hi) {
+#pragma unroll
+            for (int j = 0; j < kPer; ++j) v[j] = value<kMode>(y1[j], minval, maxval);
+            const int64_t at = static_cast<int64_t>(j0 + h) + shift;
+            if (j0 >= b_lo && j0 + kPer <= b_hi) {
+                store_group<kVec>(out, at, INT64_MAX, v);
+            } else {
+#pragma unroll
+                for (int j = 0; j < kPer; ++j)
+                    if (j0 + j >= b_lo && j0 + j < b_hi) static_cast<uint32_t*>(out)[at + j] = v[j];
+            }
+        }
     }
 }
 
@@ -245,10 +425,9 @@ __global__ void __launch_bounds__(kThreads) threefry_kernel(const uint32_t* key,
 template <bool kOrig>
 __global__ void __launch_bounds__(kThreads) threefry_rows_kernel(const uint32_t* keys, Path path, int64_t n,
                                                                  float* out) {
-    __shared__ uint32_t sk[2];
     const int64_t row = blockIdx.y;
-    fold_key(keys + 2 * row, path, sk);
-    const uint32_t k0 = sk[0], k1 = sk[1];
+    uint32_t k0, k1;
+    draw_key(keys + 2 * row, path, Split{0, 0}, k0, k1);
     float* base = out + row * n;
     const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
     const int64_t h = kOrig ? (n + 1) / 2 : n;
@@ -287,14 +466,13 @@ __device__ __forceinline__ bool beats(float v, int64_t i, float w, int64_t j) {
 template <bool kBf16, bool kOrig>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kCatThreads)
     categorical_kernel(const uint32_t* key, Path path, const void* logits, int64_t V, int32_t* out) {
-    __shared__ uint32_t sk[2];
     __shared__ float warp_v[kCatThreads / 32];
     __shared__ int64_t warp_i[kCatThreads / 32];
     __shared__ float block_v;
     __shared__ int64_t block_i;
     cg::cluster_group cluster = cg::this_cluster();
-    fold_key(key, path, sk);
-    const uint32_t k0 = sk[0], k1 = sk[1];
+    uint32_t k0, k1;
+    draw_key(key, path, Split{0, 0}, k0, k1);
     const int64_t row = blockIdx.y;
     const unsigned rank = cluster.block_rank();
     float best = -INFINITY;
@@ -375,30 +553,87 @@ int blocks_for(int64_t n, int64_t rows) {
     return static_cast<int>(blocks < 1 ? 1 : blocks);
 }
 
+// A draw kernel's grid: a thread a group of counters (or pairs) in the
+// largest row, every block at once (a cap only past gridDim's limit, where the
+// threads stride).
+unsigned draw_blocks(int64_t groups) {
+    int64_t blocks = (groups + kThreads - 1) / kThreads;
+    if (blocks > INT32_MAX) blocks = INT32_MAX;
+    return static_cast<unsigned>(blocks < 1 ? 1 : blocks);
+}
+
+// A programmatic dependent launch of a draw kernel (the kernel waits on
+// griddepcontrol.wait before it touches memory).
+template <typename Kernel, typename... Args>
+cudaError_t draw_launch(Kernel kernel, dim3 grid, cudaStream_t stream, Args... args) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kThreads);
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+    const cudaError_t last = cudaGetLastError();
+    return err != cudaSuccess ? err : last;
+}
+
+template <int kMode, bool kVec>
+cudaError_t launch_part(const uint32_t* key, const Path& path, uint64_t offset, int64_t n, float minval,
+                        float maxval, void* out, cudaStream_t stream) {
+    const dim3 grid(draw_blocks((n + kPer - 1) / kPer));
+    return draw_launch(threefry_kernel<kMode, kVec>, grid, stream, key, path, offset, n, minval, maxval, out);
+}
+
+template <int kMode, bool kVec>
+cudaError_t launch_orig(const uint32_t* key, const Path& path, const Orig& o, uint64_t pairs, unsigned rows,
+                        float minval, float maxval, void* out, cudaStream_t stream) {
+    const dim3 grid(draw_blocks(static_cast<int64_t>((pairs + kPer - 1) / kPer)), rows);
+    return draw_launch(threefry_orig_kernel<kMode, kVec>, grid, stream, key, path, o, minval, maxval, out);
+}
+
 template <int kMode>
 cudaError_t launch(const uint32_t* key, const Path& path, uint64_t offset, int64_t n, int64_t total, float minval,
                    float maxval, void* out, cudaStream_t stream) {
+    const bool aligned = reinterpret_cast<uintptr_t>(out) % 16 == 0;
     if (total == 0) {
-        threefry_kernel<kMode><<<blocks_for(n, 1), kThreads, 0, stream>>>(key, path, offset, n, minval, maxval, out);
-        return cudaGetLastError();
+        return kMode != kKeys && aligned
+                   ? launch_part<kMode, true>(key, path, offset, n, minval, maxval, out, stream)
+                   : launch_part<kMode, false>(key, path, offset, n, minval, maxval, out, stream);
     }
-    // the original layout: the words [w_lo, w_hi) of a draw of m (a key is two)
+    // the original layout: the words [w_lo, w_hi) of a draw of total words (a key is two)
     const uint64_t per = kMode == kKeys ? 2 : 1;
     Orig o;
-    o.m = per * static_cast<uint64_t>(total);
-    o.h = (o.m + 1) / 2;
+    o.total = per * static_cast<uint64_t>(total);
     o.w_lo = per * offset;
     o.w_hi = o.w_lo + per * static_cast<uint64_t>(n);
-    // the pairs of the words below h, and of those from h on
-    const uint64_t a_hi = o.w_hi < o.h ? o.w_hi : o.h, b_lo = (o.w_lo > o.h ? o.w_lo : o.h) - o.h;
-    const bool a = o.w_lo < a_hi, b = o.w_hi > o.h;
-    o.p_lo = a ? o.w_lo : b_lo;
-    o.p_hi = b ? o.w_hi - o.h : a_hi;
-    if (a && b && b_lo < o.p_lo) o.p_lo = b_lo;
-    if (a && b && a_hi > o.p_hi) o.p_hi = a_hi;
-    const int64_t pairs = static_cast<int64_t>(o.p_hi - o.p_lo);
-    threefry_orig_kernel<kMode><<<blocks_for(pairs, 1), kThreads, 0, stream>>>(key, path, o, minval, maxval, out);
-    return cudaGetLastError();
+    o.nblocks = o.total / kBlock;  // JAX blocks a draw of kBlock words or more
+    o.b_lo = o.nblocks ? o.w_lo / kBlock : 0;
+    const unsigned rows = o.nblocks ? static_cast<unsigned>((o.w_hi - 1) / kBlock - o.b_lo + 1) : 1;
+    // the most pairs a draw block of the launch hashes, and (one draw) whether
+    // both halves' groups store at 16-byte aligned addresses
+    const uint64_t m = o.nblocks ? kBlock : o.total, h = (m + 1) / 2;
+    uint64_t pairs = h;
+    bool vec = false;
+    if (!o.nblocks) {
+        // as the kernel: one range of pairs where the halves' overlap (its
+        // groups' stores aligned alike), else two, stored value by value
+        const uint64_t a_hi = o.w_hi < h ? o.w_hi : h, b_lo = (o.w_lo > h ? o.w_lo : h) - h;
+        const uint64_t b_hi = o.w_hi > h ? o.w_hi - h : 0;
+        const bool has_a = a_hi > o.w_lo, has_b = b_hi > b_lo;
+        const bool one = !has_a || !has_b || (b_lo <= a_hi && o.w_lo <= b_hi);
+        const uint64_t p_lo = has_a ? (has_b && b_lo < o.w_lo ? b_lo : o.w_lo) : b_lo;
+        const uint64_t p_hi = has_b ? (has_a && a_hi > b_hi ? a_hi : b_hi) : a_hi;
+        pairs = one ? p_hi - p_lo : (a_hi - o.w_lo) + (b_hi - b_lo);
+        const uint64_t word = reinterpret_cast<uintptr_t>(out) / 4;  // out's address in words
+        vec = one && aligned && (word + p_lo - o.w_lo) % 4 == 0 && (word + p_lo + h - o.w_lo) % 4 == 0;
+    } else if (o.w_hi - o.w_lo < h) {
+        pairs = o.w_hi - o.w_lo;  // the grid's size only: its threads stride over a block's pairs
+    }
+    return vec ? launch_orig<kMode, true>(key, path, o, pairs, rows, minval, maxval, out, stream)
+               : launch_orig<kMode, false>(key, path, o, pairs, rows, minval, maxval, out, stream);
 }
 
 Path make_path(int n_path, int64_t d0, int64_t d1, int64_t d2, int64_t d3) {
@@ -411,13 +646,15 @@ Path make_path(int n_path, int64_t d0, int64_t d1, int64_t d2, int64_t d3) {
 // The folds of ``key`` are d0..d3 (the first n_path of them).  ``total``
 // 0: the partitionable layout, counters offset .. offset + n - 1; else the
 // original layout, values offset .. offset + n - 1 of a draw of ``total``
-// (keys for kKeys), at most 2**32 - 1 words.  Returns a cudaError_t (0:
+// (keys for kKeys: a split, at most 2**32 - 1 words; more words of the other
+// modes are drawn in blocks under split keys).  Returns a cudaError_t (0:
 // launched).
 extern "C" int repro_threefry(const void* key, int n_path, int64_t d0, int64_t d1, int64_t d2, int64_t d3,
                               int64_t offset, int64_t n, int64_t total, int mode, float minval, float maxval,
                               void* out, cudaStream_t stream) {
     if (n_path < 0 || n_path > kMaxPath || n < 0 || total < 0) return static_cast<int>(cudaErrorInvalidValue);
-    if (total > 0 && (offset < 0 || offset + n > total || (mode == kKeys ? 2 : 1) * total > INT64_C(0xffffffff)))
+    if (total > 0 && (offset < 0 || offset + n > total || (mode == kKeys && 2 * total > INT64_C(0xffffffff)) ||
+                      total / static_cast<int64_t>(kBlock) >= 65535))
         return static_cast<int>(cudaErrorInvalidValue);
     if (n == 0) return 0;
     const Path path = make_path(n_path, d0, d1, d2, d3);
@@ -438,10 +675,11 @@ extern "C" int repro_threefry(const void* key, int n_path, int64_t d0, int64_t d
 
 // ``rows`` Gumbel rows of ``n`` under the (rows, 2) keys, each folded by
 // d0..d3; ``out`` is (rows, n) float32; ``original``: each row's draw in the
-// original layout.
+// original layout (fewer than 2**32 - 1 words: no blocked draw).
 extern "C" int repro_threefry_rows(const void* keys, int64_t rows, int n_path, int64_t d0, int64_t d1, int64_t d2,
                                    int64_t d3, int64_t n, int original, void* out, cudaStream_t stream) {
-    if (n_path < 0 || n_path > kMaxPath || n < 0 || rows < 0 || rows > 65535 || (original && n > INT64_C(0xffffffff)))
+    if (n_path < 0 || n_path > kMaxPath || n < 0 || rows < 0 || rows > 65535 ||
+        (original && n >= static_cast<int64_t>(kBlock)))
         return static_cast<int>(cudaErrorInvalidValue);
     if (n == 0 || rows == 0) return 0;
     const Path path = make_path(n_path, d0, d1, d2, d3);
@@ -458,12 +696,12 @@ extern "C" int repro_threefry_rows(const void* keys, int64_t rows, int n_path, i
 
 // ``out[b]`` (int32) = argmax_v gumbel(key folded by d0..d3, (B, V))[b, v]
 // + logits[b, v]; ``bf16`` says the logits are bfloat16 (else float32);
-// ``original``: the noise in the original layout.
+// ``original``: the noise in the original layout (fewer than 2**32 - 1 words).
 extern "C" int repro_threefry_categorical(const void* key, int n_path, int64_t d0, int64_t d1, int64_t d2,
                                           int64_t d3, const void* logits, int64_t B, int64_t V, int bf16,
                                           int original, void* out, cudaStream_t stream) {
     if (n_path < 0 || n_path > kMaxPath || B < 0 || B > 65535 || V < 1 || V > INT32_MAX ||
-        (original && (bf16 ? (B * V + 3) / 4 : B * V) > INT64_C(0xffffffff)))
+        (original && (bf16 ? (B * V + 3) / 4 : B * V) >= static_cast<int64_t>(kBlock)))
         return static_cast<int>(cudaErrorInvalidValue);
     if (B == 0) return 0;
     const Path path = make_path(n_path, d0, d1, d2, d3);

@@ -339,32 +339,60 @@ def _pairs(k0, k1, j0: int, cnt: int, h: int, m: int):
     return _threefry2x32(k0, k1, _as_int32(j), _as_int32(x1))
 
 
+_BLOCK = 2**32 - 1  # JAX draws this many original-layout words or more in blocks under split keys
+
+
 def _original(k0, k1, path, w_lo: int, w_hi: int, m: int, draw, width: int = 1, axis: int = 0) -> torch.Tensor:
     """``draw(words)`` over the words ``w_lo .. w_hi - 1`` of a draw of ``m``
     words in the original layout (``threefry_ref``) under the key folded by
     ``path``, on the CPU ``_CHUNK // width`` pairs at a time (``width`` keys
     side by side), joined along ``axis``.  Each pair is hashed once: word
-    ``j`` and word ``j + h`` come from the same hash."""
+    ``j`` and word ``j + h`` come from the same hash.  A draw of ``_BLOCK``
+    words or more is JAX's blocked draw (``_threefry_random_bits_original``):
+    with ``nblocks, rem = divmod(m, _BLOCK)`` the key is split into
+    ``nblocks + 1`` keys, block ``b < nblocks`` is the draw of ``_BLOCK``
+    words under key ``b``, the last the draw of ``rem`` words under the last
+    key; only the blocks' words in the range are hashed."""
     if not 0 <= w_lo <= w_hi <= m:
         raise ValueError(f"words {w_lo} .. {w_hi} are not in a draw of {m}")
-    if m > _M32:
-        raise ValueError(f"a draw of {m} words: JAX splits more than 2**32 - 1 into blocks, which is not ported")
     k0, k1 = _fold(k0, k1, path)
+    nblocks = m // _BLOCK
+    if not nblocks or w_hi == w_lo:
+        return _one_draw(k0, k1, w_lo, w_hi, min(m, _BLOCK) if w_hi == w_lo else m, draw, width, axis)
+    # split(key, nblocks + 1): the draw of 2 (nblocks + 1) words, key b words 2b and 2b + 1
+    n_keys = 2 * (nblocks + 1)
+    parts = []
+    for b in range(w_lo // _BLOCK, (w_hi - 1) // _BLOCK + 1):
+        base, mb = b * _BLOCK, _BLOCK if b < nblocks else m - nblocks * _BLOCK
+        kb = _one_draw(k0, k1, 2 * b, 2 * b + 2, n_keys, lambda y: y, width, axis)
+        kb0, kb1 = kb.narrow(axis, 0, 1), kb.narrow(axis, 1, 1)
+        if width == 1:
+            kb0, kb1 = kb0.reshape(()), kb1.reshape(())
+        parts.append(_one_draw(kb0, kb1, max(w_lo, base) - base, min(w_hi, base + mb) - base, mb, draw, width, axis))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=axis)
+
+
+def _one_draw(k0, k1, w_lo: int, w_hi: int, m: int, draw, width: int, axis: int) -> torch.Tensor:
+    """``_original``'s words ``w_lo .. w_hi - 1`` of one draw of ``m <
+    _BLOCK`` words (``m = _BLOCK``: a full block of a blocked draw) under
+    the folded key ``(k0, k1)``."""
     h = (m + 1) // 2
     spans = ((w_lo, min(w_hi, h)), (max(w_lo, h) - h, w_hi - h))  # the words of each half, as pairs
-    live = [s for s in spans if s[1] > s[0]]
+    live = sorted(s for s in spans if s[1] > s[0])
     if not live:
         return draw(_pairs(k0, k1, 0, 0, h, m)[0])
-    p_lo, p_hi = min(s[0] for s in live), max(s[1] for s in live)
-    step = max(1, _CHUNK // width) if k0.device.type == "cpu" else p_hi - p_lo
+    if len(live) == 2 and live[1][0] <= live[0][1]:  # the halves' pairs overlap: hash each pair once
+        live = [(live[0][0], max(live[0][1], live[1][1]))]
     heads, tails = [], []
-    for s in range(p_lo, p_hi, step):
-        e = min(s + step, p_hi)
-        y = _pairs(k0, k1, s, e - s, h, m)
-        for (lo, hi), y_half, parts in zip(spans, y, (heads, tails)):
-            a, b = max(s, lo), min(e, hi)
-            if b > a:
-                parts.append(draw(y_half.narrow(-1, a - s, b - a)))
+    for p_lo, p_hi in live:  # apart, a range of words across the halves hashes only its pairs
+        step = max(1, _CHUNK // width) if k0.device.type == "cpu" else p_hi - p_lo
+        for s in range(p_lo, p_hi, step):
+            e = min(s + step, p_hi)
+            y = _pairs(k0, k1, s, e - s, h, m)
+            for (lo, hi), y_half, parts in zip(spans, y, (heads, tails)):
+                a, b = max(s, lo), min(e, hi)
+                if b > a:
+                    parts.append(draw(y_half.narrow(-1, a - s, b - a)))
     parts = heads + tails
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=axis)
 
@@ -474,13 +502,18 @@ def threefry_ref(key: torch.Tensor, path: tuple, offset: int, n: int, mode: str,
     counter pairs ``(j, j + h)``, ``h = ceil(m / 2)``, for ``j < h`` (the
     second counter 0 past the end), word ``j`` the pair's first output and
     word ``j + h`` its second; each word is a value's 32 bits (no xor), and
-    key ``i`` is words ``2i`` and ``2i + 1``."""
+    key ``i`` is words ``2i`` and ``2i + 1``.  A draw of ``2**32 - 1`` words
+    or more is JAX's, in blocks under split keys (``_original``); a split
+    (``"keys"``) draws fewer, as JAX's."""
     if mode not in THREEFRY_MODES:
         raise ValueError(f"unknown threefry mode {mode!r} (want one of {THREEFRY_MODES})")
     if not total:
         return _chunked(key[0], key[1], path, offset, n,
                         lambda a, b: _epilogue(a, b, mode, minval, maxval, key.device))
     if mode == "keys":
+        if 2 * total > _M32:
+            raise ValueError(f"split({total}) in the original layout is a draw of {2 * total} words; JAX's original "
+                             "split draws at most 2**32 - 1")
         return _original(key[0], key[1], path, 2 * offset, 2 * (offset + n), 2 * total, lambda y: y).view(n, 2)
     return _original(key[0], key[1], path, offset, offset + n, total,
                      lambda y: _finish(y, mode, minval, maxval, key.device))

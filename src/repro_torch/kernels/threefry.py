@@ -36,7 +36,7 @@ _DTYPE = {"keys": torch.int32, "bits": torch.int32, "sortkey": torch.int32, "uni
 # again for the original layout
 _ENTRIES = THREEFRY_MODES + ("rows", "categorical")
 LAUNCHES = {name: SimpleNamespace(launches=0) for name in _ENTRIES + tuple(f"original.{e}" for e in _ENTRIES)}
-_WORDS = 2**32 - 1  # the most words one original-layout draw takes (JAX splits more into blocks)
+_WORDS = 2**32 - 1  # JAX draws this many original-layout words or more in blocks under split keys
 
 
 def _count(entry: str, original: bool) -> None:
@@ -50,9 +50,12 @@ def _folds(path: tuple) -> list:
 
 
 def _check_original(what: str, words: int) -> None:
-    if words > _WORDS:
-        raise ValueError(f"{what}: a draw of {words} words in the original layout; JAX splits more than 2**32 - 1 "
-                         "into blocks, which is not ported")
+    """The rows and categorical entries take one original-layout draw under
+    their key: a row or a logits array of 2**32 - 1 words (16 GB) or more,
+    which JAX draws in blocks under split keys, is refused."""
+    if words >= _WORDS:
+        raise ValueError(f"{what}: a draw of {words} words in the original layout; this entry draws fewer than "
+                         "2**32 - 1 (JAX's blocked draws are the threefry entry's)")
 
 
 def threefry(key: torch.Tensor, path: tuple, offset: int, n: int, mode: str, minval: float = 0.0,
@@ -62,7 +65,9 @@ def threefry(key: torch.Tensor, path: tuple, offset: int, n: int, mode: str, min
     (``"keys"``), ``(n,)`` int32 bits (``"bits"``, ``"sortkey"``) or float32
     (``"uniform"`` in ``[minval, maxval)``, ``"gumbel"``).  ``total > 0``:
     the values ``offset .. offset + n - 1`` of a draw of ``total`` in the
-    original layout instead.  ``out``, when given, receives them; with
+    original layout instead (a draw of ``2**32 - 1`` words or more in JAX's
+    blocks under split keys; a split, ``"keys"``, of fewer words, as JAX's
+    original split).  ``out``, when given, receives them; with
     ``"keys"``, ``n = 1`` and ``total = 0`` it may be ``key`` itself (one
     block reads the key before any thread writes)."""
     if mode not in THREEFRY_MODES:
@@ -72,7 +77,9 @@ def threefry(key: torch.Tensor, path: tuple, offset: int, n: int, mode: str, min
     if total:
         if not 0 <= offset <= offset + n <= total:
             raise ValueError(f"threefry {mode}: values {offset} .. {offset + n} are not in a draw of {total}")
-        _check_original(f"threefry {mode}", total * (2 if mode == "keys" else 1))
+        if mode == "keys" and 2 * total > _WORDS:
+            raise ValueError(f"threefry keys: split({total}) in the original layout is a draw of {2 * total} words; "
+                             "JAX's original split draws at most 2**32 - 1")
     if not route(key):
         res = threefry_ref(key, path, offset, n, mode, minval, maxval, total=total)
         return res if out is None else out.copy_(res.reshape(out.shape))

@@ -543,10 +543,25 @@ class _Channel:
         dist.scatter_object_list(box, objs, src=0, group=self.group)
         return box[0]
 
+    def close(self) -> None:
+        """The end of the channel, on every rank after the ``stop`` command:
+        the ranks meet on its group, so none tears its connections down
+        while a peer still reads, then the group is destroyed now, while
+        every peer is up and before the caller destroys the default group.
+        A gloo group left to the interpreter's teardown (the module global
+        below held it past ``destroy_process_group``) aborted a rank at exit
+        now and then ("terminate called without an active exception")."""
+        dist.barrier(group=self.group)
+        dist.destroy_process_group(self.group)
+        self.group = None
+        if _CHANNEL[1] is self:
+            _CHANNEL[:] = [None, None]
+
 
 # the channel of the current default process group: one per group, made by
 # every rank at the same point (new_group is collective): the leader's first
-# D > 1 engine, a follower's ``follow``, or ``stop_followers``
+# D > 1 engine, a follower's ``follow``, or ``stop_followers``; the stop
+# closes it on every rank, and the next engine makes a new one
 _CHANNEL: list = [None, None]
 
 
@@ -932,6 +947,7 @@ def follow(D: Optional[int] = None, device=None) -> Optional[ShardedEngine]:
     while True:
         op, *args = chan.recv()
         if op == "stop":
+            chan.close()
             return eng
         if op == "build":
             eng = None  # the replaced engine's buffers go before the new one's
@@ -947,7 +963,8 @@ def follow(D: Optional[int] = None, device=None) -> Optional[ShardedEngine]:
 
 def stop_followers() -> None:
     """Rank 0: end the followers' ``follow`` loops on the default process
-    group (a group of one rank has none).  Every engine built before is
+    group (a group of one rank has none) and close the control channel on
+    every rank (``_Channel.close``).  Every engine built before is
     superseded."""
     if dist.get_world_size() == 1:
         return
@@ -955,6 +972,7 @@ def stop_followers() -> None:
     with chan.lock:
         chan.epoch += 1
         chan.send("stop")
+        chan.close()
 
 
 def engine_from_meta(meta: dict, device=None):

@@ -18,6 +18,7 @@ hold the mesh round against the JAX package; they live here so that the
 spawned ranks import no JAX.
 """
 import dataclasses
+import faulthandler
 import multiprocessing
 import os
 import traceback
@@ -49,6 +50,12 @@ ALLOC_RTOL = 1e-6  # a psum adds the ranks' tiled float32 sums in another order 
 
 
 def _rank_main(fn, rank, D, out_dir, args):
+    # fd 2 into rank<r>.stderr, and a fatal signal's Python stacks there: an
+    # abort below Python (at teardown, say) raises nothing to write a .err
+    fd = os.open(os.path.join(out_dir, f"rank{rank}.stderr"), os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    os.dup2(fd, 2)
+    os.close(fd)
+    faulthandler.enable(all_threads=True)
     torch.set_num_threads(1)
     try:
         store = dist.FileStore(os.path.join(out_dir, "store"), D)
@@ -62,6 +69,17 @@ def _rank_main(fn, rank, D, out_dir, args):
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def _death(out_dir, rank, tail=4000):
+    """What a rank that exited non-zero left: whether it had written its
+    results (then it died at teardown, after its work) and the end of its
+    stderr."""
+    wrote = os.path.exists(os.path.join(out_dir, f"rank{rank}.npz"))
+    path = os.path.join(out_dir, f"rank{rank}.stderr")
+    err = open(path, errors="replace").read()[-tail:] if os.path.exists(path) else "(no stderr file)"
+    when = "after writing its results (at teardown)" if wrote else "before writing its results"
+    return f"rank {rank} died {when}; the end of its stderr:\n{err}"
 
 
 def spawn_groups(jobs):
@@ -86,8 +104,9 @@ def spawn_groups(jobs):
                 p.kill()
                 p.join()
         errs = [open(os.path.join(out_dir, f)).read() for f in sorted(os.listdir(out_dir)) if f.endswith(".err")]
-        assert all(p.exitcode == 0 for p in procs) and not errs, (
-            f"ranks exited {[p.exitcode for p in procs]}:\n" + "\n".join(errs)
+        died = [_death(out_dir, r) for r, p in enumerate(procs) if p.exitcode != 0]
+        assert not died and not errs, (
+            f"ranks exited {[p.exitcode for p in procs]}:\n" + "\n".join(errs + died)
         )
         results.append([dict(np.load(os.path.join(out_dir, f"rank{r}.npz"))) for r in range(len(procs))])
     return results

@@ -197,3 +197,21 @@ def test_an_original_mode_horizon_on_the_card_equals_the_cpu(dev, S):
     (k_cpu, m_cpu), (k_dev, m_dev) = out["cpu"], out[str(dev)]
     assert torch.equal(k_cpu, k_dev)
     assert torch.equal(m_cpu, m_dev)
+
+
+@pytest.mark.parametrize("total", [2**32 - 1, 2**32 + 5, 2 * (2**32 - 1) + 7])
+@pytest.mark.parametrize("mode", ["bits", "uniform", "gumbel", "normal"])
+def test_a_blocked_original_draw_equals_its_plain_version(dev, mode, total):
+    """An original-layout draw of 2**32 - 1 words or more (JAX's blocks
+    under split keys), in launches of a few words: the first, around a full
+    block's padded last pair (its halves' boundary), across each block
+    boundary (a launch spanning two blocks) and the rem block's."""
+    key = prng.PRNGKey(77, dev).data
+    M, H = 2**32 - 1, 2**31
+    lo_val = NORMAL_LO if mode == "normal" else 0.0
+    for lo, hi in ((0, 9), (H - 5, H + 4), (M - 6, min(M + 6, total)), (total - 7, total), (M - 3, M + 3)):
+        lo, hi = max(0, min(lo, total)), min(hi, total)
+        got = threefry(key, (5,), lo, hi - lo, mode, lo_val, 1.0, total=total)
+        want = threefry_ref(key, (5,), lo, hi - lo, mode, lo_val, 1.0, total=total)
+        atol = {"gumbel": NOISE_ATOL, "normal": NORMAL_ATOL}.get(mode, 0.0)
+        assert torch.allclose(got, want, rtol=0, atol=atol) if atol else torch.equal(got, want), (lo, hi)

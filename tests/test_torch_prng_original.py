@@ -17,6 +17,7 @@ import contextlib
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 import numpy as np
 import pytest
 import torch
@@ -259,6 +260,89 @@ def test_draws_past_the_word_limit_raise():
         key = prng.PRNGKey(0, DEV)
         with pytest.raises(ValueError, match="2\\*\\*32 - 1"):
             prng.split_data(key, 2**31)
+
+
+# -- a draw of 2**32 - 1 words or more: JAX's blocks under split keys ----------
+
+BLOCK = 2**32 - 1
+H = 2**31  # a full block's half: its pair H - 1 is padded (word H - 1 its last first output)
+# totals (one full block and no rem, one and a rem of 6, two and a rem of 7) and
+# the words of each slice held to JAX's: the first, around the padded last pair
+# of each full block, across each block boundary, and the rem block's
+BLOCKED = {
+    BLOCK: [(0, 8), (H - 5, H + 4), (BLOCK - 9, BLOCK)],
+    2**32 + 5: [(0, 8), (H - 5, H + 4), (BLOCK - 6, BLOCK + 6)],
+    2 * BLOCK + 7: [(BLOCK - 3, BLOCK + 3), (BLOCK + H - 4, BLOCK + H + 3), (2 * BLOCK - 4, 2 * BLOCK + 7)],
+}
+
+
+def _jax_blocked_words(jkey, total, lo, hi):
+    """JAX's words ``lo .. hi - 1`` (uint32) of an original-mode draw of
+    ``total`` words as ``_threefry_random_bits_original`` forms them, without
+    the draw: the keys of ``threefry_split(key, (nblocks + 1,))``, and each
+    word's counter pair in its block hashed by ``threefry_2x32`` under the
+    block's key (a count of 2P values hashes the pairs (c[i], c[P + i]))."""
+    from jax._src import prng as jprng
+
+    nblocks, rem = divmod(total, BLOCK)
+    keys = jprng.threefry_split(jkey, (nblocks + 1,))
+    blk, local = np.divmod(np.arange(lo, hi, dtype=np.int64), BLOCK)
+    out = np.empty(hi - lo, np.uint32)
+    for b in np.unique(blk):
+        sel, mb = blk == b, BLOCK if b < nblocks else rem
+        h = (mb + 1) // 2
+        w = local[sel]
+        j = np.where(w < h, w, w - h)
+        y = np.asarray(jprng.threefry_2x32(keys[b], jnp.asarray(np.concatenate([j, np.where(j + h < mb, j + h, 0)]),
+                                                                  jnp.uint32)))
+        out[sel] = np.where(w < h, y[: len(j)], y[len(j):])
+    return out
+
+
+@jax.jit
+def _jax_unit(bits, minval, maxval):
+    """``jax.random.uniform``'s float32 values from given 32-bit words
+    (``jax._src.random._uniform`` after its ``_random_bits``)."""
+    floats = lax.bitcast_convert_type(lax.shift_right_logical(bits, jnp.uint32(9)) | jnp.uint32(0x3F800000),
+                                      jnp.float32) - jnp.float32(1)
+    return lax.max(minval, floats * (maxval - minval) + minval)
+
+
+def _jax_values(mode, words):
+    """JAX's ``mode`` values of the words: ``bits`` as int32, ``uniform``,
+    ``gumbel`` (mode ``"low"``) and ``normal`` as ``jax.random`` forms them."""
+    bits = jnp.asarray(words, jnp.uint32)
+    if mode == "bits":
+        return words.view(np.int32)
+    if mode == "uniform":
+        return np.asarray(_jax_unit(bits, jnp.float32(0), jnp.float32(1)))
+    if mode == "gumbel":
+        tiny = jnp.float32(np.finfo(np.float32).tiny)
+        return np.asarray(-jnp.log(-jnp.log(_jax_unit(bits, tiny, jnp.float32(1)))))
+    lo = jnp.float32(np.nextafter(np.float32(-1), np.float32(0)))
+    return np.asarray(jnp.float32(np.sqrt(2)) * lax.erf_inv(_jax_unit(bits, lo, jnp.float32(1))))
+
+
+@pytest.mark.parametrize("total", list(BLOCKED), ids=lambda t: f"total={t}")
+@pytest.mark.parametrize("mode", ["bits", "uniform", "gumbel", "normal"])
+def test_blocked_draw_slices_equal_jax_words(mode, total):
+    """Slices of an original-mode draw of 2**32 - 1 words or more (the
+    port's plain version hashes only a slice's pairs) against JAX's blocked
+    draw: bits and uniforms exact, Gumbel within ``NOISE_ATOL``, normal
+    within ``NORMAL_ULPS``; ``normal``'s ``start``/``total`` blocks too."""
+    with original():
+        jk, pk = jax.random.fold_in(jax.random.PRNGKey(11), 3), prng.fold_in(prng.PRNGKey(11, DEV), 3)
+        for lo, hi in BLOCKED[total]:
+            want = _jax_values(mode, _jax_blocked_words(jk, total, lo, hi))
+            got = ref.threefry_ref(pk.data, pk.path, lo, hi - lo, mode, ref.NORMAL_LO if mode == "normal" else 0.0,
+                                   1.0, total=total).numpy()
+            if mode in ("bits", "uniform"):
+                np.testing.assert_array_equal(got, want)
+            elif mode == "gumbel":
+                np.testing.assert_allclose(got, want, rtol=0, atol=NOISE_ATOL)
+            else:
+                assert _ulps(got, want).max() <= NORMAL_ULPS
+                np.testing.assert_array_equal(prng.normal(pk, (hi - lo,), start=lo, total=total).numpy(), got)
 
 
 # -- a runner keeps its first key's mode ---------------------------------------

@@ -19,6 +19,8 @@
   keys.
 * **(f)** ``select_serve.main(["--serve", "--smoke", "--mesh", "2", ...])``
   on two ranks, plain and under ``--chaos 3``, serves its whole horizon.
+* **(g)** Several D = 4 groups at once, each through one engine's life
+  (build, tick, ``stop_followers``): every rank exits 0.
 """
 import json
 
@@ -142,3 +144,16 @@ def test_the_command_line_serves_on_two_ranks(d2, mode):
         assert report["fired"] == {"crash": 1, "corrupt": 1, "drop": 2, "slow": 1} and report["restarts"] == 1
     else:
         assert report["n_restarts"] == 0 and report["n_errors"] == 0
+
+
+def test_d4_groups_exit_zero_after_an_engines_life(tmp_path):
+    """A few D = 4 groups at once, each building an engine, ticking once and
+    stopping its followers: every rank exits 0, and the control channel's
+    group is destroyed on every rank (and freed on the leader) before the
+    default group is, so none of its gloo workers is left running at the
+    interpreter's exit."""
+    groups = spawn_groups([(ranks.teardown_rank, 4, tmp_path / f"group{g}", g) for g in range(3)])
+    for res in groups:
+        assert len(res[0]["cohort"]) == ranks.k_SH and bool(res[0]["channel_freed"])
+        assert [int(r["jobs"]) for r in res[1:]] == [1, 1, 1]
+        assert [int(r["groups_left"]) for r in res] == [1, 1, 1, 1]

@@ -25,7 +25,7 @@ from repro_torch.convert import gather_state, sharded_job_from_jax, state_to_num
 from repro_torch.engine import RoundProgram
 from repro_torch.serve import FaultPlan, JobSpec, NumericsError, SelectionServer, ServeClient, ServeError
 from repro_torch.serve import ShardedEngine, engine_from_meta, follow, latest_server_checkpoint, load_server
-from repro_torch.serve import protocol, save_server, stop_followers
+from repro_torch.serve import engines, protocol, save_server, stop_followers
 
 TIMEOUT = 60.0  # every client socket and wait
 K_SH, k_SH, T_SH = 256, 16, 6
@@ -311,3 +311,31 @@ def serve_mesh_rank(mesh, work_dir, jax_npz=None, d4_stem=None):
         for flags in ([], ["--chaos", "3"]):
             res.update(cli_case(mesh, work_dir, flags))
     return res
+
+
+def _groups_left() -> int:
+    """The process groups this rank still has registered."""
+    return len(torch.distributed.distributed_c10d._world.pg_map)
+
+
+def teardown_rank(mesh, seed):
+    """One engine's whole life on the group, then the rank returns (the
+    harness destroys the default group and the process exits): rank 0 builds
+    a ``ShardedEngine``, admits one job, ticks it once and stops the
+    followers; the others follow.  Rank 0 returns the cohort and whether the
+    control channel's group object was freed, a follower the jobs its last
+    engine held; every rank the process groups it has left (the default
+    one alone: a gloo group alive at interpreter exit can abort the rank
+    there)."""
+    if mesh.rank == 0:
+        try:
+            eng = ShardedEngine(device="cpu")
+            uid = eng.admit(JobSpec(K=K_SH, k=k_SH, seed=seed))
+            cohort = eng.tick([(uid, lags(np.random.default_rng(seed), K_SH))])[uid]["cohort"]
+            channel = weakref.ref(engines._CHANNEL[1].group)
+        finally:
+            stop_followers()
+        gc.collect()
+        return {"cohort": np.array(cohort), "channel_freed": np.array(channel() is None),
+                "groups_left": np.array(_groups_left())}
+    return {"jobs": np.array(len(follow(device="cpu").jobs)), "groups_left": np.array(_groups_left())}
