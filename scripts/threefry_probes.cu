@@ -19,6 +19,8 @@
 //                  needs (one wave at n = 1e6), 32-bit counters, the key
 //                  folded by every warp on its own (no barrier), values
 //                  stored as 16-byte vectors (store = 1) or not (store = 0);
+//   probe_read     a categorical's logits read as 16-byte vectors over
+//                  every SM, nothing hashed or written: the read alone;
 //   probe_normal   the normal epilogue's parts on the library's grid:
 //                  part 0 the uniform only, 1 erf_inv's multiply-adds as a
 //                  float64 product and sum (the library's), 2 as one
@@ -188,6 +190,20 @@ __global__ void __launch_bounds__(kThreads) normal_kernel(const uint32_t* key, i
     }
 }
 
+// probe_read: bytes of logits read as 16-byte vectors, one a thread, over
+// every SM, each thread's largest word stored only where it is negative
+// (never, for the timed positive-float bits): a categorical's read alone
+__global__ void __launch_bounds__(kThreads) read_kernel(const uint4* in, int64_t n16, float* out, int pdl) {
+    wait_prior(pdl);
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+    uint32_t best = 0;
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n16; i += stride) {
+        const uint4 v = in[i];
+        best = max(best, max(max(v.x & 0x7fff7fffu, v.y & 0x7fff7fffu), max(v.z & 0x7fff7fffu, v.w & 0x7fff7fffu)));
+    }
+    if (best == 0xffffffffu) out[threadIdx.x] = 0.0f;
+}
+
 int library_blocks(int64_t n) {
     int64_t blocks = (n + kThreads - 1) / kThreads;
     if (blocks > 132 * 16) blocks = 132 * 16;
@@ -213,6 +229,12 @@ int go(Kernel kernel, unsigned blocks, unsigned threads, void* stream, int pdl, 
 }  // namespace
 
 extern "C" int probe_empty(int pdl, void* stream) { return go(empty_kernel, 1, 32, stream, pdl, pdl); }
+
+extern "C" int probe_read(const void* in, int64_t bytes, void* out, int pdl, void* stream) {
+    const int64_t n16 = bytes / 16;
+    return go(read_kernel, static_cast<unsigned>((n16 + kThreads - 1) / kThreads), kThreads, stream, pdl,
+              static_cast<const uint4*>(in), n16, static_cast<float*>(out), pdl);
+}
 
 extern "C" int probe_store(int64_t n, void* out, int pdl, void* stream) {
     return go(store_kernel, library_blocks(n), kThreads, stream, pdl, n, static_cast<float*>(out), pdl);

@@ -14,14 +14,20 @@ checkout's kernels, prints the card's name and power limit, then:
   ``normal`` at 10^6 under a key folded twice, ``normal`` at a gemma-2b MLP
   leaf (2048 x 16384 values), in the partitionable and the original layout,
   a key's in-place advance, and the rows (8 x 100000 Gumbel rows) and
-  categorical ((4, 256000) bfloat16 logits) entries in both layouts;
+  categorical ((4, 256000) bfloat16 and float32 logits, and (1, 8) bfloat16
+  for its fixed cost) entries in both layouts;
   ``torch.rand`` at 10^6 as a scale (a different stream, not the same
   function);
 * ``[threefry-digest]``: the sha256 of each entry's output at odd sizes (1,
   3, 255, 10^6 + 1), at offsets, in blocks of an original-layout draw and
-  for an in-place key, so that two checkouts' outputs are compared bit for
-  bit (``--compare`` reads two ``--out`` files and fails on any difference);
-* with ``--probes``, ``[threefry-probe]``: the kernels of
+  for an in-place key, the rows entry at J in {1, 8, 64} and n in {1, 3,
+  100000, 100001} (also into rows off 16-byte alignment), and categorical
+  at B in {1, 4, 133, 300} and V in {1, 7, 255999, 256000, 262147} and on
+  logits with NaN, +-inf and ties (``edge_logits``), each in both dtypes
+  and layouts, so that two checkouts' outputs are compared bit for bit
+  (``--compare`` reads two ``--out`` files and fails on any difference);
+* with ``--probes``, ``[threefry-probe]``: the draw kernel at the rows' and
+  categorical's sizes (their hashes over every SM), and the kernels of
   ``scripts/threefry_probes.cu`` (built with the library's flags), each of
   which keeps one part of a draw, ordinary and as a programmatic dependent
   launch: what a draw's time is made of.
@@ -60,7 +66,8 @@ def build_probes(torch):
     P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     sigs = {"probe_empty": [I, P], "probe_store": [I64, P, I, P],
             "probe_fold": [P, I, I64, I64, I64, P, I, P], "probe_hash": [P, I, I64, I64, I64, I, P, I, P],
-            "probe_wide": [P, I, I64, I64, I64, I, I, P, I, P], "probe_normal": [P, I, I64, I64, I64, I, P, I, P]}
+            "probe_wide": [P, I, I64, I64, I64, I, I, P, I, P], "probe_normal": [P, I, I64, I64, I64, I, P, I, P],
+            "probe_read": [P, I64, P, I, P]}
     for name, argtypes in sigs.items():
         getattr(so, name).argtypes = argtypes
         getattr(so, name).restype = ctypes.c_int
@@ -71,6 +78,22 @@ def build_probes(torch):
             raise RuntimeError(f"{name}: CUDA error {err}")
 
     return call
+
+
+def edge_logits(torch, dtype, V=1000):
+    """(6, V) logits whose argmax JAX's rules decide: a row all -inf (index
+    0), +inf twice (the lower), NaN twice after +inf (the first NaN), a tie
+    of two values too large for the noise to move (the lower), a row of
+    zeros but one -0.0 and a row with NaN only at the end."""
+    lg = torch.randn((6, V), device="cuda")
+    lg[0] = float("-inf")
+    lg[1, [5, 3]] = float("inf")
+    lg[2, 1], lg[2, [7, 2]] = float("inf"), float("nan")
+    lg[3, [9, 4]] = 1e30
+    lg[4] = 0.0
+    lg[4, 11] = -0.0
+    lg[5, V - 1] = float("nan")
+    return lg.to(dtype)
 
 
 def digests(torch, kn):
@@ -113,6 +136,28 @@ def digests(torch, kn):
         for dt in (torch.float32, torch.bfloat16):
             put(f"categorical/{dt}/original={original}",
                 kn.threefry_categorical(key, (5,), logits.to(dt), original=original))
+    # rows at every J and n of the card tests, into an output whose rows start
+    # off 16-byte alignment
+    for J in (1, 8, 64):
+        keys = prng.split_data(prng.PRNGKey(J, "cuda"), J).data
+        for n in (1, 3, 100_000, 100_001):
+            out_u = torch.empty(J * n + 1, dtype=torch.float32, device="cuda")[1:].view(J, n)
+            for original in (False, True):
+                put(f"rows/J={J}/n={n}/original={original}", kn.threefry_rows(keys, (3,), n, original=original))
+                put(f"rows/J={J}/n={n}/original={original}/unaligned",
+                    kn.threefry_rows(keys, (3,), n, out=out_u, original=original))
+    # categorical at every B and V of the card tests, and NaN, +-inf and ties
+    for B in (1, 4, 133, 300):
+        for V in (1, 7, 255_999, 256_000, 262_147):
+            lg = torch.randn((B, V), generator=gen, device="cuda") * 3
+            for dt in (torch.float32, torch.bfloat16):
+                for original in (False, True):
+                    put(f"categorical/B={B}/V={V}/{dt}/original={original}",
+                        kn.threefry_categorical(key, (5,), lg.to(dt), original=original))
+    for dt in (torch.float32, torch.bfloat16):
+        for original in (False, True):
+            put(f"categorical/edges/{dt}/original={original}",
+                kn.threefry_categorical(key, (5,), edge_logits(torch, dt), original=original))
     return out
 
 
@@ -151,7 +196,7 @@ def main(argv=None) -> int:
 
     key = prng.PRNGKey(12345, "cuda").data
     out_f = torch.empty(max(K, LEAF), dtype=torch.float32, device="cuda")
-    out_b = torch.empty(K, dtype=torch.int32, device="cuda")
+    out_b = torch.empty(4 * 256_000, dtype=torch.int32, device="cuda")  # bits at 10^6 and at the categorical's size
     for layout in ("partitionable", "original"):
         for mode, n in [(m, K) for m in MODES] + [("normal", LEAF)]:
             out = (out_b if mode in ("bits", "sortkey") else out_f)[:n]
@@ -163,19 +208,34 @@ def main(argv=None) -> int:
          ms=f"{graph_ms(torch, lambda: kn.threefry(adv, (), 0, 1, 'keys', out=adv.view(1, 2))):.5f}")
     keys8 = prng.split_data(prng.PRNGKey(4, "cuda"), 8).data
     out_r = torch.empty((8, 100_000), dtype=torch.float32, device="cuda")
-    logits = torch.randn((4, 256_000), device="cuda").to(torch.bfloat16)
+    logits32 = torch.randn((4, 256_000), device="cuda")
+    logits = logits32.to(torch.bfloat16)
+    tiny = logits[:1, :8].contiguous()  # (1, 8): a launch's fixed cost, its blocks' meeting and the last block's
     for layout in ("partitionable", "original"):
         orig = layout == "original"
         emit("threefry-time", entry="rows", layout=layout, n=8 * 100_000,
              ms=f"{graph_ms(torch, lambda: kn.threefry_rows(keys8, (3,), 100_000, out=out_r, original=orig)):.5f}")
         emit("threefry-time", entry="categorical", layout=layout, n=logits.numel(),
              ms=f"{graph_ms(torch, lambda: kn.threefry_categorical(key, (5,), logits, original=orig)):.5f}")
+        emit("threefry-time", entry="categorical.float32", layout=layout, n=logits32.numel(),
+             ms=f"{graph_ms(torch, lambda: kn.threefry_categorical(key, (5,), logits32, original=orig)):.5f}")
+        emit("threefry-time", entry="categorical.fixed", layout=layout, n=tiny.numel(),
+             ms=f"{graph_ms(torch, lambda: kn.threefry_categorical(key, (5,), tiny, original=orig)):.5f}")
     emit("threefry-time", entry="torch.rand", layout="philox", n=K,
          ms=f"{graph_ms(torch, lambda: torch.rand(K, device='cuda', out=out_f[:K])):.5f}")
     for case, sha in digests(torch, kn).items():
         records.append({"line": "threefry-digest", "src": args.label, "case": case, "sha256": sha})
     print(f"[threefry-digest] src={args.label!r} cases={sum(r['line'] == 'threefry-digest' for r in records)}")
     if args.probes:
+        # the draw kernel at the rows' and categorical's sizes: the same hashes
+        # (and, for rows, the same epilogue and stores) over every SM in one wave
+        for layout in ("partitionable", "original"):
+            for mode, n in (("gumbel", 8 * 100_000), ("bits", 4 * 256_000), ("gumbel", 4 * 256_000),
+                            ("bits", 256_000)):
+                total = n if layout == "original" else 0
+                out = (out_b if mode == "bits" else out_f)[:n]
+                emit("threefry-probe", probe=f"draw-{mode}", layout=layout, n=n,
+                     ms=f"{graph_ms(torch, lambda: kn.threefry(key, PATH, 0, n, mode, out=out, total=total)):.5f}")
         call = build_probes(torch)
         kp = key.data_ptr()
         p = out_f.data_ptr()
@@ -194,6 +254,8 @@ def main(argv=None) -> int:
                     for store in (0, 1):
                         emit("threefry-probe", probe="wide", n=K, folds=n_path, per=per, store=store, pdl=pdl,
                              ms=f"{graph_ms(torch, lambda: call('probe_wide', kp, n_path, *folds[1:], K, per, store, p, pdl)):.5f}")
+            emit("threefry-probe", probe="read16", n=logits.numel(), pdl=pdl,
+                 ms=f"{graph_ms(torch, lambda: call('probe_read', logits.data_ptr(), logits.numel() * 2, p, pdl)):.5f}")
             for part in (0, 1, 2, 3):
                 for n in (K, LEAF):
                     emit("threefry-probe", probe=f"normal{part}", n=n, folds=2, pdl=pdl,

@@ -34,10 +34,9 @@
 //             gumbel(fold_in(key_j, t), (n,)), in one launch for J jobs);
 //   repro_threefry_categorical  jax.random.categorical over (B, V) logits:
 //             argmax_v of gumbel[b * V + v] + logits[b, v], ties to the
-//             lowest v, the noise never written.  A row is a cluster of
-//             kCluster blocks (Hopper's thread block clusters): each block
-//             reduces its columns, then block 0 reads the others' winners from
-//             their shared memory (distributed shared memory).  bfloat16
+//             lowest v, the noise never written: the B x V values over
+//             every SM, the rows' winners met by atomics and written by the
+//             block that ends last (categorical_kernel, below).  bfloat16
 //             logits take JAX's bfloat16 Gumbel: 8 random bits (the low byte
 //             of a ^ b), the mantissa their top 7, every operation rounded
 //             to bfloat16.
@@ -107,24 +106,30 @@
 //     clock an SM) or the float64 multiply.
 // The counters a thread (8 and 16 were slower in the original layout), the
 // programmatic launch and the 16-byte stores were chosen by timing variants of
-// this file on the H100 (PERF.md, section 6).  The rows and categorical
-// kernels keep the first design but for their key, folded by draw_key too.
+// this file on the H100 (PERF.md, section 6).
+//
+// The rows and categorical kernels as redesigned from a profile on the H100
+// (PERF.md, section 6: scripts/threefry_times.py --probes, and
+// scripts/threefry_sass.py).  Rows hashed one counter a thread with scalar
+// stores and no programmatic launch; it now takes the draw kernels' design,
+// its groups shifted a row so that rows of odd n store vectors too.
+// Categorical put a row on a cluster of 8 blocks of 512 threads: 32 blocks on
+// 132 SMs at B = 4, a hash for each bfloat16 value of the original layout
+// (where one gives 8 values), two logf and four roundings a bfloat16 value,
+// 2-byte loads; now every SM takes the flat B x V values in groups of one
+// 16-byte load, bfloat16 Gumbels come from a table, a hash gives both its
+// words' values, and the rows meet across blocks by 64-bit atomics.
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
-
-namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int kMaxPath = 4;
 constexpr int kPer = 4;  // counters (pairs in the original layout) a thread of a draw kernel
 constexpr uint64_t kBlock = UINT64_C(0xffffffff);  // the most words of one original-layout draw
-constexpr int kCluster = 8;       // blocks a categorical row
-constexpr int kCatThreads = 512;  // threads a categorical block
 
 enum Mode : int { kKeys = 0, kBits = 1, kSortKey = 2, kUniform = 3, kGumbel = 4, kNormal = 5 };
 
@@ -419,29 +424,79 @@ __global__ void __launch_bounds__(kThreads) threefry_orig_kernel(const uint32_t*
     }
 }
 
-// Row blockIdx.y: the Gumbel draws of counters 0 .. n-1 under
-// keys[blockIdx.y] folded by the path; kOrig: the row's draw of n in the
-// original layout, thread j writing values j and j + h.
+// The rows kernel: row blockIdx.y is the Gumbel draw of n under
+// keys[blockIdx.y] folded by the path (kOrig: the row's draw of n in the
+// original layout).  As the draw kernel: thread group g takes kPer counters
+// (pairs), hashed side by side, and stores them as one 16-byte vector where
+// the output is aligned.  A row of n floats starts at any 4-byte offset (n
+// may be odd), so each row's groups are shifted by the row's offset from
+// 16-byte alignment, s: group g takes counters (pairs) kPer g - s .., the
+// first group the s values before the row's first aligned one.  In the
+// original layout the second half, word j + h of pair j, stores vectors too
+// where h is a multiple of 4.
 template <bool kOrig>
 __global__ void __launch_bounds__(kThreads) threefry_rows_kernel(const uint32_t* keys, Path path, int64_t n,
                                                                  float* out) {
+    asm volatile("griddepcontrol.wait;" ::: "memory");
     const int64_t row = blockIdx.y;
     uint32_t k0, k1;
     draw_key(keys + 2 * row, path, Split{0, 0}, k0, k1);
     float* base = out + row * n;
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-    const int64_t h = kOrig ? (n + 1) / 2 : n;
-    for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < h; i += stride) {
+    const int s = static_cast<int>((reinterpret_cast<uintptr_t>(base) / 4) % kPer);
+    const int64_t h = kOrig ? (n + 1) / 2 : n;  // pairs, or counters
+    const int64_t groups = (h + s + kPer - 1) / kPer, stride = static_cast<int64_t>(gridDim.x) * kThreads;
+    for (int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; g < groups; g += stride) {
+        const int64_t i0 = g * kPer - s;  // the group's first counter (pair); -s .. -1 lie before the row
+        const bool whole = i0 >= 0 && i0 + kPer <= h;
+        uint32_t a[kPer], b[kPer];
         if constexpr (kOrig) {
-            uint32_t y0, y1;
-            orig_pair(k0, k1, static_cast<uint64_t>(i), h, n, y0, y1);
-            write<kGumbel>(base, i, y0, 0u, 0.0f, 1.0f);
-            if (i + h < n) write<kGumbel>(base, i + h, y1, 0u, 0.0f, 1.0f);
+#pragma unroll
+            for (int j = 0; j < kPer; ++j) {  // pairs below 2**31: 32-bit counters
+                const uint32_t p = static_cast<uint32_t>(i0 + j);
+                a[j] = p;
+                b[j] = i0 + j + h < n ? static_cast<uint32_t>(i0 + j + h) : 0u;
+                threefry2x32(k0, k1, a[j], b[j]);
+            }
         } else {
-            const uint64_t c = static_cast<uint64_t>(i);
-            uint32_t a = static_cast<uint32_t>(c >> 32), b = static_cast<uint32_t>(c);
-            threefry2x32(k0, k1, a, b);
-            write<kGumbel>(base, i, a, b, 0.0f, 1.0f);
+            const uint64_t c = static_cast<uint64_t>(i0 < 0 ? 0 : i0);
+            const uint32_t lo = static_cast<uint32_t>(c), hi = static_cast<uint32_t>(c >> 32);
+            if (i0 >= 0 && lo <= 0xffffffffu - (kPer - 1)) {  // the group's low words do not wrap
+#pragma unroll
+                for (int j = 0; j < kPer; ++j) {
+                    a[j] = hi;
+                    b[j] = lo + j;
+                    threefry2x32(k0, k1, a[j], b[j]);
+                }
+            } else {
+#pragma unroll 1
+                for (int j = 0; j < kPer; ++j) {
+                    const uint64_t cj = static_cast<uint64_t>(i0 + j);
+                    a[j] = static_cast<uint32_t>(cj >> 32);
+                    b[j] = static_cast<uint32_t>(cj);
+                    threefry2x32(k0, k1, a[j], b[j]);
+                }
+            }
+        }
+        uint32_t v[kPer];
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) v[j] = value<kGumbel>(kOrig ? a[j] : a[j] ^ b[j], 0.0f, 1.0f);
+        if (whole) {
+            store_group<true>(base, i0, INT64_MAX, v);
+        } else {
+#pragma unroll
+            for (int j = 0; j < kPer; ++j)
+                if (i0 + j >= 0 && i0 + j < h) reinterpret_cast<uint32_t*>(base)[i0 + j] = v[j];
+        }
+        if constexpr (kOrig) {  // the second half: word p + h of pair p, where p + h < n
+#pragma unroll
+            for (int j = 0; j < kPer; ++j) v[j] = value<kGumbel>(b[j], 0.0f, 1.0f);
+            if (whole && i0 + kPer + h <= n && h % kPer == 0) {
+                store_group<true>(base, i0 + h, INT64_MAX, v);
+            } else {
+#pragma unroll
+                for (int j = 0; j < kPer; ++j)
+                    if (i0 + j >= 0 && i0 + j + h < n) reinterpret_cast<uint32_t*>(base)[i0 + j + h] = v[j];
+            }
         }
     }
 }
@@ -453,104 +508,275 @@ __device__ __forceinline__ float bf16_round(float x) {  // to bfloat16, nearest 
     return __uint_as_float(u & 0xffff0000u);
 }
 
-// (v, i) beats (w, j): a NaN beats any number (JAX's and torch's argmax
-// take the first NaN), a larger value beats a smaller, equal values go to
-// the lower index
-__device__ __forceinline__ bool beats(float v, int64_t i, float w, int64_t j) {
-    const bool vn = v != v, wn = w != w;
-    if (vn != wn) return vn;
-    if (!vn && v != w) return v > w;
-    return i < j;
+// The categorical kernel: the B x V values are one flat run, value c = b V +
+// v (the counter of the partitionable layout and the index into the draw of
+// the original one, as JAX's gumbel(key, (B, V)) has it), cut into groups
+// of kCatGroup values (kCatGroup / 4 original-layout pairs, both their
+// words), a group a thread, every block at once.  A value's score is its
+// Gumbel draw plus its logit; each thread keeps its best (row, column,
+// score), the block meets on them, one 64-bit atomicMax a row and block
+// puts the winners into g_best, and the block that draws the last ticket
+// writes each row's index and resets g_best and the ticket for the next
+// launch (a replayed graph).  The key orders as the argmax: the score's bits
+// made monotone (every NaN above +inf, -0.0 as +0.0) above the complement of
+// the column (ties to the lowest).  Calls on one device run in stream order
+// (each kernel waits on griddepcontrol.wait before it touches memory): calls
+// on two streams at once would share the scratch.
+//
+// bfloat16 logits take JAX's bfloat16 Gumbel, a function of the top 7 of a
+// value's 8 random bits: a table of its 128 values in shared memory, built
+// by each block with JAX's arithmetic (two logf, four roundings to
+// bfloat16); a value then costs its share of a hash, a byte, a table read,
+// the add with its rounding and the key.
+constexpr int kMaxRows = 65535;  // categorical rows (B) a launch
+__device__ unsigned long long g_best[kMaxRows];
+__device__ unsigned int g_ticket;
+
+template <bool kBf16>
+constexpr int kCatGroup = kBf16 ? 8 : 4;  // values a 16-byte load (original layout: a half's words)
+
+// A score's bits made monotone: every NaN above +inf, -0.0 as +0.0.
+__device__ __forceinline__ uint32_t cat_ord(float score) {
+    const uint32_t u = __float_as_uint(score);
+    if ((u & 0x7fffffffu) > 0x7f800000u) return 0xffffffffu;  // NaN beats every number
+    if ((u & 0x7fffffffu) == 0u) return 0x80000000u;          // -0.0 ties with +0.0
+    return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-template <bool kBf16, bool kOrig>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kCatThreads)
-    categorical_kernel(const uint32_t* key, Path path, const void* logits, int64_t V, int32_t* out) {
-    __shared__ float warp_v[kCatThreads / 32];
-    __shared__ int64_t warp_i[kCatThreads / 32];
-    __shared__ float block_v;
-    __shared__ int64_t block_i;
-    cg::cluster_group cluster = cg::this_cluster();
-    uint32_t k0, k1;
-    draw_key(key, path, Split{0, 0}, k0, k1);
-    const int64_t row = blockIdx.y;
-    const unsigned rank = cluster.block_rank();
-    float best = -INFINITY;
-    int64_t at = V;  // no column yet: any column beats it
-    for (int64_t v = static_cast<int64_t>(rank) * kCatThreads + threadIdx.x; v < V;
-         v += static_cast<int64_t>(kCluster) * kCatThreads) {
-        const uint64_t c = static_cast<uint64_t>(row * V + v);
-        uint32_t a, b = 0u;  // the value's bits are a ^ b
-        if constexpr (kOrig) {
-            const uint64_t n = static_cast<uint64_t>(gridDim.y) * static_cast<uint64_t>(V);
-            a = kBf16 ? orig_word(k0, k1, c / 4, (n + 3) / 4) >> (8 * (c % 4)) : orig_word(k0, k1, c, n);
-        } else {
-            a = static_cast<uint32_t>(c >> 32);
-            b = static_cast<uint32_t>(c);
-            threefry2x32(k0, k1, a, b);
+// A thread's best value so far (row -1: none).  A thread meets a row's
+// values in increasing column order, so a later value wins only by a
+// larger score: ties stay with the lowest column.
+struct Best {
+    int64_t row;
+    uint32_t ord, col;
+};
+
+__device__ __forceinline__ uint64_t cat_key(const Best& t) {
+    return t.row < 0 ? 0 : (static_cast<uint64_t>(t.ord) << 32) | static_cast<uint32_t>(~t.col);
+}
+
+__device__ __forceinline__ void take(Best& t, int64_t row, uint32_t col, uint32_t ord, bool& wrote) {
+    if (row != t.row) {
+        if (t.row >= 0) {
+            atomicMax(&g_best[t.row], static_cast<unsigned long long>(cat_key(t)));
+            wrote = true;
         }
-        float s;
-        if constexpr (kBf16) {
-            const uint32_t bits8 = (a ^ b) & 0xffu;
-            const float f = __uint_as_float(((bits8 >> 1) << 16) | 0x3f800000u) - 1.0f;  // exact in bfloat16
-            const float u = fmaxf(FLT_MIN, bf16_round(f + FLT_MIN));
-            const float g = -bf16_round(logf(-bf16_round(logf(u))));
-            const uint16_t lb = static_cast<const uint16_t*>(logits)[row * V + v];
-            s = bf16_round(g + __uint_as_float(static_cast<uint32_t>(lb) << 16));
-        } else {
-            s = -logf(-logf(uniform(a ^ b, FLT_MIN, 1.0f))) + static_cast<const float*>(logits)[row * V + v];
-        }
-        if (beats(s, v, best, at)) {
-            best = s;
-            at = v;
-        }
+        t = Best{row, ord, col};
+    } else if (ord > t.ord) {
+        t.ord = ord;
+        t.col = col;
     }
+}
+
+// kCatGroup values c0 .. c0 + kCatGroup - 1, those in [lo, hi) taken:
+// bits[j] the random bits of value c0 + j (bfloat16: its 8).
+template <bool kBf16>
+__device__ __forceinline__ void take_run(Best& t, bool& wrote, int64_t c0, int64_t lo, int64_t hi,
+                                         const uint32_t (&bits)[kCatGroup<kBf16>], const void* logits,
+                                         int64_t V, double inv_v, const float* table) {
+    constexpr int G = kCatGroup<kBf16>;
+    const int64_t first = c0 > lo ? c0 : lo;
+    if (first >= (c0 + G < hi ? c0 + G : hi)) return;
+    int64_t row = static_cast<int64_t>(static_cast<double>(first) * inv_v);  // first / V, then exact
+    if (row * V > first) --row;
+    if ((row + 1) * V <= first) ++row;
+    const int64_t col0 = first - row * V;
+    const bool whole = c0 >= lo && c0 + G <= hi;
+    float l[G];
+    if constexpr (kBf16) {
+        const uint16_t* p = static_cast<const uint16_t*>(logits) + c0;
+        if (whole && reinterpret_cast<uintptr_t>(p) % 16 == 0) {
+            const uint4 q = *reinterpret_cast<const uint4*>(p);
+            const uint32_t w[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, best, off);
-        const int64_t oi = __shfl_down_sync(0xffffffffu, at, off);
-        if (beats(ov, oi, best, at)) {
-            best = ov;
-            at = oi;
+            for (int j = 0; j < G; ++j) l[j] = __uint_as_float(j % 2 ? w[j / 2] & 0xffff0000u : w[j / 2] << 16);
+        } else {
+#pragma unroll
+            for (int j = 0; j < G; ++j)
+                l[j] = c0 + j >= lo && c0 + j < hi ? __uint_as_float(static_cast<uint32_t>(p[j]) << 16) : 0.0f;
+        }
+    } else {
+        const float* p = static_cast<const float*>(logits) + c0;
+        if (whole && reinterpret_cast<uintptr_t>(p) % 16 == 0) {
+            const float4 q = *reinterpret_cast<const float4*>(p);
+            l[0] = q.x;
+            l[1] = q.y;
+            l[2] = q.z;
+            l[3] = q.w;
+        } else {
+#pragma unroll
+            for (int j = 0; j < G; ++j) l[j] = c0 + j >= lo && c0 + j < hi ? p[j] : 0.0f;
         }
     }
+    uint32_t ord[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+        if constexpr (kBf16) {
+            ord[j] = cat_ord(bf16_round(table[bits[j] >> 1] + l[j]));
+        } else {
+            ord[j] = cat_ord(-logf(-logf(uniform(bits[j], FLT_MIN, 1.0f))) + l[j]);
+        }
+    }
+    if (whole && col0 + G <= V) {  // the group in one row: its best, then one take
+        uint32_t best = ord[0], at = 0;
+#pragma unroll
+        for (int j = 1; j < G; ++j) {
+            if (ord[j] > best) {
+                best = ord[j];
+                at = j;
+            }
+        }
+        take(t, row, static_cast<uint32_t>(col0) + at, best, wrote);
+        return;
+    }
+    int64_t col = col0;
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+        if (c0 + j < lo || c0 + j >= hi) continue;
+        if (col == V) {
+            ++row;
+            col = 0;
+        }
+        take(t, row, static_cast<uint32_t>(col), ord[j], wrote);
+        ++col;
+    }
+}
+
+// A block's threads' best values into g_best: a warp whose threads hold one
+// row meets by shuffles, the warps' winners meet in thread 0 by runs of one
+// row, one atomicMax a run; a warp across rows (a row shorter than its
+// values, or a row's end) puts each thread's own.
+__device__ __forceinline__ void block_put(const Best& t, bool& wrote, int32_t* warp_row, uint64_t* warp_key) {
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    if (lane == 0) {
-        warp_v[warp] = best;
-        warp_i[warp] = at;
+    const int64_t lead = __shfl_sync(0xffffffffu, t.row, 0);
+    if (__all_sync(0xffffffffu, t.row == lead || t.row < 0)) {
+        uint64_t k = cat_key(t);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            const uint64_t o = __shfl_down_sync(0xffffffffu, k, off);
+            k = o > k ? o : k;
+        }
+        if (lane == 0) {
+            warp_row[warp] = static_cast<int32_t>(lead);
+            warp_key[warp] = k;
+        }
+    } else {
+        if (t.row >= 0) {
+            atomicMax(&g_best[t.row], static_cast<unsigned long long>(cat_key(t)));
+            wrote = true;
+        }
+        if (lane == 0) warp_row[warp] = -1;
     }
     __syncthreads();
     if (threadIdx.x == 0) {
-        for (int w = 1; w < kCatThreads / 32; ++w) {
-            if (beats(warp_v[w], warp_i[w], best, at)) {
-                best = warp_v[w];
-                at = warp_i[w];
+        int32_t row = -1;
+        uint64_t k = 0;
+        for (int w = 0; w < kThreads / 32; ++w) {
+            if (warp_row[w] < 0) continue;
+            if (warp_row[w] != row) {
+                if (row >= 0) atomicMax(&g_best[row], static_cast<unsigned long long>(k));
+                row = warp_row[w];
+                k = warp_key[w];
+            } else if (warp_key[w] > k) {
+                k = warp_key[w];
             }
         }
-        block_v = best;
-        block_i = at;
+        if (row >= 0) atomicMax(&g_best[row], static_cast<unsigned long long>(k));
+        wrote = true;
     }
-    cluster.sync();  // every block's winner is in its shared memory
-    if (rank == 0 && threadIdx.x == 0) {
-        for (unsigned r = 1; r < kCluster; ++r) {
-            const float rv = *cluster.map_shared_rank(&block_v, r);
-            const int64_t ri = *cluster.map_shared_rank(&block_i, r);
-            if (beats(rv, ri, best, at)) {
-                best = rv;
-                at = ri;
-            }
-        }
-        out[row] = static_cast<int32_t>(at);
-    }
-    cluster.sync();  // no block leaves while block 0 reads its shared memory
+    __syncthreads();  // warp_row and warp_key free again
 }
 
-int blocks_for(int64_t n, int64_t rows) {
-    int64_t blocks = (n + kThreads - 1) / kThreads;
-    int64_t cap = (132 * 16) / (rows > 0 ? rows : 1);  // 16 blocks of 256 threads an SM, then grid-stride
-    if (cap < 1) cap = 1;
-    if (blocks > cap) blocks = cap;
-    return static_cast<int>(blocks < 1 ? 1 : blocks);
+template <bool kBf16, bool kOrig>
+__global__ void __launch_bounds__(kThreads) categorical_kernel(const uint32_t* key, Path path, const void* logits,
+                                                               int64_t B, int64_t V, double inv_v, int shift,
+                                                               int32_t* out) {
+    constexpr int G = kCatGroup<kBf16>;
+    __shared__ float table[128];
+    __shared__ int32_t warp_row[kThreads / 32];
+    __shared__ uint64_t warp_key[kThreads / 32];
+    __shared__ bool last;
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+    if (kBf16 && threadIdx.x < 128) {  // JAX's bfloat16 Gumbel of mantissa threadIdx.x
+        const float f = __uint_as_float((threadIdx.x << 16) | 0x3f800000u) - 1.0f;  // exact in bfloat16
+        const float u = fmaxf(FLT_MIN, bf16_round(f + FLT_MIN));
+        table[threadIdx.x] = -bf16_round(logf(-bf16_round(logf(u))));
+    }
+    uint32_t k0, k1;
+    draw_key(key, path, Split{0, 0}, k0, k1);  // its barrier also publishes the table
+    const int64_t n = B * V, stride = static_cast<int64_t>(gridDim.x) * kThreads;
+    Best t{-1, 0, 0};
+    bool wrote = false;
+    if constexpr (!kOrig) {
+        // group g: values G g - shift .. (16-byte aligned loads), one hash each
+        const int64_t groups = (n + shift + G - 1) / G;
+        for (int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; g < groups; g += stride) {
+            const int64_t c0 = g * G - shift;
+            const uint64_t c = static_cast<uint64_t>(c0 < 0 ? 0 : c0);
+            const uint32_t lo = static_cast<uint32_t>(c), hi = static_cast<uint32_t>(c >> 32);
+            uint32_t bits[G];
+            if (c0 >= 0 && lo <= 0xffffffffu - (G - 1)) {  // the group's low words do not wrap
+#pragma unroll
+                for (int j = 0; j < G; ++j) {
+                    uint32_t a = hi, b = lo + j;
+                    threefry2x32(k0, k1, a, b);
+                    bits[j] = kBf16 ? (a ^ b) & 0xffu : a ^ b;
+                }
+            } else {
+#pragma unroll 1
+                for (int j = 0; j < G; ++j) {
+                    const uint64_t cj = static_cast<uint64_t>(c0 + j);
+                    uint32_t a = static_cast<uint32_t>(cj >> 32), b = static_cast<uint32_t>(cj);
+                    threefry2x32(k0, k1, a, b);
+                    bits[j] = kBf16 ? (a ^ b) & 0xffu : a ^ b;
+                }
+            }
+            take_run<kBf16>(t, wrote, c0, 0, n, bits, logits, V, inv_v, table);
+        }
+        block_put(t, wrote, warp_row, warp_key);
+    } else {
+        // the draw of m words (bfloat16: a word holds 4 values) in pairs (j, j
+        // + h); group g: pairs P g - shift .., both words of each, so the
+        // first half's values load aligned (the second's where h allows).
+        // Each half keeps a best of its own: the halves lie in other rows.
+        constexpr int P = kBf16 ? 2 : 4;  // pairs a group: G values a half
+        constexpr int per = kBf16 ? 4 : 1;  // values a word
+        const int64_t m = (n + per - 1) / per, h = (m + 1) / 2;
+        const int64_t groups = (h + shift + P - 1) / P;
+        Best tb{-1, 0, 0};
+        for (int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; g < groups; g += stride) {
+            const int64_t j0 = g * P - shift;
+            uint32_t y0[P], y1[P];
+#pragma unroll
+            for (int j = 0; j < P; ++j) {  // pairs below 2**31: 32-bit counters
+                y0[j] = static_cast<uint32_t>(j0 + j);
+                y1[j] = j0 + j + h < m ? static_cast<uint32_t>(j0 + j + h) : 0u;
+                threefry2x32(k0, k1, y0[j], y1[j]);
+            }
+            uint32_t bits[G];
+#pragma unroll
+            for (int j = 0; j < G; ++j) bits[j] = kBf16 ? (y0[j / 4] >> (8 * (j % 4))) & 0xffu : y0[j];
+            const int64_t a_hi = per * h < n ? per * h : n;
+            take_run<kBf16>(t, wrote, per * j0, 0, a_hi, bits, logits, V, inv_v, table);  // words j0 ..
+#pragma unroll
+            for (int j = 0; j < G; ++j) bits[j] = kBf16 ? (y1[j / 4] >> (8 * (j % 4))) & 0xffu : y1[j];
+            take_run<kBf16>(tb, wrote, per * (j0 + h), per * h, n, bits, logits, V, inv_v, table);  // j0 + h ..
+        }
+        block_put(t, wrote, warp_row, warp_key);
+        block_put(tb, wrote, warp_row, warp_key);
+    }
+    // the ticket: every block's atomics are done before the last block reads
+    if (wrote) __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(&g_ticket, 1u) == gridDim.x - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    for (int64_t r = threadIdx.x; r < B; r += kThreads) {
+        const unsigned long long k = atomicExch(&g_best[r], 0ull);  // read at L2 and reset
+        out[r] = static_cast<int32_t>(~static_cast<uint32_t>(k));
+    }
+    if (threadIdx.x == 0) atomicExch(&g_ticket, 0u);
 }
 
 // A draw kernel's grid: a thread a group of counters (or pairs) in the
@@ -636,6 +862,30 @@ cudaError_t launch(const uint32_t* key, const Path& path, uint64_t offset, int64
                : launch_orig<kMode, false>(key, path, o, pairs, rows, minval, maxval, out, stream);
 }
 
+template <bool kBf16, bool kOrig>
+cudaError_t launch_categorical(const uint32_t* key, const Path& path, const void* logits, int64_t B, int64_t V,
+                               int32_t* out, cudaStream_t stream) {
+    // group g's first value (pair) is shifted so that its 16-byte load is aligned
+    const int64_t n = B * V, e = static_cast<int64_t>(reinterpret_cast<uintptr_t>(logits) / (kBf16 ? 2 : 4));
+    int shift;
+    int64_t groups;
+    if (!kOrig) {
+        constexpr int G = kCatGroup<kBf16>;
+        shift = static_cast<int>(e % G);
+        groups = (n + shift + G - 1) / G;
+    } else if (kBf16) {  // 2 pairs a group: 8 values a half from two words
+        const int64_t h = ((n + 3) / 4 + 1) / 2;
+        shift = e % 4 == 0 ? static_cast<int>((e / 4) % 2) : 0;
+        groups = (h + shift + 1) / 2;
+    } else {  // 4 pairs a group
+        const int64_t h = (n + 1) / 2;
+        shift = static_cast<int>(e % 4);
+        groups = (h + shift + 3) / 4;
+    }
+    return draw_launch(categorical_kernel<kBf16, kOrig>, dim3(draw_blocks(groups)), stream, key, path, logits, B, V,
+                       1.0 / static_cast<double>(V), shift, out);
+}
+
 Path make_path(int n_path, int64_t d0, int64_t d1, int64_t d2, int64_t d3) {
     return Path{n_path, {static_cast<uint64_t>(d0), static_cast<uint64_t>(d1), static_cast<uint64_t>(d2),
                          static_cast<uint64_t>(d3)}};
@@ -684,14 +934,11 @@ extern "C" int repro_threefry_rows(const void* keys, int64_t rows, int n_path, i
     if (n == 0 || rows == 0) return 0;
     const Path path = make_path(n_path, d0, d1, d2, d3);
     const uint32_t* k = static_cast<const uint32_t*>(keys);
-    if (original) {
-        const dim3 grid(blocks_for((n + 1) / 2, rows), static_cast<unsigned>(rows));
-        threefry_rows_kernel<true><<<grid, kThreads, 0, stream>>>(k, path, n, static_cast<float*>(out));
-    } else {
-        const dim3 grid(blocks_for(n, rows), static_cast<unsigned>(rows));
-        threefry_rows_kernel<false><<<grid, kThreads, 0, stream>>>(k, path, n, static_cast<float*>(out));
-    }
-    return static_cast<int>(cudaGetLastError());
+    float* o = static_cast<float*>(out);
+    const int64_t h = original ? (n + 1) / 2 : n;
+    const dim3 grid(draw_blocks((h + 2 * kPer - 2) / kPer), static_cast<unsigned>(rows));  // a row's most groups
+    return static_cast<int>(original ? draw_launch(threefry_rows_kernel<true>, grid, stream, k, path, n, o)
+                                     : draw_launch(threefry_rows_kernel<false>, grid, stream, k, path, n, o));
 }
 
 // ``out[b]`` (int32) = argmax_v gumbel(key folded by d0..d3, (B, V))[b, v]
@@ -700,22 +947,22 @@ extern "C" int repro_threefry_rows(const void* keys, int64_t rows, int n_path, i
 extern "C" int repro_threefry_categorical(const void* key, int n_path, int64_t d0, int64_t d1, int64_t d2,
                                           int64_t d3, const void* logits, int64_t B, int64_t V, int bf16,
                                           int original, void* out, cudaStream_t stream) {
-    if (n_path < 0 || n_path > kMaxPath || B < 0 || B > 65535 || V < 1 || V > INT32_MAX ||
+    if (n_path < 0 || n_path > kMaxPath || B < 0 || B > kMaxRows || V < 1 || V > INT32_MAX ||
         (original && (bf16 ? (B * V + 3) / 4 : B * V) >= static_cast<int64_t>(kBlock)))
         return static_cast<int>(cudaErrorInvalidValue);
     if (B == 0) return 0;
     const Path path = make_path(n_path, d0, d1, d2, d3);
     const uint32_t* k = static_cast<const uint32_t*>(key);
-    const dim3 grid(kCluster, static_cast<unsigned>(B));
     int32_t* o = static_cast<int32_t*>(out);
+    cudaError_t err;
     if (bf16 && original) {
-        categorical_kernel<true, true><<<grid, kCatThreads, 0, stream>>>(k, path, logits, V, o);
+        err = launch_categorical<true, true>(k, path, logits, B, V, o, stream);
     } else if (bf16) {
-        categorical_kernel<true, false><<<grid, kCatThreads, 0, stream>>>(k, path, logits, V, o);
+        err = launch_categorical<true, false>(k, path, logits, B, V, o, stream);
     } else if (original) {
-        categorical_kernel<false, true><<<grid, kCatThreads, 0, stream>>>(k, path, logits, V, o);
+        err = launch_categorical<false, true>(k, path, logits, B, V, o, stream);
     } else {
-        categorical_kernel<false, false><<<grid, kCatThreads, 0, stream>>>(k, path, logits, V, o);
+        err = launch_categorical<false, false>(k, path, logits, B, V, o, stream);
     }
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(err);
 }

@@ -130,7 +130,9 @@ def threefry_categorical(key: torch.Tensor, path: tuple, logits: torch.Tensor, o
     float32 or bfloat16 logits, ``key`` folded by ``path``: the ``(B,)``
     int32 argmax of Gumbel noise plus logits, ties to the lowest index, in
     one launch (``categorical_ref`` is its plain version); ``original``: the
-    noise in the original layout."""
+    noise in the original layout.  The launch's blocks meet in a scratch of
+    the library's own, which its last block leaves reset: calls on one
+    device run in stream order (two streams at once would share it)."""
     folds = _folds(path)
     if logits.dim() != 2 or logits.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"categorical: want (B, V) float32 or bfloat16 logits, got {logits.dtype} "

@@ -10,6 +10,16 @@ and carries the collectives the round needs (``psum`` and ``pmax`` are
 order).  A one-rank mesh calls them too, so one card runs the code path that
 D > 1 runs.
 
+On a gloo group of host tensors, a small ``psum`` (3 to ``EXCHANGE_MAX``
+elements) and a small ``all_gather`` go through one ``all_to_all`` round,
+every rank sending its slab to every other, in place of gloo's ring, which
+takes ``2 (D - 1)`` rounds of messages in turn (the allocator's block sums
+are 15 elements).  A round costs a wake-up of every rank, which on a busy
+host is what a collective's time is made of.  The sum then adds the ranks'
+values in the ring's own order (``_ring_order``), so its bits are
+``all_reduce``'s.  One or two elements take gloo's ring, whose empty
+segments send nothing: cheaper than the round.
+
 The caller starts the process group; nothing here opens a socket::
 
     # one card: a one-rank NCCL group, no network and no port
@@ -30,6 +40,7 @@ parameters are DTensors placed by the logical rules, one process a device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict
 
@@ -41,6 +52,23 @@ from repro_torch.device import resolve_device
 __all__ = ["HostMesh", "make_host_mesh", "make_mesh", "make_production_mesh", "PRODUCTION_MESH", "axis_sizes"]
 
 
+EXCHANGE_MAX = 256  # the most elements a gloo collective of host tensors sends in one all_to_all round
+_EXCHANGE_SUM = (torch.float32, torch.float64, torch.int32, torch.int64)  # dtypes gloo adds as C++ does
+
+
+@functools.lru_cache(maxsize=None)
+def _ring_order(n: int, D: int) -> torch.Tensor:
+    """``(D, n)``: the ranks in the order gloo's ring ``all_reduce`` adds
+    element ``e`` of an ``n``-element tensor (``gloo/allreduce.cc``, ring):
+    the tensor is cut into ``2 D`` segments of ``ceil(n / 2D)`` elements,
+    segment ``s`` starts on rank ``r0 = (s // 2 - 1) mod D``, and each rank
+    down the ring adds its own value to the running sum, ranks ``r0, r0 - 1,
+    ..., r0 - D + 1``."""
+    seg = -(-n // (2 * D))
+    r0 = (torch.arange(n) // seg // 2 - 1) % D
+    return (r0[None, :] - torch.arange(D)[:, None]) % D
+
+
 @dataclasses.dataclass(frozen=True)
 class HostMesh:
     """This process's place on a 1-D mesh of ``size`` ranks over the default
@@ -50,8 +78,27 @@ class HostMesh:
     rank: int
     device: torch.device
 
+    def _exchanges(self, v: torch.Tensor) -> bool:
+        """Whether ``v`` crosses the ranks in one ``all_to_all`` round (the
+        module docstring): a small host tensor on a gloo group."""
+        return (self.size > 1 and v.device.type == "cpu" and v.numel() <= EXCHANGE_MAX
+                and dist.get_backend() == "gloo")
+
+    def _exchange(self, v: torch.Tensor) -> torch.Tensor:
+        """``(size, n)``: every rank's ``v`` flattened, in rank order."""
+        flat = v.contiguous().reshape(-1)
+        out = flat.new_empty(self.size * flat.numel())
+        dist.all_to_all_single(out, flat.repeat(self.size))
+        return out.reshape(self.size, -1)
+
     def psum(self, v: torch.Tensor) -> torch.Tensor:
         """The sum of ``v`` over the ranks (a new tensor on every rank)."""
+        if v.numel() > 2 and v.dtype in _EXCHANGE_SUM and self._exchanges(v):
+            rows = self._exchange(v).gather(0, _ring_order(v.numel(), self.size))
+            out = rows[0]
+            for j in range(1, self.size):
+                out = rows[j] + out
+            return out.reshape(v.shape)
         out = v.clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM)
         return out
@@ -73,6 +120,8 @@ class HostMesh:
     def all_gather(self, v: torch.Tensor) -> torch.Tensor:
         """Every rank's ``v``, flattened and concatenated in rank order:
         ``(size * v.numel(),)`` (``lax.all_gather(..., tiled=True)``)."""
+        if self._exchanges(v):
+            return self._exchange(v).reshape(-1)
         out = v.new_empty(self.size * v.numel())
         # torch 2.11 has only this name; later releases add all_gather_single and warn here
         dist.all_gather_into_tensor(out, v.contiguous().reshape(-1))

@@ -17,17 +17,24 @@ processes (one process per rank, a ``FileStore`` under ``tmp_path``).
 hold the mesh round against the JAX package; they live here so that the
 spawned ranks import no JAX.
 """
-import dataclasses
-import faulthandler
-import multiprocessing
-import os
-import traceback
+import time
 
-import numpy as np
-import pytest
-import torch
-import torch.distributed as dist
-from torch.utils import _pytree as pytree
+_T_MODULE = time.time()  # a spawned rank's clock: its start-up up to here is the spawn itself
+
+import dataclasses  # noqa: E402
+import faulthandler  # noqa: E402
+import json  # noqa: E402
+import multiprocessing  # noqa: E402
+import os  # noqa: E402
+import traceback  # noqa: E402
+
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+from torch.utils import _pytree as pytree  # noqa: E402
+
+_T_TORCH = time.time()
 
 from repro_torch.configs import FLConfig
 from repro_torch.convert import gather_state, shard_arrays, state_from_jax
@@ -38,8 +45,10 @@ from repro_torch.core.selection import perturbed_scores
 from repro_torch.engine import distributed_topk, plackett_luce_shmap, prob_alloc_shmap
 from repro_torch.engine.sharded import _shard_topk_merge, masked_prob_alloc
 from repro_torch.launch import make_host_mesh
+from repro_torch.launch.mesh import EXCHANGE_MAX
 from repro_torch.scenarios import make_scenario
 
+_T_REPRO = time.time()
 SPAWN_TIMEOUT = 120  # seconds for a group of spawned ranks to finish
 ALLOC_RTOL = 1e-6  # a psum adds the ranks' tiled float32 sums in another order than one tiled sum
 
@@ -49,7 +58,29 @@ ALLOC_RTOL = 1e-6  # a psum adds the ranks' tiled float32 sums in another order 
 # ---------------------------------------------------------------------------
 
 
-def _rank_main(fn, rank, D, out_dir, args):
+_CLOCK: dict = {}  # a spawned rank's case clock: its times file, the last lap and the laps so far
+
+
+def _record(name: str, secs: float) -> None:
+    _CLOCK["laps"][name] = secs
+    with open(_CLOCK["path"], "a") as f:
+        f.write(json.dumps({"case": name, "s": round(secs, 3)}) + "\n")
+
+
+def lap(name: str) -> None:
+    """In a spawned rank: the seconds since the rank's last lap, under
+    ``name``.  Each lap is appended to ``rank<r>.times`` at once, so that a
+    rank killed at the join limit shows how far it got, and the laps go into
+    the rank's npz as ``time/<name>``.  Elsewhere (the test process) a
+    no-op."""
+    if not _CLOCK:
+        return
+    now = time.time()
+    _record(name, now - _CLOCK["last"])
+    _CLOCK["last"] = now
+
+
+def _rank_main(fn, rank, D, out_dir, args, t_spawn=None):
     # fd 2 into rank<r>.stderr, and a fatal signal's Python stacks there: an
     # abort below Python (at teardown, say) raises nothing to write a .err
     fd = os.open(os.path.join(out_dir, f"rank{rank}.stderr"), os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
@@ -57,10 +88,21 @@ def _rank_main(fn, rank, D, out_dir, args):
     os.close(fd)
     faulthandler.enable(all_threads=True)
     torch.set_num_threads(1)
+    # the start-up's parts: the spawn (a new interpreter, up to this module's
+    # first line), import torch, import repro_torch, the case's own module
+    # (unpickling ``fn``), then init_process_group
+    _CLOCK.update(path=os.path.join(out_dir, f"rank{rank}.times"), laps={}, last=time.time())
+    if t_spawn is not None:
+        _record("spawn", _T_MODULE - t_spawn)
+    _record("import torch", _T_TORCH - _T_MODULE)
+    _record("import repro_torch", _T_REPRO - _T_TORCH)
+    _record("import the case's module", _CLOCK["last"] - _T_REPRO)
     try:
         store = dist.FileStore(os.path.join(out_dir, "store"), D)
         dist.init_process_group("gloo", store=store, rank=rank, world_size=D)
+        lap("init_process_group")
         out = fn(make_host_mesh(D, device="cpu"), *args)
+        out.update({f"time/{n}": np.array(s) for n, s in _CLOCK["laps"].items()})
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     except BaseException:
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
@@ -82,6 +124,15 @@ def _death(out_dir, rank, tail=4000):
     return f"rank {rank} died {when}; the end of its stderr:\n{err}"
 
 
+def rank_times(out_dir, rank) -> str:
+    """A spawned rank's seconds a case as far as it got (``lap``), one line."""
+    path = os.path.join(out_dir, f"rank{rank}.times")
+    if not os.path.exists(path):
+        return f"rank {rank}: no times"
+    laps = [json.loads(line) for line in open(path)]
+    return f"rank {rank} ({sum(r['s'] for r in laps):.1f} s): " + ", ".join(f"{r['case']} {r['s']}" for r in laps)
+
+
 def spawn_groups(jobs):
     """Run each job ``(fn, D, out_dir, *args)`` as ``fn(mesh, *args)`` on
     ``D`` spawned gloo ranks, all groups at once; returns, per job, the dicts
@@ -90,7 +141,9 @@ def spawn_groups(jobs):
     groups = []
     for fn, D, out_dir, *args in jobs:
         os.makedirs(out_dir, exist_ok=True)
-        procs = [ctx.Process(target=_rank_main, args=(fn, r, D, str(out_dir), tuple(args))) for r in range(D)]
+        t_spawn = time.time()
+        procs = [ctx.Process(target=_rank_main, args=(fn, r, D, str(out_dir), tuple(args), t_spawn))
+                 for r in range(D)]
         for p in procs:
             p.start()
         groups.append((procs, out_dir))
@@ -106,10 +159,18 @@ def spawn_groups(jobs):
         errs = [open(os.path.join(out_dir, f)).read() for f in sorted(os.listdir(out_dir)) if f.endswith(".err")]
         died = [_death(out_dir, r) for r, p in enumerate(procs) if p.exitcode != 0]
         assert not died and not errs, (
-            f"ranks exited {[p.exitcode for p in procs]}:\n" + "\n".join(errs + died)
+            f"ranks exited {[p.exitcode for p in procs]} ({SPAWN_TIMEOUT} s to join; -9: killed at the limit); "
+            "seconds a case:\n" + "\n".join([rank_times(out_dir, r) for r in range(len(procs))] + errs + died)
         )
-        results.append([dict(np.load(os.path.join(out_dir, f"rank{r}.npz"))) for r in range(len(procs))])
+        results.append(load_ranks(out_dir, len(procs)))
     return results
+
+
+def load_ranks(out_dir, D):
+    """The ``D`` ranks' returned arrays, in rank order, without their
+    seconds a case (``time/<case>``, which the harness reports)."""
+    return [{k: v for k, v in np.load(os.path.join(out_dir, f"rank{r}.npz")).items() if not k.startswith("time/")}
+            for r in range(D)]
 
 
 @pytest.fixture(scope="module")
@@ -423,6 +484,23 @@ def mesh_suite(mesh):
         "pmax": mesh.pmax(torch.tensor(float(-d))).numpy(),
         "gather": mesh.all_gather(torch.arange(3, dtype=torch.int32) + 10 * d).numpy(),
     }
+    # the small collectives' one all_to_all round against gloo's own ring, bit
+    # for bit: values of many scales, so that another order of the sum shows
+    same = []
+    for m in (1, 2, 3, 4, 15, 16, 17, 100, EXCHANGE_MAX):
+        for dtype in (torch.float32, torch.float64, torch.int64):
+            g = torch.Generator().manual_seed(1000 * d + m)
+            if dtype.is_floating_point:
+                x = (torch.randn(m, generator=g, dtype=torch.float64)
+                     * 10.0 ** torch.randint(-6, 6, (m,), generator=g)).to(dtype)
+            else:
+                x = torch.randint(-10**6, 10**6, (m,), generator=g)
+            want, gathered = x.clone(), x.new_empty(D * m)
+            dist.all_reduce(want)
+            dist.all_gather_into_tensor(gathered, x)
+            same.append(torch.equal(mesh.psum(x).view(torch.uint8), want.view(torch.uint8))
+                        and torch.equal(mesh.all_gather(x).view(torch.uint8), gathered.view(torch.uint8)))
+    out["exchange_same"] = np.array(same)
     # distributed top-k: 90 scores with ties, padded with -inf to 96
     scores, g, p = _topk_inputs()
     Kp = 96
@@ -478,6 +556,15 @@ def test_collectives(suite, D):
         np.testing.assert_array_equal(r["psum"], [sum(range(D)), D])
         assert float(r["pmax"]) == 0.0
         np.testing.assert_array_equal(r["gather"], np.concatenate([np.arange(3) + 10 * j for j in range(D)]))
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_small_collectives_equal_gloos_own_bit_for_bit(suite, D):
+    """``psum`` and ``all_gather`` of up to ``EXCHANGE_MAX`` host elements go
+    through one ``all_to_all`` round and add in the ring's order: every
+    rank's results equal ``all_reduce``'s and ``all_gather_into_tensor``'s."""
+    for r in suite[D]:
+        assert r["exchange_same"].size == 27 and r["exchange_same"].all()
 
 
 @pytest.mark.parametrize("D", [2, 4])

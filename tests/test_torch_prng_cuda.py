@@ -215,3 +215,98 @@ def test_a_blocked_original_draw_equals_its_plain_version(dev, mode, total):
         want = threefry_ref(key, (5,), lo, hi - lo, mode, lo_val, 1.0, total=total)
         atol = {"gumbel": NOISE_ATOL, "normal": NORMAL_ATOL}.get(mode, 0.0)
         assert torch.allclose(got, want, rtol=0, atol=atol) if atol else torch.equal(got, want), (lo, hi)
+
+
+# -- the redesigned rows and categorical kernels: every width, edges, replays --
+
+
+def _unaligned(shape, dtype, dev):
+    """A contiguous tensor of ``shape`` whose data starts one element past a
+    16-byte boundary."""
+    n = 1
+    for d in shape:
+        n *= d
+    return torch.empty(n + 1, dtype=dtype, device=dev)[1:].view(shape)
+
+
+@pytest.mark.parametrize("original", [False, True], ids=["partitionable", "original"])
+@pytest.mark.parametrize("J", [1, 8, 64])
+def test_rows_at_every_width_equal_their_plain_version(dev, J, original):
+    keys = prng.split_data(prng.PRNGKey(J, dev, partitionable=not original), J).data
+    for n in (1, 3, 100_000, 100_001):
+        want = threefry_rows_ref(keys, (3,), n, original=original)
+        got = threefry_rows(keys, (3,), n, original=original)
+        assert float((got - want).abs().max()) <= NOISE_ATOL, (J, n)
+        off = threefry_rows(keys, (3,), n, out=_unaligned((J, n), torch.float32, dev), original=original)
+        assert torch.equal(off, got), (J, n)  # rows off 16-byte alignment store the same values
+        for j in (0, J - 1):  # a row is the single-key draw under its key
+            one = threefry(keys[j].contiguous(), (3,), 0, n, "gumbel", total=n if original else 0)
+            assert torch.equal(got[j], one), (J, n, j)
+
+
+@pytest.mark.parametrize("original", [False, True], ids=["partitionable", "original"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 4, 133, 300])
+def test_categorical_at_every_width_equals_its_plain_version(dev, B, dtype, original):
+    key = prng.PRNGKey(11, dev, partitionable=not original).data
+    gen = torch.Generator(device=dev).manual_seed(B)
+    for V in (1, 7, 255_999, 256_000, 262_147):
+        logits = (torch.randn((B, V), generator=gen, device=dev) * 3).to(dtype)
+        want = categorical_ref(key, (4,), logits, original=original)
+        assert torch.equal(threefry_categorical(key, (4,), logits, original=original), want), (B, V)
+        off = _unaligned((B, V), dtype, dev).copy_(logits)  # logits off 16-byte alignment
+        assert torch.equal(threefry_categorical(key, (4,), off, original=original), want), (B, V)
+
+
+def _edge_logits(dtype, dev, V=1000):
+    """Rows whose argmax JAX's rules decide: all -inf (0), +inf twice (the
+    lower), NaN twice after +inf (the first NaN), a tie of two values the
+    noise cannot move (the lower), NaN only at the end (the last)."""
+    lg = torch.randn((5, V), device=dev)
+    lg[0] = float("-inf")
+    lg[1, [5, 3]] = float("inf")
+    lg[2, 1], lg[2, [7, 2]] = float("inf"), float("nan")
+    lg[3, [9, 4]] = 1e30
+    lg[4, V - 1] = float("nan")
+    return lg.to(dtype), [0, 3, 2, 4, V - 1]
+
+
+@pytest.mark.parametrize("original", [False, True], ids=["partitionable", "original"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_categorical_takes_nan_inf_and_ties_as_jax(dev, dtype, original):
+    key = prng.PRNGKey(3, dev).data
+    logits, want = _edge_logits(dtype, dev)
+    for x in (logits, _unaligned(logits.shape, dtype, dev).copy_(logits)):
+        got = threefry_categorical(key, (), x, original=original)
+        assert got.tolist() == want
+        assert torch.equal(got, categorical_ref(key, (), x, original=original))
+
+
+@pytest.mark.parametrize("original", [False, True], ids=["partitionable", "original"])
+def test_a_replayed_graph_of_categorical_and_rows_gives_the_same_output(dev, original):
+    """The kernel's cross-block scratch is left reset at the end of every
+    launch: two launches in one captured graph, replayed twice, each give
+    the plain version's argmax."""
+    key = prng.PRNGKey(8, dev).data
+    keys = prng.split_data(prng.PRNGKey(9, dev), 8).data
+    gen = torch.Generator(device=dev).manual_seed(8)
+    logits = (torch.randn((4, 256_000), generator=gen, device=dev) * 3).to(torch.bfloat16)
+    rows = torch.empty((8, 100_001), device=dev)
+    outs = []
+    threefry_categorical(key, (1,), logits, original=original)  # warm up outside the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs.append(threefry_categorical(key, (1,), logits, original=original))
+        outs.append(threefry_categorical(key, (2,), logits, original=original))
+        threefry_rows(keys, (3,), 100_001, out=rows, original=original)
+    want = [categorical_ref(key, (p,), logits, original=original) for p in (1, 2)]
+    want_rows = threefry_rows(keys, (3,), 100_001, original=original)
+    for _ in range(2):
+        for o in outs:
+            o.fill_(-1)
+        rows.fill_(0.0)
+        g.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, w) for o, w in zip(outs, want))
+        assert torch.equal(rows, want_rows)

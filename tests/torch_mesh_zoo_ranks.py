@@ -216,6 +216,8 @@ def join_groups(groups, timeout):
     ranks' tracebacks if any failed)."""
     import os
 
+    from test_torch_mesh import load_ranks
+
     for procs, _ in groups:
         for p in procs:
             p.join(timeout)
@@ -228,7 +230,7 @@ def join_groups(groups, timeout):
         errs = [open(os.path.join(out_dir, f)).read() for f in sorted(os.listdir(out_dir)) if f.endswith(".err")]
         assert all(p.exitcode == 0 for p in procs) and not errs, (
             f"ranks exited {[p.exitcode for p in procs]}:\n" + "\n".join(errs))
-        results.append([dict(np.load(os.path.join(out_dir, f"rank{r}.npz"))) for r in range(len(procs))])
+        results.append(load_ranks(out_dir, len(procs)))
     return results
 
 

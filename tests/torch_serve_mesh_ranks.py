@@ -26,6 +26,7 @@ from repro_torch.engine import RoundProgram
 from repro_torch.serve import FaultPlan, JobSpec, NumericsError, SelectionServer, ServeClient, ServeError
 from repro_torch.serve import ShardedEngine, engine_from_meta, follow, latest_server_checkpoint, load_server
 from repro_torch.serve import engines, protocol, save_server, stop_followers
+from test_torch_mesh import lap
 
 TIMEOUT = 60.0  # every client socket and wait
 K_SH, k_SH, T_SH = 256, 16, 6
@@ -108,6 +109,7 @@ def kill_restore_case(work_dir):
     specs = [dict(s, rounds=KILL_ROUNDS) for s in ACCEPT_SPECS]
     feed = [[lags(rng, s["K"]) for _ in range(KILL_ROUNDS)] for s in specs]
     want = _reference(specs, feed, KILL_ROUNDS)
+    lap("kill_restore_case: its uninterrupted reference")
     ckpt_dir = os.path.join(work_dir, "kill")
     got = {0: [], 1: []}
     srv = SelectionServer(ShardedEngine(staleness=2, device="cpu"), ckpt_dir=ckpt_dir)
@@ -139,6 +141,7 @@ def chaos_case(work_dir):
     specs = [dict(s, rounds=CHAOS_ROUNDS) for s in CHAOS_SPECS]
     feed = [[lags(rng, s["K"]) for _ in range(CHAOS_ROUNDS)] for s in specs]
     want = _reference(specs, feed, CHAOS_ROUNDS)
+    lap("chaos_case: its uninterrupted reference")
     plan = FaultPlan(crash_steps=(25,), corrupt_checkpoints=(3,), drop_responses=(12, 31), slow_steps={5: 0.02})
     srv = SelectionServer(ShardedEngine(staleness=2, device="cpu"), ckpt_dir=os.path.join(work_dir, "chaos"),
                           ckpt_every=6, faults=plan, restart_backoff=0.01)
@@ -287,29 +290,36 @@ def cli_case(mesh, work_dir, flags):
 def serve_mesh_rank(mesh, work_dir, jax_npz=None, d4_stem=None):
     work_dir = str(work_dir)
     res = {}
+
+    def case(name, fn, *args):  # each case's seconds on this rank (``lap``)
+        res.update(fn(*args))
+        lap(name)
+
     for S, feedback in RUNNER_CASES:  # every rank: the reference of case (a)
-        res.update(runner_case(mesh, S, feedback))
+        case(f"runner_case S{S}/{feedback}", runner_case, mesh, S, feedback)
     if mesh.rank == 0:
         try:
             for S, feedback in RUNNER_CASES:
-                res.update(engine_case(S, feedback))
-            res.update(guard_case(mesh.size))
-            res.update(checkpoint_case(mesh.size, work_dir))
+                case(f"engine_case S{S}/{feedback}", engine_case, S, feedback)
+            case("guard_case", guard_case, mesh.size)
+            case("checkpoint_case", checkpoint_case, mesh.size, work_dir)
             if d4_stem is not None:
-                res.update(restore_elsewhere_case(d4_stem))
+                case("restore_elsewhere_case", restore_elsewhere_case, d4_stem)
             if jax_npz is not None:
-                res.update(jax_job_case(jax_npz))
+                case("jax_job_case", jax_job_case, jax_npz)
             if mesh.size == 4:
-                res.update(kill_restore_case(work_dir))
-                res.update(chaos_case(work_dir))
+                case("kill_restore_case", kill_restore_case, work_dir)
+                case("chaos_case", chaos_case, work_dir)
         finally:
             stop_followers()
+            lap("stop_followers")
     else:
         last = follow(device="cpu")
         res["follower/last_jobs"] = np.array(len(last.jobs) if last is not None else -1)
+        lap("follow (the leader's cases)")
     if mesh.size == 2:
         for flags in ([], ["--chaos", "3"]):
-            res.update(cli_case(mesh, work_dir, flags))
+            case(f"cli_case {' '.join(flags) or 'plain'}", cli_case, mesh, work_dir, flags)
     return res
 
 
